@@ -1,0 +1,75 @@
+"""Public entry points of the port's kernels.
+
+Port of ``repro.kernels.ops`` for what the serve path uses. The CUDA
+kernels mask their own ragged edges, so no block padding happens here;
+these functions only flatten batch dims and lay out heads.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import packed_matmul as _pm
+from repro_torch.quant.quantizers import pack_bits
+
+
+def packed_matmul(
+    x: torch.Tensor, carrier: torch.Tensor, scale: torch.Tensor, *, bits: int, k: int
+) -> torch.Tensor:
+    """Batched packed matmul. x: (..., K); carrier: (K*bits/8, N); scale:
+    (N,). Returns (..., N) f32."""
+    lead = x.shape[:-1]
+    out = _pm.packed_matmul(x.reshape(-1, k).contiguous(), carrier, scale, bits, k)
+    return out.reshape(*lead, carrier.shape[1])
+
+
+def pack_weights(w_values: torch.Tensor, bits: int) -> torch.Tensor:
+    """Float weight values (K, N) -> uint8 carrier (K*bits/8, N), padding K
+    to a byte boundary. Inverse of ``ref.decode_weights``."""
+    per = 8 // bits
+    k = w_values.shape[0]
+    kp = -(-k // per) * per
+    w = torch.cat([w_values, w_values.new_zeros((kp - k,) + tuple(w_values.shape[1:]))])
+    if bits == 1:
+        codes = (w > 0).to(torch.uint8)
+    elif bits == 2:
+        codes = (torch.sign(w) + 1).to(torch.uint8)
+    else:
+        codes = (torch.round(w) + 2 ** (bits - 1)).to(torch.uint8)
+    return pack_bits(codes, bits)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Flash attention forward. q: (B, Sq, Hq, D); k/v: (B, Sk, Hkv, D).
+
+    Heads go to the kernel's (B*H, S, D) layout with row order b*H + h,
+    which is what its GQA map (``bh // g``) expects. Returns (B, Sq, Hq, D).
+    """
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    qf = q.transpose(1, 2).reshape(b * hq, sq, d).contiguous()
+    kf = k.transpose(1, 2).reshape(b * hkv, sk, d).contiguous()
+    vf = v.transpose(1, 2).reshape(b * hkv, sk, d).contiguous()
+    out, _ = _fa.flash_fwd(
+        qf, kf, vf, causal=causal, window=window, q_offset=q_offset
+    )
+    return out.reshape(b, hq, sq, d).transpose(1, 2)
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches since the last ``reset_launch_counts``."""
+    return {"packed_matmul": _pm.COUNTER.count, "flash_fwd": _fa.COUNTER.count}
+
+
+def reset_launch_counts() -> None:
+    _pm.COUNTER.count = 0
+    _fa.COUNTER.count = 0

@@ -1,0 +1,77 @@
+"""Plain PyTorch versions of the port's kernels.
+
+Ports of ``repro.kernels.ref``. The wrappers take these for tensors on the
+CPU (the tests), and ``chip_smoke.py`` holds each CUDA kernel against them
+on the card. They repeat the kernels' arithmetic in f32 and are no
+yardstick of speed.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.quant.quantizers import unpack_bits
+
+NEG_INF = -1e30
+
+
+def decode_weights(packed: torch.Tensor, bits: int, k: int) -> torch.Tensor:
+    """uint8 carrier -> f32 weight values.
+
+    bits=1: codes {0,1} -> {-1,+1};  bits=2: codes {0,1,2} -> {-1,0,+1};
+    bits=4/8: codes centred at 2^(bits-1).
+    """
+    codes = unpack_bits(packed, bits, k).to(torch.float32)
+    if bits == 1:
+        return codes * 2.0 - 1.0
+    if bits == 2:
+        return codes - 1.0
+    return codes - float(2 ** (bits - 1))
+
+
+def packed_matmul_ref(
+    x: torch.Tensor, packed_w: torch.Tensor, scale: torch.Tensor, bits: int, k: int
+) -> torch.Tensor:
+    """Unpack, then a dense f32 matmul. x: (M, K); packed_w: (K*bits/8, N)
+    uint8; scale: (N,). Returns (M, N) f32."""
+    w = decode_weights(packed_w, bits, k)
+    return (x.to(torch.float32) @ w) * scale[None, :].to(torch.float32)
+
+
+def flash_fwd_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    q_offset: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dense-softmax version of ``flash_fwd`` over the (B*H, S, D) layout.
+
+    q: (BH, Sq, D); k/v: (BKV, Sk, D) with BH % BKV == 0; q row ``bh``
+    reads kv row ``bh // (BH // BKV)``. Query ``i`` sits at position
+    ``q_offset + i``. Returns (out (BH, Sq, D) in q's dtype, lse (BH, Sq)
+    f32); a row that sees no key gets out 0 and lse -1e30, as the kernel.
+    """
+    bh, sq, d = q.shape
+    g = bh // k.shape[0]
+    kf = k.to(torch.float32).repeat_interleave(g, dim=0)
+    vf = v.to(torch.float32).repeat_interleave(g, dim=0)
+    s = (q.to(torch.float32) @ kf.transpose(1, 2)) * (1.0 / math.sqrt(d))
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    k_pos = torch.arange(k.shape[1], device=q.device)
+    ok = torch.ones((sq, k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= q_pos[:, None] >= k_pos[None, :]
+    if window > 0:
+        ok &= q_pos[:, None] - k_pos[None, :] < window
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(ok, torch.exp(s - m), torch.zeros_like(s))
+    l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    out = (p @ vf) / l
+    lse = (m + torch.log(l))[..., 0]
+    return out.to(q.dtype), lse

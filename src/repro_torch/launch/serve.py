@@ -1,0 +1,182 @@
+"""Serving entry point: continuous batching over a shared KV pool, in PyTorch.
+
+Port of ``repro.launch.serve``'s pool engine: one physical KV pool
+(``runtime.kv_pool``), token-budget admission, bucketed one-step or
+chunked prefill, and paged decode lanes that each run at their own depth
+(``runtime.scheduler``). Runs on CUDA unless ``--device cpu`` is given;
+without a GPU and without ``--device cpu`` it exits with an error.
+
+Usage::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m --quant 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+
+Besides the reference's ``[serve/pool]`` line it prints each kernel's
+launch count, and a ``[serve/metrics]`` line with the run's numbers as
+JSON.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+
+import numpy as np
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.kernels import ops
+from repro_torch.models import lm
+from repro_torch.models.config import PACKING_FAMILIES, PORTED_FAMILIES
+from repro_torch.runtime.kv_pool import KVPool, choose_block_tokens
+from repro_torch.runtime.scheduler import Scheduler
+
+
+def make_requests(args, vocab: int) -> list[np.ndarray]:
+    rng = np.random.default_rng(args.seed)
+    return [
+        rng.integers(0, vocab, size=(args.prompt_len,)).astype(np.int32)
+        for _ in range(args.requests)
+    ]
+
+
+def build_pool_engine(cfg, params, args, device) -> Scheduler:
+    total = args.prompt_len + args.gen_len
+    block_tokens = args.block_tokens or choose_block_tokens(
+        [total] * args.requests
+    )
+    pool = KVPool.for_slots(
+        cfg, slots=args.batch, max_len=args.max_len,
+        block_tokens=block_tokens, device=device,
+    )
+    return Scheduler(
+        cfg,
+        params,
+        pool,
+        slots=args.batch,
+        max_len=args.max_len,
+        token_budget=args.token_budget or None,
+        decode_per_round=args.rf or None,
+        sampling=lm.SamplingParams(
+            temperature=args.temperature,
+            top_k=args.top_k,
+            top_p=args.top_p,
+            seed=args.seed,
+        ),
+        prefill_chunk=args.prefill_chunk or None,
+    )
+
+
+def run_pool_engine(cfg, params, args, device) -> dict:
+    sched = build_pool_engine(cfg, params, args, device)
+    for prompt in make_requests(args, cfg.vocab):
+        sched.submit(prompt, args.gen_len)
+    t0 = time.monotonic()
+    stats = sched.run()
+    dt = time.monotonic() - t0
+    outputs = sched.outputs()
+    if stats.completed != args.requests or any(
+        len(v) != args.gen_len for v in outputs.values()
+    ):
+        raise RuntimeError(
+            f"served {stats.completed}/{args.requests} requests; output "
+            f"lengths {sorted({len(v) for v in outputs.values()})} != {args.gen_len}"
+        )
+    return {
+        "engine": "pool",
+        "device": str(device),
+        "requests": args.requests,
+        "completed": stats.completed,
+        "generated_tokens": stats.generated_tokens,
+        "steps": stats.prefill_steps + stats.decode_steps,
+        "prefill_steps": stats.prefill_steps,
+        "decode_steps": stats.decode_steps,
+        "wall_s": dt,
+        "tokens_per_s": stats.generated_tokens / dt if dt > 0 else 0.0,
+        "decode_step_ms": (
+            stats.decode_time / stats.decode_steps * 1e3
+            if stats.decode_steps
+            else 0.0
+        ),
+        "mean_ttft_s": stats.mean_ttft,
+        "pool_utilization": stats.steady_state_utilization,
+        "block_tokens": sched.pool.block_tokens,
+    }
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm_360m")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=12)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen-len", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=64)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--block-tokens", type=int, default=0,
+                    help="KV-pool block size; 0 = bin-cost sweep")
+    ap.add_argument("--rf", type=int, default=0,
+                    help="decode steps per admission round; 0 = Eq. 2 default")
+    ap.add_argument("--token-budget", type=int, default=0,
+                    help="admission token budget; 0 = pool capacity")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="prefill chunk size for long prompts; "
+                         "0 = the admission token budget")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature; 0 = greedy")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="restrict sampling to the top-k logits; 0 = off")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus sampling mass; 1.0 = off")
+    ap.add_argument("--quant", type=int, default=0, choices=[0, 1, 2],
+                    help="serve with FCMP-packed 1/2-bit FFN weights")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; 'cpu' runs the kernels' plain versions")
+    return ap
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    try:
+        cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    except ValueError as e:
+        print(f"[serve] {e}")
+        return 2
+    if cfg.family not in PORTED_FAMILIES:
+        print(f"[serve] family {cfg.family!r} is not ported yet")
+        return 2
+    if args.quant and cfg.family in PACKING_FAMILIES:
+        cfg = dataclasses.replace(cfg, w_bits=args.quant)
+    device = resolve_device(args.device)
+    params = lm.init_params(cfg, args.seed, device=device)
+    before = ops.launch_counts()
+    try:
+        m = run_pool_engine(cfg, params, args, device)
+    except ValueError as e:
+        # bad request/budget geometry (e.g. prompt+gen > --max-len)
+        print(f"[serve] {e}")
+        return 2
+    m["kernel_launches"] = {
+        name: n - before[name] for name, n in ops.launch_counts().items()
+    }
+    print(
+        f"[serve/{m['engine']}] {m['requests']} requests, "
+        f"{m['generated_tokens']} generated tokens in {m['steps']} steps "
+        f"({m['prefill_steps']} prefill + {m['decode_steps']} decode), "
+        f"{m['wall_s']:.1f}s ({m['tokens_per_s']:.1f} tok/s, "
+        f"TTFT {m['mean_ttft_s']*1e3:.0f} ms), "
+        f"pool utilization {m['pool_utilization']*100:.1f}%"
+    )
+    print(
+        "[serve/kernels] "
+        + ", ".join(f"{k} {n} launches" for k, n in m["kernel_launches"].items())
+    )
+    print("[serve/metrics] " + json.dumps(m))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

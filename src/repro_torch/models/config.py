@@ -1,0 +1,121 @@
+"""Model configuration: the port's own copy of ``repro.models.config``.
+
+``ModelConfig``, ``reduced``, ``pad_to`` and the family tuples, copied so
+that the port never imports the reference package. ``dtype`` stays a
+string ("bfloat16" / "float32"); ``torch_dtype`` maps it to torch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+
+def pad_to(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+# Families whose decode state is a growing attention KV cache.
+ATTN_KV_FAMILIES = ("dense", "vlm", "moe")
+# Families the KV-pool serving path covers in the reference.
+PAGED_FAMILIES = ATTN_KV_FAMILIES + ("hybrid",)
+# Families whose prompts can prefill in budget-sized chunks across rounds.
+CHUNKABLE_FAMILIES = ("dense", "vlm", "moe", "hybrid")
+# Families whose prompt KV can be served out of a radix prefix cache.
+PREFIX_CACHE_FAMILIES = ("dense", "vlm", "moe", "hybrid")
+# Families whose dense FFN stores 1/2-bit weights as packed uint8 carriers.
+PACKING_FAMILIES = ("dense", "vlm", "encdec", "hybrid")
+# Families the port serves so far (the rest raise ValueError).
+PORTED_FAMILIES = ("dense",)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0  # 0 -> d_model // n_heads
+    sliding_window: int = 0  # 0 -> full attention
+    # --- MoE ---
+    n_experts: int = 0
+    experts_per_token: int = 0
+    capacity_factor: float = 1.25
+    # --- SSM (Mamba2 / SSD) ---
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    conv_kernel: int = 4
+    # --- hybrid (Zamba2): one shared attention block every k SSM layers ---
+    hybrid_attn_every: int = 0
+    # --- encoder-decoder (Whisper backbone) ---
+    n_enc_layers: int = 0
+    frontend_len: int = 0
+    # --- vlm ---
+    n_patches: int = 0
+    # --- common ---
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    vocab_pad: int = 256
+    w_bits: int = 0  # 0 = dense weights; 1/2 = packed uint8 carriers
+    dtype: Any = "bfloat16"
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        return pad_to(self.vocab, self.vocab_pad)
+
+    @property
+    def n_kv_cache_layers(self) -> int:
+        """Layers that hold a growing KV cache."""
+        if self.family == "hybrid":
+            return self.n_layers // max(1, self.hybrid_attn_every)
+        if self.family in ATTN_KV_FAMILIES or self.family == "encdec":
+            return self.n_layers
+        return 0
+
+
+def torch_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, str(cfg.dtype))
+
+
+def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
+    """A smoke-test-sized config of the same family (CPU-runnable)."""
+    small = dict(
+        n_layers=min(cfg.n_layers, 2),
+        d_model=128,
+        n_heads=4,
+        n_kv=min(cfg.n_kv, 2) if cfg.n_kv < cfg.n_heads else 4,
+        head_dim=32,
+        d_ff=256 if cfg.d_ff else 0,
+        vocab=512,
+        vocab_pad=64,
+        sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else 0,
+        n_experts=min(cfg.n_experts, 8) if cfg.n_experts else 0,
+        experts_per_token=min(cfg.experts_per_token, 2)
+        if cfg.experts_per_token
+        else 0,
+        ssm_state=min(cfg.ssm_state, 16) if cfg.ssm_state else 0,
+        ssm_head_dim=32 if cfg.ssm_state else 64,
+        ssm_chunk=16,
+        hybrid_attn_every=min(cfg.hybrid_attn_every, 2)
+        if cfg.hybrid_attn_every
+        else 0,
+        n_enc_layers=min(cfg.n_enc_layers, 2),
+        frontend_len=min(cfg.frontend_len, 32) if cfg.frontend_len else 0,
+        n_patches=min(cfg.n_patches, 16) if cfg.n_patches else 0,
+        dtype="float32",
+    )
+    small.update(overrides)
+    return dataclasses.replace(cfg, name=cfg.name + "-smoke", **small)

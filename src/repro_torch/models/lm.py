@@ -1,0 +1,425 @@
+"""Dense LM family: packed FFN weights, the pool serving forward, sampling.
+
+Port of the serving path of ``repro.models.lm`` for ``family == "dense"``
+(any other family raises ``ValueError``). The reference's parameter
+pytree becomes ``LMParams``, an ``nn.Module`` that keeps the same stacked
+``(L, ...)`` per-layer leaves: float weights are frozen parameters, the
+FCMP-packed FFN leaves are ``{"packed", "scale"}`` pairs of buffers (uint8
+carrier, f32 per-channel scale). The reference's ``lax.scan`` over layers
+is a Python loop over views of the stacked leaves.
+
+With ``cfg.w_bits`` in {1, 2} every FFN matmul goes through
+``kernels.ops.packed_matmul``: on the card the carrier is decoded in
+registers by the CUDA kernel and never expanded in device memory.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from repro_torch import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.models import attention as attn
+from repro_torch.models.config import PORTED_FAMILIES, ModelConfig, torch_dtype
+from repro_torch.models.layers import (
+    apply_rope,
+    dense,
+    embed,
+    logits as unembed_logits,
+    rms_norm,
+    swiglu,
+)
+from repro_torch.quant.quantizers import pack_bits
+
+
+def _require_ported(cfg: ModelConfig, what: str) -> None:
+    if cfg.family not in PORTED_FAMILIES:
+        raise ValueError(
+            f"{what}: family {cfg.family!r} is not ported yet "
+            f"(ported: {', '.join(PORTED_FAMILIES)})"
+        )
+
+
+# --------------------------------------------------------------------------
+# Packed (FCMP) weight leaves
+# --------------------------------------------------------------------------
+
+
+def make_packed(w: torch.Tensor, bits: int) -> dict[str, torch.Tensor]:
+    """Quantize + pack a float weight (..., K, N) into the carrier format:
+    {"packed": uint8 (..., K*bits/8, N), "scale": f32 (..., N)}."""
+    if bits == 1:
+        scale = torch.mean(torch.abs(w), dim=-2)
+        codes = (w > 0).to(torch.uint8)
+    elif bits == 2:
+        mean_abs = torch.mean(torch.abs(w), dim=-2, keepdim=True)
+        mask = torch.abs(w) > 0.7 * mean_abs
+        scale = torch.sum(torch.abs(w) * mask, dim=-2) / torch.clamp(
+            torch.sum(mask, dim=-2).to(torch.float32), min=1.0
+        )
+        codes = (torch.sign(w) * mask + 1).to(torch.uint8)
+    else:
+        raise ValueError(f"make_packed takes bits 1 or 2, got {bits}")
+    packed = pack_bits(torch.movedim(codes, -2, 0), bits)
+    return {
+        "packed": torch.movedim(packed, 0, -2).contiguous(),
+        "scale": scale.to(torch.float32),
+    }
+
+
+def _unpack_codes(packed: torch.Tensor, bits: int) -> torch.Tensor:
+    """uint8 carrier (..., Kc, N) -> codes (..., Kc*per, N) along axis -2."""
+    per = 8 // bits
+    shifts = torch.arange(per, dtype=torch.uint8, device=packed.device) * bits
+    planes = (packed[..., None, :] >> shifts[:, None]) & ((1 << bits) - 1)
+    return planes.reshape(
+        packed.shape[:-2] + (packed.shape[-2] * per, packed.shape[-1])
+    )
+
+
+def packed_dense(x: torch.Tensor, w: Any, bits: int) -> torch.Tensor:
+    """Matmul against a dense or packed weight leaf. The packed product
+    is f32 out of the kernel and is cast to x's dtype, as the reference's
+    einsum in x's dtype returns it."""
+    if not isinstance(w, dict):
+        return dense(x, w)
+    k = x.shape[-1]
+    out = ops.packed_matmul(x, w["packed"], w["scale"], bits=bits, k=k)
+    return out.to(x.dtype)
+
+
+def packed_swiglu(x, w1, w3, w2, bits: int):
+    h = F.silu(packed_dense(x, w1, bits)) * packed_dense(x, w3, bits)
+    return packed_dense(h, w2, bits)
+
+
+# --------------------------------------------------------------------------
+# Parameters
+# --------------------------------------------------------------------------
+
+
+class _Leaves(nn.Module):
+    """Named stacked leaves: packed {"packed", "scale"} pairs become
+    submodules of buffers, float leaves frozen parameters."""
+
+    def __init__(self, tree: dict[str, Any]):
+        super().__init__()
+        self.names = tuple(tree)
+        for name, leaf in tree.items():
+            if isinstance(leaf, dict):
+                pair = nn.Module()
+                pair.register_buffer("packed", leaf["packed"])
+                pair.register_buffer("scale", leaf["scale"])
+                self.add_module(name, pair)
+            else:
+                self.register_parameter(name, nn.Parameter(leaf, requires_grad=False))
+
+    def leaf(self, name: str):
+        v = getattr(self, name)
+        if isinstance(v, nn.Module):
+            return {"packed": v.packed, "scale": v.scale}
+        return v
+
+    def tree(self) -> dict[str, Any]:
+        return {n: self.leaf(n) for n in self.names}
+
+
+class LMParams(nn.Module):
+    """The parameter tree of ``init_params`` as a module: top-level leaves
+    (``embed``, ``final_norm``, ``unembed`` when untied) plus ``layers``,
+    whose leaves are stacked over the layer axis."""
+
+    def __init__(self, tree: dict[str, Any]):
+        super().__init__()
+        self.top = _Leaves({k: v for k, v in tree.items() if k != "layers"})
+        self.layers = _Leaves(tree["layers"])
+
+    def __getitem__(self, name: str):
+        return self.top.leaf(name)
+
+    def layer(self, i: int) -> dict[str, Any]:
+        """Views of layer ``i``'s leaves (packed leaves stay pairs)."""
+        out = {}
+        for name, v in self.layers.tree().items():
+            out[name] = (
+                {"packed": v["packed"][i], "scale": v["scale"][i]}
+                if isinstance(v, dict)
+                else v[i]
+            )
+        return out
+
+    def tree(self) -> dict[str, Any]:
+        return {**self.top.tree(), "layers": self.layers.tree()}
+
+
+def _maybe_pack(w: torch.Tensor, cfg: ModelConfig):
+    if cfg.w_bits in (1, 2):
+        return make_packed(w, cfg.w_bits)
+    return w
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LMParams:
+    """Random weights with the shapes and scales of the reference's
+    ``lm.init_params`` (lm.py:204), drawn from a CPU ``torch.Generator``
+    so every device gets the same numbers (JAX's numbers differ: share
+    weights across the packages with ``interop.params_from_reference``).
+    The weights land on ``device``: CUDA unless the caller asks for the
+    CPU."""
+    _require_ported(cfg, "init_params")
+    device = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    dt = torch_dtype(cfg)
+    d, ff, l, pv = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.padded_vocab
+    hd, hq, hkv = cfg.hd, cfg.n_heads, cfg.n_kv
+
+    def normal(shape, std):
+        return (torch.randn(shape, generator=gen, dtype=torch.float32) * std).to(dt)
+
+    s = d ** -0.5
+    tree: dict[str, Any] = {
+        "embed": normal((pv, d), 0.02),
+        "final_norm": torch.ones((d,), dtype=torch.float32),
+    }
+    if not cfg.tie_embeddings:
+        tree["unembed"] = normal((pv, d), 0.02)
+    tree["layers"] = {
+        "ln1": torch.ones((l, d), dtype=torch.float32),
+        "ln2": torch.ones((l, d), dtype=torch.float32),
+        "wq": normal((l, d, hq * hd), s),
+        "wk": normal((l, d, hkv * hd), s),
+        "wv": normal((l, d, hkv * hd), s),
+        "wo": normal((l, hq * hd, d), s),
+        "w1": _maybe_pack(normal((l, d, ff), s), cfg),
+        "w3": _maybe_pack(normal((l, d, ff), s), cfg),
+        "w2": _maybe_pack(normal((l, ff, d), s * 0.5), cfg),
+    }
+    return LMParams(tree).to(device)
+
+
+# --------------------------------------------------------------------------
+# Layer bodies
+# --------------------------------------------------------------------------
+
+
+def _qkv(lp, cfg: ModelConfig, x, positions):
+    """Pre-norm q/k/v projection + RoPE shared by every attention path;
+    x: (B, S, d), positions: (B|1, S)."""
+    b, s, _ = x.shape
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q = dense(h, lp["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
+    k = dense(h, lp["wk"]).reshape(b, s, cfg.n_kv, cfg.hd)
+    v = dense(h, lp["wv"]).reshape(b, s, cfg.n_kv, cfg.hd)
+    return (
+        apply_rope(q, positions, cfg.rope_theta),
+        apply_rope(k, positions, cfg.rope_theta),
+        v,
+    )
+
+
+def _attn_block(lp, cfg: ModelConfig, x, positions, *, causal=True, window=0):
+    """Full-sequence attention sub-block (pre-norm residual)."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(lp, cfg, x, positions)
+    o = attn.flash_attention(q, k, v, causal=causal, window=window)
+    return x + dense(o.reshape(b, s, -1), lp["wo"]), (k, v)
+
+
+def _ffn_block(lp, cfg: ModelConfig, x, ln_name="ln2"):
+    """Pre-norm FFN residual; packed carriers when ``cfg.w_bits`` is 1/2."""
+    h = rms_norm(x, lp[ln_name], cfg.norm_eps)
+    if cfg.w_bits in (1, 2):
+        y = packed_swiglu(h, lp["w1"], lp["w3"], lp["w2"], cfg.w_bits)
+    else:
+        y = swiglu(h, lp["w1"], lp["w3"], lp["w2"])
+    return x + y
+
+
+def _unembed(params: LMParams, cfg: ModelConfig, x):
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    return unembed_logits(x, table, cfg.vocab)
+
+
+# --------------------------------------------------------------------------
+# Serving entry points over the shared KV pool
+# --------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def prefill_with_cache(
+    params: LMParams, cfg: ModelConfig, tokens: torch.Tensor, last_idx: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Full-sequence prefill that keeps the per-layer K/V rows.
+
+    tokens: (B, S) right-padded prompts; ``last_idx`` the index of the
+    last real token (causality keeps the padded tail inert). Returns
+    (next-token logits (B, 1, V) f32, ks, vs stacked (L, B, S, n_kv, hd),
+    already RoPE'd: exactly the rows the pool stores).
+    """
+    _require_ported(cfg, "prefill_with_cache")
+    x = embed(tokens, params["embed"], torch_dtype(cfg))
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        lp = params.layer(i)
+        x, (k, v) = _attn_block(
+            lp, cfg, x, positions, causal=True, window=cfg.sliding_window
+        )
+        x = _ffn_block(lp, cfg, x)
+        ks.append(k)
+        vs.append(v)
+    last = int(last_idx)
+    lg = _unembed(params, cfg, x[:, last : last + 1])
+    return lg, torch.stack(ks), torch.stack(vs)
+
+
+@torch.no_grad()
+def decode_step_paged(
+    params: LMParams,
+    cfg: ModelConfig,
+    token: torch.Tensor,
+    pool_k: torch.Tensor,
+    pool_v: torch.Tensor,
+    row_table: torch.Tensor,
+    lengths: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One serving step against a shared row-addressed KV pool.
+
+    token: (B, 1) next token per lane; pool_k/pool_v: (L, R, n_kv, hd);
+    row_table: (B, S_max) physical row of each lane's logical position
+    (scratch-padded); lengths: (B,) tokens already held per lane. The new
+    token's K/V row goes to ``row_table[b, lengths[b]]`` by an in-place
+    indexed write into the pool (the reference rebuilds the arrays), then
+    each lane attends over its gathered rows at its own depth.
+
+    Returns (logits (B, 1, V) f32, pool_k, pool_v), the pools being the
+    same tensors, updated in place.
+    """
+    _require_ported(cfg, "decode_step_paged")
+    x = embed(token, params["embed"], torch_dtype(cfg))
+    b = x.shape[0]
+    s_max = row_table.shape[1]
+    lengths = lengths.long()
+    row_table = row_table.long()
+    pos_b = lengths[:, None]  # (B, 1) position of the incoming token
+    write_rows = torch.gather(
+        row_table, 1, torch.clamp(lengths, 0, s_max - 1)[:, None]
+    )[:, 0]
+    for i in range(cfg.n_layers):
+        lp = params.layer(i)
+        pk, pv = pool_k[i], pool_v[i]
+        q, k, v = _qkv(lp, cfg, x, pos_b)
+        pk[write_rows] = k[:, 0].to(pk.dtype)
+        pv[write_rows] = v[:, 0].to(pv.dtype)
+        o = attn.decode_attention(
+            q, pk[row_table], pv[row_table], (lengths + 1)[:, None],
+            window=cfg.sliding_window,
+        )
+        x = x + dense(o.reshape(b, 1, -1), lp["wo"])
+        x = _ffn_block(lp, cfg, x)
+    return _unembed(params, cfg, x), pool_k, pool_v
+
+
+@torch.no_grad()
+def prefill_chunk_paged(
+    params: LMParams,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,
+    pool_k: torch.Tensor,
+    pool_v: torch.Tensor,
+    row_table: torch.Tensor,
+    write_rows: torch.Tensor,
+    start: int,
+    last_idx: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Prefill one chunk of a prompt against the shared KV pool.
+
+    tokens: (B, C) chunk tokens, right-padded; write_rows: (B, C)
+    physical pool row per chunk token (scratch row for padding);
+    row_table: (B, S_max) the request's full row table; start: position
+    of the chunk's first token; last_idx: in-chunk index of the prompt's
+    last token. The chunk's K/V rows are written into the pool in place,
+    then the chunk attends causally over the gathered rows through the
+    flash kernel with ``q_offset = start`` (rows past the chunk, scratch
+    padding included, are masked by causality), which computes what the
+    reference's ``chunk_attention`` computes.
+
+    Returns (logits at last_idx (B, 1, V) f32, pool_k, pool_v), the
+    pools updated in place.
+    """
+    _require_ported(cfg, "prefill_chunk_paged")
+    x = embed(tokens, params["embed"], torch_dtype(cfg))
+    b, c, _ = x.shape
+    start = int(start)
+    positions = start + torch.arange(c, device=x.device)[None, :]
+    row_table = row_table.long()
+    write_rows = write_rows.long()
+    for i in range(cfg.n_layers):
+        lp = params.layer(i)
+        pk, pv = pool_k[i], pool_v[i]
+        q, k, v = _qkv(lp, cfg, x, positions)
+        pk[write_rows] = k.to(pk.dtype)
+        pv[write_rows] = v.to(pv.dtype)
+        o = attn.flash_attention(
+            q, pk[row_table], pv[row_table], causal=True,
+            window=cfg.sliding_window, q_offset=start,
+        )
+        x = x + dense(o.reshape(b, c, -1), lp["wo"])
+        x = _ffn_block(lp, cfg, x)
+    last = int(last_idx)
+    return _unembed(params, cfg, x[:, last : last + 1]), pool_k, pool_v
+
+
+# --------------------------------------------------------------------------
+# Sampling (host-side numpy, copied from the reference)
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingParams:
+    """Decode sampling policy. ``temperature == 0`` is exact greedy; top-k
+    and top-p restrict the support before renormalising. The scheduler
+    draws from an rng keyed on (seed, request id, position)."""
+
+    temperature: float = 0.0
+    top_k: int = 0  # 0 = unrestricted
+    top_p: float = 1.0  # 1.0 = unrestricted
+    seed: int = 0
+
+    @property
+    def is_greedy(self) -> bool:
+        return self.temperature <= 0.0
+
+
+def sample_logits(row, sp: SamplingParams, rng=None) -> int:
+    """Draw one token from a (V,) numpy logits row under ``sp``.
+
+    Greedy (temperature 0) never touches ``rng``; top_k=1 collapses to
+    greedy regardless of temperature; top_k >= V is unrestricted.
+    """
+    row = np.asarray(row, np.float64)
+    if sp.is_greedy or sp.top_k == 1:
+        return int(np.argmax(row))
+    logits = row / sp.temperature
+    top_k = min(sp.top_k, len(row))
+    if top_k > 0:
+        kth = np.partition(logits, -top_k)[-top_k]
+        logits = np.where(logits >= kth, logits, -np.inf)
+    logits = logits - np.max(logits)
+    probs = np.exp(logits)
+    probs /= probs.sum()
+    if sp.top_p < 1.0:
+        order = np.argsort(-probs)
+        csum = np.cumsum(probs[order])
+        cut = int(np.searchsorted(csum, sp.top_p)) + 1
+        mask = np.zeros_like(probs, bool)
+        mask[order[:cut]] = True
+        probs = np.where(mask, probs, 0.0)
+        probs /= probs.sum()
+    return int(rng.choice(len(probs), p=probs))

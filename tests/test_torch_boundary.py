@@ -1,0 +1,52 @@
+"""The port's import boundary: nothing under ``src/repro_torch`` and nothing
+in ``chip_smoke.py`` imports ``jax`` or any module of ``repro``."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.lineno, node.module
+        elif (
+            isinstance(node, ast.Call)
+            and getattr(node.func, "attr", getattr(node.func, "id", None))
+            in ("import_module", "__import__")
+            and node.args
+            and isinstance(node.args[0], ast.Constant)
+            and isinstance(node.args[0].value, str)
+        ):
+            yield node.lineno, node.args[0].value
+
+
+@pytest.mark.parametrize(
+    "path", _port_files(), ids=lambda p: str(p.relative_to(ROOT))
+)
+def test_port_file_imports_no_jax_and_no_reference(path):
+    assert path.exists(), path
+    bad = [
+        f"{path.name}:{line} imports {name}"
+        for line, name in _imported_roots(ast.parse(path.read_text()))
+        if name.split(".")[0] in FORBIDDEN
+    ]
+    assert not bad, bad
+
+
+def test_boundary_check_catches_forbidden_imports():
+    src = "import jax.numpy\nfrom repro.models import lm\nimport repro_torch\n"
+    names = [n for _, n in _imported_roots(ast.parse(src))]
+    assert [n.split(".")[0] in FORBIDDEN for n in names] == [True, True, False]
