@@ -13,16 +13,25 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               held against its plain PyTorch version on the same inputs;
               median device times over 30 runs, L2 flushed before each,
               beside the plain version, one library call as a yardstick
-              (never used by the port) and the bound from bytes and flops.
+              (never used by the port), the bound from bytes and flops, and
+              the host's enqueue time per call. ``stream_matmul`` at bits 2/1/0 at the plan's ring depths,
+              plus ragged and ring-edge cases checked for agreement only.
 4. prefill -- smollm-360m at full width and depth with 2-bit FFN carriers:
               ``prefill_with_cache`` on a 512-token prompt in bf16 on the
               card against float32 on the CPU, same weights; then one
               paged decode step of 8 lanes profiled (host ms against the
-              card's kernel ms), with 2-bit and with dense FFN weights.
+              card's kernel ms), with 2-bit and with dense FFN weights,
+              and at 2 bits under a half-budget residency plan (both 2-bit
+              steps twice, in turns), whose logits are held against the
+              unbudgeted step's.
 5. serve   -- ``repro_torch.launch.serve.main`` at full width and depth,
-              --quant 2 then --quant 0, with launch counters reset just
-              before and read just after; the --quant 2 run must launch
-              both kernels.
+              --quant 2 then --quant 0, each unbudgeted and then with
+              ``--vmem-budget`` at half the plan's tile bytes, with launch
+              counters reset just before each run and read just after; the
+              --quant 2 run must launch packed_matmul and flash_fwd, each
+              budgeted run stream_matmul's ring kernel exactly 3 x streamed
+              layers x decode steps, and its split_reduce kernel once for
+              each of those calls whose K sweep is split.
 
 The last lines are nvidia-smi's, then ``{"kernels": [...]}``, then
 ``{"ok": true, "device": {...}}``.
@@ -56,6 +65,9 @@ FLASH_OUT_TOL = 2e-2  # both f32 inside, each rounds its output to bf16 once (~1
 FLASH_LSE_TOL = 1e-3  # f32 log-sum-exp; summation order only
 PREFILL_MIN_COS = 0.99  # bf16 activations over 32 layers vs float32
 PREFILL_TOP1_SLACK = 0.1  # the card's top-1 token must be within 0.1 of the CPU max logit
+STREAM_REL_TOL = 1e-5  # both sides f32 sums of exact values (bf16 x and rows, +-1/0 codes); only order differs
+BUDGET_MIN_COS = 0.999  # the two FFN kernels round bf16 activations in other orders over 32 layers
+BUDGET_TOP1_SLACK = 0.1  # the budgeted top-1 token must be within 0.1 of the unbudgeted max logit
 
 
 def fail(msg: str) -> None:
@@ -139,6 +151,20 @@ def main() -> int:
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in events)
 
+    def host_us(fn, n=200) -> float:
+        """Host time per call of ``fn`` (enqueue only: no synchronise
+        between calls), the share of a step a kernel's wrapper costs the
+        host."""
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / n * 1e6
+
     gen = torch.Generator(device="cpu").manual_seed(0)
 
     # ---------------- 3. kernels vs their plain versions ----------------
@@ -163,6 +189,7 @@ def main() -> int:
                 case = dict(
                     bits=bits, m=m, k=k, n=n, max_abs_err=err, rel_err=rel,
                     ms=median_ms(lambda: pm.packed_matmul(x, w["packed"], w["scale"], bits, k)),
+                    host_us=host_us(lambda: pm.packed_matmul(x, w["packed"], w["scale"], bits, k)),
                     plain_ms=median_ms(lambda: ref.packed_matmul_ref(x, w["packed"], w["scale"], bits, k)),
                     library_ms=median_ms(lambda: torch.matmul(x, w_dec) * w["scale"]),
                     bound_ms=b_ms, bound_by=b_by,
@@ -222,6 +249,60 @@ def main() -> int:
         flash_cases.append(case)
         phase("kernel", name="flash_fwd", **case)
 
+    from repro_torch.kernels import weight_stream as ws
+    from repro_torch.runtime.residency import compile_residency_plan, stream_ahead_depth
+
+    def stream_case(m, k, n, bits, depth, timed, w_dtype=torch.bfloat16):
+        x = torch.randn((m, k), generator=gen).to(dev, torch.bfloat16)
+        if bits:
+            per = 8 // bits
+            packed = lm.make_packed(torch.randn((k + (-k) % per, n), generator=gen), bits)
+            w = packed["packed"].to(dev)
+            scale = packed["scale"].to(dev)
+            w_dec = ref.decode_weights(w, bits, k).to(torch.bfloat16)
+        else:
+            w = torch.randn((k, n), generator=gen).to(dev, w_dtype)
+            scale, w_dec = None, w.to(torch.bfloat16)
+        got = ws.stream_matmul(x, w, scale, bits, k, depth)
+        want = ref.stream_matmul_ref(x, w, scale, bits, k)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        rel = err / max(want.abs().max().item(), 1e-30)
+        label = f"stream_matmul bits={bits} M={m} K={k} N={n} depth={depth} w={w.dtype}"
+        if not math.isfinite(err) or rel > STREAM_REL_TOL:
+            fail(f"{label}: rel err {rel}")
+        splits, cps = ws.split_plan(m, k, n, bits, torch.cuda.get_device_properties(0).multi_processor_count)
+        case = dict(bits=bits, m=m, k=k, n=n, depth=depth, w_dtype=str(w.dtype),
+                    splits=splits, chunks_per_split=cps, max_abs_err=err, rel_err=rel)
+        if timed:
+            n_bytes = (x.numel() * 2 + w.numel() * w.element_size() + m * n * 4
+                       + (n * 4 if scale is not None else 0))
+            b_ms, b_by = bound_ms(n_bytes, 2.0 * m * k * n)
+            sc = scale if scale is not None else torch.ones(n, device=dev)
+            case.update(
+                ms=median_ms(lambda: ws.stream_matmul(x, w, scale, bits, k, depth)),
+                host_us=host_us(lambda: ws.stream_matmul(x, w, scale, bits, k, depth)),
+                plain_ms=median_ms(lambda: ref.stream_matmul_ref(x, w, scale, bits, k)),
+                library_ms=median_ms(lambda: torch.matmul(x, w_dec) * sc),
+                bound_ms=b_ms, bound_by=b_by,
+            )
+        phase("kernel", name="stream_matmul", **case)
+        return case
+
+    stream_cases = []
+    for bits in (2, 1, 0):
+        depth = stream_ahead_depth(dataclasses.replace(cfg, w_bits=bits))
+        for k, n in ((d, ff), (ff, d)):
+            stream_cases.append(stream_case(LANES, k, n, bits, depth, timed=True))
+    # ragged K and N (1-bit padding codes, unaligned row pitches), and the
+    # ring with fewer stages than its depth, as many, and not a multiple
+    # (N = 64 x 264 column blocks leaves the K sweep unsplit)
+    for args in ((6, 100, 70, 1, 2), (6, 100, 70, 2, 3), (6, 100, 70, 0, 2),
+                 (LANES, 384, 64 * 264, 2, 4), (LANES, 512, 64 * 264, 2, 4),
+                 (LANES, 1408, 64 * 264, 2, 4), (20, ff, d, 2, 4), (3, 8192, 100, 1, 8)):
+        stream_case(*args, timed=False)
+    stream_case(LANES, d, ff, 0, 3, timed=False, w_dtype=torch.float32)
+
     # ---------------- 4. full-width prefill, card vs CPU ----------------
     cfg2 = dataclasses.replace(cfg, w_bits=2)
     params = lm.init_params(cfg2, 0, device=dev)
@@ -255,10 +336,23 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def profile_decode(p, c) -> dict:
+    def half_budget_plan(c):
+        """The residency plan at half of its own total tile bytes."""
+        full = compile_residency_plan(c, vmem_budget_bytes=0)
+        total = sum(full.bin_tiles) * full.chip.tile_bytes
+        plan = compile_residency_plan(c, vmem_budget_bytes=total // 2)
+        mask = plan.layer_stream_mask(c)
+        if not (any(mask) and not all(mask)):
+            fail(f"half-budget plan of w_bits={c.w_bits} does not split the layers: {mask}")
+        return plan, total / 2 / 2**20
+
+    def profile_decode(p, c, plan=None) -> dict:
         """One paged decode step of 8 lanes at depth PROMPT + 8: host wall
         time per step (synchronised) against the card's kernel time in a
-        torch.profiler window, and the kernels that take it."""
+        torch.profiler window, and the kernels that take it. With a plan,
+        the step is budgeted (its streamed layers run stream_matmul)."""
+        kw = {} if plan is None else dict(
+            stream_mask=plan.layer_stream_mask(c), stream_depth=plan.stream_ahead)
         rows = LANES * MAX_LEN + 16
         pk = torch.zeros((c.n_layers, rows, hkv, hd), dtype=torch.bfloat16, device=dev)
         pv = torch.zeros_like(pk)
@@ -267,7 +361,7 @@ def main() -> int:
         lens = torch.full((LANES,), PROMPT + 8, device=dev)
 
         def step():
-            lm.decode_step_paged(p, c, tok, pk, pv, table, lens)
+            lm.decode_step_paged(p, c, tok, pk, pv, table, lens, **kw)
 
         for _ in range(3):
             step()
@@ -287,48 +381,123 @@ def main() -> int:
             by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 3e3
         dev_ms = sum(by_name.values())
         return dict(
-            w_bits=c.w_bits, host_step_ms=wall_ms, device_step_ms=dev_ms,
+            w_bits=c.w_bits, budgeted=plan is not None,
+            streamed_layers=sum(kw.get("stream_mask", ())),
+            host_step_ms=wall_ms, device_step_ms=dev_ms,
             device_busy_share=dev_ms / wall_ms, kernels_per_step=len(kern) / 3,
             top_kernels_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6]),
         )
 
     phase("decode_profile", **profile_decode(params, cfg2))
-    del params
+    plan2, _ = half_budget_plan(cfg2)
+    phase("decode_profile", **profile_decode(params, cfg2, plan2))
+    # the host time of a step drifts within a call: repeat both in the
+    # other order, so the budgeted/unbudgeted difference can be told from it
+    phase("decode_profile", **profile_decode(params, cfg2, plan2))
+    phase("decode_profile", **profile_decode(params, cfg2))
+
+    # the same weights and pool state through the budgeted and the
+    # unbudgeted step: the logits must agree
+    rows = LANES * MAX_LEN + 16
+    pk0 = torch.randn((cfg2.n_layers, rows, hkv, hd), generator=gen).to(dev, torch.bfloat16)
+    pv0 = torch.randn((cfg2.n_layers, rows, hkv, hd), generator=gen).to(dev, torch.bfloat16)
+    table = (16 + torch.arange(LANES * MAX_LEN, device=dev)).reshape(LANES, MAX_LEN)
+    tok = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (LANES, 1))).to(dev)
+    lens = torch.full((LANES,), PROMPT + 8, device=dev)
+    lg_full, _, _ = lm.decode_step_paged(params, cfg2, tok, pk0.clone(), pv0.clone(), table, lens)
+    lg_bud, _, _ = lm.decode_step_paged(
+        params, cfg2, tok, pk0.clone(), pv0.clone(), table, lens,
+        stream_mask=plan2.layer_stream_mask(cfg2), stream_depth=plan2.stream_ahead)
+    a = lg_bud[:, 0, : cfg.vocab].float()
+    b = lg_full[:, 0, : cfg.vocab].float()
+    cos = F.cosine_similarity(a, b, dim=-1).min().item()
+    top_bud = a.argmax(dim=-1)
+    slack = (b.max(dim=-1).values - b.gather(1, top_bud[:, None])[:, 0]).max().item()
+    phase("budgeted_decode", lanes=LANES, streamed_layers=sum(plan2.layer_stream_mask(cfg2)),
+          stream_ahead=plan2.stream_ahead, min_cosine=cos, max_top1_gap=slack,
+          top1_equal=int((top_bud == b.argmax(dim=-1)).sum()),
+          max_abs_logit_err=(a - b).abs().max().item(),
+          finite=bool(torch.isfinite(a).all()))
+    if not (cos >= BUDGET_MIN_COS and slack <= BUDGET_TOP1_SLACK and torch.isfinite(a).all()):
+        fail(f"budgeted vs unbudgeted decode: cosine {cos}, top-1 gap {slack}")
+    del params, pk0, pv0
     params0 = lm.init_params(cfg, 0, device=dev)
     phase("decode_profile", **profile_decode(params0, cfg))
     del params0
 
     # ---------------- 5. serve at full width and depth ----------------
     runs = {}
-    ops.reset_launch_counts()
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for quant in (2, 0):
-        argv = [
-            "--arch", "smollm_360m", "--quant", str(quant), "--requests", "16",
-            "--batch", str(LANES), "--prompt-len", str(PROMPT), "--gen-len", "64",
-            "--max-len", str(MAX_LEN), "--prefill-chunk", str(CHUNK),
-        ]
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            rc = serve.main(argv)
-        text = buf.getvalue()
-        sys.stderr.write(text)
-        if rc != 0:
-            fail(f"serve --quant {quant} exited {rc}")
-        metrics = json.loads(
-            next(l for l in text.splitlines() if l.startswith("[serve/metrics] "))
-            .split(" ", 1)[1]
+        qcfg = dataclasses.replace(cfg, w_bits=quant)
+        plan, budget_mib = half_budget_plan(qcfg)
+        n_streamed = sum(plan.layer_stream_mask(qcfg))
+        # split calls per streamed layer and step: w1 and w3 are (d, ff), w2
+        # (ff, d); split_plan gives every M <= 8 (a decode step's lanes) the
+        # same split, since one CTA covers 8 rows
+        split_mats = sum(
+            ws.split_plan(LANES, k, n, quant, sms)[0] > 1
+            for k, n in ((d, ff), (d, ff), (ff, d))
         )
-        if metrics["completed"] != 16 or metrics["generated_tokens"] != 16 * 64:
-            fail(f"serve --quant {quant}: {metrics}")
-        runs[quant] = metrics
-        phase("serve", quant=quant, **metrics)
-    launches = ops.launch_counts()
-    if min(runs[2]["kernel_launches"].values()) <= 0:
-        fail(f"serve --quant 2 skipped a kernel: {runs[2]['kernel_launches']}")
+        for budget in (0.0, budget_mib):
+            argv = [
+                "--arch", "smollm_360m", "--quant", str(quant), "--requests", "16",
+                "--batch", str(LANES), "--prompt-len", str(PROMPT), "--gen-len", "64",
+                "--max-len", str(MAX_LEN), "--prefill-chunk", str(CHUNK),
+                "--vmem-budget", repr(budget),
+            ]
+            buf = io.StringIO()
+            ops.reset_launch_counts()
+            with contextlib.redirect_stdout(buf):
+                rc = serve.main(argv)
+            counts = ops.launch_counts()
+            text = buf.getvalue()
+            sys.stderr.write(text)
+            if rc != 0:
+                fail(f"serve --quant {quant} --vmem-budget {budget} exited {rc}")
+            metrics = json.loads(
+                next(l for l in text.splitlines() if l.startswith("[serve/metrics] "))
+                .split(" ", 1)[1]
+            )
+            if metrics["completed"] != 16 or metrics["generated_tokens"] != 16 * 64:
+                fail(f"serve --quant {quant} --vmem-budget {budget}: {metrics}")
+            for name, n in counts.items():
+                launches[name] += n
+            if budget:
+                if metrics["residency"] != plan.summary():
+                    fail(f"serve --quant {quant}: residency {metrics['residency']} "
+                         f"is not the plan's {plan.summary()}")
+                want = 3 * n_streamed * metrics["decode_steps"]
+                if counts["stream_matmul"] != want:
+                    fail(f"serve --quant {quant} budgeted: stream_matmul launched "
+                         f"{counts['stream_matmul']} times, not 3 x {n_streamed} x "
+                         f"{metrics['decode_steps']} = {want}")
+                want_reduce = split_mats * n_streamed * metrics["decode_steps"]
+                if counts["split_reduce"] != want_reduce:
+                    fail(f"serve --quant {quant} budgeted: split_reduce launched "
+                         f"{counts['split_reduce']} times, not {split_mats} x "
+                         f"{n_streamed} x {metrics['decode_steps']} = {want_reduce}")
+                print(next(l for l in text.splitlines() if l.startswith("[serve/residency]")))
+            elif counts["stream_matmul"] or counts["split_reduce"]:
+                fail(f"serve --quant {quant} unbudgeted launched stream_matmul")
+            if quant == 2 and min(counts["packed_matmul"], counts["flash_fwd"]) <= 0:
+                fail(f"serve --quant 2 --vmem-budget {budget} skipped a kernel: {counts}")
+            runs[quant, budget > 0] = metrics
+            phase("serve", quant=quant, vmem_budget_mib=budget, launches_counted=counts,
+                  **metrics)
+    for quant in (2, 0):
+        base, bud = runs[quant, False], runs[quant, True]
+        phase("serve_budgeted_vs_unbudgeted", quant=quant, **{
+            f"{key}_{side}": run[key]
+            for key in ("tokens_per_s", "decode_step_ms", "mean_ttft_s")
+            for side, run in (("unbudgeted", base), ("budgeted", bud))
+        })
 
     # ---------------- result ----------------
     head_pm = next(c for c in packed_cases if (c["bits"], c["m"], c["k"]) == (2, LANES, d))
     head_fa = flash_cases[0]
+    head_sm = stream_cases[0]
     kernels = [
         dict(name="packed_matmul", route="cuda",
              source="src/repro_torch/csrc/packed_matmul.cu",
@@ -348,6 +517,19 @@ def main() -> int:
              **{k: head_fa[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")},
              cases=flash_cases),
+        dict(name="stream_matmul", route="cuda",
+             source="src/repro_torch/csrc/weight_stream.cu",
+             replaces="src/repro/kernels/weight_stream.py:112",
+             # a call launches the ring kernel, and split_reduce after it
+             # when the K sweep is split
+             launches=launches["stream_matmul"] + launches["split_reduce"],
+             calls=launches["stream_matmul"],
+             split_reduce_launches=launches["split_reduce"],
+             shape=f"bits=2 M={LANES} K={d} N={ff} depth={head_sm['depth']} bf16",
+             tolerance=f"rel {STREAM_REL_TOL}",
+             **{k: head_sm[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
+             cases=stream_cases),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

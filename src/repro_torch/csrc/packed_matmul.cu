@@ -32,13 +32,7 @@ namespace {
 
 using repro::cdiv;
 using repro::to_f;
-
-template <int BITS>
-__device__ __forceinline__ float decode(unsigned byte, int j) {
-  const unsigned code = (byte >> (j * BITS)) & ((1u << BITS) - 1u);
-  if (BITS == 1) return code ? 1.f : -1.f;
-  return static_cast<float>(code) - 1.f;
-}
+using repro::decode_code;
 
 constexpr int GEMV_MAX_M = 16;
 constexpr int GEMV_COLS = 32;  // output columns per block, one per lane
@@ -78,7 +72,7 @@ gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ w,
         const int kk0 = (r - r0) * PER;
 #pragma unroll
         for (int j = 0; j < PER; ++j) {
-          const float wv = decode<BITS>(byte, j);
+          const float wv = decode_code<BITS>(byte, j);
 #pragma unroll
           for (int i = 0; i < GEMV_MT; ++i) acc[i] += xs[i][kk0 + j] * wv;
         }
@@ -128,7 +122,7 @@ tiled_kernel(const T* __restrict__ x, const uint8_t* __restrict__ w,
       const int k = k0 + kk, n = n0 + nn;
       float v = 0.f;
       if (k < K && n < N)
-        v = decode<BITS>(__ldg(w + static_cast<size_t>(k / PER) * N + n), k % PER);
+        v = decode_code<BITS>(__ldg(w + static_cast<size_t>(k / PER) * N + n), k % PER);
       ws[kk][nn] = v;
     }
     __syncthreads();

@@ -80,9 +80,15 @@ def _finish(name: str, job) -> None:
     os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
 
 
-def build_all(names: tuple[str, ...] = ("packed_matmul", "flash_fwd")) -> None:
-    """Compile every named kernel that is not current, all at once."""
-    jobs = {n: _start(n) for n in names}
+def kernel_names() -> tuple[str, ...]:
+    """Every kernel source: the stems of ``csrc/*.cu``."""
+    return tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
+
+
+def build_all(names: tuple[str, ...] | None = None) -> None:
+    """Compile every named kernel (default: all of ``csrc/*.cu``) that is
+    not current, all at once."""
+    jobs = {n: _start(n) for n in (names or kernel_names())}
     for n, job in jobs.items():
         if job is not None:
             _finish(n, job)

@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import packed_matmul as _pm
+from repro_torch.kernels import weight_stream as _ws
 from repro_torch.quant.quantizers import pack_bits
 
 
@@ -22,6 +23,26 @@ def packed_matmul(
     lead = x.shape[:-1]
     out = _pm.packed_matmul(x.reshape(-1, k).contiguous(), carrier, scale, bits, k)
     return out.reshape(*lead, carrier.shape[1])
+
+
+def stream_matmul(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    scale: torch.Tensor | None = None,
+    *,
+    bits: int = 0,
+    k: int,
+    stream_depth: int = 2,
+) -> torch.Tensor:
+    """Batched weight-streaming matmul. x: (..., K); w: (ceil(K*bits/8), N)
+    uint8 carrier or (K, N) float rows (bits=0); scale: (N,) or None.
+    Returns (..., N) f32. The kernel masks ragged K and N itself, so
+    nothing is padded here."""
+    lead = x.shape[:-1]
+    out = _ws.stream_matmul(
+        x.reshape(-1, k).contiguous(), w, scale, bits, k, stream_depth
+    )
+    return out.reshape(*lead, w.shape[1])
 
 
 def pack_weights(w_values: torch.Tensor, bits: int) -> torch.Tensor:
@@ -65,11 +86,19 @@ def flash_attention(
     return out.reshape(b, hq, sq, d).transpose(1, 2)
 
 
+_COUNTERS = {
+    "packed_matmul": _pm.COUNTER,
+    "flash_fwd": _fa.COUNTER,
+    "stream_matmul": _ws.COUNTER,
+    "split_reduce": _ws.REDUCE_COUNTER,  # stream_matmul's second kernel
+}
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last ``reset_launch_counts``."""
-    return {"packed_matmul": _pm.COUNTER.count, "flash_fwd": _fa.COUNTER.count}
+    return {name: c.count for name, c in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    _pm.COUNTER.count = 0
-    _fa.COUNTER.count = 0
+    for c in _COUNTERS.values():
+        c.count = 0

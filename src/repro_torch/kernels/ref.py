@@ -40,6 +40,28 @@ def packed_matmul_ref(
     return (x.to(torch.float32) @ w) * scale[None, :].to(torch.float32)
 
 
+def stream_matmul_ref(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    scale: torch.Tensor | None,
+    bits: int,
+    k: int,
+) -> torch.Tensor:
+    """Plain version of ``stream_matmul``: decode the whole weight once,
+    then one f32 matmul times the scale; the same arithmetic as
+    ``packed_matmul_ref`` and the resident dense path, which is what keeps
+    budgeted decode token-identical on the CPU.
+
+    x: (M, K); w: (ceil(K*bits/8), N) uint8 carrier, or (K, N) float rows
+    if bits=0; scale: (N,) or None (no scaling). Returns (M, N) f32.
+    """
+    vals = w.to(torch.float32) if bits == 0 else decode_weights(w, bits, k)
+    out = x.to(torch.float32) @ vals
+    if scale is None:
+        return out
+    return out * scale[None, :].to(torch.float32)
+
+
 def flash_fwd_ref(
     q: torch.Tensor,
     k: torch.Tensor,

@@ -10,8 +10,11 @@ Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m --quant 2
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --vmem-budget 0.25
 
-Besides the reference's ``[serve/pool]`` line it prints each kernel's
+``--vmem-budget`` (MiB) serves budgeted decode under a residency plan
+and prints the reference's ``[serve/residency]`` line. Besides the
+reference's ``[serve/pool]`` line it prints each kernel's
 launch count, and a ``[serve/metrics]`` line with the run's numbers as
 JSON.
 """
@@ -31,6 +34,11 @@ from repro_torch.kernels import ops
 from repro_torch.models import lm
 from repro_torch.models.config import PACKING_FAMILIES, PORTED_FAMILIES
 from repro_torch.runtime.kv_pool import KVPool, choose_block_tokens
+from repro_torch.runtime.residency import (
+    RuntimeResidencyPlan,
+    compile_residency_plan,
+    supports_budgeted_decode,
+)
 from repro_torch.runtime.scheduler import Scheduler
 
 
@@ -42,7 +50,21 @@ def make_requests(args, vocab: int) -> list[np.ndarray]:
     ]
 
 
-def build_pool_engine(cfg, params, args, device) -> Scheduler:
+def build_residency_plan(cfg, args) -> RuntimeResidencyPlan | None:
+    """Compile the ``--vmem-budget`` residency plan (None when unbudgeted)."""
+    if not args.vmem_budget:
+        return None
+    if not supports_budgeted_decode(cfg):
+        raise ValueError(
+            f"--vmem-budget needs a streamable-FFN family the port serves; "
+            f"{cfg.name} is {cfg.family!r}"
+        )
+    return compile_residency_plan(
+        cfg, vmem_budget_bytes=int(args.vmem_budget * 2**20)
+    )
+
+
+def build_pool_engine(cfg, params, args, device, residency=None) -> Scheduler:
     total = args.prompt_len + args.gen_len
     block_tokens = args.block_tokens or choose_block_tokens(
         [total] * args.requests
@@ -66,11 +88,12 @@ def build_pool_engine(cfg, params, args, device) -> Scheduler:
             seed=args.seed,
         ),
         prefill_chunk=args.prefill_chunk or None,
+        residency=residency,
     )
 
 
-def run_pool_engine(cfg, params, args, device) -> dict:
-    sched = build_pool_engine(cfg, params, args, device)
+def run_pool_engine(cfg, params, args, device, residency=None) -> dict:
+    sched = build_pool_engine(cfg, params, args, device, residency)
     for prompt in make_requests(args, cfg.vocab):
         sched.submit(prompt, args.gen_len)
     t0 = time.monotonic()
@@ -103,6 +126,7 @@ def run_pool_engine(cfg, params, args, device) -> dict:
         "mean_ttft_s": stats.mean_ttft,
         "pool_utilization": stats.steady_state_utilization,
         "block_tokens": sched.pool.block_tokens,
+        "residency": residency.summary() if residency is not None else None,
     }
 
 
@@ -133,6 +157,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="nucleus sampling mass; 1.0 = off")
     ap.add_argument("--quant", type=int, default=0, choices=[0, 1, 2],
                     help="serve with FCMP-packed 1/2-bit FFN weights")
+    ap.add_argument("--vmem-budget", type=float, default=0.0,
+                    help="MiB of FFN weight tiles (plan arithmetic, 8 rows x "
+                         "128 B per tile) whose layers run the resident path; "
+                         "on the H100 that selects the kernel (packed_matmul "
+                         "or matmul) and pins nothing on chip. Every other "
+                         "layer streams its FFN weights each decode step "
+                         "through stream_matmul's shared-memory ring "
+                         "(0 = unbudgeted)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain versions")
     return ap
@@ -150,11 +182,16 @@ def main(argv=None) -> int:
         return 2
     if args.quant and cfg.family in PACKING_FAMILIES:
         cfg = dataclasses.replace(cfg, w_bits=args.quant)
+    try:
+        residency = build_residency_plan(cfg, args)
+    except ValueError as e:
+        print(f"[serve] {e}")
+        return 2
     device = resolve_device(args.device)
     params = lm.init_params(cfg, args.seed, device=device)
     before = ops.launch_counts()
     try:
-        m = run_pool_engine(cfg, params, args, device)
+        m = run_pool_engine(cfg, params, args, device, residency)
     except ValueError as e:
         # bad request/budget geometry (e.g. prompt+gen > --max-len)
         print(f"[serve] {e}")
@@ -170,6 +207,18 @@ def main(argv=None) -> int:
         f"TTFT {m['mean_ttft_s']*1e3:.0f} ms), "
         f"pool utilization {m['pool_utilization']*100:.1f}%"
     )
+    if m["residency"]:
+        r = m["residency"]
+        print(
+            f"[serve/residency] {r['resident_blocks']}/{r['n_blocks']} "
+            f"weight blocks resident, stream-ahead depth {r['stream_ahead']} "
+            f"(R_F); plan arithmetic, not measured: {r['resident_mib']:.2f} "
+            f"of {r['vmem_budget_mib']:.2f} MiB budget in tiles, "
+            f"{r['planned_stream_fraction']*100:.0f}% of the FFN weight bytes "
+            f"({r['planned_streamed_mib_per_step']:.2f} MiB per step) through "
+            f"stream_matmul; the HBM traffic on the card is the same, since "
+            f"resident layers also read their weights every step"
+        )
     print(
         "[serve/kernels] "
         + ", ".join(f"{k} {n} launches" for k, n in m["kernel_launches"].items())

@@ -10,7 +10,9 @@ is a Python loop over views of the stacked leaves.
 
 With ``cfg.w_bits`` in {1, 2} every FFN matmul goes through
 ``kernels.ops.packed_matmul``: on the card the carrier is decoded in
-registers by the CUDA kernel and never expanded in device memory.
+registers by the CUDA kernel and never expanded in device memory. Under
+a residency plan, the decode FFN of each streamed layer goes through
+``kernels.ops.stream_matmul`` instead (dense or packed).
 """
 
 from __future__ import annotations
@@ -97,6 +99,28 @@ def packed_dense(x: torch.Tensor, w: Any, bits: int) -> torch.Tensor:
 def packed_swiglu(x, w1, w3, w2, bits: int):
     h = F.silu(packed_dense(x, w1, bits)) * packed_dense(x, w3, bits)
     return packed_dense(h, w2, bits)
+
+
+def _streamed_matmul(x: torch.Tensor, w: Any, bits: int, depth: int) -> torch.Tensor:
+    """Matmul with the weight streamed through ``stream_matmul``'s
+    ``depth``-stage ring; its f32 product is cast to x's dtype, as in
+    ``packed_dense``."""
+    k = x.shape[-1]
+    if isinstance(w, dict):
+        out = ops.stream_matmul(
+            x, w["packed"], w["scale"], bits=bits, k=k, stream_depth=depth
+        )
+    else:
+        out = ops.stream_matmul(x, w, None, bits=0, k=k, stream_depth=depth)
+    return out.to(x.dtype)
+
+
+def streamed_swiglu(x, w1, w3, w2, bits: int, depth: int):
+    """The FFN of a layer the residency plan streams: every mat streamed."""
+    h = F.silu(_streamed_matmul(x, w1, bits, depth)) * _streamed_matmul(
+        x, w3, bits, depth
+    )
+    return _streamed_matmul(h, w2, bits, depth)
 
 
 # --------------------------------------------------------------------------
@@ -240,6 +264,13 @@ def _ffn_block(lp, cfg: ModelConfig, x, ln_name="ln2"):
     return x + y
 
 
+def _ffn_block_streamed(lp, cfg: ModelConfig, x, depth: int):
+    """``_ffn_block`` for a layer the residency plan streams: the same
+    pre-norm residual, weights through ``stream_matmul``."""
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + streamed_swiglu(h, lp["w1"], lp["w3"], lp["w2"], cfg.w_bits, depth)
+
+
 def _unembed(params: LMParams, cfg: ModelConfig, x):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
@@ -288,6 +319,9 @@ def decode_step_paged(
     pool_v: torch.Tensor,
     row_table: torch.Tensor,
     lengths: torch.Tensor,
+    *,
+    stream_mask: tuple[bool, ...] | None = None,
+    stream_depth: int = 2,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One serving step against a shared row-addressed KV pool.
 
@@ -298,10 +332,20 @@ def decode_step_paged(
     indexed write into the pool (the reference rebuilds the arrays), then
     each lane attends over its gathered rows at its own depth.
 
+    ``stream_mask`` ((L,) bools, from a ``runtime.residency`` plan) turns
+    on budgeted decode: a layer flagged True runs its FFN through
+    ``stream_matmul`` with a ``stream_depth``-stage ring, the others the
+    resident path. The reference's ``lax.cond`` per scanned layer is an
+    ``if`` per layer here.
+
     Returns (logits (B, 1, V) f32, pool_k, pool_v), the pools being the
     same tensors, updated in place.
     """
     _require_ported(cfg, "decode_step_paged")
+    if stream_mask is not None and len(stream_mask) != cfg.n_layers:
+        raise ValueError(
+            f"stream_mask has {len(stream_mask)} flags for {cfg.n_layers} layers"
+        )
     x = embed(token, params["embed"], torch_dtype(cfg))
     b = x.shape[0]
     s_max = row_table.shape[1]
@@ -322,7 +366,10 @@ def decode_step_paged(
             window=cfg.sliding_window,
         )
         x = x + dense(o.reshape(b, 1, -1), lp["wo"])
-        x = _ffn_block(lp, cfg, x)
+        if stream_mask is not None and stream_mask[i]:
+            x = _ffn_block_streamed(lp, cfg, x, stream_depth)
+        else:
+            x = _ffn_block(lp, cfg, x)
     return _unembed(params, cfg, x), pool_k, pool_v
 
 

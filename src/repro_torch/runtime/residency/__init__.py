@@ -1,0 +1,25 @@
+"""Budgeted weight residency (the executed analogue of FCMP's §V port).
+
+``plan`` compiles a :class:`RuntimeResidencyPlan` from (model config x
+budget) with the ``core.packing`` solvers running over
+``core.vmem_plan.WeightBlock`` carriers; ``Scheduler(residency=plan)``
+threads the plan into the paged serve step, so resident layers run the
+ordinary FFN path and streamed layers run
+``kernels.weight_stream.stream_matmul``.
+"""
+
+from repro_torch.runtime.residency.executor import supports_budgeted_decode
+from repro_torch.runtime.residency.plan import (
+    RuntimeResidencyPlan,
+    compile_residency_plan,
+    stream_ahead_depth,
+    weight_blocks,
+)
+
+__all__ = [
+    "RuntimeResidencyPlan",
+    "compile_residency_plan",
+    "stream_ahead_depth",
+    "supports_budgeted_decode",
+    "weight_blocks",
+]

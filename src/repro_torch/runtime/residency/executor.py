@@ -1,0 +1,22 @@
+"""Execute a residency plan: budgeted paged decode over a split weight set.
+
+Port of ``repro.runtime.residency.executor`` for the dense family. The
+plan's ``layer_stream_mask`` splits the layers into *resident* (the FFN
+runs the ordinary path: ``packed_matmul``, or ``torch.matmul`` for dense
+weights) and *streamed* (the FFN runs ``stream_matmul``, whose ring depth
+is the plan's ``stream_ahead``, the GALS R_F); ``Scheduler`` builds that
+step with ``runtime.steps.make_budgeted_paged_serve_step``. On the CPU
+both paths resolve to plain versions with the same arithmetic, so
+budgeted decode is token-identical to the unbudgeted path there.
+"""
+
+from __future__ import annotations
+
+from repro_torch.models.config import PORTED_FAMILIES, ModelConfig
+
+
+def supports_budgeted_decode(cfg: ModelConfig) -> bool:
+    """Budgeted decode = paged decode + a streamable FFN weight set, for
+    the families the port serves (dense; the reference also covers vlm
+    and moe, which are not ported yet)."""
+    return cfg.family in PORTED_FAMILIES

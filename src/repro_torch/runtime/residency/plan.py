@@ -1,0 +1,223 @@
+"""Compile a weight-residency plan: which FFN layers run resident, which stream.
+
+Port of ``repro.runtime.residency.plan`` over the H100 record
+(``core.resource_model.H100_SXM``):
+
+  * the *streamable set* is the FFN weight blocks, the weight memories
+    FCMP packs on the FPGA; attention projections, norms and the
+    embedding stay outside the plan,
+  * ``core.vmem_plan.pack_blocks`` runs the paper's bin-packing solvers
+    over the blocks' uint8 carriers so oddly shaped blocks share tiles,
+  * a greedy knapsack marks whole *regions* (one layer each) as
+    resident, densest traffic first, until the budget is spent; every
+    other layer streams its weights each decode step through
+    ``kernels.weight_stream.stream_matmul``,
+  * the paper's ``R_F`` becomes the depth of that kernel's shared-memory
+    ring (``stream_ahead_depth``): bit-packing leaves a memory-bandwidth
+    surplus (bf16 -> 1/2-bit moves 8-16x fewer bytes) that funds deeper
+    prefetch, as the memory-clock surplus funds bin heights > N_ports.
+
+What "resident" means on the H100: it selects the kernel and pins
+nothing, as in the reference, whose resident layers run the ordinary
+matmul with weights read from HBM on every step. A resident layer runs
+the port's ordinary FFN path (``packed_matmul``, or ``torch.matmul`` for
+dense weights); a streamed layer runs ``stream_matmul``. The budget's
+bytes and the streamed bytes of ``summary`` are plan arithmetic, not a
+reservation or a measurement on the card: both paths read every FFN
+weight from HBM on every decode step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.core.gals import N_PORTS
+from repro_torch.core.packing import Packing, bin_cost
+from repro_torch.core.resource_model import H100_SXM, GpuChip
+from repro_torch.core.vmem_plan import WeightBlock, pack_blocks, vmem_tile_ram
+from repro_torch.models.config import PORTED_FAMILIES, ModelConfig, torch_dtype
+
+MAX_STREAM_DEPTH = 8
+CHIP = H100_SXM
+MAX_HEIGHT = 4  # bin height H_B of the packing, as in the reference's default
+
+
+def _dtype_bytes(cfg: ModelConfig) -> int:
+    return torch.empty((), dtype=torch_dtype(cfg)).element_size()
+
+
+def _block_bits(cfg: ModelConfig) -> int:
+    return cfg.w_bits if cfg.w_bits in (1, 2) else _dtype_bytes(cfg) * 8
+
+
+def weight_blocks(cfg: ModelConfig) -> tuple[WeightBlock, ...]:
+    """The streamable weight-block set of one model replica: one block per
+    FFN matmul per layer, named ``L{l}.{mat}``, with ``bits_per_weight``
+    the packed precision or the dense dtype width. Every block is read
+    once per decode step. The reference's MoE expert and hybrid shared
+    blocks (and their per-step read weights) come with those families."""
+    if cfg.family not in PORTED_FAMILIES:
+        raise ValueError(
+            f"the residency plan covers the ported families "
+            f"{', '.join(PORTED_FAMILIES)}; got {cfg.family!r}"
+        )
+    bits = _block_bits(cfg)
+    d, ff = cfg.d_model, cfg.d_ff
+    mats = {"w1": (d, ff), "w3": (d, ff), "w2": (ff, d)}
+    return tuple(
+        WeightBlock(f"L{l:03d}.{mat}", r, c, bits)
+        for l in range(cfg.n_layers)
+        for mat, (r, c) in mats.items()
+    )
+
+
+def _region_of(name: str) -> str:
+    """The executor granularity a block belongs to: its layer (``L000``).
+    Bins never mix regions and the knapsack marks whole regions, so every
+    resident byte is one the layer-granular executor can use."""
+    return name.rsplit(".", 1)[0]
+
+
+def stream_ahead_depth(cfg: ModelConfig) -> int:
+    """GALS Eq. 2 mapped to the ring: R_F is the bandwidth surplus of
+    bit-packing (dense-dtype bits / packed bits), and the ring depth is
+    the virtual ports that surplus funds per bin height, ``N_ports * R_F
+    / H_B``, clamped to [2, 8] (a ring needs 2 slots to overlap at all).
+    bf16: 2-bit -> 4, 1-bit -> 8, dense -> 2."""
+    r_f = _dtype_bytes(cfg) * 8 / _block_bits(cfg)
+    depth = math.floor(N_PORTS * r_f / MAX_HEIGHT)
+    return max(2, min(MAX_STREAM_DEPTH, depth))
+
+
+@dataclasses.dataclass(frozen=True)
+class RuntimeResidencyPlan:
+    """A compiled residency schedule."""
+
+    model: str
+    chip: GpuChip
+    blocks: tuple[WeightBlock, ...]
+    bins: tuple[tuple[int, ...], ...]  # tile-bin membership (block indices)
+    bin_tiles: tuple[int, ...]  # tiles per bin
+    resident: tuple[bool, ...]  # per *bin*
+    vmem_budget_bytes: int
+    stream_ahead: int
+
+    @property
+    def resident_bytes(self) -> int:
+        return sum(
+            t * self.chip.tile_bytes for t, r in zip(self.bin_tiles, self.resident) if r
+        )
+
+    def block_resident(self) -> dict[str, bool]:
+        out = {}
+        for b, r in zip(self.bins, self.resident):
+            for i in b:
+                out[self.blocks[i].name] = r
+        return out
+
+    @property
+    def resident_block_count(self) -> int:
+        return sum(len(b) for b, r in zip(self.bins, self.resident) if r)
+
+    @property
+    def resident_fraction(self) -> float:
+        return self.resident_block_count / max(1, len(self.blocks))
+
+    @property
+    def streamable_bytes_per_step(self) -> int:
+        """Padded weight bytes per decode step of the whole streamable
+        set, resident or not (plan arithmetic)."""
+        return sum(b.padded_bytes(self.chip) for b in self.blocks)
+
+    @property
+    def streamed_bytes_per_step(self) -> int:
+        """Padded weight bytes per decode step that the plan sends through
+        ``stream_matmul`` (plan arithmetic: on the H100 the resident path
+        reads its weights from HBM every step too)."""
+        res = self.block_resident()
+        return sum(b.padded_bytes(self.chip) for b in self.blocks if not res[b.name])
+
+    @property
+    def stream_fraction(self) -> float:
+        """Share of the streamable bytes the plan streams."""
+        return self.streamed_bytes_per_step / max(1, self.streamable_bytes_per_step)
+
+    def layer_stream_mask(self, cfg: ModelConfig) -> tuple[bool, ...]:
+        """Per-layer 'FFN is streamed' flags: a layer runs resident only if
+        *all* of its FFN mats are resident."""
+        res = self.block_resident()
+        mask = []
+        for l in range(cfg.n_layers):
+            prefix = f"L{l:03d}."
+            mine = [r for n, r in res.items() if n.startswith(prefix)]
+            mask.append(not (mine and all(mine)))
+        return tuple(mask)
+
+    def summary(self) -> dict:
+        return {
+            "model": self.model,
+            "chip": self.chip.name,
+            "n_blocks": len(self.blocks),
+            "n_bins": len(self.bins),
+            "vmem_budget_mib": round(self.vmem_budget_bytes / 2**20, 3),
+            "resident_blocks": self.resident_block_count,
+            "resident_fraction": round(self.resident_fraction, 4),
+            "resident_mib": round(self.resident_bytes / 2**20, 3),
+            "planned_streamed_mib_per_step": round(
+                self.streamed_bytes_per_step / 2**20, 3
+            ),
+            "planned_stream_fraction": round(self.stream_fraction, 4),
+            "stream_ahead": self.stream_ahead,
+        }
+
+
+def compile_residency_plan(
+    cfg: ModelConfig, *, vmem_budget_bytes: int
+) -> RuntimeResidencyPlan:
+    """Pack carriers into tile bins (FFD, bins of ``MAX_HEIGHT``, on
+    ``CHIP``), then knapsack *regions* into the budget, ranked by traffic
+    value density: weight bytes avoided per step per budget byte. The
+    reference also takes a traffic profile, which the dense plan does not
+    depend on, and a solver, bin height and chip, which the port fixes to
+    the reference's defaults on the H100."""
+    blocks = weight_blocks(cfg)
+    regions = tuple(_region_of(b.name) for b in blocks)
+    packing: Packing = pack_blocks(
+        blocks, chip=CHIP, max_height=MAX_HEIGHT, regions=regions
+    )
+    ram = vmem_tile_ram(CHIP)
+    bins = tuple(tuple(b) for b in packing.bins)
+    bin_tiles = tuple(bin_cost([packing.items[i] for i in b], ram)[0] for b in bins)
+    groups: dict[str, list[int]] = {}
+    for j, b in enumerate(bins):
+        groups.setdefault(regions[b[0]], []).append(j)
+
+    def group_cost(js: list[int]) -> int:
+        return sum(bin_tiles[j] for j in js) * CHIP.tile_bytes
+
+    def density(js: list[int]) -> float:
+        avoided = sum(blocks[i].padded_bytes(CHIP) for j in js for i in bins[j])
+        return avoided / max(1, group_cost(js))
+
+    order = sorted(groups.values(), key=density, reverse=True)
+    resident = [False] * len(bins)
+    used = 0
+    for js in order:
+        cost = group_cost(js)
+        if used + cost <= vmem_budget_bytes:
+            for j in js:
+                resident[j] = True
+            used += cost
+    return RuntimeResidencyPlan(
+        model=cfg.name,
+        chip=CHIP,
+        blocks=blocks,
+        bins=bins,
+        bin_tiles=bin_tiles,
+        resident=tuple(resident),
+        vmem_budget_bytes=vmem_budget_bytes,
+        stream_ahead=stream_ahead_depth(cfg),
+    )

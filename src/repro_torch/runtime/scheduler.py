@@ -13,8 +13,13 @@ step, each lane at its own depth.
 round; the default is ``ceil(required_rf(slots))``, the paper's Eq. 2
 with H_B = slots co-resident requests over a dual-port memory.
 
-Not ported yet: ``prefix_cache``, ``speculative``, ``residency``,
-``handoff``, ``tracker``, ``spans`` and ``ledger``.
+``residency`` (a ``runtime.residency`` plan) runs decode through the
+budgeted step: the plan's streamed layers run their FFN through
+``stream_matmul``, the rest the resident path; prefill stays resident.
+
+Not ported yet: ``prefix_cache``, ``speculative``, ``handoff``,
+``tracker``, ``spans`` and ``ledger`` (and with them the residency
+plan's ledger records and per-round gauges).
 """
 
 from __future__ import annotations
@@ -24,30 +29,21 @@ import enum
 import math
 import time
 from collections import deque
-from fractions import Fraction
 
 import numpy as np
 import torch
 
+from repro_torch.core.gals import required_rf
 from repro_torch.models.config import PORTED_FAMILIES, ModelConfig
 from repro_torch.models.lm import LMParams, SamplingParams, sample_logits
 from repro_torch.runtime.kv_pool import KVPool
+from repro_torch.runtime.residency.plan import RuntimeResidencyPlan
 from repro_torch.runtime.steps import (
+    make_budgeted_paged_serve_step,
     make_chunk_prefill_step,
     make_paged_serve_step,
     make_pool_prefill_step,
 )
-
-N_PORTS = 2  # dual-port memory of the paper's Eq. 2
-
-
-def required_rf(h_b: int, n_ports: int = N_PORTS) -> Fraction:
-    """Minimum frequency ratio for bin height ``h_b`` (paper Eq. 2
-    inverted; the port's copy of ``repro.core.gals.required_rf``)."""
-    if h_b < 1:
-        raise ValueError("bin height must be >= 1")
-    return Fraction(h_b, n_ports)
-
 
 class RequestState(enum.Enum):
     QUEUED = "queued"
@@ -122,6 +118,7 @@ class Scheduler:
         decode_per_round: int | None = None,
         sampling: SamplingParams | None = None,
         prefill_chunk: int | None = None,
+        residency: RuntimeResidencyPlan | None = None,
     ):
         if cfg.family not in PORTED_FAMILIES:
             raise ValueError(f"Scheduler: family {cfg.family!r} is not ported")
@@ -143,7 +140,16 @@ class Scheduler:
         )
         self._prefill = make_pool_prefill_step(cfg)
         self._chunk_prefill = make_chunk_prefill_step(cfg)
-        self._decode = make_paged_serve_step(cfg)
+        # a residency plan sends decode through the budgeted step: its
+        # streamed layers run the FFN through stream_matmul
+        self.residency = residency
+        self._decode = (
+            make_budgeted_paged_serve_step(
+                cfg, residency.layer_stream_mask(cfg), residency.stream_ahead
+            )
+            if residency is not None
+            else make_paged_serve_step(cfg)
+        )
         self._chunk_cursor: dict[int, int] = {}
         self.queue: deque[Request] = deque()
         self.requests: dict[int, Request] = {}

@@ -50,3 +50,22 @@ def make_chunk_prefill_step(cfg: ModelConfig) -> Callable:
         )
 
     return step
+
+
+def make_budgeted_paged_serve_step(
+    cfg: ModelConfig, stream_mask: tuple[bool, ...], stream_depth: int
+) -> Callable:
+    """The paged serve step under a ``runtime.residency`` plan: layers
+    flagged in ``stream_mask`` ((L,) bools) stream their FFN weights
+    through ``stream_matmul``'s ring (depth = the plan's R_F analogue),
+    the others run the resident path. Same signature as
+    ``make_paged_serve_step``."""
+    mask = tuple(bool(f) for f in stream_mask)
+
+    def step(params, token, pool_k, pool_v, row_table, lengths):
+        return lm.decode_step_paged(
+            params, cfg, token, pool_k, pool_v, row_table, lengths,
+            stream_mask=mask, stream_depth=stream_depth,
+        )
+
+    return step
