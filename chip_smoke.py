@@ -16,6 +16,8 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               (never used by the port), the bound from bytes and flops, and
               the host's enqueue time per call. ``stream_matmul`` at bits 2/1/0 at the plan's ring depths,
               plus ragged and ring-edge cases checked for agreement only.
+              ``mvau`` at the CNV layer shapes at batch 256 (bits 1/2, L=3),
+              plus ragged M/N/K, L=1/15 and +inf thresholds for agreement.
 4. prefill -- smollm-360m at full width and depth with 2-bit FFN carriers:
               ``prefill_with_cache`` on a 512-token prompt in bf16 on the
               card against float32 on the CPU, same weights; then one
@@ -32,6 +34,14 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               budgeted run stream_matmul's ring kernel exactly 3 x streamed
               layers x decode steps, and its split_reduce kernel once for
               each of those calls whose K sweep is split.
+6. cnn     -- the paper's CNV at full width (w1a2, then w2a2), random
+              weights with randomised BN statistics and 256 random images
+              from a seed: ``cnn_forward_streamlined`` on the card against
+              the float32 plain path on the CPU, layer by layer (each layer
+              fed the CPU's input; levels equal but for ties) and end to
+              end (argmax agreement); images/s at batch 256 and 1, the
+              card's time per layer split into mvau / im2col / the rest
+              (torch.profiler), and exactly 7 ``mvau`` launches a forward.
 
 The last lines are nvidia-smi's, then ``{"kernels": [...]}``, then
 ``{"ok": true, "device": {...}}``.
@@ -55,6 +65,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, NVIDIA data sheet
+F32_FLOPS = 67e12  # float32 outside the tensor cores, NVIDIA data sheet
 REPS = 30
 SLEEP_CYCLES = 2_000_000  # ~1 ms at the H100's clock: covers the host's enqueue
 PROMPT, CHUNK, LANES, MAX_LEN = 512, 256, 8, 640
@@ -68,6 +79,14 @@ PREFILL_TOP1_SLACK = 0.1  # the card's top-1 token must be within 0.1 of the CPU
 STREAM_REL_TOL = 1e-5  # both sides f32 sums of exact values (bf16 x and rows, +-1/0 codes); only order differs
 BUDGET_MIN_COS = 0.999  # the two FFN kernels round bf16 activations in other orders over 32 layers
 BUDGET_TOP1_SLACK = 0.1  # the budgeted top-1 token must be within 0.1 of the unbudgeted max logit
+# mvau: both sides sum the same f32 products (exact +-1/0 weights) in other
+# orders, so a level may differ only where the plain version's sign*acc
+# lies within this of a threshold (relative to 1 + |T|)
+MVAU_TIE_TOL = 1e-5
+CNN_BATCH, CNN_RUNS, CNN_PROFILED = 256, 20, 3
+CNN_MIN_ARGMAX = 0.99  # card vs CPU logits: argmax agreement over the 256 images
+CNN_LOGIT_TOL = 1e-4  # fc2 (a plain f32 conv, TF32 off) card vs CPU, relative to 1 + max|logit|
+CNN_MVAU_PER_FORWARD = 7  # conv1-5, fc0, fc1: every 1/2-bit layer of CNV
 
 
 def fail(msg: str) -> None:
@@ -87,8 +106,8 @@ def nvidia_smi() -> str:
     return out[0].strip()
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+def bound_ms(n_bytes: float, flops: float, peak: float = BF16_FLOPS) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -303,6 +322,94 @@ def main() -> int:
         stream_case(*args, timed=False)
     stream_case(LANES, d, ff, 0, 3, timed=False, w_dtype=torch.float32)
 
+    from repro_torch.kernels import mvau as mv
+    from repro_torch.models import cnn
+    from repro_torch.quant.quantizers import pack_bits
+
+    gen_dev = torch.Generator(device=dev).manual_seed(0)
+    act_scale = 2.0 / math.sqrt(1.5)  # the LSQ scale of CNV's 2-bit activations
+
+    def near_threshold(acc, thr):
+        """(M, N) mask: sign*acc lies within the tie tolerance of one of its
+        column's thresholds (N, L)."""
+        gap = (acc[..., None] - thr[None]).abs()
+        near = (gap <= MVAU_TIE_TOL * (1.0 + thr.abs()[None])) & torch.isfinite(thr)[None]
+        return near.any(dim=-1)
+
+    def mvau_case(label, m, k, n, bits, n_levels, timed, inf_rows=0):
+        """The kernel against ``mvau_ref`` on the same card tensors. x holds
+        2-bit activation levels times their scale, as the im2col columns
+        do; thresholds are sorted N(0, scale * sqrt(K))."""
+        x = torch.randint(-2, 2, (m, k), generator=gen_dev, device=dev).float() * act_scale
+        codes = torch.randint(0, 2 if bits == 1 else 3, (k + (-k) % (8 // bits), n),
+                              generator=gen_dev, device=dev)
+        carrier = pack_bits(codes, bits)
+        thr = torch.sort(torch.randn((n, n_levels), generator=gen_dev, device=dev)
+                         * act_scale * math.sqrt(k), dim=1).values
+        thr[:inf_rows, n_levels // 2:] = math.inf
+        signs = torch.randint(0, 2, (n,), generator=gen_dev, device=dev).float() * 2 - 1
+        args = (x, carrier, thr, signs)
+        got = mv.mvau(*args, bits, k, -2)
+        want = ref.mvau_ref(x, carrier, thr, signs, -2, bits, k)
+        w_dec = ref.decode_weights(carrier, bits, k)
+        diff = got != want
+        ties = near_threshold((x @ w_dec) * signs, thr)
+        torch.cuda.synchronize()
+        n_diff, n_bad = int(diff.sum()), int((diff & ~ties).sum())
+        err = int((got - want).abs().max())
+        if n_bad or got.dtype != torch.int32:
+            fail(f"mvau {label} bits={bits} M={m} K={k} N={n} L={n_levels}: "
+                 f"{n_bad} levels differ away from a threshold ({n_diff} in all)")
+        case = dict(case=label, bits=bits, m=m, k=k, n=n, levels=n_levels,
+                    inf_threshold_rows=inf_rows, max_abs_err=err,
+                    tie_flips=n_diff, near_ties=int(ties.sum()))
+        if timed:
+            n_bytes = x.numel() * 4 + carrier.numel() + thr.numel() * 4 + n * 4 + m * n * 4
+            b_ms, b_by = bound_ms(n_bytes, 2.0 * m * k * n + m * n * n_levels, F32_FLOPS)
+            case.update(
+                ms=median_ms(lambda: mv.mvau(*args, bits, k, -2)),
+                host_us=host_us(lambda: mv.mvau(*args, bits, k, -2)),
+                plain_ms=median_ms(lambda: ref.mvau_ref(x, carrier, thr, signs, -2, bits, k)),
+                library_ms=median_ms(lambda: torch.matmul(x, w_dec)),
+                bound_ms=b_ms, bound_by=b_by,
+            )
+        phase("kernel", name="mvau", **case)
+        return case
+
+    def cnv_mvau_shapes(batch):
+        """(layer, M, K, N) of every 1/2-bit layer of CNV at ``batch``."""
+        shapes, h = [], 32
+        for sp in cnn.cnv_topology():
+            h = (h + 2 * sp.pad - sp.k) // sp.stride + 1
+            if sp.w_bits in (1, 2) and sp.a_bits > 0:
+                shapes.append((sp.name, batch * h * h, sp.k * sp.k * sp.c_in, sp.c_out))
+            if sp.pool:
+                h //= 2
+        return shapes
+
+    mvau_cases = [
+        mvau_case(name, m, k, n, bits, 3, timed=True)
+        for bits in (1, 2) for name, m, k, n in cnv_mvau_shapes(CNN_BATCH)
+    ]
+    # the seven layer cases of one bit width summed: the kernel's, the
+    # plain version's, the library matmul's and the bound's time for one
+    # CNV forward at batch 256
+    mvau_forward = []
+    for bits in (1, 2):
+        layer_cases = [c for c in mvau_cases if c["bits"] == bits]
+        mvau_forward.append(dict(bits=bits, layers=len(layer_cases), **{
+            key: sum(c[key] for c in layer_cases)
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}))
+        phase("kernel", name="mvau", case="cnv_forward", **mvau_forward[-1])
+    # ragged M, N and K (1-bit padding codes), one and fifteen thresholds,
+    # +inf thresholds
+    for label, m, k, n, bits, n_levels, inf_rows in (
+        ("ragged_l1", 1000, 100, 70, 1, 1, 0), ("ragged_l15", 1000, 100, 70, 1, 15, 20),
+        ("ragged_l15", 1000, 100, 70, 2, 15, 20), ("ragged_m5", 5, 100, 70, 1, 3, 35),
+        ("ragged_n3", 300, 24, 3, 2, 3, 1),
+    ):
+        mvau_case(label, m, k, n, bits, n_levels, timed=False, inf_rows=inf_rows)
+
     # ---------------- 4. full-width prefill, card vs CPU ----------------
     cfg2 = dataclasses.replace(cfg, w_bits=2)
     params = lm.init_params(cfg2, 0, device=dev)
@@ -494,10 +601,177 @@ def main() -> int:
             for side, run in (("unbudgeted", base), ("budgeted", bud))
         })
 
+    # ---------------- 6. CNV at full width, card vs CPU ----------------
+    def cnn_setup(w_bits):
+        """CNV with random weights from a seed, randomised BN statistics
+        (a quarter of the gammas negative) and 256 random images."""
+        specs = cnn.cnv_topology(w_bits=w_bits, a_bits=2)
+        g = torch.Generator().manual_seed(w_bits)
+        params = cnn.init_cnn_params(specs, g)
+        for sp in specs:
+            p = params[sp.name]
+            p["bn_mu"] = torch.randn(sp.c_out, generator=g) * 0.2
+            p["bn_var"] = torch.rand(sp.c_out, generator=g) * 2.0 + 0.1
+            sign = torch.where(torch.rand(sp.c_out, generator=g) < 0.25, -1.0, 1.0)
+            p["bn_gamma"] = sign * (0.5 + torch.rand(sp.c_out, generator=g))
+            p["bn_beta"] = torch.randn(sp.c_out, generator=g) * 0.1
+        return specs, params, torch.randn((CNN_BATCH, 32, 32, 3), generator=g)
+
+    def cnn_layer_check(specs, sp_cpu, sp_card, trace) -> list[dict]:
+        """Each layer on the card, fed the CPU plain path's input: its levels
+        must equal the CPU's but where the CPU's sign*acc is a tie."""
+        rows = []
+        for sp, (name, x_in, y_cpu) in zip(specs, trace):
+            y_card = cnn.streamlined_layer(sp_card[name], sp, x_in.to(dev)).cpu()
+            if sp.a_bits == 0:  # the logits: a plain f32 convolution
+                err = (y_card - y_cpu).abs().max().item()
+                if not err <= CNN_LOGIT_TOL * (1.0 + y_cpu.abs().max().item()):
+                    fail(f"cnn {name}: card vs CPU logits differ by {err}")
+                rows.append(dict(layer=name, max_abs_err=err))
+                continue
+            spec = sp_cpu[name]["thresholds"]
+            scale = spec.scale.item()
+            diff = (torch.round(y_card / scale) != torch.round(y_cpu / scale)).reshape(-1, sp.c_out)
+            n_diff = int(diff.sum())
+            if n_diff:
+                cols, _ = cnn.im2col(x_in, sp.k, sp.stride, sp.pad)
+                wm = sp_cpu[name]["w"].reshape(-1, sp.c_out)
+                if sp.w_bits in (1, 2):
+                    carrier, thr = cnn.mvau_weights(wm, spec, sp.w_bits)
+                    acc = cols @ ref.decode_weights(carrier, sp.w_bits, wm.shape[0])
+                else:
+                    thr, acc = spec.thresholds, cols @ wm
+                n_bad = int((diff & ~near_threshold(acc * spec.signs, thr)).sum())
+                if n_bad:
+                    fail(f"cnn {name}: {n_bad} levels differ from the CPU's away from "
+                         f"a threshold ({n_diff} in all)")
+            rows.append(dict(layer=name, outputs=diff.numel(), tie_flips=n_diff))
+        return rows
+
+    def cnn_profile(fwd, xb, specs) -> dict:
+        """The card's time per forward by layer (torch.profiler over
+        CNN_PROFILED forwards), split into ``mvau``, ``im2col`` and the
+        rest. The ``cnn.<layer>`` and ``im2col`` ranges carry the device
+        time of the PyTorch kernels launched inside them; the profiler
+        leaves ctypes launches out of the ranges, so each ``mvau`` kernel
+        is given to its layer by launch order (one per quantized layer, in
+        layer order)."""
+        labels = {f"cnn.{sp.name}": sp.name for sp in specs}
+        q_layers = [sp.name for sp in specs if sp.w_bits in (1, 2) and sp.a_bits > 0]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(CNN_PROFILED):
+                fwd(xb)
+            torch.cuda.synchronize()
+        per_layer = {sp.name: dict(total=0.0, mvau=0.0, im2col=0.0) for sp in specs}
+        kernels_ms: dict[str, float] = {}
+        mvau_events = []
+        n_kernels = 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                if e.name in labels or e.name == "im2col":  # annotations, not kernels
+                    continue
+                n_kernels += 1
+                key = e.name[:60]
+                kernels_ms[key] = kernels_ms.get(key, 0.0) + e.time_range.elapsed_us() / CNN_PROFILED / 1e3
+                if "mvau_kernel" in e.name:
+                    mvau_events.append(e)
+            elif e.name in labels:
+                per_layer[labels[e.name]]["total"] += e.device_time_total / CNN_PROFILED / 1e3
+            elif e.name == "im2col":
+                up = e.cpu_parent
+                while up is not None and up.name not in labels:
+                    up = up.cpu_parent
+                if up is not None:
+                    per_layer[labels[up.name]]["im2col"] += e.device_time_total / CNN_PROFILED / 1e3
+        if len(mvau_events) != len(q_layers) * CNN_PROFILED:
+            fail(f"cnn profile: {len(mvau_events)} mvau kernels for {CNN_PROFILED} forwards")
+        mvau_events.sort(key=lambda e: e.time_range.start)
+        for i, e in enumerate(mvau_events):
+            ms = e.time_range.elapsed_us() / CNN_PROFILED / 1e3
+            row = per_layer[q_layers[i % len(q_layers)]]
+            row["mvau"] += ms
+            row["total"] += ms
+        for row in per_layer.values():
+            row["rest"] = row["total"] - row["mvau"] - row["im2col"]
+        return dict(
+            per_layer_ms=per_layer,
+            device_ms=sum(kernels_ms.values()),
+            kernels_per_forward=n_kernels / CNN_PROFILED,
+            mvau_ms=sum(r["mvau"] for r in per_layer.values()),
+            im2col_ms=sum(r["im2col"] for r in per_layer.values()),
+            top_kernels_ms=dict(sorted(kernels_ms.items(), key=lambda kv: -kv[1])[:8]),
+        )
+
+    cnn_runs = []
+    cnn_mvau_launches = cnn_forwards = 0
+    for w_bits in (1, 2):
+        specs, params, images = cnn_setup(w_bits)
+        sp_cpu = cnn.streamline_params(params, specs)
+        trace = []
+        t0 = time.monotonic()
+        logits_cpu = cnn.cnn_forward_streamlined(sp_cpu, specs, images, trace=trace)
+        cpu_s = time.monotonic() - t0
+        sp_card = cnn.streamline_params(
+            {name: {k: v.to(dev) for k, v in p.items()} for name, p in params.items()}, specs)
+        x_card = images.to(dev)
+        layers = cnn_layer_check(specs, sp_cpu, sp_card, trace)
+        del trace
+
+        def fwd(xb):
+            return cnn.cnn_forward_streamlined(sp_card, specs, xb)
+
+        def counted(run, n_forwards):
+            """``run`` with the launch counters reset just before and read
+            just after: only mvau, exactly CNN_MVAU_PER_FORWARD a forward."""
+            nonlocal cnn_mvau_launches, cnn_forwards
+            ops.reset_launch_counts()
+            out = run()
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            want = dict.fromkeys(counts, 0) | {"mvau": CNN_MVAU_PER_FORWARD * n_forwards}
+            if counts != want:
+                fail(f"cnn w{w_bits}a2: launches {counts}, not {want}")
+            cnn_mvau_launches += counts["mvau"]
+            cnn_forwards += n_forwards
+            return out
+
+        logits = counted(lambda: fwd(x_card), 1).cpu()
+        agree = (logits.argmax(dim=1) == logits_cpu.argmax(dim=1)).float().mean().item()
+        if not (tuple(logits.shape) == (CNN_BATCH, 10) and bool(torch.isfinite(logits).all())
+                and agree >= CNN_MIN_ARGMAX):
+            fail(f"cnn w{w_bits}a2 card vs CPU: shape {tuple(logits.shape)}, argmax agreement {agree}")
+        speed = {}
+        for batch in (CNN_BATCH, 1):
+            xb = x_card[:batch].contiguous()
+            for _ in range(3):
+                fwd(xb)
+            torch.cuda.synchronize()
+
+            def timed_runs():
+                times = []
+                for _ in range(CNN_RUNS):
+                    t0 = time.perf_counter()
+                    fwd(xb)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                return statistics.median(times)
+
+            med = counted(timed_runs, CNN_RUNS)
+            speed[f"batch{batch}"] = dict(forward_ms=med * 1e3, images_per_s=batch / med)
+        prof_row = counted(lambda: cnn_profile(fwd, x_card, specs), CNN_PROFILED)
+        prof_row["device_busy_share"] = prof_row["device_ms"] / speed[f"batch{CNN_BATCH}"]["forward_ms"]
+        run = dict(w_bits=w_bits, a_bits=2, batch=CNN_BATCH, argmax_agreement=agree,
+                   max_abs_logit_diff=(logits - logits_cpu).abs().max().item(),
+                   cpu_forward_s=cpu_s, layers=layers, speed=speed, profile=prof_row)
+        cnn_runs.append(run)
+        phase("cnn", **run)
+        del sp_card, x_card, params, sp_cpu
+
     # ---------------- result ----------------
     head_pm = next(c for c in packed_cases if (c["bits"], c["m"], c["k"]) == (2, LANES, d))
     head_fa = flash_cases[0]
     head_sm = stream_cases[0]
+    head_mv = next(c for c in mvau_cases if (c["case"], c["bits"]) == ("conv1", 1))
     kernels = [
         dict(name="packed_matmul", route="cuda",
              source="src/repro_torch/csrc/packed_matmul.cu",
@@ -530,6 +804,20 @@ def main() -> int:
              **{k: head_sm[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")},
              cases=stream_cases),
+        dict(name="mvau", route="cuda",
+             source="src/repro_torch/csrc/mvau.cu",
+             replaces="src/repro/kernels/mvau.py:57",
+             launches=cnn_mvau_launches,
+             forwards=cnn_forwards,
+             launches_per_forward=cnn_mvau_launches / cnn_forwards,
+             shape=f"conv1 bits=1 M={head_mv['m']} K={head_mv['k']} N={head_mv['n']} L=3 f32",
+             tolerance=f"int32 levels equal, except where the plain sign*acc lies within "
+                       f"{MVAU_TIE_TOL}*(1+|T|) of a threshold",
+             library_call="torch.matmul(x, decoded weight) in f32: the matmul part only",
+             **{k: head_mv[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
+             cnv_forward=mvau_forward,
+             cases=mvau_cases),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

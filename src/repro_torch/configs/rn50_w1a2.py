@@ -1,0 +1,5 @@
+"""RN50-W1A2 (binary-weight ResNet-50 on Alveo U250) — paper §III/§V."""
+
+from repro_torch.configs.accel import make_rn50
+
+ACCEL = make_rn50(1)

@@ -92,6 +92,25 @@ class Packing:
             return 1.0
         return useful / (blocks * self.ram.capacity_bits)
 
+    @property
+    def heights(self) -> list[int]:
+        return [len(b) for b in self.bins]
+
+    @property
+    def odd_height_bins(self) -> int:
+        return sum(1 for b in self.bins if len(b) > 1 and len(b) % 2 == 1)
+
+    def bin_widths_bits(self) -> list[int]:
+        out = []
+        for b in self.bins:
+            its = [self.items[i] for i in b]
+            _, layout = bin_cost(its, self.ram)
+            if layout == "vertical":
+                out.append(sum(it.width for it in its))
+            else:
+                out.append(max((it.width for it in its), default=0))
+        return out
+
 
 def baseline_packing(items: Sequence[PackItem], ram: RamPrimitive = BRAM18) -> Packing:
     """No packing: one buffer per memory structure (the FINN default)."""
@@ -219,6 +238,10 @@ class GaParams:
     p_mut: float = 0.3
     generations: int = 60
     seed: int = 0
+
+
+GA_PARAMS_CNV = GaParams(population=50, p_mut=0.3)
+GA_PARAMS_RN50 = GaParams(population=75, p_mut=0.4)
 
 
 def _genome_cost(

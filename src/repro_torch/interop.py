@@ -1,9 +1,11 @@
 """Carry the reference's weights into the port.
 
-``params_from_reference`` takes the JAX package's parameter pytree with
+``params_from_reference`` takes the JAX package's LM parameter pytree with
 numpy leaves (the caller runs ``jax.tree.map(np.asarray, params)``) and
 returns the port's ``LMParams``: stacked ``(L, ...)`` leaves and packed
-``{"packed", "scale"}`` dicts carry over byte for byte. ``jax.random``
+``{"packed", "scale"}`` dicts carry over byte for byte.
+``cnn_params_from_reference`` does the same for the CNN's
+``{layer: {w, bn_*, act_scale}}`` tree. ``jax.random``
 initialisation cannot be reproduced in torch, so this is how parity tests
 give both packages identical weights.
 """
@@ -64,3 +66,21 @@ def params_from_reference(
                 f"cfg.w_bits is {cfg.w_bits}"
             )
     return LMParams(_convert(tree, device, dtype))
+
+
+CNN_LEAVES = ("w", "bn_gamma", "bn_beta", "bn_mu", "bn_var", "act_scale")
+
+
+def cnn_params_from_reference(
+    tree: dict[str, Any], device: str | torch.device
+) -> dict[str, dict[str, torch.Tensor]]:
+    """The reference's CNN parameters ``{layer: {w (HWIO), bn_gamma,
+    bn_beta, bn_mu, bn_var, act_scale}}`` (numpy or torch leaves) as the
+    port's, on ``device``, byte for byte."""
+    out = {}
+    for layer, leaves in tree.items():
+        if not isinstance(leaves, dict) or set(leaves) != set(CNN_LEAVES):
+            got = sorted(leaves) if isinstance(leaves, dict) else type(leaves).__name__
+            raise ValueError(f"layer {layer!r}: expected leaves {CNN_LEAVES}, got {got}")
+        out[layer] = {name: _tensor(a).to(device) for name, a in leaves.items()}
+    return out

@@ -1,6 +1,6 @@
 """Public entry points of the port's kernels.
 
-Port of ``repro.kernels.ops`` for what the serve path uses. The CUDA
+Port of ``repro.kernels.ops`` for what the serve and CNN paths use. The CUDA
 kernels mask their own ragged edges, so no block padding happens here;
 these functions only flatten batch dims and lay out heads.
 """
@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mvau as _mvau
 from repro_torch.kernels import packed_matmul as _pm
 from repro_torch.kernels import weight_stream as _ws
 from repro_torch.quant.quantizers import pack_bits
@@ -43,6 +44,27 @@ def stream_matmul(
         x.reshape(-1, k).contiguous(), w, scale, bits, k, stream_depth
     )
     return out.reshape(*lead, w.shape[1])
+
+
+def mvau(
+    x: torch.Tensor,
+    carrier: torch.Tensor,
+    thresholds: torch.Tensor,
+    signs: torch.Tensor,
+    *,
+    bits: int,
+    k: int,
+    offset: int = 0,
+) -> torch.Tensor:
+    """Fused packed matmul + thresholding. x: (..., K), cast to f32 as the
+    reference's kernel casts it; carrier: (ceil(K*bits/8), N); thresholds:
+    (N, L); signs: (N,). Returns (..., N) int32 levels. The kernel masks
+    ragged M, N and K itself, so nothing is padded here (the reference pads
+    N with +inf thresholds and sign +1, and K with zeros)."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, k).to(torch.float32).contiguous()
+    out = _mvau.mvau(x2, carrier, thresholds, signs, bits, k, offset)
+    return out.reshape(*lead, carrier.shape[1])
 
 
 def pack_weights(w_values: torch.Tensor, bits: int) -> torch.Tensor:
@@ -90,6 +112,7 @@ _COUNTERS = {
     "packed_matmul": _pm.COUNTER,
     "flash_fwd": _fa.COUNTER,
     "stream_matmul": _ws.COUNTER,
+    "mvau": _mvau.COUNTER,
     "split_reduce": _ws.REDUCE_COUNTER,  # stream_matmul's second kernel
 }
 

@@ -62,6 +62,24 @@ def stream_matmul_ref(
     return out * scale[None, :].to(torch.float32)
 
 
+def mvau_ref(
+    x: torch.Tensor,
+    packed_w: torch.Tensor,
+    thresholds: torch.Tensor,
+    signs: torch.Tensor,
+    offset: int,
+    bits: int,
+    k: int,
+) -> torch.Tensor:
+    """Plain version of the fused MVAU: packed matmul, then integer
+    thresholding. x: (M, K); packed_w: (ceil(K*bits/8), N) uint8;
+    thresholds: (N, L) ascending per output channel; signs: (N,) in
+    {-1,+1}. Returns int32 levels ``offset + #{l : sign*acc >= T_l}``."""
+    acc = (x.to(torch.float32) @ decode_weights(packed_w, bits, k)) * signs[None, :]
+    levels = (acc[..., None] >= thresholds[None, :, :]).sum(dim=-1, dtype=torch.int32)
+    return levels + offset
+
+
 def flash_fwd_ref(
     q: torch.Tensor,
     k: torch.Tensor,

@@ -1,17 +1,91 @@
-"""Bit packing: the carrier format of the packed-weight kernels.
+"""Quantizers and bit packing: the port of ``repro.quant.quantizers``.
 
-Port of ``repro.quant.quantizers.pack_bits`` / ``unpack_bits`` on uint8
-tensors. Weight ``k = i*per + j`` (``per = 8 // bits``) sits in carrier
-row ``i`` at bit offset ``j*bits``. Besides the reference's 1/2/4 bits,
-8 bits is accepted (one code per byte), so ``ops.pack_weights`` covers
-every width ``kernels.ref.decode_weights`` decodes.
+The forward quantizers of the paper's QAT graph (§III-A): binary /
+ternary / int-N weights through a straight-through estimator, and LSQ
+learned-scale activations. Their values equal the reference's: ``_ste``
+is ``x + (q - x).detach()`` (not ``q``: the two differ by an ulp, and the
+streamlined path's weight magnitude sees it), binary maps 0 to +1, and
+``torch.round`` rounds half to even as ``jnp.round`` does. The LSQ
+gradient of Esser et al. and the STE backward as autograd Functions come
+with training.
+
+Bit packing is the carrier format of the packed-weight kernels. Weight
+``k = i*per + j`` (``per = 8 // bits``) sits in carrier row ``i`` at bit
+offset ``j*bits``. Besides the reference's 1/2/4 bits, 8 bits is accepted
+(one code per byte), so ``ops.pack_weights`` covers every width
+``kernels.ref.decode_weights`` decodes.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 _BITS = (1, 2, 4, 8)
+
+
+def _ste(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Straight-through: forward ``x + (q - x)``, backward identity."""
+    return x + (q - x).detach()
+
+
+def lsq_quantize(x: torch.Tensor, scale, qn: int, qp: int) -> torch.Tensor:
+    """LSQ forward: q = clip(round(x/s), -qn, qp) * s, s = max(scale, 1e-8)."""
+    s = torch.clamp(torch.as_tensor(scale, dtype=x.dtype, device=x.device), min=1e-8)
+    return torch.clamp(torch.round(x / s), -qn, qp) * s
+
+
+def int_act(x: torch.Tensor, scale, bits: int, signed: bool = True) -> torch.Tensor:
+    """LSQ-quantized activation (2-bit / 4-bit in the paper)."""
+    if signed:
+        qn, qp = 2 ** (bits - 1), 2 ** (bits - 1) - 1
+    else:
+        qn, qp = 0, 2**bits - 1
+    return lsq_quantize(x, scale, qn, qp)
+
+
+def init_act_scale(bits: int = 2, device=None) -> torch.Tensor:
+    """LSQ init ~ 2<|x|>/sqrt(qp); a constant, as in the reference."""
+    return torch.tensor(2.0 / math.sqrt(2 ** (bits - 1) - 0.5), dtype=torch.float32,
+                        device=device)
+
+
+def _out_axes(w: torch.Tensor) -> tuple[int, ...]:
+    return tuple(range(w.dim() - 1))  # every axis but the last (out channels)
+
+
+def binary_weight(w: torch.Tensor) -> torch.Tensor:
+    """1-bit: sign(w) * E|w| per output channel, with sign(0) = +1."""
+    alpha = torch.mean(torch.abs(w), dim=_out_axes(w), keepdim=True)
+    q = torch.where(w >= 0, 1.0, -1.0).to(w.dtype) * alpha
+    return _ste(w, q)
+
+
+def ternary_weight(w: torch.Tensor, delta_frac: float = 0.7) -> torch.Tensor:
+    """2-bit ternary (Li et al.): t = 0.7*E|w|, levels {-a, 0, +a}."""
+    axes = _out_axes(w)
+    mean_abs = torch.mean(torch.abs(w), dim=axes, keepdim=True)
+    mask = (torch.abs(w) > delta_frac * mean_abs).to(w.dtype)
+    alpha_num = torch.sum(torch.abs(w) * mask, dim=axes, keepdim=True)
+    alpha = alpha_num / torch.clamp(torch.sum(mask, dim=axes, keepdim=True), min=1.0)
+    return _ste(w, torch.sign(w) * mask * alpha)
+
+
+def int_weight(w: torch.Tensor, bits: int = 8) -> torch.Tensor:
+    """Symmetric signed int-N weights (first/last layers, 8-bit)."""
+    qp = 2 ** (bits - 1) - 1
+    s = torch.amax(torch.abs(w), dim=_out_axes(w), keepdim=True) / qp
+    s = torch.clamp(s, min=1e-8)
+    return _ste(w, torch.clamp(torch.round(w / s), -qp - 1, qp) * s)
+
+
+def quantize_weight(w: torch.Tensor, w_bits: int) -> torch.Tensor:
+    if w_bits == 1:
+        return binary_weight(w)
+    if w_bits == 2:
+        return ternary_weight(w)
+    return int_weight(w, w_bits)
 
 
 def pack_bits(q_codes: torch.Tensor, bits: int) -> torch.Tensor:
@@ -44,3 +118,21 @@ def unpack_bits(packed: torch.Tensor, bits: int, k: int) -> torch.Tensor:
     codes = (packed.unsqueeze(1) >> shifts) & mask
     out = codes.reshape((packed.shape[0] * per,) + tuple(packed.shape[1:]))
     return out[:k]
+
+
+def codes_from_binary(w_sign: torch.Tensor) -> torch.Tensor:
+    """{-1,+1} -> {0,1} codes."""
+    return (w_sign > 0).to(torch.uint8)
+
+
+def binary_from_codes(codes: torch.Tensor) -> torch.Tensor:
+    return codes.to(torch.float32) * 2.0 - 1.0
+
+
+def codes_from_ternary(w_tern: torch.Tensor) -> torch.Tensor:
+    """{-1,0,+1} -> {0,1,2} codes (2-bit)."""
+    return (w_tern + 1).to(torch.uint8)
+
+
+def ternary_from_codes(codes: torch.Tensor) -> torch.Tensor:
+    return codes.to(torch.float32) - 1.0

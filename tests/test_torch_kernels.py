@@ -17,6 +17,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
 from repro.quant.quantizers import pack_bits  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels import mvau as tmvau  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import packed_matmul as tpm  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
@@ -63,6 +64,76 @@ def test_packed_matmul_wrapper_rejects_what_the_kernel_does_not_take():
         tpm.packed_matmul(torch.zeros((4, 16)), carrier, scale, 2, 16)
     with pytest.raises(ValueError):  # scale must be f32
         tpm.packed_matmul(x, carrier, scale.double(), 2, 12)
+
+
+MVAU_SHAPES = [(8, 32, 16), (16, 64, 128), (128, 256, 128), (33, 72, 50)]
+
+
+def _mvau_case(rng, lead, k, n, bits, n_levels):
+    x, carrier, _ = _packed_case(rng, lead, k + (-k) % (8 // bits), n, bits)
+    x = np.ascontiguousarray(x[..., :k])  # a ragged K keeps the carrier's padding codes
+    thresholds = np.sort(rng.normal(scale=np.sqrt(k), size=(n, n_levels)), axis=1).astype(np.float32)
+    signs = rng.choice([-1.0, 1.0], size=(n,)).astype(np.float32)
+    return x, carrier, thresholds, signs
+
+
+def _mvau_both(x, carrier, thresholds, signs, bits, k, offset):
+    want = jops.mvau(
+        jnp.asarray(x), jnp.asarray(carrier), jnp.asarray(thresholds), jnp.asarray(signs),
+        bits=bits, k=k, offset=offset, interpret=True,
+    )
+    got = tops.mvau(
+        torch.from_numpy(x), torch.from_numpy(carrier), torch.from_numpy(thresholds),
+        torch.from_numpy(signs), bits=bits, k=k, offset=offset,
+    )
+    return got, np.asarray(want)
+
+
+@pytest.mark.parametrize("bits", [1, 2])
+@pytest.mark.parametrize("m,k,n", MVAU_SHAPES, ids=["small", "wide", "aligned", "ragged"])
+@pytest.mark.parametrize("n_levels", [1, 3, 7])
+def test_mvau_plain_matches_pallas_interpret(bits, m, k, n, n_levels):
+    """The cases of ``tests/test_kernels.py``'s mvau sweep: int32 levels equal."""
+    rng = np.random.default_rng(7 + m + k + n + bits + n_levels)
+    x, carrier, thresholds, signs = _mvau_case(rng, (m,), k, n, bits, n_levels)
+    offset = -(n_levels + 1) // 2
+    got, want = _mvau_both(x, carrier, thresholds, signs, bits, k, offset)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (m, n)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize(
+    "lead,k,n,bits,n_levels",
+    [((2, 12), 32, 16, 1, 1), ((2, 3, 5), 64, 24, 2, 3), ((4, 6), 100, 70, 1, 15)],
+    ids=["batched", "batched3", "ragged_k_l15"],
+)
+def test_mvau_plain_leading_dims_and_ragged_k(lead, k, n, bits, n_levels):
+    """Leading batch dims flatten as the reference's ``ops.mvau`` does; K=100
+    at 1 bit leaves padding codes (-1) in the carrier's last row; some
+    thresholds are +inf (a level never reached)."""
+    rng = np.random.default_rng(sum(lead) + k + n)
+    x, carrier, thresholds, signs = _mvau_case(rng, lead, k, n, bits, n_levels)
+    thresholds[: n // 3, n_levels // 2:] = np.inf
+    got, want = _mvau_both(x, carrier, thresholds, signs, bits, k, -2)
+    assert tuple(got.shape) == lead + (n,)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_mvau_wrapper_rejects_what_the_kernel_does_not_take():
+    x = torch.zeros((4, 12))
+    carrier = torch.zeros((2, 5), dtype=torch.uint8)  # ceil(12 / 8) rows at 1 bit
+    thr, sg = torch.zeros((5, 3)), torch.ones(5)
+    assert tmvau.mvau(x, carrier, thr, sg, 1, 12).shape == (4, 5)
+    with pytest.raises(ValueError):  # 4-bit weights are not an MVAU width
+        tmvau.mvau(x, torch.zeros((6, 5), dtype=torch.uint8), thr, sg, 4, 12)
+    with pytest.raises(ValueError):  # carrier rows disagree with K
+        tmvau.mvau(x, torch.zeros((3, 5), dtype=torch.uint8), thr, sg, 1, 12)
+    with pytest.raises(ValueError):  # more thresholds than the kernel stages
+        tmvau.mvau(x, carrier, torch.zeros((5, 16)), sg, 1, 12)
+    with pytest.raises(ValueError):  # x must be f32 (ops.mvau casts)
+        tmvau.mvau(x.double(), carrier, thr, sg, 1, 12)
+    with pytest.raises(ValueError):  # signs per column
+        tmvau.mvau(x, carrier, thr, torch.ones(4), 1, 12)
 
 
 FLASH_CASES = [
