@@ -18,6 +18,11 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               plus ragged and ring-edge cases checked for agreement only.
               ``mvau`` at the CNV layer shapes at batch 256 (bits 1/2, L=3),
               plus ragged M/N/K, L=1/15 and +inf thresholds for agreement.
+              ``flash_bwd``'s two passes (dq, dk/dv) at the train step's
+              shape (batch 8 x 512 tokens, 15/5 heads, D 64, bf16, causal),
+              the library's yardstick the backward of
+              ``scaled_dot_product_attention``; window, q_offset, ragged
+              Sq/Sk, G=1, D 32/128, f32 and not-causal cases for agreement.
 4. prefill -- smollm-360m at full width and depth with 2-bit FFN carriers:
               ``prefill_with_cache`` on a 512-token prompt in bf16 on the
               card against float32 on the CPU, same weights; then one
@@ -42,6 +47,20 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               end (argmax agreement); images/s at batch 256 and 1, the
               card's time per layer split into mvau / im2col / the rest
               (torch.profiler), and exactly 7 ``mvau`` launches a forward.
+7. train   -- smollm-360m: first a gradient check at full width and depth
+              4 (batch 2 x 256), ``loss_fn`` and its backward in bf16 on the
+              card against float32 on the CPU, same weights (loss within
+              2e-2, each leaf's gradient cosine >= 0.99), and with
+              ``remat`` full and dots on the card against none; then
+              ``repro_torch.launch.train.main`` at full width and depth,
+              batch 8 x 512, 20 steps, then 5 with ``--remat full``, launch
+              counters reset just before each run and read just after
+              (``flash_bwd_dq`` and ``flash_bwd_dkv`` 32 x steps each,
+              ``flash_fwd`` 32 or 64 x steps, the loss finite and falling);
+              one train step under torch.profiler (host ms against the
+              card's kernel ms, the largest kernels, flash's share); a
+              checkpoint of the trained state saved and restored into
+              fresh modules on the card, bit for bit.
 
 The last lines are nvidia-smi's, then ``{"kernels": [...]}``, then
 ``{"ok": true, "device": {...}}``.
@@ -54,6 +73,7 @@ import dataclasses
 import io
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -87,6 +107,16 @@ CNN_BATCH, CNN_RUNS, CNN_PROFILED = 256, 20, 3
 CNN_MIN_ARGMAX = 0.99  # card vs CPU logits: argmax agreement over the 256 images
 CNN_LOGIT_TOL = 1e-4  # fc2 (a plain f32 conv, TF32 off) card vs CPU, relative to 1 + max|logit|
 CNN_MVAU_PER_FORWARD = 7  # conv1-5, fc0, fc1: every 1/2-bit layer of CNV
+# flash_bwd against its plain version in f32 on the same inputs, relative to
+# the largest |value| of each output: bf16 outputs round once, which moves
+# an element by up to 2^-8 of itself; f32 only sums in another order
+FLASH_BWD_TOL = 5e-3
+FLASH_BWD_TOL_F32 = 1e-5
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, REMAT_STEPS = 8, 512, 20, 5
+GRAD_DEPTH, GRAD_BATCH, GRAD_SEQ = 4, 2, 256
+GRAD_LOSS_RTOL = 2e-2  # bf16 weights and activations on the card vs float32 on the CPU
+GRAD_MIN_COS = 0.99  # the same, per gradient leaf
+REMAT_MIN_COS = 0.9999  # --remat full/dots vs none on the card: atomics order only
 
 
 def fail(msg: str) -> None:
@@ -267,6 +297,103 @@ def main() -> int:
         )
         flash_cases.append(case)
         phase("kernel", name="flash_fwd", **case)
+
+    def visible_pairs(sq, sk, causal, window, q_off) -> int:
+        qp = q_off + np.arange(sq)[:, None]
+        kp = np.arange(sk)[None, :]
+        vis = np.ones((sq, sk), bool)
+        if causal:
+            vis &= qp >= kp
+        if window:
+            vis &= qp - kp < window
+        return int(vis.sum())
+
+    def flash_bwd_case(label, b, h, h_kv, sq, sk, dh, dt, timed=False,
+                       causal=True, window=0, q_off=0):
+        """Both passes on the card against ``flash_bwd_dq_ref`` /
+        ``flash_bwd_dkv_ref`` in f32 on the same inputs (the bf16 tensors
+        upcast): every output within FLASH_BWD_TOL of its largest value."""
+        q = torch.randn((b * h, sq, dh), generator=gen).to(dev, dt)
+        kk = torch.randn((b * h_kv, sk, dh), generator=gen).to(dev, dt)
+        vv = torch.randn((b * h_kv, sk, dh), generator=gen).to(dev, dt)
+        do = torch.randn((b * h, sq, dh), generator=gen).to(dev, dt)
+        kw = dict(causal=causal, window=window, q_offset=q_off)
+        out, lse = fa.flash_fwd(q, kk, vv, **kw)
+        dq, delta = fa.flash_bwd_dq(q, kk, vv, out, lse, do, **kw)
+        dk, dv = fa.flash_bwd_dkv(q, kk, vv, do, lse, delta, **kw)
+        q32, k32, v32, o32, do32 = (t.float() for t in (q, kk, vv, out, do))
+        want_dq, want_delta = ref.flash_bwd_dq_ref(q32, k32, v32, o32, lse, do32, **kw)
+        want_dk, want_dv = ref.flash_bwd_dkv_ref(q32, k32, v32, do32, lse, want_delta, **kw)
+        torch.cuda.synchronize()
+        tol = FLASH_BWD_TOL if dt == torch.bfloat16 else FLASH_BWD_TOL_F32
+        errs = {}
+        for name, got, want in (("dq", dq, want_dq), ("delta", delta, want_delta),
+                                ("dk", dk, want_dk), ("dv", dv, want_dv)):
+            err = (got.float() - want).abs().max().item()
+            errs[name] = dict(max_abs_err=err, rel_err=err / max(want.abs().max().item(), 1e-30))
+            if not (math.isfinite(err) and errs[name]["rel_err"] <= tol):
+                fail(f"flash_bwd {label} {name}: rel err {errs[name]['rel_err']} > {tol}")
+        base = dict(case=label, batch=b, heads=h, kv_heads=h_kv, sq=sq, sk=sk, d=dh,
+                    dtype=str(dt).replace("torch.", ""), causal=causal, window=window,
+                    q_offset=q_off)
+        if not timed:
+            phase("kernel", name="flash_bwd", **base, errors=errs)
+            return None
+        pairs = visible_pairs(sq, sk, causal, window, q_off) * b * h
+        e = q.element_size()
+        # each input read once, each output written once
+        dq_bytes = e * (4 * q.numel() + 2 * kk.numel()) + 8 * lse.numel()
+        dkv_bytes = e * (2 * q.numel() + 4 * kk.numel()) + 8 * lse.numel()
+        dq_bound, dq_by = bound_ms(dq_bytes, 6.0 * dh * pairs)
+        dkv_bound, dkv_by = bound_ms(dkv_bytes, 8.0 * dh * pairs)
+        # the library's yardstick: one backward of SDPA (dq, dk and dv together)
+        q4 = q.reshape(b, h, sq, dh).detach().requires_grad_()
+        k4 = kk.reshape(b, h_kv, sk, dh).detach().requires_grad_()
+        v4 = vv.reshape(b, h_kv, sk, dh).detach().requires_grad_()
+        o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True, enable_gqa=True)
+        do4 = do.reshape(b, h, sq, dh)
+        library = median_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True))
+        dq_case = dict(
+            **base, max_abs_err=errs["dq"]["max_abs_err"], errors=errs, pairs=pairs,
+            ms=median_ms(lambda: fa.flash_bwd_dq(q, kk, vv, out, lse, do, **kw)),
+            host_us=host_us(lambda: fa.flash_bwd_dq(q, kk, vv, out, lse, do, **kw)),
+            plain_ms=median_ms(lambda: ref.flash_bwd_dq_ref(q, kk, vv, out, lse, do, **kw)),
+            library_ms=library, bound_ms=dq_bound, bound_by=dq_by, bytes=dq_bytes,
+            flops=6.0 * dh * pairs,
+        )
+        dkv_case = dict(
+            **base, max_abs_err=max(errs["dk"]["max_abs_err"], errs["dv"]["max_abs_err"]),
+            errors=errs, pairs=pairs,
+            ms=median_ms(lambda: fa.flash_bwd_dkv(q, kk, vv, do, lse, delta, **kw)),
+            host_us=host_us(lambda: fa.flash_bwd_dkv(q, kk, vv, do, lse, delta, **kw)),
+            plain_ms=median_ms(lambda: ref.flash_bwd_dkv_ref(q, kk, vv, do, lse, delta, **kw)),
+            library_ms=library, bound_ms=dkv_bound, bound_by=dkv_by, bytes=dkv_bytes,
+            flops=8.0 * dh * pairs,
+        )
+        phase("kernel", name="flash_bwd_dq", **dq_case)
+        phase("kernel", name="flash_bwd_dkv", **dkv_case)
+        phase("kernel", name="flash_bwd", case=label, both_passes_ms=dq_case["ms"] + dkv_case["ms"],
+              library_ms=library, plain_ms=median_ms(
+                  lambda: ref.flash_bwd_ref(q, kk, vv, out, lse, do, **kw)))
+        return dq_case, dkv_case
+
+    bf16 = torch.bfloat16
+    head_dq, head_dkv = flash_bwd_case("train_causal", TRAIN_BATCH, hq, hkv, TRAIN_SEQ,
+                                       TRAIN_SEQ, hd, bf16, timed=True)
+    flash_bwd_checks = [
+        ("window_128", 1, hq, hkv, PROMPT, PROMPT, hd, bf16, False, True, 128, 0),
+        ("q_offset", 1, hq, hkv, CHUNK, MAX_LEN, hd, bf16, False, True, 0, CHUNK),
+        ("ragged", 2, hq, hkv, 333, 333, hd, bf16, False, True, 0, 0),
+        ("ragged_q_offset", 1, 6, 2, 77, 190, hd, bf16, False, True, 0, 113),
+        ("g1", 2, 4, 4, 256, 256, hd, bf16, False, True, 0, 0),
+        ("d32", 2, 4, 2, 200, 200, 32, bf16, False, True, 0, 0),
+        ("d128", 2, 4, 2, 200, 200, 128, bf16, False, True, 0, 0),
+        ("f32", 2, hq, hkv, 256, 256, hd, torch.float32, False, True, 0, 0),
+        ("f32_d128_window", 1, 4, 2, 130, 130, 128, torch.float32, False, True, 17, 0),
+        ("not_causal", 1, 6, 2, 64, 100, hd, bf16, False, False, 0, 0),
+    ]
+    for args in flash_bwd_checks:
+        flash_bwd_case(*args)
 
     from repro_torch.kernels import weight_stream as ws
     from repro_torch.runtime.residency import compile_residency_plan, stream_ahead_depth
@@ -767,6 +894,180 @@ def main() -> int:
         phase("cnn", **run)
         del sp_card, x_card, params, sp_cpu
 
+    # ---------------- 7. training at full width and depth ----------------
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime.steps import make_train_step
+
+    def flat(tree, prefix=""):
+        """[(name, tensor)] of a nested dict of tensors."""
+        out = []
+        for k in sorted(tree):
+            if isinstance(tree[k], dict):
+                out += flat(tree[k], f"{prefix}{k}/")
+            else:
+                out.append((prefix + k, tree[k]))
+        return out
+
+    # (a) gradients at full width, depth 4: bf16 with the kernels on the
+    # card against float32 with the plain versions on the CPU
+    gcfg = dataclasses.replace(cfg, n_layers=GRAD_DEPTH)
+    gparams = lm.init_params(gcfg, 0, device=dev, trainable=True)
+    cpu_gcfg = dataclasses.replace(gcfg, dtype="float32")
+    cpu_gparams = params_from_reference(
+        _to_cpu(gparams.tree()), cpu_gcfg, device="cpu", dtype=torch.float32, trainable=True
+    )
+    gbatch = TokenPipeline(vocab=cfg.vocab, batch=GRAD_BATCH, seq_len=GRAD_SEQ, seed=0).batch_at(0)
+
+    def loss_and_grads(p, c, device, remat="none"):
+        tb = {k: torch.from_numpy(v).to(device) for k, v in gbatch.items()}
+        loss, _ = lm.loss_fn(p, c, tb["tokens"], tb["labels"], remat=remat)
+        names, leaves = zip(*flat(p.tree()))
+        return loss.item(), dict(zip(names, torch.autograd.grad(loss, leaves)))
+
+    t0 = time.monotonic()
+    loss_card, grads_card = loss_and_grads(gparams, gcfg, dev)
+    card_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    loss_cpu, grads_cpu = loss_and_grads(cpu_gparams, cpu_gcfg, "cpu")
+    cpu_s = time.monotonic() - t0
+    cosines = {
+        name: F.cosine_similarity(g.float().cpu().flatten(), grads_cpu[name].flatten(), dim=0).item()
+        for name, g in grads_card.items()
+    }
+    worst = min(cosines, key=cosines.get)
+    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    phase("train_gradients", layers=GRAD_DEPTH, batch=GRAD_BATCH, seq=GRAD_SEQ,
+          loss_card=loss_card, loss_cpu=loss_cpu, loss_rel_err=loss_rel,
+          worst_leaf=worst, worst_cosine=cosines[worst], cosines=cosines,
+          card_s=card_s, cpu_s=cpu_s)
+    if not (loss_rel <= GRAD_LOSS_RTOL and cosines[worst] >= GRAD_MIN_COS):
+        fail(f"train gradients card vs CPU: loss rel err {loss_rel}, "
+             f"worst cosine {cosines[worst]} ({worst})")
+    # the recomputing modes on the card recompute the same bf16 forward
+    # (the kernels are deterministic): the same loss (1e-5), and the same
+    # gradients but for the order of the embedding backward's atomics
+    for remat in ("full", "dots"):
+        loss_r, grads_r = loss_and_grads(gparams, gcfg, dev, remat)
+        cos_r = {
+            name: F.cosine_similarity(g.float().flatten(), grads_card[name].float().flatten(),
+                                      dim=0).item()
+            for name, g in grads_r.items()
+        }
+        worst_r = min(cos_r, key=cos_r.get)
+        phase("train_gradients_remat", remat=remat, loss=loss_r, loss_none=loss_card,
+              worst_leaf=worst_r, worst_cosine_to_none=cos_r[worst_r])
+        if abs(loss_r - loss_card) > 1e-5 * abs(loss_card) or cos_r[worst_r] < REMAT_MIN_COS:
+            fail(f"--remat {remat} on the card: loss {loss_r} vs {loss_card}, "
+                 f"worst cosine {cos_r[worst_r]} ({worst_r})")
+    del gparams, cpu_gparams, grads_card, grads_cpu, grads_r
+
+    # (b) the train CLI: 20 steps, then 5 under --remat full
+    n_layers = cfg.n_layers
+    train_runs = []
+    for steps, remat in ((TRAIN_STEPS, "none"), (REMAT_STEPS, "full")):
+        argv = ["--arch", "smollm_360m", "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                "--steps", str(steps), "--remat", remat]
+        buf = io.StringIO()
+        ops.reset_launch_counts()
+        with contextlib.redirect_stdout(buf):
+            rc = train_cli.main(argv)
+        counts = ops.launch_counts()
+        text = buf.getvalue()
+        sys.stderr.write(text)
+        if rc != 0:
+            fail(f"train --steps {steps} --remat {remat} exited {rc}")
+        metrics = json.loads(
+            next(l for l in text.splitlines() if l.startswith("[train/metrics] ")).split(" ", 1)[1]
+        )
+        losses = metrics["losses"]
+        k = min(5, steps // 2)
+        head, tail = statistics.mean(losses[:k]), statistics.mean(losses[-k:])
+        if len(losses) != steps or not all(map(math.isfinite, losses)) or not tail < head:
+            fail(f"train --remat {remat}: losses {losses} (mean of the last {k} must be "
+                 f"below the first {k}'s)")
+        want = dict.fromkeys(counts, 0) | {
+            "flash_fwd": n_layers * steps * (2 if remat == "full" else 1),
+            "flash_bwd_dq": n_layers * steps,
+            "flash_bwd_dkv": n_layers * steps,
+        }
+        if counts != want:
+            fail(f"train --remat {remat}: launches {counts}, not {want}")
+        for name, n in counts.items():
+            launches[name] += n
+        run = dict(launches_counted=counts, first_losses_mean=head,
+                   last_losses_mean=tail, **metrics)
+        train_runs.append(run)
+        phase("train", **run)
+
+    # (c) where a train step's time goes, and (d) the checkpoint of its state
+    params = lm.init_params(cfg, 0, device=dev, trainable=True)
+    opt = AdamW()
+    state = [opt.init(params)]
+    step_fn = make_train_step(cfg, opt, remat="none")
+    pipe = TokenPipeline(vocab=cfg.vocab, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=0)
+
+    def train_step(i):
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch_at(i).items()}
+        _, state[0], m = step_fn(params, state[0], tb)
+        return m
+
+    for i in range(2):
+        train_step(i)
+    torch.cuda.synchronize()
+    walls = []
+    for i in range(2, 5):
+        t0 = time.monotonic()
+        train_step(i)
+        torch.cuda.synchronize()
+        walls.append((time.monotonic() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        train_step(5)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name: dict[str, float] = {}
+    for e in kern:
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 1e3
+    dev_ms = sum(by_name.values())
+    host_ms = statistics.median(walls)
+
+    def share(word):
+        return sum(ms for name, ms in by_name.items() if word in name) / dev_ms
+
+    step_profile = dict(
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, host_step_ms=host_ms, host_step_ms_runs=walls,
+        device_step_ms=dev_ms, device_busy_share=dev_ms / host_ms, kernels_per_step=len(kern),
+        flash_bwd_share=share("flash_bwd"), flash_fwd_share=share("flash_fwd"),
+        top_kernels_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:5]),
+    )
+    phase("train_profile", **step_profile)
+
+    ck_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    mgr = CheckpointManager(str(ck_dir), keep=1)
+    t0 = time.monotonic()
+    mgr.save(6, (params, state[0]), extra={"data_step": 6})
+    save_s = time.monotonic() - t0
+    fresh = lm.init_params(cfg, 1, device=dev, trainable=True)
+    t0 = time.monotonic()
+    (fresh, fresh_state), extra = mgr.restore((fresh, opt.init(fresh)))
+    restore_s = time.monotonic() - t0
+    want_tree = {"params": params.tree(), "mu": state[0].mu, "nu": state[0].nu,
+                 "step": {"step": state[0].step}}
+    got_tree = {"params": fresh.tree(), "mu": fresh_state.mu, "nu": fresh_state.nu,
+                "step": {"step": fresh_state.step}}
+    got_leaves = dict(flat(got_tree))
+    differ = [name for name, t in flat(want_tree) if not same_bits(t, got_leaves[name])]
+    ck_bytes = sum(f.stat().st_size for f in ck_dir.rglob("*.npy"))
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    phase("train_checkpoint", leaves=len(got_leaves), bytes=ck_bytes, save_s=save_s,
+          restore_s=restore_s, extra=extra, leaves_differing=differ)
+    if differ or extra != {"data_step": 6}:
+        fail(f"checkpoint on the card: {len(differ)} leaves differ after restore: {differ[:5]}")
+    del params, state, fresh, fresh_state
+
     # ---------------- result ----------------
     head_pm = next(c for c in packed_cases if (c["bits"], c["m"], c["k"]) == (2, LANES, d))
     head_fa = flash_cases[0]
@@ -818,6 +1119,28 @@ def main() -> int:
                                         "bound_by", "library_ms")},
              cnv_forward=mvau_forward,
              cases=mvau_cases),
+        dict(name="flash_bwd_dq", route="cuda",
+             source="src/repro_torch/csrc/flash_bwd.cu",
+             replaces="src/repro/kernels/flash_attention.py:282",
+             launches=launches["flash_bwd_dq"],
+             shape=f"causal B={TRAIN_BATCH} S={TRAIN_SEQ} Hq={hq} Hkv={hkv} D={hd} bf16",
+             tolerance=f"rel {FLASH_BWD_TOL} of max|want| per output (bf16), "
+                       f"{FLASH_BWD_TOL_F32} (f32), against the plain version in f32",
+             library_call="backward of scaled_dot_product_attention(is_causal=True, "
+                          "enable_gqa=True): dq, dk and dv together",
+             **{k: head_dq[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms", "host_us")}),
+        dict(name="flash_bwd_dkv", route="cuda",
+             source="src/repro_torch/csrc/flash_bwd.cu",
+             replaces="src/repro/kernels/flash_attention.py:306",
+             launches=launches["flash_bwd_dkv"],
+             shape=f"causal B={TRAIN_BATCH} S={TRAIN_SEQ} Hq={hq} Hkv={hkv} D={hd} bf16",
+             tolerance=f"rel {FLASH_BWD_TOL} of max|want| per output (bf16), "
+                       f"{FLASH_BWD_TOL_F32} (f32), against the plain version in f32",
+             library_call="backward of scaled_dot_product_attention(is_causal=True, "
+                          "enable_gqa=True): dq, dk and dv together",
+             **{k: head_dkv[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms", "host_us")}),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))
@@ -830,7 +1153,19 @@ def main() -> int:
 def _to_cpu(tree):
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
-    return tree.cpu()
+    return tree.detach().cpu()
+
+
+def same_bits(a, b) -> bool:
+    """Equal dtype, shape and bytes (so -0.0 is not 0.0)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.view(ints), b.view(ints)
+    return bool(torch.equal(a, b))
 
 
 if __name__ == "__main__":

@@ -51,11 +51,13 @@ def params_from_reference(
     cfg: ModelConfig,
     device: str | torch.device,
     dtype: torch.dtype | None = None,
+    trainable: bool = False,
 ) -> LMParams:
     """The reference's parameter tree (numpy or torch leaves) as
     ``LMParams`` on ``device``. ``dtype`` casts the float weight leaves
     (not the f32 norm gains and packed scales); None keeps every leaf's
-    own dtype, so the bytes carry over unchanged."""
+    own dtype, so the bytes carry over unchanged. ``trainable`` makes the
+    float leaves require gradients."""
     if "layers" not in tree or not isinstance(tree["layers"], dict):
         raise ValueError("expected the reference's tree with stacked 'layers'")
     for name in ("w1", "w3", "w2"):
@@ -65,7 +67,53 @@ def params_from_reference(
                 f"layers/{name} is {'packed' if packed else 'dense'} but "
                 f"cfg.w_bits is {cfg.w_bits}"
             )
-    return LMParams(_convert(tree, device, dtype))
+    return LMParams(_convert(tree, device, dtype), trainable)
+
+
+def params_from_checkpoint(
+    root: str,
+    cfg: ModelConfig,
+    device: str | torch.device,
+    step: int | None = None,
+    trainable: bool = False,
+) -> LMParams:
+    """The parameters of a checkpoint of ``(params, opt_state)`` that
+    either package's ``CheckpointManager`` wrote under ``root`` (its
+    ``0/...`` leaves; the newest step unless ``step`` is given), as
+    ``LMParams`` on ``device``, byte for byte."""
+    from repro_torch.ckpt.manager import CheckpointManager
+
+    values, _ = CheckpointManager(root).read(step)
+    tree: dict[str, Any] = {}
+    for key, arr in values.items():
+        parts = key.split("/")
+        if parts[0] != "0":
+            continue
+        node = tree
+        for name in parts[1:-1]:
+            node = node.setdefault(name, {})
+        node[parts[-1]] = arr
+    if not tree:
+        raise ValueError(f"no parameter leaves (0/...) in the checkpoint under {root}")
+    return params_from_reference(tree, cfg, device, trainable=trainable)
+
+
+def params_to_reference(params: LMParams) -> dict[str, Any]:
+    """The port's parameters as the reference's tree of numpy arrays (bf16
+    leaves as ml_dtypes' bfloat16, which the reference's environment has),
+    ready for its ``lm`` functions and ``CheckpointManager``."""
+
+    def conv(leaf):
+        if isinstance(leaf, dict):
+            return {k: conv(v) for k, v in leaf.items()}
+        t = leaf.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes
+
+            return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        return t.numpy()
+
+    return conv(params.tree())
 
 
 CNN_LEAVES = ("w", "bn_gamma", "bn_beta", "bn_mu", "bn_var", "act_scale")

@@ -96,7 +96,12 @@ def build_all(names: tuple[str, ...] | None = None) -> None:
 
 def load(name: str, entry: str, argtypes: list) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, building it if needed, with
-    the C entry ``entry`` declared to take ``argtypes`` and return an int."""
+    the C entry ``entry`` declared to take ``argtypes`` and return an int.
+
+    A library is loaded once, and each of its entries is declared the first
+    time it is asked for: a library with several entries (``flash_bwd``)
+    gets every one declared, so ctypes never passes a pointer as a 32-bit
+    int."""
     lib = _LIBS.get(name)
     if lib is None:
         job = _start(name)
@@ -105,10 +110,11 @@ def load(name: str, entry: str, argtypes: list) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p
-        fn = getattr(lib, entry)
+        _LIBS[name] = lib
+    fn = getattr(lib, entry)
+    if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _LIBS[name] = lib
     return lib
 
 

@@ -1,7 +1,8 @@
-"""``flash_fwd``: online-softmax attention forward on Hopper.
+"""Flash attention on Hopper: ``flash_fwd`` and its two backward passes.
 
-Replaces the TPU kernel ``src/repro/kernels/flash_attention.py::flash_fwd``
-(``_fwd_kernel``) with the hand-written CUDA kernel ``csrc/flash_fwd.cu``.
+``flash_fwd`` replaces the TPU kernel
+``src/repro/kernels/flash_attention.py::flash_fwd`` (``_fwd_kernel``) with
+the hand-written CUDA kernel ``csrc/flash_fwd.cu``.
 What bounds it on the H100: at the serve path's prefill shapes (Sq = Sk =
 512, D = 64, 15 heads) it is bound by operations. The design runs one
 block per (bh, 64-query tile) with one thread per query row, stages K/V
@@ -10,8 +11,15 @@ maps GQA by ``bh // g`` without replicating K/V, and never loads a tile the
 causal / window mask hides. Any Sq and Sk are handled by masking, not by
 a block-divisor search; D must be 32, 64 or 128.
 
-On a CPU tensor the wrapper runs the plain version (``ref.flash_fwd_ref``);
-on a CUDA tensor it launches the kernel or raises.
+``flash_bwd`` replaces the TPU kernel's backward (``flash_bwd``:
+``_dq_kernel`` and ``_dkv_kernel``) with the two kernels of
+``csrc/flash_bwd.cu``, one wrapper each: ``flash_bwd_dq`` also writes
+delta = rowsum(do * out) for ``flash_bwd_dkv``, which sums each GQA group
+inside the block, so it returns the kv-head gradients, not the TPU
+kernel's per-q-head partials. Each pass has its own launch counter.
+
+On a CPU tensor a wrapper runs the plain version (``ref.flash_fwd_ref``,
+``ref.flash_bwd_ref``); on a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -22,14 +30,18 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import flash_fwd_ref
+from repro_torch.kernels.ref import flash_bwd_dkv_ref, flash_bwd_dq_ref, flash_fwd_ref
 
 COUNTER = _build.LaunchCounter()
+DQ_COUNTER = _build.LaunchCounter()  # flash_bwd's dq pass
+DKV_COUNTER = _build.LaunchCounter()  # flash_bwd's dk/dv pass
 HEAD_DIMS = (32, 64, 128)
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+# flash_bwd_dq_launch and flash_bwd_dkv_launch: 8 pointers, 9 ints, scale, stream
+_BWD_ARGTYPES = [_P] * 8 + [_I] * 9 + [ctypes.c_float, _P]
 
 
 def _check(q, k, v, window: int, q_offset: int) -> None:
@@ -50,6 +62,22 @@ def _check(q, k, v, window: int, q_offset: int) -> None:
         raise ValueError(f"window and q_offset must be >= 0, got {window}, {q_offset}")
 
 
+def _launch_ready(name: str, q, *tensors) -> bool:
+    """True to launch the CUDA kernel, False to run the plain version (CPU
+    tensors); raises for anything the kernel does not take."""
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
+    if q.shape[0] > 65535:
+        raise ValueError(f"{name} takes at most 65535 (batch x head) rows, got {q.shape[0]}")
+    if q.shape[2] not in HEAD_DIMS:
+        raise ValueError(f"{name} takes head dims {HEAD_DIMS}, got {q.shape[2]}")
+    if not all(t.is_contiguous() for t in (q, *tensors)):
+        raise ValueError(f"{name} needs contiguous inputs")
+    return True
+
+
 def flash_fwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -64,17 +92,9 @@ def flash_fwd(
     Returns (out (BH, Sq, D) in q's dtype, lse (BH, Sq) f32).
     """
     _check(q, k, v, window, q_offset)
-    if q.device.type == "cpu":
+    if not _launch_ready("flash_fwd", q, k, v):
         return flash_fwd_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_fwd runs on cuda or cpu, not {q.device}")
     bh, sq, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_fwd takes head dims {HEAD_DIMS}, got {d}")
-    if bh > 65535:
-        raise ValueError(f"flash_fwd takes at most 65535 (batch x head) rows, got {bh}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_fwd needs contiguous q, k and v")
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     if sq == 0:
@@ -89,3 +109,93 @@ def flash_fwd(
     _build.check(lib, rc, "flash_fwd")
     COUNTER.count += 1
     return out, lse
+
+
+def _check_bwd(q, rows: dict, stats: dict) -> None:
+    """The backward's extra inputs: each of ``rows`` (out, do) like q, each
+    of ``stats`` (lse, delta) f32 (BH, Sq) on q's device."""
+    for name, t in rows.items():
+        if (t.shape, t.dtype, t.device) != (q.shape, q.dtype, q.device):
+            raise ValueError(
+                f"{name} {tuple(t.shape)} {t.dtype} on {t.device} must match q "
+                f"{tuple(q.shape)} {q.dtype} on {q.device}"
+            )
+    for name, t in stats.items():
+        if t.shape != q.shape[:2] or t.dtype != torch.float32 or t.device != q.device:
+            raise ValueError(f"{name} must be f32 {tuple(q.shape[:2])} on q's device, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def flash_bwd_dq(q, k, v, out, lse, do, *, causal=True, window=0, q_offset=0):
+    """The dq pass of ``flash_bwd``. Returns (dq (BH, Sq, D) in q's dtype,
+    delta = rowsum(do * out) (BH, Sq) f32 for the dk/dv pass)."""
+    _check(q, k, v, window, q_offset)
+    _check_bwd(q, {"out": out, "do": do}, {"lse": lse})
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    if not _launch_ready("flash_bwd_dq", q, k, v, out, lse, do):
+        return flash_bwd_dq_ref(q, k, v, out, lse, do, **kw)
+    bh, sq, d = q.shape
+    dq = torch.empty_like(q)
+    delta = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    if sq == 0:
+        return dq, delta
+    lib = _build.load("flash_bwd", "flash_bwd_dq_launch", _BWD_ARGTYPES)
+    rc = lib.flash_bwd_dq_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), dq.data_ptr(), delta.data_ptr(), int(q.dtype == torch.bfloat16),
+        bh, sq, k.shape[1], d, bh // k.shape[0], int(causal), window, q_offset,
+        1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, rc, "flash_bwd_dq")
+    DQ_COUNTER.count += 1
+    return dq, delta
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal=True, window=0, q_offset=0):
+    """The dk/dv pass of ``flash_bwd``, reading the dq pass's delta.
+    Returns (dk, dv) (BKV, Sk, D) in k's dtype, each summed over its GQA
+    group."""
+    _check(q, k, v, window, q_offset)
+    _check_bwd(q, {"do": do}, {"lse": lse, "delta": delta})
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    if not _launch_ready("flash_bwd_dkv", q, k, v, do, lse, delta):
+        return flash_bwd_dkv_ref(q, k, v, do, lse, delta, **kw)
+    bh, sq, d = q.shape
+    bkv, sk, _ = k.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if sk == 0:
+        return dk, dv
+    lib = _build.load("flash_bwd", "flash_bwd_dkv_launch", _BWD_ARGTYPES)
+    rc = lib.flash_bwd_dkv_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), int(q.dtype == torch.bfloat16),
+        bkv, sq, sk, d, bh // bkv, int(causal), window, q_offset, 1.0 / math.sqrt(d),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, rc, "flash_bwd_dkv")
+    DKV_COUNTER.count += 1
+    return dk, dv
+
+
+def flash_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    q_offset: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of ``flash_fwd``: the dq pass, then the dk/dv pass. q,
+    out, do: (BH, Sq, D); k/v: (BKV, Sk, D); lse: (BH, Sq) f32 from the
+    forward.
+
+    Returns (dq (BH, Sq, D) in q's dtype, dk, dv (BKV, Sk, D) in k's
+    dtype, each summed over its GQA group)."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    dq, delta = flash_bwd_dq(q, k, v, out, lse, do, **kw)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv

@@ -1,6 +1,6 @@
 """Public entry points of the port's kernels.
 
-Port of ``repro.kernels.ops`` for what the serve and CNN paths use. The CUDA
+Port of ``repro.kernels.ops`` for what the serve, train and CNN paths use. The CUDA
 kernels mask their own ragged edges, so no block padding happens here;
 these functions only flatten batch dims and lay out heads.
 """
@@ -83,6 +83,27 @@ def pack_weights(w_values: torch.Tensor, bits: int) -> torch.Tensor:
     return pack_bits(codes, bits)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``_fa`` custom VJP over the (B*H, S, D) layout:
+    forward is ``flash_fwd``, saving (q, k, v, out, lse); backward is
+    ``flash_bwd``, whose dk/dv pass already sums each GQA group (the
+    reference's ``_fa_bwd`` sums the TPU kernel's per-q-head partials)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, q_offset: int):
+        out, lse = _fa.flash_fwd(q, k, v, causal=causal, window=window, q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = dict(causal=causal, window=window, q_offset=q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        # do arrives through the head transposes: the kernels read rows
+        dq, dk, dv = _fa.flash_bwd(q, k, v, out, lse, do.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -92,25 +113,27 @@ def flash_attention(
     window: int = 0,
     q_offset: int = 0,
 ) -> torch.Tensor:
-    """Flash attention forward. q: (B, Sq, Hq, D); k/v: (B, Sk, Hkv, D).
+    """Flash attention, differentiable. q: (B, Sq, Hq, D); k/v: (B, Sk,
+    Hkv, D).
 
-    Heads go to the kernel's (B*H, S, D) layout with row order b*H + h,
-    which is what its GQA map (``bh // g``) expects. Returns (B, Sq, Hq, D).
+    Heads go to the kernels' (B*H, S, D) layout with row order b*H + h,
+    which is what their GQA map (``bh // g``) expects. Returns (B, Sq, Hq,
+    D); its gradient runs ``flash_bwd``'s two kernels.
     """
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     qf = q.transpose(1, 2).reshape(b * hq, sq, d).contiguous()
     kf = k.transpose(1, 2).reshape(b * hkv, sk, d).contiguous()
     vf = v.transpose(1, 2).reshape(b * hkv, sk, d).contiguous()
-    out, _ = _fa.flash_fwd(
-        qf, kf, vf, causal=causal, window=window, q_offset=q_offset
-    )
+    out = _FlashAttention.apply(qf, kf, vf, causal, window, q_offset)
     return out.reshape(b, hq, sq, d).transpose(1, 2)
 
 
 _COUNTERS = {
     "packed_matmul": _pm.COUNTER,
     "flash_fwd": _fa.COUNTER,
+    "flash_bwd_dq": _fa.DQ_COUNTER,
+    "flash_bwd_dkv": _fa.DKV_COUNTER,
     "stream_matmul": _ws.COUNTER,
     "mvau": _mvau.COUNTER,
     "split_reduce": _ws.REDUCE_COUNTER,  # stream_matmul's second kernel

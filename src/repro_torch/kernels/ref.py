@@ -115,3 +115,73 @@ def flash_fwd_ref(
     out = (p @ vf) / l
     lse = (m + torch.log(l))[..., 0]
     return out.to(q.dtype), lse
+
+
+def _bwd_terms(q, k, v, lse, do, delta, causal, window, q_offset):
+    """p and ds of the backward, f32, with k and v repeated to the q rows:
+    p = exp(s - lse) on the visible pairs, masked before the exp (a row
+    that saw no key has lse -1e30), 0 elsewhere; ds = p * (do.v - delta)
+    * scale."""
+    bh, sq, d = q.shape
+    bkv, sk, _ = k.shape
+    g = bh // bkv
+    scale = 1.0 / math.sqrt(d)
+    kf = k.to(torch.float32).repeat_interleave(g, dim=0)
+    vf = v.to(torch.float32).repeat_interleave(g, dim=0)
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    k_pos = torch.arange(sk, device=q.device)
+    ok = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= q_pos[:, None] >= k_pos[None, :]
+    if window > 0:
+        ok &= q_pos[:, None] - k_pos[None, :] < window
+    s = (q.to(torch.float32) @ kf.transpose(1, 2)) * scale
+    p = torch.exp(torch.where(ok, s - lse[..., None], torch.full_like(s, NEG_INF)))
+    ds = p * (do.to(torch.float32) @ vf.transpose(1, 2) - delta[..., None]) * scale
+    return p, ds, kf
+
+
+def flash_bwd_dq_ref(
+    q, k, v, out, lse, do, *, causal: bool = True, window: int = 0, q_offset: int = 0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dq pass: (dq = ds @ k in q's dtype, delta = rowsum(do * out)
+    (BH, Sq) f32, which the dk/dv pass reads)."""
+    delta = torch.sum(do.to(torch.float32) * out.to(torch.float32), dim=-1)
+    _, ds, kf = _bwd_terms(q, k, v, lse, do, delta, causal, window, q_offset)
+    return (ds @ kf).to(q.dtype), delta
+
+
+def flash_bwd_dkv_ref(
+    q, k, v, do, lse, delta, *, causal: bool = True, window: int = 0, q_offset: int = 0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dk/dv pass: dk = ds^T @ q and dv = p^T @ do per q row, summed
+    over each GQA group of g = BH // BKV rows (what ``ops._fa_bwd`` does to
+    the TPU kernel's per-q-head partials), in k's dtype."""
+    bkv, sk, d = k.shape
+    g = q.shape[0] // bkv
+    p, ds, _ = _bwd_terms(q, k, v, lse, do, delta, causal, window, q_offset)
+    dk = (ds.transpose(1, 2) @ q.to(torch.float32)).reshape(bkv, g, sk, d).sum(dim=1)
+    dv = (p.transpose(1, 2) @ do.to(torch.float32)).reshape(bkv, g, sk, d).sum(dim=1)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    q_offset: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Dense version of ``flash_bwd`` (both passes) over the (B*H, S, D)
+    layout, in f32. q, out, do: (BH, Sq, D); k, v: (BKV, Sk, D); lse:
+    (BH, Sq) f32 from the forward. Returns (dq in q's dtype, dk in k's
+    dtype, dv in v's dtype), dk and dv summed over each GQA group."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    dq, delta = flash_bwd_dq_ref(q, k, v, out, lse, do, **kw)
+    dk, dv = flash_bwd_dkv_ref(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv

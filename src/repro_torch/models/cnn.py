@@ -95,10 +95,11 @@ def _conv(x: torch.Tensor, w: torch.Tensor, stride: int, pad: int) -> torch.Tens
 
 
 def _maxpool2(x: torch.Tensor) -> torch.Tensor:
-    """2x2 max pool, stride 2, VALID (an odd edge row/column is dropped)."""
-    b, h, w, c = x.shape
-    h2, w2 = h // 2, w // 2
-    return x[:, : 2 * h2, : 2 * w2].reshape(b, h2, 2, w2, 2, c).amax(dim=(2, 4))
+    """2x2 max pool, stride 2, VALID (an odd edge row/column is dropped).
+    Its gradient goes to one element of a window, the first maximum, as
+    the reference's ``reduce_window`` max sends it; quantized activations
+    tie often, and a max over the window would split it among the ties."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
 
 
 def _flatten_for_fc(x: torch.Tensor, sp: ConvSpec, i: int) -> torch.Tensor:

@@ -1,13 +1,15 @@
 """Shared layers: RMSNorm, RoPE, SwiGLU, embeddings, projections.
 
-Port of ``repro.models.layers`` (the serving subset). Plain matmuls go to
-``torch.matmul``; packed FFN weights go through ``models.lm.packed_dense``.
+Port of ``repro.models.layers``: the serving subset and the training
+losses. Plain matmuls go to ``torch.matmul``; packed FFN weights go
+through ``models.lm.packed_dense``.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def rms_norm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -56,3 +58,51 @@ def logits(x: torch.Tensor, table: torch.Tensor, vocab: int) -> torch.Tensor:
     if pv > vocab:
         out[..., vocab:] = -1e30
     return out
+
+
+def cross_entropy(logit: torch.Tensor, labels: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Mean next-token CE over all positions; logit (..., V), labels (...)."""
+    logp = torch.log_softmax(logit, dim=-1)
+    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    return -torch.mean(ll)
+
+
+def _chunk_nll(xi: torch.Tensor, li: torch.Tensor, table: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Summed CE of one chunk: xi (B, c, d), li (B, c)."""
+    lg = torch.matmul(xi, table.to(xi.dtype).t()).to(torch.float32)
+    pv = table.shape[0]
+    if pv > vocab:
+        col = torch.arange(pv, device=lg.device)
+        lg = torch.where(col < vocab, lg, torch.full_like(lg, -1e30))
+    m = torch.amax(lg, dim=-1, keepdim=True)
+    lse = m[..., 0] + torch.log(torch.sum(torch.exp(lg - m), dim=-1))
+    picked = torch.gather(lg, -1, li.long()[..., None])[..., 0]
+    return torch.sum(lse - picked)
+
+
+def chunked_softmax_xent(
+    x: torch.Tensor,
+    table: torch.Tensor,
+    labels: torch.Tensor,
+    vocab: int,
+    chunk: int = 512,
+) -> torch.Tensor:
+    """Fused unembed + CE over sequence chunks: the live logits buffer is
+    (B, chunk, V), and each chunk is recomputed in the backward
+    (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``
+    inside its scan). x: (B, S, d) final hidden states; table: (V_padded,
+    d); labels: (B, S). Returns the mean CE. Falls back to one chunk when
+    ``chunk`` does not divide S, as the reference does. The label pick is
+    a gather here (the reference's masked reduction exists for a
+    vocab-sharded mesh; the value is the same)."""
+    b, s, _ = x.shape
+    c = min(chunk, s)
+    if s % c != 0:
+        c = s
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s, c):
+        total = total + checkpoint(
+            _chunk_nll, x[:, i : i + c], labels[:, i : i + c], table, vocab,
+            use_reentrant=False,
+        )
+    return total / (b * s)

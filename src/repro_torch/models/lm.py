@@ -1,12 +1,15 @@
-"""Dense LM family: packed FFN weights, the pool serving forward, sampling.
+"""Dense LM family: packed FFN weights, the training forward and loss, the
+pool serving forward, sampling.
 
-Port of the serving path of ``repro.models.lm`` for ``family == "dense"``
-(any other family raises ``ValueError``). The reference's parameter
-pytree becomes ``LMParams``, an ``nn.Module`` that keeps the same stacked
-``(L, ...)`` per-layer leaves: float weights are frozen parameters, the
-FCMP-packed FFN leaves are ``{"packed", "scale"}`` pairs of buffers (uint8
-carrier, f32 per-channel scale). The reference's ``lax.scan`` over layers
-is a Python loop over views of the stacked leaves.
+Port of ``repro.models.lm`` for ``family == "dense"`` (any other family
+raises ``ValueError``). The reference's parameter pytree becomes
+``LMParams``, an ``nn.Module`` that keeps the same stacked ``(L, ...)``
+per-layer leaves: float weights are parameters (frozen unless built with
+``trainable=True``), the FCMP-packed FFN leaves are ``{"packed",
+"scale"}`` pairs of buffers (uint8 carrier, f32 per-channel scale). The
+reference's ``lax.scan`` over layers is a Python loop over views of the
+stacked leaves, so each layer's gradient lands in its slice of the
+stacked leaf.
 
 With ``cfg.w_bits`` in {1, 2} every FFN matmul goes through
 ``kernels.ops.packed_matmul``: on the card the carrier is decoded in
@@ -18,12 +21,18 @@ a residency plan, the decode FFN of each streamed layer goes through
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
@@ -31,6 +40,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models.config import PORTED_FAMILIES, ModelConfig, torch_dtype
 from repro_torch.models.layers import (
     apply_rope,
+    chunked_softmax_xent,
+    cross_entropy,
     dense,
     embed,
     logits as unembed_logits,
@@ -130,9 +141,10 @@ def streamed_swiglu(x, w1, w3, w2, bits: int, depth: int):
 
 class _Leaves(nn.Module):
     """Named stacked leaves: packed {"packed", "scale"} pairs become
-    submodules of buffers, float leaves frozen parameters."""
+    submodules of buffers (never trained), the other leaves parameters,
+    which require gradients if ``trainable`` and they are floats."""
 
-    def __init__(self, tree: dict[str, Any]):
+    def __init__(self, tree: dict[str, Any], trainable: bool = False):
         super().__init__()
         self.names = tuple(tree)
         for name, leaf in tree.items():
@@ -142,7 +154,8 @@ class _Leaves(nn.Module):
                 pair.register_buffer("scale", leaf["scale"])
                 self.add_module(name, pair)
             else:
-                self.register_parameter(name, nn.Parameter(leaf, requires_grad=False))
+                grad = trainable and leaf.is_floating_point()
+                self.register_parameter(name, nn.Parameter(leaf, requires_grad=grad))
 
     def leaf(self, name: str):
         v = getattr(self, name)
@@ -157,12 +170,14 @@ class _Leaves(nn.Module):
 class LMParams(nn.Module):
     """The parameter tree of ``init_params`` as a module: top-level leaves
     (``embed``, ``final_norm``, ``unembed`` when untied) plus ``layers``,
-    whose leaves are stacked over the layer axis."""
+    whose leaves are stacked over the layer axis. ``trainable`` makes the
+    float leaves require gradients (training); serving keeps them frozen,
+    so it builds no autograd graph."""
 
-    def __init__(self, tree: dict[str, Any]):
+    def __init__(self, tree: dict[str, Any], trainable: bool = False):
         super().__init__()
-        self.top = _Leaves({k: v for k, v in tree.items() if k != "layers"})
-        self.layers = _Leaves(tree["layers"])
+        self.top = _Leaves({k: v for k, v in tree.items() if k != "layers"}, trainable)
+        self.layers = _Leaves(tree["layers"], trainable)
 
     def __getitem__(self, name: str):
         return self.top.leaf(name)
@@ -188,13 +203,15 @@ def _maybe_pack(w: torch.Tensor, cfg: ModelConfig):
     return w
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LMParams:
+def init_params(
+    cfg: ModelConfig, seed: int = 0, device=None, trainable: bool = False
+) -> LMParams:
     """Random weights with the shapes and scales of the reference's
     ``lm.init_params`` (lm.py:204), drawn from a CPU ``torch.Generator``
     so every device gets the same numbers (JAX's numbers differ: share
     weights across the packages with ``interop.params_from_reference``).
     The weights land on ``device``: CUDA unless the caller asks for the
-    CPU."""
+    CPU. ``trainable`` makes the float leaves require gradients."""
     _require_ported(cfg, "init_params")
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
@@ -223,7 +240,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LMParams:
         "w3": _maybe_pack(normal((l, d, ff), s), cfg),
         "w2": _maybe_pack(normal((l, ff, d), s * 0.5), cfg),
     }
-    return LMParams(tree).to(device)
+    return LMParams(tree, trainable).to(device)
 
 
 # --------------------------------------------------------------------------
@@ -275,6 +292,96 @@ def _unembed(params: LMParams, cfg: ModelConfig, x):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
     return unembed_logits(x, table, cfg.vocab)
+
+
+# --------------------------------------------------------------------------
+# Forward and loss (train / full sequence)
+# --------------------------------------------------------------------------
+
+REMAT_MODES = ("none", "dots", "full")
+
+
+def _layer(params: LMParams, i: int, cfg: ModelConfig, x, positions):
+    """Layer ``i`` of the dense trunk (the reference's ``_make_layer_fn``):
+    attention, then FFN, each a pre-norm residual."""
+    lp = params.layer(i)
+    x, _ = _attn_block(lp, cfg, x, positions, causal=True, window=cfg.sliding_window)
+    return _ffn_block(lp, cfg, x)
+
+
+_DOTS = (torch.ops.aten.mm.default,)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the 2-D matmul outputs (the projections),
+    recompute the rest, as the reference's
+    ``checkpoint_dots_with_no_batch_dims`` policy does."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_kwargs(remat: str) -> dict:
+    if remat == "dots":
+        return dict(context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dots))
+    return {}
+
+
+def trunk(
+    params: LMParams, cfg: ModelConfig, tokens: torch.Tensor, *, remat: str = "none"
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """All layers + final norm, without the unembedding.
+
+    tokens: (B, S). Returns (hidden states (B, S, d), aux loss: 0 for the
+    dense family). ``remat`` "full" recomputes each layer in the backward
+    (``torch.utils.checkpoint``, non-reentrant), "dots" recomputes all but
+    the 2-D matmul outputs, "none" keeps every activation."""
+    _require_ported(cfg, "trunk")
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat must be one of {REMAT_MODES}, got {remat!r}")
+    x = embed(tokens, params["embed"], torch_dtype(cfg))
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    for i in range(cfg.n_layers):
+        if remat == "none":
+            x = _layer(params, i, cfg, x, positions)
+        else:
+            x = checkpoint(
+                _layer, params, i, cfg, x, positions, use_reentrant=False,
+                **_remat_kwargs(remat),
+            )
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward(
+    params: LMParams, cfg: ModelConfig, tokens: torch.Tensor, *, remat: str = "none"
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. tokens: (B, S). Returns (logits (B, S, V)
+    f32, aux)."""
+    x, aux = trunk(params, cfg, tokens, remat=remat)
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    return unembed_logits(x, table, cfg.vocab), aux
+
+
+def loss_fn(
+    params: LMParams,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,
+    labels: torch.Tensor,
+    *,
+    remat: str = "none",
+    aux_weight: float = 0.01,
+    ce_chunk: int = 0,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Training loss ``ce + aux_weight * aux``, returned with (ce, aux).
+    ``ce_chunk > 0`` switches to the fused chunked unembed + CE, which
+    never holds the (B, S, V) logits."""
+    if ce_chunk:
+        x, aux = trunk(params, cfg, tokens, remat=remat)
+        table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+        ce = chunked_softmax_xent(x, table, labels, cfg.vocab, chunk=ce_chunk)
+    else:
+        lg, aux = forward(params, cfg, tokens, remat=remat)
+        ce = cross_entropy(lg, labels, cfg.vocab)
+    return ce + aux_weight * aux, (ce, aux)
 
 
 # --------------------------------------------------------------------------

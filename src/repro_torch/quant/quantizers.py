@@ -5,9 +5,10 @@ ternary / int-N weights through a straight-through estimator, and LSQ
 learned-scale activations. Their values equal the reference's: ``_ste``
 is ``x + (q - x).detach()`` (not ``q``: the two differ by an ulp, and the
 streamlined path's weight magnitude sees it), binary maps 0 to +1, and
-``torch.round`` rounds half to even as ``jnp.round`` does. The LSQ
-gradient of Esser et al. and the STE backward as autograd Functions come
-with training.
+``torch.round`` rounds half to even as ``jnp.round`` does. Their
+gradients equal the reference's too: ``_ste``'s backward is the identity,
+and LSQ is an autograd Function with the Esser et al. backward of the
+reference's ``custom_vjp``.
 
 Bit packing is the carrier format of the packed-weight kernels. Weight
 ``k = i*per + j`` (``per = 8 // bits``) sits in carrier row ``i`` at bit
@@ -30,10 +31,39 @@ def _ste(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return x + (q - x).detach()
 
 
+class _LSQ(torch.autograd.Function):
+    """LSQ with the Esser et al. gradient (the reference's ``_lsq_fwd`` /
+    ``_lsq_bwd``): dx passes where -qn <= x/s <= qp; ds sums
+    g * (inside ? q - v : q) over every element, times 1/sqrt(n * qp)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, qn: int, qp: int):
+        s = torch.clamp(scale.to(x.dtype), min=1e-8)
+        v = x / s
+        q = torch.clamp(torch.round(v), -qn, qp)
+        ctx.save_for_backward(v, q)
+        ctx.qn, ctx.qp = qn, qp
+        ctx.scale_shape, ctx.scale_dtype = scale.shape, scale.dtype
+        return q * s
+
+    @staticmethod
+    def backward(ctx, g):
+        v, q = ctx.saved_tensors
+        inside = (v >= -ctx.qn) & (v <= ctx.qp)
+        dx = torch.where(inside, g, torch.zeros_like(g))
+        ds_elem = torch.where(inside, q - v, q)
+        gscale = 1.0 / math.sqrt(max(1, v.numel()) * max(1, ctx.qp))
+        ds = (torch.sum(g * ds_elem) * gscale).to(ctx.scale_dtype)
+        return dx, ds.reshape(ctx.scale_shape), None, None
+
+
 def lsq_quantize(x: torch.Tensor, scale, qn: int, qp: int) -> torch.Tensor:
-    """LSQ forward: q = clip(round(x/s), -qn, qp) * s, s = max(scale, 1e-8)."""
-    s = torch.clamp(torch.as_tensor(scale, dtype=x.dtype, device=x.device), min=1e-8)
-    return torch.clamp(torch.round(x / s), -qn, qp) * s
+    """LSQ: q = clip(round(x/s), -qn, qp) * s, s = max(scale, 1e-8), with
+    the Esser et al. gradient in x and in ``scale``."""
+    scale = torch.as_tensor(scale, device=x.device)
+    if not scale.is_floating_point():
+        scale = scale.to(x.dtype)
+    return _LSQ.apply(x, scale, qn, qp)
 
 
 def int_act(x: torch.Tensor, scale, bits: int, signed: bool = True) -> torch.Tensor:

@@ -1,16 +1,77 @@
-"""Pool step builders for the continuous-batching scheduler.
+"""Step builders: the train step and the pool steps of the
+continuous-batching scheduler.
 
-Port of the pool steps of ``repro.runtime.steps``. PyTorch runs eagerly,
-so a step is the model function closed over the config (no jit, no buffer
-donation: the pool steps update the pool tensors in place).
+Port of ``repro.runtime.steps`` for the dense family. PyTorch runs
+eagerly, so a step is the model function closed over the config (no jit,
+no buffer donation: the train step updates the parameters and the
+optimizer state in place, the pool steps the pool tensors).
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
+import torch
+
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim.adamw import AdamW, param_tree
+
+
+def make_loss_fn(cfg: ModelConfig, *, remat: str = "full", ce_chunk: int = 0) -> Callable:
+    """(params, batch {tokens, labels}) -> scalar loss."""
+
+    def loss(params, batch):
+        value, _ = lm.loss_fn(
+            params, cfg, batch["tokens"], batch["labels"], remat=remat, ce_chunk=ce_chunk
+        )
+        return value
+
+    return loss
+
+
+def _grads(loss: torch.Tensor, tree):
+    """d loss / d every leaf that requires a gradient, as a tree like the
+    parameters' with None elsewhere (the reference's float0 tangents)."""
+    flat: list[tuple[tuple[str, ...], torch.Tensor]] = []
+
+    def walk(node, path):
+        for k in sorted(node):
+            if isinstance(node[k], dict):
+                walk(node[k], path + (k,))
+            elif node[k].requires_grad:
+                flat.append((path + (k,), node[k]))
+
+    walk(tree, ())
+    got = torch.autograd.grad(loss, [t for _, t in flat])
+    by_path = {path: g for (path, _), g in zip(flat, got)}
+
+    def build(node, path):
+        return {
+            k: build(v, path + (k,)) if isinstance(v, dict) else by_path.get(path + (k,))
+            for k, v in node.items()
+        }
+
+    return build(tree, ())
+
+
+def make_train_step(
+    cfg: ModelConfig, opt: AdamW | None = None, *, remat: str = "full", ce_chunk: int = 0
+) -> Callable:
+    """(params, opt_state, batch) -> (params, opt_state, {"loss": ...}).
+
+    ``params`` must be trainable (``init_params(..., trainable=True)``);
+    the step updates it and the optimizer state in place."""
+    opt = opt or AdamW()
+    loss_fn = make_loss_fn(cfg, remat=remat, ce_chunk=ce_chunk)
+
+    def step(params, opt_state, batch):
+        loss = loss_fn(params, batch)
+        grads = _grads(loss, param_tree(params))
+        params, opt_state = opt.update(grads, opt_state, params)
+        return params, opt_state, {"loss": loss.detach()}
+
+    return step
 
 
 def make_paged_serve_step(cfg: ModelConfig) -> Callable:

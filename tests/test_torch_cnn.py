@@ -84,6 +84,61 @@ def test_int_act_matches_reference(bits, signed):
     assert halves.tolist() == [0.0, 2.0, -0.0, 2.0]
 
 
+def test_lsq_gradient_is_the_reference_custom_vjp():
+    """The Esser et al. backward of the reference's ``custom_vjp`` (2-bit
+    signed: qn 2, qp 1): dx passes only inside [-2, 1], ds sums
+    g * (inside ? q - v : q) / sqrt(n * qp). Plain autograd through
+    ``round`` gave dx 0 and ds 11 here."""
+    x = np.linspace(-3.0, 3.0, 7).astype(np.float32)
+    g = np.arange(7.0, dtype=np.float32)
+    xt = torch.from_numpy(x).requires_grad_()
+    st = torch.tensor(1.0, requires_grad=True)
+    tq.int_act(xt, st, 2).backward(torch.from_numpy(g))
+    assert xt.grad.tolist() == [0.0, 1.0, 2.0, 3.0, 4.0, 0.0, 0.0]
+    np.testing.assert_allclose(st.grad.item(), 4.1576, atol=1e-4)
+    assert st.grad.shape == st.shape
+
+
+@pytest.mark.parametrize("bits,signed", [(2, True), (4, True), (2, False)])
+def test_int_act_gradients_match_reference(bits, signed):
+    """dx and ds of ``int_act`` against jax.grad of the reference's, on
+    inputs that fall inside and outside the clip range; f32, 1e-6 (the
+    same elementwise terms, ds a sum of 256 in another order)."""
+    rng = np.random.default_rng(10 + bits + signed)
+    x = (rng.normal(size=(4, 64)) * 2).astype(np.float32)
+    up = rng.normal(size=(4, 64)).astype(np.float32)
+    scale = np.float32(_np(jq.init_act_scale(bits)))
+
+    def f(x, s):
+        return jnp.sum(jq.int_act(x, s, bits, signed) * jnp.asarray(up))
+
+    want_dx, want_ds = jax.grad(f, argnums=(0, 1))(jnp.asarray(x), jnp.float32(scale))
+    xt = torch.from_numpy(x).requires_grad_()
+    st = torch.tensor(scale, requires_grad=True)
+    torch.sum(tq.int_act(xt, st, bits, signed) * torch.from_numpy(up)).backward()
+    np.testing.assert_allclose(xt.grad.numpy(), _np(want_dx), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(st.grad.item(), float(want_ds), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["binary", "ternary", "int8"])
+def test_weight_quantizer_backward_is_straight_through(kind):
+    """``_ste`` passes the upstream gradient through unchanged (the scale
+    and the codes are outside the gradient), as the reference's does."""
+    rng = np.random.default_rng(6)
+    w = rng.normal(size=(3, 3, 4, 8)).astype(np.float32)
+    up = rng.normal(size=w.shape).astype(np.float32)
+    fj, ft = {
+        "binary": (jq.binary_weight, tq.binary_weight),
+        "ternary": (jq.ternary_weight, tq.ternary_weight),
+        "int8": (lambda a: jq.int_weight(a, 8), lambda a: tq.int_weight(a, 8)),
+    }[kind]
+    want = jax.grad(lambda a: jnp.sum(fj(a) * jnp.asarray(up)))(jnp.asarray(w))
+    wt = torch.from_numpy(w).requires_grad_()
+    torch.sum(ft(wt) * torch.from_numpy(up)).backward()
+    assert torch.equal(wt.grad, torch.from_numpy(up))
+    np.testing.assert_array_equal(wt.grad.numpy(), _np(want))
+
+
 def test_code_helpers_round_trip():
     s = torch.tensor([-1.0, 1.0, 1.0, -1.0])
     t = torch.tensor([-1.0, 0.0, 1.0, 0.0])
@@ -203,6 +258,55 @@ def test_cnv_train_forward_matches_reference():
     got = tcnn.cnn_forward(cnn_params_from_reference(params, "cpu"), specs_t,
                            torch.from_numpy(x), train=True).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _narrow(specs):
+    """CNV at an eighth of its widths (the input's 3 channels and the 10
+    logits kept)."""
+    return [
+        dataclasses.replace(
+            sp,
+            c_in=sp.c_in if sp.name == "conv0" else sp.c_in // 8,
+            c_out=sp.c_out if sp.name == "fc2" else sp.c_out // 8,
+        )
+        for sp in specs
+    ]
+
+
+@pytest.mark.parametrize("w_bits", [1, 2])
+def test_cnv_train_gradients_match_reference(w_bits):
+    """QAT through the port: gradients of ``cnn_forward(train=True)`` (STE
+    weights, batch BN, LSQ activations) on a narrow CNV against jax.grad
+    of the reference's, for every weight, BN gain and bias and LSQ scale,
+    and the input; f32, 1e-4 as the forward checks."""
+    specs_j = _narrow(jcnn.cnv_topology(w_bits=w_bits, a_bits=2))
+    specs_t = _narrow(tcnn.cnv_topology(w_bits=w_bits, a_bits=2))
+    params = _ref_params(specs_j, seed=7 + w_bits)
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(4, 32, 32, 3)).astype(np.float32)
+    up = rng.normal(size=(4, 10)).astype(np.float32)
+
+    def loss_j(p, xx):
+        return jnp.sum(jcnn.cnn_forward(p, specs_j, xx, train=True) * jnp.asarray(up))
+
+    want_p, want_x = jax.grad(loss_j, argnums=(0, 1))(
+        jax.tree.map(jnp.asarray, params), jnp.asarray(x))
+    pt = cnn_params_from_reference(params, "cpu")
+    for leaves in pt.values():
+        for t in leaves.values():
+            t.requires_grad_()
+    xt = torch.from_numpy(x).requires_grad_()
+    torch.sum(tcnn.cnn_forward(pt, specs_t, xt, train=True) * torch.from_numpy(up)).backward()
+    np.testing.assert_allclose(xt.grad.numpy(), _np(want_x), rtol=1e-4, atol=1e-4)
+    moved = 0
+    for sp in specs_t:
+        for name, t in pt[sp.name].items():
+            want = _np(want_p[sp.name][name])
+            got = np.zeros_like(want) if t.grad is None else t.grad.numpy()
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4,
+                                       err_msg=f"{sp.name}/{name}")
+            moved += name == "act_scale" and bool(np.abs(want) > 0)
+    assert moved >= 7  # the LSQ scales learn (they did not before the fix)
 
 
 def test_init_cnn_params_shapes_and_distribution():

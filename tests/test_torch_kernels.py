@@ -9,6 +9,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -247,3 +248,116 @@ def test_chunk_attention_matches_reference(window):
         causal=True, window=window, q_offset=3,
     )
     np.testing.assert_allclose(flash.numpy(), got[:1].numpy(), rtol=1e-5, atol=1e-5)
+
+
+# flash_bwd: the plain version against the Pallas backward in interpret
+# mode. (sq, sk, causal, window, q_offset); the Pallas kernel needs blocks
+# that divide Sq and Sk (qb=16, kb=32).
+FLASH_BWD_CASES = [
+    (64, 64, True, 0, 0),
+    (64, 64, True, 20, 0),  # sliding window
+    (32, 64, True, 0, 32),  # q_offset: a chunk over its prefix
+    (32, 64, True, 12, 32),  # window and q_offset together
+    (32, 64, False, 0, 0),  # not causal, Sq != Sk
+]
+# f32 sums of at most 64 products, in another order than the Pallas
+# kernel's 16 x 32 blocks
+FLASH_BWD_TOL = 1e-5
+
+
+def _flash_bwd_inputs(rng, bh, bkv, sq, sk, d):
+    q = rng.normal(size=(bh, sq, d)).astype(np.float32)
+    k = rng.normal(size=(bkv, sk, d)).astype(np.float32)
+    v = rng.normal(size=(bkv, sk, d)).astype(np.float32)
+    do = rng.normal(size=(bh, sq, d)).astype(np.float32)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("g", [1, 2], ids=["g1", "g2"])
+@pytest.mark.parametrize(
+    "sq,sk,causal,window,q_offset", FLASH_BWD_CASES,
+    ids=["causal", "window", "q_offset", "window_offset", "full"],
+)
+def test_flash_bwd_plain_matches_pallas_interpret(g, sq, sk, causal, window, q_offset):
+    bkv, d = 2, 32
+    rng = np.random.default_rng(17 * g + sq + sk + window + q_offset)
+    q, k, v, do = _flash_bwd_inputs(rng, bkv * g, bkv, sq, sk, d)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    out, lse = jfa.flash_fwd(jq, jk, jv, qb=16, kb=32, interpret=True, **kw)
+    want_dq, dk_g, dv_g = jfa.flash_bwd(
+        jq, jk, jv, out, lse, jnp.asarray(do), qb=16, kb=32, interpret=True, **kw
+    )
+    # sum the per-q-head partials over each GQA group, as ops._fa_bwd does
+    want_dk = np.asarray(dk_g).reshape(bkv, g, sk, d).sum(axis=1)
+    want_dv = np.asarray(dv_g).reshape(bkv, g, sk, d).sum(axis=1)
+    got = tfa.flash_bwd(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(np.array(out)), torch.from_numpy(np.array(lse)),
+        torch.from_numpy(do), **kw,
+    )
+    for a, b in zip(got, (want_dq, want_dk, want_dv)):
+        assert a.dtype == torch.float32
+        np.testing.assert_allclose(
+            a.numpy(), np.asarray(b), rtol=FLASH_BWD_TOL, atol=FLASH_BWD_TOL
+        )
+
+
+def test_flash_bwd_masks_rows_that_see_no_key():
+    """A row past the window sees no key (lse -1e30): its dq is 0 and it
+    adds nothing to dk/dv, with no inf or nan from exp(s + 1e30)."""
+    rng = np.random.default_rng(4)
+    q, k, v, do = (torch.from_numpy(a) for a in _flash_bwd_inputs(rng, 2, 1, 8, 16, 32))
+    kw = dict(causal=True, window=3, q_offset=20)  # positions 20..27, keys 0..15
+    out, lse = tfa.flash_fwd(q, k, v, **kw)
+    assert bool((lse <= -1e29).all())
+    dq, dk, dv = tfa.flash_bwd(q, k, v, out, lse, do, **kw)
+    for t in (dq, dk, dv):
+        assert bool(torch.isfinite(t).all()) and not bool(t.any())
+
+
+def test_flash_bwd_wrapper_rejects_bad_inputs():
+    q, k = torch.zeros((4, 8, 32)), torch.zeros((2, 8, 32))
+    lse = torch.zeros((4, 8))
+    with pytest.raises(ValueError):  # do's shape disagrees with q's
+        tfa.flash_bwd(q, k, k, q, lse, torch.zeros((4, 4, 32)))
+    with pytest.raises(ValueError):  # lse must be f32 (BH, Sq)
+        tfa.flash_bwd(q, k, k, q, lse.double(), q)
+    with pytest.raises(ValueError):  # out in another dtype than q
+        tfa.flash_bwd(q, k, k, q.double(), lse, q)
+
+
+@pytest.mark.parametrize(
+    "b,sq,hq,hkv,window,q_offset",
+    [(1, 64, 4, 2, 0, 0), (2, 32, 2, 2, 12, 0), (1, 32, 4, 1, 0, 32)],
+    ids=["gqa", "window", "q_offset"],
+)
+def test_flash_attention_gradients_match_reference(b, sq, hq, hkv, window, q_offset):
+    """The port's differentiable ``ops.flash_attention`` against jax.grad of
+    the reference's Pallas path (interpret mode) and of its jnp twin
+    ``models/flash.py``, as ``tests/test_kernels.py`` checks the Pallas
+    gradients; f32, tolerance 2e-4 as there."""
+    from repro.models import flash as jflash
+
+    d, sk = 32, sq + q_offset
+    rng = np.random.default_rng(b + sq + hq + window + q_offset)
+    q = rng.normal(size=(b, sq, hq, d)).astype(np.float32)
+    k = rng.normal(size=(b, sk, hkv, d)).astype(np.float32)
+    v = rng.normal(size=(b, sk, hkv, d)).astype(np.float32)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+
+    def loss_pallas(q, k, v):
+        return jnp.sum(jnp.sin(jops.flash_attention(
+            q, k, v, q_block=16, kv_block=32, interpret=True, **kw)))
+
+    def loss_twin(q, k, v):
+        return jnp.sum(jnp.sin(jflash.flash_attention(q, k, v, **kw)))
+
+    args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want_p = jax.grad(loss_pallas, argnums=(0, 1, 2))(*args)
+    want_t = jax.grad(loss_twin, argnums=(0, 1, 2))(*args)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    torch.sum(torch.sin(tops.flash_attention(tq, tk, tv, **kw))).backward()
+    for got, a, b_ in zip((tq.grad, tk.grad, tv.grad), want_p, want_t):
+        np.testing.assert_allclose(got.numpy(), np.asarray(a), rtol=2e-4, atol=2e-4)
+        np.testing.assert_allclose(got.numpy(), np.asarray(b_), rtol=2e-4, atol=2e-4)

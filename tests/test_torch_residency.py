@@ -231,7 +231,9 @@ def test_split_plan_covers_every_stage_once(m, k, n, bits):
 
 
 def test_build_all_covers_every_kernel_source():
-    assert _build.kernel_names() == ("flash_fwd", "mvau", "packed_matmul", "weight_stream")
+    assert _build.kernel_names() == (
+        "flash_bwd", "flash_fwd", "mvau", "packed_matmul", "weight_stream"
+    )
 
 
 # ---------------- (d) budgeted decode step ----------------
@@ -365,7 +367,8 @@ def test_serve_cli_vmem_budget_prints_the_plan(capsys):
     assert metrics["residency"]["planned_stream_fraction"] == 0.5
     # the CPU launches no kernel: every counter is there and reads 0
     assert metrics["kernel_launches"] == dict.fromkeys(
-        ["packed_matmul", "flash_fwd", "stream_matmul", "mvau", "split_reduce"], 0
+        ["packed_matmul", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "stream_matmul",
+         "mvau", "split_reduce"], 0
     )
     assert metrics["generated_tokens"] == 12
 
