@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only kernels|prefill] [--src DIR]
 
 Phases, one JSON line each; any failure exits nonzero with no result:
 
@@ -14,7 +14,10 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               median device times over 30 runs, L2 flushed before each,
               beside the plain version, one library call as a yardstick
               (never used by the port), the bound from bytes and flops, and
-              the host's enqueue time per call. ``stream_matmul`` at bits 2/1/0 at the plan's ring depths,
+              the host's enqueue time per call. ``packed_matmul`` and
+              ``flash_fwd`` on both routes (bf16 on the tensor cores, f32 on
+              the CUDA cores), plus ragged, split-K and no-key-row cases
+              checked for agreement only. ``stream_matmul`` at bits 2/1/0 at the plan's ring depths,
               plus ragged and ring-edge cases checked for agreement only.
               ``mvau`` at the CNV layer shapes at batch 256 (bits 1/2, L=3),
               plus ragged M/N/K, L=1/15 and +inf thresholds for agreement.
@@ -25,7 +28,10 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               Sq/Sk, G=1, D 32/128, f32 and not-causal cases for agreement.
 4. prefill -- smollm-360m at full width and depth with 2-bit FFN carriers:
               ``prefill_with_cache`` on a 512-token prompt in bf16 on the
-              card against float32 on the CPU, same weights; then one
+              card against float32 on the CPU, same weights; the serve
+              path's second 256-token prefill chunk profiled (host ms
+              against the card's, split into flash_fwd, packed_matmul and
+              the rest); then one
               paged decode step of 8 lanes profiled (host ms against the
               card's kernel ms), with 2-bit and with dense FFN weights,
               and at 2 bits under a half-budget residency plan (both 2-bit
@@ -35,10 +41,13 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               --quant 2 then --quant 0, each unbudgeted and then with
               ``--vmem-budget`` at half the plan's tile bytes, with launch
               counters reset just before each run and read just after; the
-              --quant 2 run must launch packed_matmul and flash_fwd, each
-              budgeted run stream_matmul's ring kernel exactly 3 x streamed
-              layers x decode steps, and its split_reduce kernel once for
-              each of those calls whose K sweep is split.
+              --quant 2 run must launch packed_matmul and flash_fwd (by
+              route: prefill through packed_matmul's and flash_fwd's
+              tensor-core kernels, decode through the GEMV, never an f32
+              route), each budgeted run stream_matmul's ring kernel
+              exactly 3 x streamed layers x decode steps, and its
+              split_reduce kernel once for each of those calls whose K
+              sweep is split.
 6. cnn     -- the paper's CNV at full width (w1a2, then w2a2), random
               weights with randomised BN statistics and 256 random images
               from a seed: ``cnn_forward_streamlined`` on the card against
@@ -56,7 +65,8 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               batch 8 x 512, 20 steps, then 5 with ``--remat full``, launch
               counters reset just before each run and read just after
               (``flash_bwd_dq`` and ``flash_bwd_dkv`` 32 x steps each,
-              ``flash_fwd`` 32 or 64 x steps, the loss finite and falling);
+              ``flash_fwd`` 32 or 64 x steps, all on its tensor-core
+              route, the loss finite and falling);
               one train step under torch.profiler (host ms against the
               card's kernel ms, the largest kernels, flash's share); a
               checkpoint of the trained state saved and restored into
@@ -92,7 +102,10 @@ PROMPT, CHUNK, LANES, MAX_LEN = 512, 256, 8, 640
 
 # tolerances, each with its reason
 PACKED_REL_TOL = 1e-5  # both sides f32 sums of exact +-1/0 weights; only order differs
-FLASH_OUT_TOL = 2e-2  # both f32 inside, each rounds its output to bf16 once (~1 ulp)
+# the bf16 kernel rounds P to bf16 before PV, as the reference's kernel
+# does (p.astype(v.dtype)), where the plain version keeps P in f32; each
+# side rounds its output to bf16 once (~1 ulp)
+FLASH_OUT_TOL = 2e-2
 FLASH_LSE_TOL = 1e-3  # f32 log-sum-exp; summation order only
 PREFILL_MIN_COS = 0.99  # bf16 activations over 32 layers vs float32
 PREFILL_TOP1_SLACK = 0.1  # the card's top-1 token must be within 0.1 of the CPU max logit
@@ -141,10 +154,21 @@ def bound_ms(n_bytes: float, flops: float, peak: float = BF16_FLOPS) -> tuple[fl
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def main() -> int:
-    if not (SRC / "repro_torch" / "csrc").is_dir():
-        fail(f"no src/repro_torch beside {Path(__file__).name}; run it from a checkout")
-    sys.path.insert(0, str(SRC))
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
+    ap.add_argument("--only", choices=("kernels", "prefill"),
+                    help="kernels: stop after phase 3 (build, and hold each kernel against "
+                         "its plain version); prefill: build, then only phase 4's prefill "
+                         "check and profile. Either prints no result")
+    ap.add_argument("--src", type=Path, default=SRC,
+                    help="the source tree whose repro_torch to run (default: src beside this "
+                         "script); another commit's, to compare the two in one call")
+    opts = ap.parse_args(argv)
+    if not (opts.src / "repro_torch" / "csrc").is_dir():
+        fail(f"no src/repro_torch in {opts.src}; run {Path(__file__).name} from a checkout")
+    sys.path.insert(0, str(opts.src.resolve()))
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -216,49 +240,175 @@ def main() -> int:
 
     gen = torch.Generator(device="cpu").manual_seed(0)
 
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def profile_window(step) -> tuple[dict, dict[str, float]]:
+        """Host wall ms of ``step`` (synchronised, mean of 10 after 3 warm-up
+        runs) against the card's kernel ms in a torch.profiler window of 3;
+        with each kernel's ms per step by (cut) name."""
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(10):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) / 10 * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                step()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        by_name: dict[str, float] = {}
+        for e in kern:
+            by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 3e3
+        dev_ms = sum(by_name.values())
+        return dict(host_step_ms=wall_ms, device_step_ms=dev_ms,
+                    device_busy_share=dev_ms / wall_ms, kernels_per_step=len(kern) / 3), by_name
+
+    def prefill_phase():
+        """Phase 4's prefill: smollm-360m at full width and depth with 2-bit
+        FFN carriers, ``prefill_with_cache`` on a 512-token prompt in bf16
+        on the card against float32 on the CPU, same weights; then the
+        serve path's second prefill chunk (``prefill_chunk_paged``: CHUNK
+        tokens at start CHUNK over MAX_LEN pool rows, batch 1) profiled:
+        host ms against the card's kernel ms, split into ``flash_fwd``,
+        ``packed_matmul`` and the rest. Returns (params, config)."""
+        cfg2 = dataclasses.replace(get_config("smollm_360m"), w_bits=2)
+        params = lm.init_params(cfg2, 0, device=dev)
+        cpu_cfg = dataclasses.replace(cfg2, dtype="float32")
+        cpu_params = params_from_reference(
+            _to_cpu(params.tree()), cpu_cfg, device="cpu", dtype=torch.float32
+        )
+        tokens = torch.from_numpy(
+            np.random.default_rng(0).integers(0, cfg2.vocab, size=(1, PROMPT))
+        )
+        t0 = time.monotonic()
+        lg_gpu, ks, _ = lm.prefill_with_cache(params, cfg2, tokens.to(dev), PROMPT - 1)
+        torch.cuda.synchronize()
+        gpu_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        lg_cpu, _, _ = lm.prefill_with_cache(cpu_params, cpu_cfg, tokens, PROMPT - 1)
+        cpu_s = time.monotonic() - t0
+        a = lg_gpu[0, 0, : cfg2.vocab].float().cpu()
+        b = lg_cpu[0, 0, : cfg2.vocab]
+        cos = F.cosine_similarity(a, b, dim=0).item()
+        top_gpu, top_cpu = int(a.argmax()), int(b.argmax())
+        slack = (b.max() - b[top_gpu]).item()
+        phase("prefill", tokens=PROMPT, cosine=cos, top1_card=top_gpu, top1_cpu=top_cpu,
+              top1_cpu_logit_gap=slack, max_abs_logit_err=(a - b).abs().max().item(),
+              card_s=gpu_s, cpu_s=cpu_s, kv_rows_finite=bool(torch.isfinite(ks).all()))
+        if not (cos >= PREFILL_MIN_COS and slack <= PREFILL_TOP1_SLACK):
+            fail(f"prefill card vs CPU: cosine {cos}, top-1 gap {slack}")
+        del cpu_params, ks
+
+        pk = torch.zeros((cfg2.n_layers, MAX_LEN + 16, cfg2.n_kv, cfg2.hd),
+                         dtype=torch.bfloat16, device=dev)
+        pv = torch.zeros_like(pk)
+        table = (16 + torch.arange(MAX_LEN, device=dev))[None]
+        chunk = torch.from_numpy(
+            np.random.default_rng(2).integers(0, cfg2.vocab, size=(1, CHUNK))).to(dev)
+
+        def chunk_step():
+            lm.prefill_chunk_paged(params, cfg2, chunk, pk, pv, table,
+                                   table[:, CHUNK:2 * CHUNK], CHUNK, CHUNK - 1)
+
+        stats, by_name = profile_window(chunk_step)
+        split = {"flash_fwd": 0.0, "packed_matmul": 0.0, "rest": 0.0}
+        for name, ms in by_name.items():
+            if "flash_fwd" in name:
+                split["flash_fwd"] += ms
+            elif any(k in name for k in ("mma_kernel<", "tiled_kernel<", "gemv_kernel<")):
+                split["packed_matmul"] += ms
+            else:
+                split["rest"] += ms
+        phase("prefill_profile", src=str(opts.src), chunk=CHUNK, start=CHUNK, pool_rows=MAX_LEN,
+              **stats, device_ms_by_kernel=split,
+              top_kernels_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6]))
+        return params, cfg2
+
+    if opts.only == "prefill":
+        prefill_phase()
+        print("[chip_smoke] --only prefill: stopped after the prefill profile", file=sys.stderr)
+        return 0
+
     # ---------------- 3. kernels vs their plain versions ----------------
     cfg = get_config("smollm_360m")
     d, ff = cfg.d_model, cfg.d_ff
     packed_cases = []
+    packed_checks = []
+
+    def packed_case(bits, m, k, n, dt, timed):
+        """``packed_matmul`` on the card against its plain version on the
+        same inputs (rel err within PACKED_REL_TOL); timed cases beside the
+        plain version, the library's matmul on the pre-decoded weight and
+        the bound. A second run must give the same bits (the tensor-core
+        path, bf16 x with M > 16, sums its K split in a fixed order)."""
+        w = lm.make_packed(torch.randn((k, n), generator=gen).to(dev), bits)
+        x = torch.randn((m, k), generator=gen).to(dev, dt)
+        got = pm.packed_matmul(x, w["packed"], w["scale"], bits, k)
+        want = ref.packed_matmul_ref(x, w["packed"], w["scale"], bits, k)
+        again = pm.packed_matmul(x, w["packed"], w["scale"], bits, k)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        rel = err / max(want.abs().max().item(), 1e-30)
+        path = ("gemv" if m <= pm.GEMV_MAX_M else "mma" if dt == torch.bfloat16 else "tiled_f32")
+        label = f"packed_matmul {path} bits={bits} M={m} K={k} N={n} x={dt}"
+        if not math.isfinite(err) or rel > PACKED_REL_TOL:
+            fail(f"{label}: rel err {rel}")
+        if not same_bits(got, again):
+            fail(f"{label}: two runs differ")
+        splits = (pm.split_plan(m, k, n, torch.cuda.get_device_properties(0).multi_processor_count)[0]
+                  if path == "mma" else 1)
+        base = dict(bits=bits, m=m, k=k, n=n, x=str(dt).replace("torch.", ""), path=path,
+                    splits=splits, max_abs_err=err, rel_err=rel)
+        if not timed:
+            packed_checks.append(base)
+            phase("kernel", name="packed_matmul", check_only=True, **base)
+            return
+        w_dec = ref.decode_weights(w["packed"], bits, k).to(dt)
+        n_bytes = x.numel() * x.element_size() + w["packed"].numel() + n * 4 + m * n * 4
+        peak = BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS
+        b_ms, b_by = bound_ms(n_bytes, 2.0 * m * k * n, peak)
+        case = dict(
+            **base,
+            ms=median_ms(lambda: pm.packed_matmul(x, w["packed"], w["scale"], bits, k)),
+            host_us=host_us(lambda: pm.packed_matmul(x, w["packed"], w["scale"], bits, k)),
+            plain_ms=median_ms(lambda: ref.packed_matmul_ref(x, w["packed"], w["scale"], bits, k)),
+            library_ms=median_ms(lambda: torch.matmul(x, w_dec) * w["scale"]),
+            bound_ms=b_ms, bound_by=b_by,
+        )
+        packed_cases.append(case)
+        phase("kernel", name="packed_matmul", **case)
+
     for bits in (1, 2):
         for k, n in ((d, ff), (ff, d)):
-            w = lm.make_packed(torch.randn((k, n), generator=gen).to(dev), bits)
-            w_dec = (ref.decode_weights(w["packed"], bits, k)).to(torch.bfloat16)
             for m in (LANES, CHUNK, PROMPT):
-                x = torch.randn((m, k), generator=gen).to(dev, torch.bfloat16)
-                got = pm.packed_matmul(x, w["packed"], w["scale"], bits, k)
-                want = ref.packed_matmul_ref(x, w["packed"], w["scale"], bits, k)
-                torch.cuda.synchronize()
-                err = (got - want).abs().max().item()
-                rel = err / max(want.abs().max().item(), 1e-30)
-                if not math.isfinite(err) or rel > PACKED_REL_TOL:
-                    fail(f"packed_matmul bits={bits} M={m} K={k} N={n}: rel err {rel}")
-                n_bytes = x.numel() * 2 + w["packed"].numel() + n * 4 + m * n * 4
-                b_ms, b_by = bound_ms(n_bytes, 2.0 * m * k * n)
-                case = dict(
-                    bits=bits, m=m, k=k, n=n, max_abs_err=err, rel_err=rel,
-                    ms=median_ms(lambda: pm.packed_matmul(x, w["packed"], w["scale"], bits, k)),
-                    host_us=host_us(lambda: pm.packed_matmul(x, w["packed"], w["scale"], bits, k)),
-                    plain_ms=median_ms(lambda: ref.packed_matmul_ref(x, w["packed"], w["scale"], bits, k)),
-                    library_ms=median_ms(lambda: torch.matmul(x, w_dec) * w["scale"]),
-                    bound_ms=b_ms, bound_by=b_by,
-                )
-                packed_cases.append(case)
-                phase("kernel", name="packed_matmul", **case)
+                packed_case(bits, m, k, n, torch.bfloat16, timed=True)
+    # the f32-x route (the CUDA-core tiled kernel) at the chunk's M
+    for k, n in ((d, ff), (ff, d)):
+        packed_case(2, CHUNK, k, n, torch.float32, timed=True)
+    # ragged M, N and K for the tensor-core path (K % 64 = 8, N % 128 = 104;
+    # 8- and 4-block clusters), and K % 8 != 0 with an odd N, which take
+    # the synchronous copies instead of cp.async
+    for bits in (1, 2):
+        for m in (17, 100, 300):
+            packed_case(bits, m, 968, 1000, torch.bfloat16, timed=False)
+    packed_case(2, 33, 972, 999, torch.bfloat16, timed=False)
 
     hq, hkv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
     flash_cases = []
-    # (label, Sq, Sk, causal, window, q_offset): full-prompt prefill, a
-    # sliding window, and the chunk-prefill shape (a 256-token chunk at
-    # offset 256 over the 640 gathered pool rows)
-    for label, sq, sk, causal, window, q_off in (
-        ("prefill_causal", PROMPT, PROMPT, True, 0, 0),
-        ("window_128", PROMPT, PROMPT, True, 128, 0),
-        ("chunk_q_offset", CHUNK, MAX_LEN, True, 0, CHUNK),
-    ):
-        q = torch.randn((hq, sq, hd), generator=gen).to(dev, torch.bfloat16)
-        kk = torch.randn((hkv, sk, hd), generator=gen).to(dev, torch.bfloat16)
-        vv = torch.randn((hkv, sk, hd), generator=gen).to(dev, torch.bfloat16)
+    flash_checks = []
+
+    def flash_case(label, h, h_kv, sq, sk, dh, causal, window, q_off, dt, timed):
+        """``flash_fwd`` on the card against its plain version on the same
+        inputs (out within FLASH_OUT_TOL, lse within FLASH_LSE_TOL); timed
+        cases beside the plain version, SDPA and the bound. Rows that see
+        no key must give out exactly 0 and lse <= -1e29."""
+        q = torch.randn((h, sq, dh), generator=gen).to(dev, dt)
+        kk = torch.randn((h_kv, sk, dh), generator=gen).to(dev, dt)
+        vv = torch.randn((h_kv, sk, dh), generator=gen).to(dev, dt)
         kw = dict(causal=causal, window=window, q_offset=q_off)
         out, lse = fa.flash_fwd(q, kk, vv, **kw)
         want_o, want_lse = ref.flash_fwd_ref(q, kk, vv, **kw)
@@ -274,14 +424,27 @@ def main() -> int:
             vis &= qp >= kp
         if window:
             vis &= qp - kp < window
-        pairs = int(vis.sum()) * hq
-        n_bytes = 2 * (q.numel() * 2 + kk.numel() + vv.numel()) + lse.numel() * 4
-        b_ms, b_by = bound_ms(n_bytes, 4.0 * hd * pairs)
+        blind = torch.from_numpy(~vis.any(axis=1)).to(dev)
+        blind_rows = int(blind.sum())
+        if blind_rows and not (bool((out[:, blind] == 0).all())
+                               and lse[:, blind].max().item() <= -1e29):
+            fail(f"flash_fwd {label}: rows that see no key give out != 0 or lse > -1e29")
+        base = dict(case=label, sq=sq, sk=sk, heads=h, kv_heads=h_kv, d=dh, causal=causal,
+                    window=window, q_offset=q_off, dtype=str(dt).replace("torch.", ""),
+                    rows_without_keys=blind_rows, max_abs_err=err, lse_err=lse_err)
+        if not timed:
+            flash_checks.append(base)
+            phase("kernel", name="flash_fwd", check_only=True, **base)
+            return
+        pairs = int(vis.sum()) * h
+        e = q.element_size()
+        n_bytes = e * (2 * q.numel() + kk.numel() + vv.numel()) + lse.numel() * 4
+        peak = BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS
+        b_ms, b_by = bound_ms(n_bytes, 4.0 * dh * pairs, peak)
         mask = torch.from_numpy(vis).to(dev)
         q4, k4, v4 = q[None], kk[None], vv[None]
         case = dict(
-            case=label, sq=sq, sk=sk, heads=hq, kv_heads=hkv, d=hd, window=window,
-            q_offset=q_off, max_abs_err=err, lse_err=lse_err,
+            **base,
             ms=median_ms(lambda: fa.flash_fwd(q, kk, vv, **kw)),
             plain_ms=median_ms(lambda: ref.flash_fwd_ref(q, kk, vv, **kw)),
             library_ms=median_ms(
@@ -297,6 +460,31 @@ def main() -> int:
         )
         flash_cases.append(case)
         phase("kernel", name="flash_fwd", **case)
+
+    bf16 = torch.bfloat16
+    # full-prompt prefill, a sliding window, and the chunk-prefill shape (a
+    # 256-token chunk at offset 256 over the 640 gathered pool rows); then
+    # the f32 route (the CUDA-core kernel) at the prefill shape
+    flash_case("prefill_causal", hq, hkv, PROMPT, PROMPT, hd, True, 0, 0, bf16, True)
+    flash_case("window_128", hq, hkv, PROMPT, PROMPT, hd, True, 128, 0, bf16, True)
+    flash_case("chunk_q_offset", hq, hkv, CHUNK, MAX_LEN, hd, True, 0, CHUNK, bf16, True)
+    flash_case("prefill_causal", hq, hkv, PROMPT, PROMPT, hd, True, 0, 0, torch.float32, True)
+    # edges of the tensor-core kernel's fragments and masks, checked only
+    for args in (
+        ("d32", 4, 2, 256, 256, 32, True, 0, 0),
+        ("d128", 4, 2, 256, 256, 128, True, 0, 0),
+        ("ragged_200", hq, hkv, 200, 200, hd, True, 0, 0),
+        ("ragged_q_offset_g3", 6, 2, 77, 333, hd, True, 0, 256),
+        ("window_q_offset", 6, 2, 100, 400, hd, True, 77, 300),
+        ("no_key_rows", 4, 2, 64, 64, hd, True, 128, 256),
+        ("some_rows_without_keys", 4, 2, 96, 64, hd, True, 32, 40),
+        ("d128_ragged_window", 4, 2, 130, 130, 128, True, 17, 0),
+        ("not_causal", 6, 2, 100, 150, hd, False, 0, 0),
+    ):
+        flash_case(*args, bf16, False)
+    blind = next(c["rows_without_keys"] for c in flash_checks if c["case"] == "no_key_rows")
+    if blind != 64:
+        fail(f"flash_fwd no_key_rows: {blind} rows without keys, not 64")
 
     def visible_pairs(sq, sk, causal, window, q_off) -> int:
         qp = q_off + np.arange(sq)[:, None]
@@ -377,7 +565,6 @@ def main() -> int:
                   lambda: ref.flash_bwd_ref(q, kk, vv, out, lse, do, **kw)))
         return dq_case, dkv_case
 
-    bf16 = torch.bfloat16
     head_dq, head_dkv = flash_bwd_case("train_causal", TRAIN_BATCH, hq, hkv, TRAIN_SEQ,
                                        TRAIN_SEQ, hd, bf16, timed=True)
     flash_bwd_checks = [
@@ -537,39 +724,14 @@ def main() -> int:
     ):
         mvau_case(label, m, k, n, bits, n_levels, timed=False, inf_rows=inf_rows)
 
+    if opts.only == "kernels":
+        print("[chip_smoke] --only kernels: stopped after phase 3", file=sys.stderr)
+        return 0
+
     # ---------------- 4. full-width prefill, card vs CPU ----------------
-    cfg2 = dataclasses.replace(cfg, w_bits=2)
-    params = lm.init_params(cfg2, 0, device=dev)
-    cpu_cfg = dataclasses.replace(cfg2, dtype="float32")
-    cpu_params = params_from_reference(
-        _to_cpu(params.tree()), cpu_cfg, device="cpu", dtype=torch.float32
-    )
-    tokens = torch.from_numpy(
-        np.random.default_rng(0).integers(0, cfg.vocab, size=(1, PROMPT))
-    )
-    t0 = time.monotonic()
-    lg_gpu, ks, _ = lm.prefill_with_cache(params, cfg2, tokens.to(dev), PROMPT - 1)
-    torch.cuda.synchronize()
-    gpu_s = time.monotonic() - t0
-    t0 = time.monotonic()
-    lg_cpu, _, _ = lm.prefill_with_cache(cpu_params, cpu_cfg, tokens, PROMPT - 1)
-    cpu_s = time.monotonic() - t0
-    a = lg_gpu[0, 0, : cfg.vocab].float().cpu()
-    b = lg_cpu[0, 0, : cfg.vocab]
-    cos = F.cosine_similarity(a, b, dim=0).item()
-    top_gpu, top_cpu = int(a.argmax()), int(b.argmax())
-    slack = (b.max() - b[top_gpu]).item()
-    phase("prefill", tokens=PROMPT, cosine=cos, top1_card=top_gpu, top1_cpu=top_cpu,
-          top1_cpu_logit_gap=slack, max_abs_logit_err=(a - b).abs().max().item(),
-          card_s=gpu_s, cpu_s=cpu_s, kv_rows_finite=bool(torch.isfinite(ks).all()))
-    if not (cos >= PREFILL_MIN_COS and slack <= PREFILL_TOP1_SLACK):
-        fail(f"prefill card vs CPU: cosine {cos}, top-1 gap {slack}")
-    del cpu_params, ks
+    params, cfg2 = prefill_phase()
 
     # ---------------- where a decode step's time goes ----------------
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     def half_budget_plan(c):
         """The residency plan at half of its own total tile bytes."""
         full = compile_residency_plan(c, vmem_budget_bytes=0)
@@ -597,28 +759,10 @@ def main() -> int:
         def step():
             lm.decode_step_paged(p, c, tok, pk, pv, table, lens, **kw)
 
-        for _ in range(3):
-            step()
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        for _ in range(10):
-            step()
-        torch.cuda.synchronize()
-        wall_ms = (time.monotonic() - t0) / 10 * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                step()
-            torch.cuda.synchronize()
-        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        by_name: dict[str, float] = {}
-        for e in kern:
-            by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 3e3
-        dev_ms = sum(by_name.values())
+        stats, by_name = profile_window(step)
         return dict(
             w_bits=c.w_bits, budgeted=plan is not None,
-            streamed_layers=sum(kw.get("stream_mask", ())),
-            host_step_ms=wall_ms, device_step_ms=dev_ms,
-            device_busy_share=dev_ms / wall_ms, kernels_per_step=len(kern) / 3,
+            streamed_layers=sum(kw.get("stream_mask", ())), **stats,
             top_kernels_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6]),
         )
 
@@ -662,6 +806,13 @@ def main() -> int:
     # ---------------- 5. serve at full width and depth ----------------
     runs = {}
     launches = dict.fromkeys(ops.launch_counts(), 0)
+    routes = {"packed_matmul": {}, "flash_fwd": {}}  # launches by route, main path
+
+    def add_routes(by_route):
+        for name, counts in by_route.items():
+            for route, n in counts.items():
+                routes[name][route] = routes[name].get(route, 0) + n
+
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for quant in (2, 0):
         qcfg = dataclasses.replace(cfg, w_bits=quant)
@@ -686,6 +837,7 @@ def main() -> int:
             with contextlib.redirect_stdout(buf):
                 rc = serve.main(argv)
             counts = ops.launch_counts()
+            by_route = ops.launch_routes()
             text = buf.getvalue()
             sys.stderr.write(text)
             if rc != 0:
@@ -717,8 +869,16 @@ def main() -> int:
                 fail(f"serve --quant {quant} unbudgeted launched stream_matmul")
             if quant == 2 and min(counts["packed_matmul"], counts["flash_fwd"]) <= 0:
                 fail(f"serve --quant 2 --vmem-budget {budget} skipped a kernel: {counts}")
+            # bf16 prefill takes both tensor-core kernels, decode the GEMV
+            pm_routes, fa_routes = by_route.get("packed_matmul", {}), by_route.get("flash_fwd", {})
+            if quant == 2 and not (pm_routes.get("mma", 0) > 0 and set(pm_routes) <= {"mma", "gemv"}):
+                fail(f"serve --quant 2 --vmem-budget {budget}: packed_matmul routes {pm_routes}")
+            if set(fa_routes) != {"mma"}:
+                fail(f"serve --quant {quant} --vmem-budget {budget}: flash_fwd routes {fa_routes}")
+            add_routes(by_route)
             runs[quant, budget > 0] = metrics
             phase("serve", quant=quant, vmem_budget_mib=budget, launches_counted=counts,
+                  launches_by_route=by_route,
                   **metrics)
     for quant in (2, 0):
         base, bud = runs[quant, False], runs[quant, True]
@@ -975,6 +1135,7 @@ def main() -> int:
         with contextlib.redirect_stdout(buf):
             rc = train_cli.main(argv)
         counts = ops.launch_counts()
+        by_route = ops.launch_routes()
         text = buf.getvalue()
         sys.stderr.write(text)
         if rc != 0:
@@ -995,9 +1156,12 @@ def main() -> int:
         }
         if counts != want:
             fail(f"train --remat {remat}: launches {counts}, not {want}")
+        if by_route != {"flash_fwd": {"mma": want["flash_fwd"]}}:
+            fail(f"train --remat {remat}: launches by route {by_route}, not all flash_fwd mma")
         for name, n in counts.items():
             launches[name] += n
-        run = dict(launches_counted=counts, first_losses_mean=head,
+        add_routes(by_route)
+        run = dict(launches_counted=counts, launches_by_route=by_route, first_losses_mean=head,
                    last_losses_mean=tail, **metrics)
         train_runs.append(run)
         phase("train", **run)
@@ -1073,6 +1237,36 @@ def main() -> int:
     head_fa = flash_cases[0]
     head_sm = stream_cases[0]
     head_mv = next(c for c in mvau_cases if (c["case"], c["bits"]) == ("conv1", 1))
+    nums = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+    def route(kernel_name, takes, launched, head):
+        """One route of a wrapper with several kernels: its launches on the
+        main path and its numbers at its head case."""
+        return dict(kernel=kernel_name, takes=takes, launches=launched,
+                    shape={k: head[k] for k in head if k not in nums and k != "rel_err"},
+                    **{k: head[k] for k in nums})
+
+    def packed_head(m, k, x):
+        return next(c for c in packed_cases if (c["bits"], c["m"], c["k"], c["x"]) == (2, m, k, x))
+
+    def flash_head(dtype):
+        return next(c for c in flash_cases if (c["case"], c["dtype"]) == ("prefill_causal", dtype))
+
+    packed_routes = {
+        "gemv": route("gemv_kernel", "M <= 16", routes["packed_matmul"].get("gemv", 0),
+                      packed_head(LANES, d, "bfloat16")),
+        "mma": route("mma_kernel", "M > 16, bf16 x (tensor cores)",
+                     routes["packed_matmul"].get("mma", 0), packed_head(PROMPT, d, "bfloat16")),
+        "tiled_f32": route("tiled_kernel", "M > 16, f32 x (CUDA cores)",
+                           routes["packed_matmul"].get("tiled_f32", 0),
+                           packed_head(CHUNK, d, "float32")),
+    }
+    flash_routes = {
+        "mma": route("flash_fwd_mma_kernel", "bf16 (tensor cores)",
+                     routes["flash_fwd"].get("mma", 0), flash_head("bfloat16")),
+        "f32": route("flash_fwd_kernel", "f32 (CUDA cores)", routes["flash_fwd"].get("f32", 0),
+                     flash_head("float32")),
+    }
     kernels = [
         dict(name="packed_matmul", route="cuda",
              source="src/repro_torch/csrc/packed_matmul.cu",
@@ -1080,18 +1274,18 @@ def main() -> int:
              launches=launches["packed_matmul"],
              shape=f"bits=2 M={LANES} K={d} N={ff} bf16",
              tolerance=f"rel {PACKED_REL_TOL}",
-             **{k: head_pm[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms")},
-             cases=packed_cases),
+             **{k: head_pm[k] for k in nums},
+             routes=packed_routes,
+             cases=packed_cases, check_cases=packed_checks),
         dict(name="flash_fwd", route="cuda",
              source="src/repro_torch/csrc/flash_fwd.cu",
              replaces="src/repro/kernels/flash_attention.py:218",
              launches=launches["flash_fwd"],
              shape=f"causal Sq=Sk={PROMPT} Hq={hq} Hkv={hkv} D={hd} bf16",
              tolerance=f"out abs {FLASH_OUT_TOL}, lse abs {FLASH_LSE_TOL}",
-             **{k: head_fa[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms")},
-             cases=flash_cases),
+             **{k: head_fa[k] for k in nums},
+             routes=flash_routes,
+             cases=flash_cases, check_cases=flash_checks),
         dict(name="stream_matmul", route="cuda",
              source="src/repro_torch/csrc/weight_stream.cu",
              replaces="src/repro/kernels/weight_stream.py:112",

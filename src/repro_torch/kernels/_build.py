@@ -15,6 +15,7 @@ returns ``cudaGetLastError()``; ``check`` raises on a nonzero code.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -32,10 +33,16 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 
 
 class LaunchCounter:
-    """Counts a wrapper's kernel launches (one per launch, nowhere else)."""
+    """Counts a wrapper's kernel launches (one per launch, nowhere else); a
+    wrapper with several kernels also counts each launch by its route."""
 
     def __init__(self) -> None:
         self.count = 0
+        self.routes: dict[str, int] = {}
+
+    def add(self, route: str) -> None:
+        self.count += 1
+        self.routes[route] = self.routes.get(route, 0) + 1
 
 
 def _nvcc() -> str:
@@ -78,6 +85,15 @@ def _finish(name: str, job) -> None:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed on {name}.cu:\n{log}")
     os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (the launch plans
+    size their grids to it)."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def kernel_names() -> tuple[str, ...]:

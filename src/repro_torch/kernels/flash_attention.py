@@ -4,12 +4,19 @@
 ``src/repro/kernels/flash_attention.py::flash_fwd`` (``_fwd_kernel``) with
 the hand-written CUDA kernel ``csrc/flash_fwd.cu``.
 What bounds it on the H100: at the serve path's prefill shapes (Sq = Sk =
-512, D = 64, 15 heads) it is bound by operations. The design runs one
-block per (bh, 64-query tile) with one thread per query row, stages K/V
-tiles in shared memory, keeps the f32 online-softmax state in registers,
-maps GQA by ``bh // g`` without replicating K/V, and never loads a tile the
-causal / window mask hides. Any Sq and Sk are handled by masking, not by
-a block-divisor search; D must be 32, 64 or 128.
+512, D = 64, 15 heads) it is bound by operations. Both routes run one
+block per (bh, 64-query tile), keep the online-softmax state in f32, map
+GQA by ``bh // g`` without replicating K/V, never load a tile the causal /
+window mask hides, and handle any Sq and Sk by masking, not by a
+block-divisor search; D must be 32, 64 or 128.
+
+* bf16 (the serve and train paths): tensor cores. Four warps of 16 query
+  rows hold their Q fragments in registers; K/V tiles of 64 keys arrive
+  through a 2-stage ``cp.async`` ring; S = QK^T and O += PV are
+  ``mma.sync`` (bf16 in, f32 accumulate), with P rounded to bf16 in
+  registers before PV, as the reference's kernel does. q, k and v must be
+  16-byte aligned.
+* f32: the CUDA-core kernel, one thread per query row, f32 throughout.
 
 ``flash_bwd`` replaces the TPU kernel's backward (``flash_bwd``:
 ``_dq_kernel`` and ``_dkv_kernel``) with the two kernels of
@@ -94,6 +101,9 @@ def flash_fwd(
     _check(q, k, v, window, q_offset)
     if not _launch_ready("flash_fwd", q, k, v):
         return flash_fwd_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_fwd's bf16 kernel copies 16 bytes at a time: q, k and v "
+                         "must be 16-byte aligned")
     bh, sq, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
@@ -107,7 +117,7 @@ def flash_fwd(
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, rc, "flash_fwd")
-    COUNTER.count += 1
+    COUNTER.add("mma" if q.dtype == torch.bfloat16 else "f32")
     return out, lse
 
 

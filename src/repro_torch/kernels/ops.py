@@ -145,6 +145,14 @@ def launch_counts() -> dict[str, int]:
     return {name: c.count for name, c in _COUNTERS.items()}
 
 
+def launch_routes() -> dict[str, dict[str, int]]:
+    """Launches by route since the last ``reset_launch_counts``, for the
+    wrappers with several kernels (``packed_matmul``: gemv / mma /
+    tiled_f32; ``flash_fwd``: mma / f32)."""
+    return {name: dict(c.routes) for name, c in _COUNTERS.items() if c.routes}
+
+
 def reset_launch_counts() -> None:
     for c in _COUNTERS.values():
         c.count = 0
+        c.routes.clear()

@@ -2,14 +2,23 @@
 
 Replaces the TPU kernel ``src/repro/kernels/packed_matmul.py::packed_matmul``
 (``_packed_matmul_kernel``, ``_decode_block``) with the hand-written CUDA
-kernel ``csrc/packed_matmul.cu``. What bounds it on the H100: at decode M
-is the lane count, so it moves the uint8 carrier (0.6 MB for 960x2560 at
-2 bits, ~0.2 us at 3.35 TB/s) and is launch-bound; at prefill it is bound
-by operations. The design reads the carrier straight from device memory
-and decodes it in registers next to the multiply-add, so the decoded
-weight never reaches device memory (the paper's 8x/16x fewer weight
-bytes). A GEMV-shaped path serves M <= 16, a shared-memory tiled path
-the rest; both mask ragged M/N edges themselves.
+kernel ``csrc/packed_matmul.cu``. The decoded weight never reaches device
+memory (the paper's 8x/16x fewer weight bytes than bf16); each path
+decodes the carrier next to its multiply and masks ragged M, N and K
+itself. Three paths, by M and x's dtype:
+
+* M <= 16 (decode; bound by moving the carrier and by launch latency): a
+  GEMV-shaped kernel that decodes carrier bytes in registers.
+* M > 16 with bf16 x (prefill; bound by operations): tensor cores. x tiles
+  and carrier bytes go through a ``cp.async`` ring, the codes are decoded
+  into a shared bf16 tile of -1/0/+1 (exact) that ``ldmatrix.trans``
+  reads as the B operand of ``mma.sync`` (f32 accumulate), and the scale
+  is applied in the epilogue. Where the output has too few 64x128 tiles
+  for the card's SMs, ``split_plan`` splits the K sweep over a
+  thread-block cluster, whose blocks sum their partial tiles in a fixed
+  order in shared memory: one launch, the same bits every run.
+* M > 16 with f32 x: the shared-memory tiled kernel on the CUDA cores (TF32
+  would round x, and the +-1/0 sums are exact only in f32).
 
 On a CPU tensor the wrapper runs the plain version (``ref.packed_matmul_ref``);
 on a CUDA tensor it launches the kernel or raises.
@@ -26,10 +35,36 @@ from repro_torch.kernels.ref import packed_matmul_ref
 
 COUNTER = _build.LaunchCounter()
 BITS = (1, 2)
+GEMV_MAX_M = 16  # larger M takes the tiled paths
+# the mma path's geometry (csrc/packed_matmul.cu): output tile, K step, and
+# the most blocks one cluster (one output tile's K split) may hold
+BM, BN, BK = 64, 128, 64
+MAX_SPLITS = 8
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P]
+_ARGTYPES = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def split_plan(m: int, k: int, n: int, sms: int) -> tuple[int, int]:
+    """(splits, K steps per split) of the mma path's K sweep.
+
+    The output gives ``cdiv(m, BM) * cdiv(n, BN)`` tiles (32 at M=256,
+    N=960), fewer than the SMs at the prefill shapes, so the sweep's
+    ``cdiv(k, BK)`` steps are dealt out to up to ``MAX_SPLITS`` blocks per
+    tile until the grid covers the SMs. Split ``s`` takes steps ``[s*cps,
+    min((s+1)*cps, nk))``: every split at least one, each range a multiple
+    of BK (the last ends at k).
+    """
+    nk = _cdiv(k, BK)
+    tiles = _cdiv(m, BM) * _cdiv(n, BN)
+    want = max(1, min(MAX_SPLITS, nk, _cdiv(sms, tiles)))
+    cps = _cdiv(nk, want)
+    return _cdiv(nk, cps), cps
 
 
 def _check(x, carrier, scale, bits: int, k: int) -> None:
@@ -72,12 +107,17 @@ def packed_matmul(
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return out
+    if k == 0:
+        return out.zero_()
+    splits, cps = 1, _cdiv(k, BK)
+    if x.dtype == torch.bfloat16 and m > GEMV_MAX_M:
+        splits, cps = split_plan(m, k, n, _build.sm_count(x.device.index))
     lib = _build.load("packed_matmul", "packed_matmul_launch", _ARGTYPES)
     rc = lib.packed_matmul_launch(
         x.data_ptr(), int(x.dtype == torch.bfloat16), carrier.data_ptr(),
-        scale.data_ptr(), out.data_ptr(), m, k, n, bits,
+        scale.data_ptr(), out.data_ptr(), m, k, n, bits, splits, cps,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, rc, "packed_matmul")
-    COUNTER.count += 1
+    COUNTER.add("gemv" if m <= GEMV_MAX_M else "mma" if x.dtype == torch.bfloat16 else "tiled_f32")
     return out

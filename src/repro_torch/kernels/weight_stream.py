@@ -22,7 +22,6 @@ raises.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -46,11 +45,6 @@ _ARGTYPES = [_P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def split_plan(m: int, k: int, n: int, bits: int, sms: int) -> tuple[int, int]:
@@ -123,7 +117,7 @@ def stream_matmul(
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return out
-    splits, cps = split_plan(m, k, n, bits, _sm_count(x.device.index))
+    splits, cps = split_plan(m, k, n, bits, _build.sm_count(x.device.index))
     part = (
         torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
         if splits > 1

@@ -35,8 +35,8 @@ def _packed_case(rng, lead, k, n, bits):
 @pytest.mark.parametrize("bits", [1, 2])
 @pytest.mark.parametrize(
     "lead,k,n",
-    [((8,), 32, 16), ((33,), 72, 50), ((1,), 8, 1), ((2, 5), 64, 24)],
-    ids=["aligned", "ragged", "m1", "batched"],
+    [((8,), 32, 16), ((33,), 72, 50), ((1,), 8, 1), ((2, 5), 64, 24), ((40,), 200, 48)],
+    ids=["aligned", "ragged", "m1", "batched", "m40_k200"],
 )
 def test_packed_matmul_plain_matches_pallas_interpret(bits, lead, k, n):
     rng = np.random.default_rng(11 + k + n + bits)
@@ -145,12 +145,16 @@ FLASH_CASES = [
     (2, 1, 24, 24, 32, True, 5, 0, 8, 8),  # sliding window
     (2, 2, 8, 24, 32, True, 0, 16, 8, 8),  # q_offset (a chunk over its prefix)
     (4, 2, 8, 32, 32, True, 6, 12, 8, 8),  # window and q_offset together
+    (4, 2, 16, 16, 64, True, 0, 0, 8, 8),  # D 64 (the serve path's head dim)
+    (2, 1, 16, 32, 128, True, 0, 16, 8, 8),  # D 128 with q_offset
+    (2, 1, 16, 16, 32, True, 8, 16, 8, 8),  # rows 23-31 (positions) see no key
 ]
 
 
 @pytest.mark.parametrize(
     "bh,bkv,sq,sk,d,causal,window,q_offset,qb,kb", FLASH_CASES,
-    ids=["causal", "gqa", "full", "window", "q_offset", "window_offset"],
+    ids=["causal", "gqa", "full", "window", "q_offset", "window_offset", "d64", "d128",
+         "rows_without_keys"],
 )
 def test_flash_fwd_plain_matches_pallas_interpret(
     bh, bkv, sq, sk, d, causal, window, q_offset, qb, kb
@@ -171,6 +175,66 @@ def test_flash_fwd_plain_matches_pallas_interpret(
     np.testing.assert_allclose(
         got_lse.numpy(), np.asarray(want_lse), rtol=1e-5, atol=1e-5
     )
+
+
+def test_flash_fwd_plain_rows_without_keys_give_zero_and_neg_lse():
+    """A row whose window ends before the first key (here every row: window
+    128 at q_offset 256 over 64 keys, and the last rows of the partial
+    case) gets out 0 and lse -1e30, as the reference's kernel."""
+    rng = np.random.default_rng(23)
+    for sq, sk, window, q_offset, blind in ((16, 16, 128, 256, 16), (16, 16, 8, 16, 9)):
+        q = rng.normal(size=(2, sq, 32)).astype(np.float32)
+        k = rng.normal(size=(1, sk, 32)).astype(np.float32)
+        out, lse = tfa.flash_fwd(
+            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(k),
+            causal=True, window=window, q_offset=q_offset,
+        )
+        assert bool((out[:, sq - blind:] == 0).all())
+        assert float(lse[:, sq - blind:].max()) <= -1e29
+        assert bool((lse[:, : sq - blind] > -1e29).all())
+
+
+@pytest.mark.parametrize(
+    "m,k,n,bits",
+    [(256, 960, 2560, 2), (512, 960, 2560, 1), (256, 2560, 960, 2), (512, 2560, 960, 1),
+     (17, 968, 1000, 1), (300, 968, 1000, 2), (33, 972, 999, 2), (4096, 64, 64, 1)],
+    ids=["m256_d_ff", "m512_d_ff", "m256_ff_d", "m512_ff_d", "m17_ragged", "m300_ragged",
+         "m33_k972", "one_step"],
+)
+def test_packed_split_plan_fills_the_card_and_splits_k_by_per(m, k, n, bits):
+    """The tensor-core path's K split: every split gets at least one K
+    step, the splits cover the sweep once, each split's K range is a
+    multiple of 8/bits (whole carrier rows), a cluster holds at most
+    MAX_SPLITS blocks, and the serve path's four prefill shapes put at least
+    one block on each of the H100's 132 SMs."""
+    sms = 132
+    splits, cps = tpm.split_plan(m, k, n, sms)
+    nk = -(-k // tpm.BK)
+    assert 1 <= splits <= tpm.MAX_SPLITS
+    assert (splits - 1) * cps < nk <= splits * cps
+    per = 8 // bits
+    bounds = [min(s * cps * tpm.BK, k) for s in range(splits + 1)]
+    assert bounds[0] == 0 and bounds[-1] == k
+    assert all(hi > lo and (hi - lo) % per == 0 for lo, hi in zip(bounds, bounds[1:]))
+    blocks = splits * -(-m // tpm.BM) * -(-n // tpm.BN)
+    if m in (256, 512) and {k, n} == {960, 2560}:
+        assert blocks >= sms
+
+
+def test_launch_counter_counts_by_route_and_resets():
+    c = tpm.COUNTER
+    saved = (c.count, dict(c.routes))
+    try:
+        tops.reset_launch_counts()
+        c.add("mma")
+        c.add("mma")
+        c.add("gemv")
+        assert tops.launch_counts()["packed_matmul"] == 3
+        assert tops.launch_routes() == {"packed_matmul": {"mma": 2, "gemv": 1}}
+        tops.reset_launch_counts()
+        assert tops.launch_counts()["packed_matmul"] == 0 and tops.launch_routes() == {}
+    finally:
+        c.count, c.routes = saved[0], saved[1]
 
 
 def test_flash_fwd_wrapper_rejects_bad_layouts():
