@@ -19,13 +19,18 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               the CUDA cores), plus ragged, split-K and no-key-row cases
               checked for agreement only. ``stream_matmul`` at bits 2/1/0 at the plan's ring depths,
               plus ragged and ring-edge cases checked for agreement only.
-              ``mvau`` at the CNV layer shapes at batch 256 (bits 1/2, L=3),
-              plus ragged M/N/K, L=1/15 and +inf thresholds for agreement.
+              ``mvau`` (tensor cores on a three-part bf16 split of x) at
+              the CNV layer shapes at batch 256 (bits 1/2, L=3; conv5, fc0
+              and fc1 split K in a cluster), plus ragged M/N/K, a ragged
+              M < 64 split-K case, L=1/15 and +inf thresholds, each timed
+              too; a second run must give the same levels.
               ``flash_bwd``'s two passes (dq, dk/dv) at the train step's
-              shape (batch 8 x 512 tokens, 15/5 heads, D 64, bf16, causal),
-              the library's yardstick the backward of
+              shape (batch 8 x 512 tokens, 15/5 heads, D 64, bf16, causal;
+              tensor cores), the library's yardstick the backward of
               ``scaled_dot_product_attention``; window, q_offset, ragged
-              Sq/Sk, G=1, D 32/128, f32 and not-causal cases for agreement.
+              Sq/Sk, G=1, D 32/128, rows without keys, f32 (CUDA cores)
+              and not-causal cases for agreement; a second run of both
+              passes must give the same bits.
 4. prefill -- smollm-360m at full width and depth with 2-bit FFN carriers:
               ``prefill_with_cache`` on a 512-token prompt in bf16 on the
               card against float32 on the CPU, same weights; the serve
@@ -55,7 +60,8 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               fed the CPU's input; levels equal but for ties) and end to
               end (argmax agreement); images/s at batch 256 and 1, the
               card's time per layer split into mvau / im2col / the rest
-              (torch.profiler), and exactly 7 ``mvau`` launches a forward.
+              (torch.profiler) with ``mvau``'s share of the card, and
+              exactly 7 ``mvau`` launches a forward.
 7. train   -- smollm-360m: first a gradient check at full width and depth
               4 (batch 2 x 256), ``loss_fn`` and its backward in bf16 on the
               card against float32 on the CPU, same weights (loss within
@@ -65,8 +71,8 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               batch 8 x 512, 20 steps, then 5 with ``--remat full``, launch
               counters reset just before each run and read just after
               (``flash_bwd_dq`` and ``flash_bwd_dkv`` 32 x steps each,
-              ``flash_fwd`` 32 or 64 x steps, all on its tensor-core
-              route, the loss finite and falling);
+              ``flash_fwd`` 32 or 64 x steps, all three on their
+              tensor-core routes, the loss finite and falling);
               one train step under torch.profiler (host ms against the
               card's kernel ms, the largest kernels, flash's share); a
               checkpoint of the trained state saved and restored into
@@ -509,6 +515,8 @@ def main(argv: list[str] | None = None) -> int:
         out, lse = fa.flash_fwd(q, kk, vv, **kw)
         dq, delta = fa.flash_bwd_dq(q, kk, vv, out, lse, do, **kw)
         dk, dv = fa.flash_bwd_dkv(q, kk, vv, do, lse, delta, **kw)
+        again = (*fa.flash_bwd_dq(q, kk, vv, out, lse, do, **kw),
+                 *fa.flash_bwd_dkv(q, kk, vv, do, lse, delta, **kw))
         q32, k32, v32, o32, do32 = (t.float() for t in (q, kk, vv, out, do))
         want_dq, want_delta = ref.flash_bwd_dq_ref(q32, k32, v32, o32, lse, do32, **kw)
         want_dk, want_dv = ref.flash_bwd_dkv_ref(q32, k32, v32, do32, lse, want_delta, **kw)
@@ -521,6 +529,8 @@ def main(argv: list[str] | None = None) -> int:
             errs[name] = dict(max_abs_err=err, rel_err=err / max(want.abs().max().item(), 1e-30))
             if not (math.isfinite(err) and errs[name]["rel_err"] <= tol):
                 fail(f"flash_bwd {label} {name}: rel err {errs[name]['rel_err']} > {tol}")
+        if not all(map(same_bits, (dq, delta, dk, dv), again)):
+            fail(f"flash_bwd {label}: two runs differ")
         base = dict(case=label, batch=b, heads=h, kv_heads=h_kv, sq=sq, sk=sk, d=dh,
                     dtype=str(dt).replace("torch.", ""), causal=causal, window=window,
                     q_offset=q_off)
@@ -578,6 +588,10 @@ def main(argv: list[str] | None = None) -> int:
         ("f32", 2, hq, hkv, 256, 256, hd, torch.float32, False, True, 0, 0),
         ("f32_d128_window", 1, 4, 2, 130, 130, 128, torch.float32, False, True, 17, 0),
         ("not_causal", 1, 6, 2, 64, 100, hd, bf16, False, False, 0, 0),
+        # rows 56.. (positions 96..) see no key: dq 0, and nothing in dk/dv
+        ("some_rows_without_keys", 1, 4, 2, 96, 64, hd, bf16, False, True, 32, 40),
+        # D 128 stages 32 query rows at a time in the dk/dv pass
+        ("d128_window_q_offset", 1, 4, 2, 130, 200, 128, bf16, False, True, 17, 70),
     ]
     for args in flash_bwd_checks:
         flash_bwd_case(*args)
@@ -641,6 +655,7 @@ def main(argv: list[str] | None = None) -> int:
     from repro_torch.quant.quantizers import pack_bits
 
     gen_dev = torch.Generator(device=dev).manual_seed(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     act_scale = 2.0 / math.sqrt(1.5)  # the LSQ scale of CNV's 2-bit activations
 
     def near_threshold(acc, thr):
@@ -664,6 +679,7 @@ def main(argv: list[str] | None = None) -> int:
         signs = torch.randint(0, 2, (n,), generator=gen_dev, device=dev).float() * 2 - 1
         args = (x, carrier, thr, signs)
         got = mv.mvau(*args, bits, k, -2)
+        again = mv.mvau(*args, bits, k, -2)
         want = ref.mvau_ref(x, carrier, thr, signs, -2, bits, k)
         w_dec = ref.decode_weights(carrier, bits, k)
         diff = got != want
@@ -674,7 +690,10 @@ def main(argv: list[str] | None = None) -> int:
         if n_bad or got.dtype != torch.int32:
             fail(f"mvau {label} bits={bits} M={m} K={k} N={n} L={n_levels}: "
                  f"{n_bad} levels differ away from a threshold ({n_diff} in all)")
+        if not torch.equal(got, again):
+            fail(f"mvau {label} bits={bits} M={m} K={k} N={n}: two runs differ")
         case = dict(case=label, bits=bits, m=m, k=k, n=n, levels=n_levels,
+                    splits=mv.split_plan(m, k, n, sms)[0],
                     inf_threshold_rows=inf_rows, max_abs_err=err,
                     tie_flips=n_diff, near_ties=int(ties.sum()))
         if timed:
@@ -716,13 +735,19 @@ def main(argv: list[str] | None = None) -> int:
             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}))
         phase("kernel", name="mvau", case="cnv_forward", **mvau_forward[-1])
     # ragged M, N and K (1-bit padding codes), one and fifteen thresholds,
-    # +inf thresholds
-    for label, m, k, n, bits, n_levels, inf_rows in (
-        ("ragged_l1", 1000, 100, 70, 1, 1, 0), ("ragged_l15", 1000, 100, 70, 1, 15, 20),
-        ("ragged_l15", 1000, 100, 70, 2, 15, 20), ("ragged_m5", 5, 100, 70, 1, 3, 35),
-        ("ragged_n3", 300, 24, 3, 2, 3, 1),
-    ):
-        mvau_case(label, m, k, n, bits, n_levels, timed=False, inf_rows=inf_rows)
+    # +inf thresholds; timed too, outside the forward's sums
+    mvau_checks = [
+        mvau_case(label, m, k, n, bits, n_levels, timed=True, inf_rows=inf_rows)
+        for label, m, k, n, bits, n_levels, inf_rows in (
+            ("ragged_l1", 1000, 100, 70, 1, 1, 0), ("ragged_l15", 1000, 100, 70, 1, 15, 20),
+            ("ragged_l15", 1000, 100, 70, 2, 15, 20), ("ragged_m5", 5, 100, 70, 1, 3, 35),
+            ("ragged_n3", 300, 24, 3, 2, 3, 1),
+            # M < 64 with ragged K and N: one output tile column of two, K
+            # split over an 8-block cluster
+            ("ragged_split_m37", 37, 2300, 70, 1, 3, 10),
+            ("ragged_split_m37", 37, 2300, 70, 2, 3, 10),
+        )
+    ]
 
     if opts.only == "kernels":
         print("[chip_smoke] --only kernels: stopped after phase 3", file=sys.stderr)
@@ -806,14 +831,14 @@ def main(argv: list[str] | None = None) -> int:
     # ---------------- 5. serve at full width and depth ----------------
     runs = {}
     launches = dict.fromkeys(ops.launch_counts(), 0)
-    routes = {"packed_matmul": {}, "flash_fwd": {}}  # launches by route, main path
+    # launches by route, main path
+    routes = {name: {} for name in ("packed_matmul", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
 
     def add_routes(by_route):
         for name, counts in by_route.items():
             for route, n in counts.items():
                 routes[name][route] = routes[name].get(route, 0) + n
 
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for quant in (2, 0):
         qcfg = dataclasses.replace(cfg, w_bits=quant)
         plan, budget_mib = half_budget_plan(qcfg)
@@ -985,6 +1010,7 @@ def main(argv: list[str] | None = None) -> int:
             device_ms=sum(kernels_ms.values()),
             kernels_per_forward=n_kernels / CNN_PROFILED,
             mvau_ms=sum(r["mvau"] for r in per_layer.values()),
+            mvau_share=sum(r["mvau"] for r in per_layer.values()) / sum(kernels_ms.values()),
             im2col_ms=sum(r["im2col"] for r in per_layer.values()),
             top_kernels_ms=dict(sorted(kernels_ms.items(), key=lambda kv: -kv[1])[:8]),
         )
@@ -1156,8 +1182,10 @@ def main(argv: list[str] | None = None) -> int:
         }
         if counts != want:
             fail(f"train --remat {remat}: launches {counts}, not {want}")
-        if by_route != {"flash_fwd": {"mma": want["flash_fwd"]}}:
-            fail(f"train --remat {remat}: launches by route {by_route}, not all flash_fwd mma")
+        if by_route != {name: {"mma": want[name]}
+                        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}:
+            fail(f"train --remat {remat}: launches by route {by_route}, not all on the "
+                 f"tensor-core kernels")
         for name, n in counts.items():
             launches[name] += n
         add_routes(by_route)
@@ -1312,11 +1340,12 @@ def main(argv: list[str] | None = None) -> int:
              **{k: head_mv[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")},
              cnv_forward=mvau_forward,
-             cases=mvau_cases),
+             cases=mvau_cases, check_cases=mvau_checks),
         dict(name="flash_bwd_dq", route="cuda",
              source="src/repro_torch/csrc/flash_bwd.cu",
              replaces="src/repro/kernels/flash_attention.py:282",
              launches=launches["flash_bwd_dq"],
+             launches_by_route=routes["flash_bwd_dq"],
              shape=f"causal B={TRAIN_BATCH} S={TRAIN_SEQ} Hq={hq} Hkv={hkv} D={hd} bf16",
              tolerance=f"rel {FLASH_BWD_TOL} of max|want| per output (bf16), "
                        f"{FLASH_BWD_TOL_F32} (f32), against the plain version in f32",
@@ -1328,6 +1357,7 @@ def main(argv: list[str] | None = None) -> int:
              source="src/repro_torch/csrc/flash_bwd.cu",
              replaces="src/repro/kernels/flash_attention.py:306",
              launches=launches["flash_bwd_dkv"],
+             launches_by_route=routes["flash_bwd_dkv"],
              shape=f"causal B={TRAIN_BATCH} S={TRAIN_SEQ} Hq={hq} Hkv={hkv} D={hd} bf16",
              tolerance=f"rel {FLASH_BWD_TOL} of max|want| per output (bf16), "
                        f"{FLASH_BWD_TOL_F32} (f32), against the plain version in f32",

@@ -78,6 +78,41 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// The A fragment (16 rows x 16 columns, rows r0.. of a row-major shared
+// tile of stride LD, columns c0..) as ldmatrix_x4 gives it: matrices 0-3
+// are (rows +0, cols +0), (+8, +0), (+0, +8), (+8, +8), mma's a[0..3].
+template <int LD>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* tile, int r0,
+                                       int c0, int lane) {
+  ldmatrix_x4(a, tile + (r0 + lane % 16) * LD + c0 + (lane / 16) * 8);
+}
+
+// B fragments of two n8 tiles (n = rows n0..n0+15 of an n-major tile, k =
+// columns c0..c0+15): b[0], b[1] for rows n0.., b[2], b[3] for n0+8..
+template <int LD>
+__device__ __forceinline__ void load_b_nmajor(uint32_t (&b)[4], const __nv_bfloat16* tile,
+                                              int n0, int c0, int lane) {
+  ldmatrix_x4(b, tile + (n0 + lane % 8 + (lane / 16) * 8) * LD + c0 + ((lane / 8) % 2) * 8);
+}
+
+// The same from a k-major tile (k = rows k0..k0+15, n = columns n0..n0+15),
+// by ldmatrix.trans.
+template <int LD>
+__device__ __forceinline__ void load_b_kmajor(uint32_t (&b)[4], const __nv_bfloat16* tile,
+                                              int k0, int n0, int lane) {
+  ldmatrix_x4_trans(b, tile + (k0 + lane % 8 + ((lane / 8) % 2) * 8) * LD + n0 + (lane / 16) * 8);
+}
+
+// Accumulator n8 tiles 2c and 2c+1 (16 columns) rounded to bf16: the A
+// fragment of a product whose k runs over those 16 columns.
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&lo)[4],
+                                       const float (&hi)[4]) {
+  a[0] = pack_bf16x2(lo[0], lo[1]);
+  a[1] = pack_bf16x2(lo[2], lo[3]);
+  a[2] = pack_bf16x2(hi[0], hi[1]);
+  a[3] = pack_bf16x2(hi[2], hi[3]);
+}
+
 // Asynchronous global -> shared copies of BYTES (4, 8 or 16); the bytes
 // past src_bytes (0 reads nothing) are written as zeros.
 template <int BYTES>
@@ -103,6 +138,69 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ROWS rows of D bf16 (rows r0.. of a row-major tensor with n_rows rows)
+// into a shared tile of row stride LD, by THREADS threads, 16 bytes a
+// copy; rows past n_rows become zeros. src must be 16-byte aligned.
+template <int D, int LD, int ROWS, int THREADS>
+__device__ __forceinline__ void load_rows_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                                int r0, int n_rows, int tid) {
+  constexpr int CH = D / 8;  // 16-byte chunks per row
+  static_assert(ROWS * CH % THREADS == 0, "whole copies per thread");
+#pragma unroll
+  for (int i = 0; i < ROWS * CH / THREADS; ++i) {
+    const int c = tid + i * THREADS;
+    const int r = c / CH, cc = c % CH;
+    const bool ok = r0 + r < n_rows;
+    cp_async<16>(dst + r * LD + cc * 8, ok ? src + static_cast<size_t>(r0 + r) * D + cc * 8 : src,
+                 ok ? 16 : 0);
+  }
+}
+
+// ---- packed 1/2-bit codes as bf16 mma operands
+// The bf16 bits of each code's weight, byte c of LO / HI being the low /
+// high byte for code c (1-bit: -1, +1; 2-bit: -1, 0, +1, and +2 for the
+// unused code 3, as the reference's codes - 1). Every value is exact in
+// bf16.
+template <int BITS> struct DecodeLut;
+template <> struct DecodeLut<1> { static constexpr uint32_t LO = 0x00008080u, HI = 0x00003FBFu; };
+template <> struct DecodeLut<2> { static constexpr uint32_t LO = 0x00800080u, HI = 0x403F00BFu; };
+
+// Weight j of each of 4 carrier bytes (4 columns), as 4 bf16 in two
+// registers: each code c becomes the byte-permute selector nibbles (c,
+// c+4), which pick its low and high byte from the tables.
+template <int BITS>
+__device__ __forceinline__ uint2 decode4(uint32_t w, int j) {
+  constexpr uint32_t MASK = BITS == 1 ? 0x01010101u : 0x03030303u;
+  const uint32_t c = (w >> (j * BITS)) & MASK;  // one code per byte
+  const uint32_t sel = c * 0x11u + 0x40404040u;  // no carries: c <= 3
+  return make_uint2(__byte_perm(DecodeLut<BITS>::LO, DecodeLut<BITS>::HI, sel),
+                    __byte_perm(DecodeLut<BITS>::LO, DecodeLut<BITS>::HI, sel >> 16));
+}
+
+// CB (4 or 8) carrier bytes of one row (CB neighbouring columns, src
+// CB-aligned in shared memory) decoded into the 8/BITS weight rows they
+// hold: weight j of each byte goes to dst + j * ld, as CB bf16 (dst
+// 2*CB-byte aligned). With the carrier row r of a K step at decoded rows
+// r*PER.., the result is a k-major bf16 tile, which ldmatrix.trans reads
+// as mma B fragments.
+template <int BITS, int CB>
+__device__ __forceinline__ void decode_bytes(const uint8_t* src, __nv_bfloat16* dst, int ld) {
+  static_assert(CB == 4 || CB == 8, "one 4- or 8-byte carrier copy per thread");
+  constexpr int PER = 8 / BITS;
+  if constexpr (CB == 8) {
+    const uint2 wv = *reinterpret_cast<const uint2*>(src);
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const uint2 lo = decode4<BITS>(wv.x, j), hi = decode4<BITS>(wv.y, j);
+      *reinterpret_cast<uint4*>(dst + j * ld) = make_uint4(lo.x, lo.y, hi.x, hi.y);
+    }
+  } else {
+    const uint32_t wv = *reinterpret_cast<const uint32_t*>(src);
+#pragma unroll
+    for (int j = 0; j < PER; ++j) *reinterpret_cast<uint2*>(dst + j * ld) = decode4<BITS>(wv, j);
+  }
 }
 
 }  // namespace repro

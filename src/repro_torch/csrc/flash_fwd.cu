@@ -178,24 +178,6 @@ constexpr size_t mma_smem_bytes() {
   return sizeof(bf16) * ld<D>() * (MQ + 2 * 2 * MK);  // q tile, 2 stages of k and v
 }
 
-// ROWS rows of D bf16 from src (rows r0.. of a tensor with n_rows rows)
-// into a padded shared tile, 16 bytes a copy; rows past n_rows are zeros.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* src, int r0,
-                                                int n_rows, int tid) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  static_assert(ROWS * CH % MMA_THREADS == 0, "whole copies per thread");
-#pragma unroll
-  for (int i = 0; i < ROWS * CH / MMA_THREADS; ++i) {
-    const int c = tid + i * MMA_THREADS;
-    const int r = c / CH, cc = c % CH;
-    const bool ok = r0 + r < n_rows;
-    repro::cp_async<16>(dst + r * ld<D>() + cc * 8,
-                        ok ? src + static_cast<size_t>(r0 + r) * D + cc * 8 : src,
-                        ok ? 16 : 0);
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -226,11 +208,11 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int k_begin = window > 0 ? (max(0, q_lo - window + 1) / MK) * MK : 0;
   const int n_tiles = k_end > k_begin ? cdiv(k_end - k_begin, MK) : 0;
 
-  load_rows_async<D, MQ>(qs, qb, q0, Sq, tid);
+  repro::load_rows_async<D, LD, MQ, MMA_THREADS>(qs, qb, q0, Sq, tid);
   repro::cp_async_commit();
   if (n_tiles > 0) {
-    load_rows_async<D, MK>(ks, kb, k_begin, Sk, tid);
-    load_rows_async<D, MK>(vs, vb, k_begin, Sk, tid);
+    repro::load_rows_async<D, LD, MK, MMA_THREADS>(ks, kb, k_begin, Sk, tid);
+    repro::load_rows_async<D, LD, MK, MMA_THREADS>(vs, vb, k_begin, Sk, tid);
   }
   repro::cp_async_commit();
   repro::cp_async_wait<1>();  // q landed (the first K/V tile may not have)
@@ -254,8 +236,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int kt = k_begin + t * MK;
     const int st = t & 1;
     if (t + 1 < n_tiles) {  // the next tile into the other stage
-      load_rows_async<D, MK>(ks + (st ^ 1) * MK * LD, kb, kt + MK, Sk, tid);
-      load_rows_async<D, MK>(vs + (st ^ 1) * MK * LD, vb, kt + MK, Sk, tid);
+      repro::load_rows_async<D, LD, MK, MMA_THREADS>(ks + (st ^ 1) * MK * LD, kb, kt + MK, Sk, tid);
+      repro::load_rows_async<D, LD, MK, MMA_THREADS>(vs + (st ^ 1) * MK * LD, vb, kt + MK, Sk, tid);
     }
     repro::cp_async_commit();
     repro::cp_async_wait<1>();  // this tile landed (the next may not have)

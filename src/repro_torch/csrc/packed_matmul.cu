@@ -192,25 +192,6 @@ struct MmaGeom {
   static_assert(sizeof(float) * BM * PLD <= SMEM, "the partial tile reuses the ring");
 };
 
-// The bf16 bits of each code's weight, byte c of LO / HI being the low /
-// high byte for code c (1-bit: -1, +1; 2-bit: -1, 0, +1, and +2 for the
-// unused code 3, as the reference's codes - 1).
-template <int BITS> struct DecodeLut;
-template <> struct DecodeLut<1> { static constexpr uint32_t LO = 0x00008080u, HI = 0x00003FBFu; };
-template <> struct DecodeLut<2> { static constexpr uint32_t LO = 0x00800080u, HI = 0x403F00BFu; };
-
-// Weight j of each of 4 carrier bytes (4 columns), as 4 bf16 in two
-// registers: each code c becomes the byte-permute selector nibbles (c,
-// c+4), which pick its low and high byte from the tables.
-template <int BITS>
-__device__ __forceinline__ uint2 decode4(uint32_t w, int j) {
-  constexpr uint32_t MASK = BITS == 1 ? 0x01010101u : 0x03030303u;
-  const uint32_t c = (w >> (j * BITS)) & MASK;  // one code per byte
-  const uint32_t sel = c * 0x11u + 0x40404040u;  // no carries: c <= 3
-  return make_uint2(__byte_perm(DecodeLut<BITS>::LO, DecodeLut<BITS>::HI, sel),
-                    __byte_perm(DecodeLut<BITS>::LO, DecodeLut<BITS>::HI, sel >> 16));
-}
-
 // grid (cdiv(N, BN), cdiv(M, BM), splits), clusters of (1, 1, splits):
 // split z sweeps K steps [z*cps, min((z+1)*cps, nk)). x_vec: K % 8 == 0 and
 // x 16-byte aligned (x rows by cp.async); w_vec: N and the carrier aligned
@@ -273,20 +254,8 @@ mma_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ w,
   // t & 1: weights k = cr*PER + j of columns cc.. (codes past K decode to
   // finite values that meet x's zeros).
   auto decode_step = [&](int t) {
-    const uint8_t* src = cs + (t % STAGES) * CROWS * BN + cr * BN + cc;
-    bf16* dst = ws + (t & 1) * BK * WLD + cr * PER * WLD + cc;
-    if constexpr (CB == 8) {
-      const uint2 wv = *reinterpret_cast<const uint2*>(src);
-#pragma unroll
-      for (int j = 0; j < PER; ++j) {
-        const uint2 lo = decode4<BITS>(wv.x, j), hi = decode4<BITS>(wv.y, j);
-        *reinterpret_cast<uint4*>(dst + j * WLD) = make_uint4(lo.x, lo.y, hi.x, hi.y);
-      }
-    } else {
-      const uint32_t wv = *reinterpret_cast<const uint32_t*>(src);
-#pragma unroll
-      for (int j = 0; j < PER; ++j) *reinterpret_cast<uint2*>(dst + j * WLD) = decode4<BITS>(wv, j);
-    }
+    repro::decode_bytes<BITS, CB>(cs + (t % STAGES) * CROWS * BN + cr * BN + cc,
+                                  ws + (t & 1) * BK * WLD + cr * PER * WLD + cc, WLD);
   };
 
   float acc[2][4][4];

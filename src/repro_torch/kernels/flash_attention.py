@@ -19,11 +19,15 @@ block-divisor search; D must be 32, 64 or 128.
 * f32: the CUDA-core kernel, one thread per query row, f32 throughout.
 
 ``flash_bwd`` replaces the TPU kernel's backward (``flash_bwd``:
-``_dq_kernel`` and ``_dkv_kernel``) with the two kernels of
+``_dq_kernel`` and ``_dkv_kernel``) with the two passes of
 ``csrc/flash_bwd.cu``, one wrapper each: ``flash_bwd_dq`` also writes
 delta = rowsum(do * out) for ``flash_bwd_dkv``, which sums each GQA group
 inside the block, so it returns the kv-head gradients, not the TPU
-kernel's per-q-head partials. Each pass has its own launch counter.
+kernel's per-q-head partials. In bf16 (the train path) both passes run
+all five tile products on the tensor cores (``mma.sync``, f32
+accumulate), with P and dS rounded to bf16 in registers where the
+reference rounds them; in f32 they run on the CUDA cores. Each pass has
+its own launch counter, by route as ``flash_fwd``'s.
 
 On a CPU tensor a wrapper runs the plain version (``ref.flash_fwd_ref``,
 ``ref.flash_bwd_ref``); on a CUDA tensor it launches the kernel or raises.
@@ -71,7 +75,9 @@ def _check(q, k, v, window: int, q_offset: int) -> None:
 
 def _launch_ready(name: str, q, *tensors) -> bool:
     """True to launch the CUDA kernel, False to run the plain version (CPU
-    tensors); raises for anything the kernel does not take."""
+    tensors); raises for anything the kernel does not take (the bf16
+    kernels copy 16 bytes at a time, so their inputs must be 16-byte
+    aligned)."""
     if q.device.type == "cpu":
         return False
     if q.device.type != "cuda":
@@ -82,6 +88,10 @@ def _launch_ready(name: str, q, *tensors) -> bool:
         raise ValueError(f"{name} takes head dims {HEAD_DIMS}, got {q.shape[2]}")
     if not all(t.is_contiguous() for t in (q, *tensors)):
         raise ValueError(f"{name} needs contiguous inputs")
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 for t in (q, *tensors) if t.dtype == torch.bfloat16):
+        raise ValueError(f"{name}'s bf16 kernel copies 16 bytes at a time: its bf16 "
+                         "inputs must be 16-byte aligned")
     return True
 
 
@@ -101,9 +111,6 @@ def flash_fwd(
     _check(q, k, v, window, q_offset)
     if not _launch_ready("flash_fwd", q, k, v):
         return flash_fwd_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_fwd's bf16 kernel copies 16 bytes at a time: q, k and v "
-                         "must be 16-byte aligned")
     bh, sq, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
@@ -157,7 +164,7 @@ def flash_bwd_dq(q, k, v, out, lse, do, *, causal=True, window=0, q_offset=0):
         1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, rc, "flash_bwd_dq")
-    DQ_COUNTER.count += 1
+    DQ_COUNTER.add("mma" if q.dtype == torch.bfloat16 else "f32")
     return dq, delta
 
 
@@ -183,7 +190,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal=True, window=0, q_offset=0)
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, rc, "flash_bwd_dkv")
-    DKV_COUNTER.count += 1
+    DKV_COUNTER.add("mma" if q.dtype == torch.bfloat16 else "f32")
     return dk, dv
 
 

@@ -6,10 +6,16 @@ runs every 1/2-bit convolution and FC layer of the streamlined CNN path
 (``models.cnn.conv_as_mvau``): the im2col columns times the packed
 weights, then the folded BN + activation as a count of the ascending
 thresholds each sign-canonicalised accumulator reaches. What bounds it on
-the H100: f32 operations at the CNV shapes (M up to 200704 at batch 256),
-close behind the bytes of the f32 columns. The design keeps the f32
-accumulator in registers and thresholds it there, so only int32 levels
-reach device memory; ragged M, N and K are masked in the kernel, so
+the H100: the bytes of the f32 columns at the wide layers (M up to 200704
+at batch 256) and, above them, the instruction throughput of the
+multiply; the few output tiles of the narrow ones (M = 256). The kernel
+multiplies on the tensor cores: each f32 value of x is split into
+three bf16 parts whose sum is exactly x, each pass against the exact
+-1/0/+1 weights accumulates in f32, and the f32 accumulator is thresholded
+in registers, so only int32 levels reach device memory. Where the output
+has too few 64x64 tiles for the card's SMs, ``split_plan`` splits the K
+sweep over a thread-block cluster that sums its partial tiles in a fixed
+order: one launch a layer. Ragged M, N and K are masked in the kernel, so
 nothing is padded here.
 
 On a CPU tensor the wrapper runs the plain version (``ref.mvau_ref``); on
@@ -23,14 +29,25 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import packed_matmul as _pm
 from repro_torch.kernels.ref import mvau_ref
 
 COUNTER = _build.LaunchCounter()
 BITS = (1, 2)
 MAX_LEVELS = 15  # thresholds per channel the kernel stages (4-bit activations)
+# the kernel's output tile and K step (csrc/mvau.cu)
+BM, BN, BK = 64, 64, 32
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+
+
+def split_plan(m: int, k: int, n: int, sms: int) -> tuple[int, int]:
+    """(splits, K steps per split) of the kernel's K sweep: ``packed_matmul``'s
+    plan over this kernel's 64x64 tiles and 32-deep steps. CNV's narrow
+    layers at batch 256 (conv5, fc0, fc1: 16-32 tiles) get 4-8 splits, at
+    least 128 blocks for 132 SMs; the wide ones are not split."""
+    return _pm.split_plan(m, k, n, sms, bm=BM, bn=BN, bk=BK)
 
 
 def _check(x, carrier, thresholds, signs, bits: int, k: int) -> None:
@@ -84,10 +101,13 @@ def mvau(
     out = torch.empty((m, n), dtype=torch.int32, device=x.device)
     if m == 0 or n == 0:
         return out
+    if n > 65535 * BN:
+        raise ValueError(f"mvau's grid takes at most 65535 x {BN} columns, got N={n}")
+    splits, cps = split_plan(m, k, n, _build.sm_count(x.device.index))
     lib = _build.load("mvau", "mvau_launch", _ARGTYPES)
     rc = lib.mvau_launch(
         x.data_ptr(), carrier.data_ptr(), thresholds.data_ptr(), signs.data_ptr(),
-        out.data_ptr(), m, k, n, thresholds.shape[1], int(offset), bits,
+        out.data_ptr(), m, k, n, thresholds.shape[1], int(offset), bits, splits, cps,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, rc, "mvau")

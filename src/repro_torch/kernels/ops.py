@@ -148,7 +148,7 @@ def launch_counts() -> dict[str, int]:
 def launch_routes() -> dict[str, dict[str, int]]:
     """Launches by route since the last ``reset_launch_counts``, for the
     wrappers with several kernels (``packed_matmul``: gemv / mma /
-    tiled_f32; ``flash_fwd``: mma / f32)."""
+    tiled_f32; ``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``: mma / f32)."""
     return {name: dict(c.routes) for name, c in _COUNTERS.items() if c.routes}
 
 

@@ -50,18 +50,21 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def split_plan(m: int, k: int, n: int, sms: int) -> tuple[int, int]:
-    """(splits, K steps per split) of the mma path's K sweep.
+def split_plan(
+    m: int, k: int, n: int, sms: int, bm: int = BM, bn: int = BN, bk: int = BK
+) -> tuple[int, int]:
+    """(splits, K steps per split) of a tiled kernel's K sweep; by default
+    the mma path's tiles (``mvau`` passes its own).
 
-    The output gives ``cdiv(m, BM) * cdiv(n, BN)`` tiles (32 at M=256,
-    N=960), fewer than the SMs at the prefill shapes, so the sweep's
-    ``cdiv(k, BK)`` steps are dealt out to up to ``MAX_SPLITS`` blocks per
-    tile until the grid covers the SMs. Split ``s`` takes steps ``[s*cps,
-    min((s+1)*cps, nk))``: every split at least one, each range a multiple
-    of BK (the last ends at k).
+    The output gives ``cdiv(m, bm) * cdiv(n, bn)`` tiles (32 at M=256,
+    N=960 for the mma path), fewer than the SMs at the prefill shapes, so
+    the sweep's ``cdiv(k, bk)`` steps are dealt out to up to
+    ``MAX_SPLITS`` blocks per tile until the grid covers the SMs. Split
+    ``s`` takes steps ``[s*cps, min((s+1)*cps, nk))``: every split at least
+    one, each range a multiple of bk (the last ends at k).
     """
-    nk = _cdiv(k, BK)
-    tiles = _cdiv(m, BM) * _cdiv(n, BN)
+    nk = _cdiv(k, bk)
+    tiles = _cdiv(m, bm) * _cdiv(n, bn)
     want = max(1, min(MAX_SPLITS, nk, _cdiv(sms, tiles)))
     cps = _cdiv(nk, want)
     return _cdiv(nk, cps), cps

@@ -137,6 +137,108 @@ def test_mvau_wrapper_rejects_what_the_kernel_does_not_take():
         tmvau.mvau(x, carrier, thr, torch.ones(4), 1, 12)
 
 
+# (layer, M, K, N) of CNV's 1/2-bit layers at batch 256, as chip_smoke.py's
+# cnv_mvau_shapes gives them, then ragged ones
+CNV_MVAU_LAYERS = [
+    ("conv1", 200704, 576, 64), ("conv2", 36864, 576, 128), ("conv3", 25600, 1152, 128),
+    ("conv4", 2304, 1152, 256), ("conv5", 256, 2304, 256), ("fc0", 256, 256, 512),
+    ("fc1", 256, 512, 512),
+]
+RAGGED_MVAU = [
+    ("m37_k2300", 37, 2300, 70), ("m5", 5, 100, 70), ("n3", 300, 24, 3),
+    ("m1000", 1000, 100, 70), ("m1", 1, 8, 1),
+]
+
+
+@pytest.mark.parametrize("name,m,k,n", CNV_MVAU_LAYERS + RAGGED_MVAU,
+                         ids=[c[0] for c in CNV_MVAU_LAYERS + RAGGED_MVAU])
+def test_mvau_split_plan_covers_k_and_fills_the_card(name, m, k, n):
+    """The kernel's K split: every split gets at least one K step, the
+    splits cover K once, a cluster holds at most MAX_SPLITS blocks, the
+    narrow CNV layers reach at least 100 blocks on the H100's 132 SMs, and
+    a layer with as many 64x64 tiles as SMs is not split."""
+    sms = 132
+    splits, cps = tmvau.split_plan(m, k, n, sms)
+    assert 1 <= splits <= tpm.MAX_SPLITS and cps >= 1
+    bounds = [min(s * cps * tmvau.BK, k) for s in range(splits + 1)]
+    assert bounds[0] == 0 and bounds[-1] == k
+    assert all(hi > lo for lo, hi in zip(bounds, bounds[1:]))
+    tiles = -(-m // tmvau.BM) * -(-n // tmvau.BN)
+    if name in ("conv5", "fc0", "fc1"):
+        assert splits * tiles >= 100
+    if tiles >= sms:
+        assert splits == 1
+
+
+# chip_smoke.py's MVAU_TIE_TOL: a level may differ only where the plain
+# sign*acc lies within this of a threshold (relative to 1 + |T|)
+MVAU_TIE_TOL = 1e-5
+ACT_SCALE = np.float32(2.0 / np.sqrt(1.5))  # the LSQ scale of CNV's 2-bit activations
+
+
+def _bf16(x: np.ndarray) -> np.ndarray:
+    """f32 rounded to the nearest bf16 (ties to even), as f32."""
+    return torch.from_numpy(x).to(torch.bfloat16).to(torch.float32).numpy()
+
+
+def _split3(x: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The kernel's split of f32 x into bf16 parts: hi = bf16(x), mid =
+    bf16(x - hi), lo = bf16(x - hi - mid), each difference taken in f32."""
+    hi = _bf16(x)
+    mid = _bf16(x - hi)
+    return hi, mid, _bf16(x - hi - mid)
+
+
+@pytest.mark.parametrize("kind", ["levels", "wide_normals"])
+def test_mvau_three_part_bf16_split_is_exact(kind):
+    """hi + mid + lo == x bit for bit, each part a bf16 value: on CNV's
+    columns (2-bit levels times their scale) and on normals spread over
+    2^-60..2^60."""
+    rng = np.random.default_rng(16)
+    if kind == "levels":
+        x = rng.integers(-2, 2, size=(64, 96)).astype(np.float32) * ACT_SCALE
+    else:
+        x = (rng.normal(size=(64, 96)) * 2.0 ** rng.integers(-60, 61, size=(64, 96)))
+        x = x.astype(np.float32)
+    parts = _split3(x)
+    for p in parts:
+        assert np.array_equal(_bf16(p), p)
+    total = parts[0].astype(np.float64) + parts[1].astype(np.float64) + parts[2].astype(np.float64)
+    assert np.array_equal(total, x.astype(np.float64))
+
+
+@pytest.mark.parametrize("bits", [1, 2])
+@pytest.mark.parametrize("m,k,n", [(256, 576, 64), (64, 2304, 32), (37, 2300, 70)],
+                         ids=["conv1_k", "conv5_k", "ragged"])
+def test_mvau_split_passes_give_the_plain_levels(bits, m, k, n):
+    """The kernel's arithmetic, on the CPU: the three parts of x times the
+    decoded weights, each pass summed in f32, added (hi + mid) + lo and
+    thresholded, give ``mvau_ref``'s levels but within MVAU_TIE_TOL of a
+    threshold. On 2-bit levels times a scale each pass's f32 sums are exact
+    (they equal the float64 sums), whatever order they are taken in."""
+    from repro_torch.kernels import ref as tref
+
+    rng = np.random.default_rng(m + k + n + bits)
+    x = rng.integers(-2, 2, size=(m, k)).astype(np.float32) * ACT_SCALE
+    codes = rng.integers(0, 2 if bits == 1 else 3, size=(k + (-k) % (8 // bits), n))
+    carrier = torch.from_numpy(np.array(pack_bits(jnp.asarray(codes.astype(np.uint8)), bits)))
+    thr = np.sort(rng.normal(size=(n, 3)) * ACT_SCALE * np.sqrt(k), axis=1).astype(np.float32)
+    signs = rng.choice([-1.0, 1.0], size=(n,)).astype(np.float32)
+    w = tref.decode_weights(carrier, bits, k)
+    passes = []
+    for p in _split3(x):
+        acc = torch.from_numpy(p) @ w
+        assert np.array_equal(acc.double().numpy(), p.astype(np.float64) @ w.double().numpy())
+        passes.append(acc)
+    value = (passes[0] + passes[1]) + passes[2]
+    thr_t, signs_t = torch.from_numpy(thr), torch.from_numpy(signs)
+    got = ((value * signs_t)[..., None] >= thr_t[None]).sum(dim=-1, dtype=torch.int32) - 2
+    want = tref.mvau_ref(torch.from_numpy(x), carrier, thr_t, signs_t, -2, bits, k)
+    plain = (torch.from_numpy(x) @ w) * signs_t
+    near = ((plain[..., None] - thr_t[None]).abs() <= MVAU_TIE_TOL * (1 + thr_t.abs()[None])).any(-1)
+    assert not bool(((got != want) & ~near).any())
+
+
 FLASH_CASES = [
     # (bh, bkv, sq, sk, d, causal, window, q_offset, qb, kb)
     (4, 4, 16, 16, 32, True, 0, 0, 8, 8),
