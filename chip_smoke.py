@@ -8,7 +8,9 @@ Phases, one JSON line each; any failure exits nonzero with no result:
 1. device  -- a CUDA card must be present; its name and power limit as
               ``nvidia-smi --query-gpu=name,power.limit`` reports them.
 2. build   -- ``nvcc`` builds every kernel from ``src/repro_torch/csrc``
-              (one process per source, started together).
+              (one process per source, started together); beside it
+              ``nvcc -Xptxas -v`` reports each kernel's registers and
+              spills, and any spill fails the run.
 3. kernels -- each kernel's wrapper on the card at the serve path's shapes,
               held against its plain PyTorch version on the same inputs;
               median device times over 30 runs, L2 flushed before each,
@@ -17,7 +19,10 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               the host's enqueue time per call. ``packed_matmul`` and
               ``flash_fwd`` on both routes (bf16 on the tensor cores, f32 on
               the CUDA cores), plus ragged, split-K and no-key-row cases
-              checked for agreement only. ``stream_matmul`` at bits 2/1/0 at the plan's ring depths,
+              checked for agreement only (the GEMV at M 1/5/16, ragged K,
+              odd N, f32 x and K of one carrier row among them; each case
+              line names its K split), and the timing floor: the median of
+              a one-element fill. ``stream_matmul`` at bits 2/1/0 at the plan's ring depths,
               plus ragged and ring-edge cases checked for agreement only.
               ``mvau`` (tensor cores on a three-part bf16 split of x) at
               the CNV layer shapes at batch 256 (bits 1/2, L=3; conv5, fc0
@@ -38,7 +43,7 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               against the card's, split into flash_fwd, packed_matmul and
               the rest); then one
               paged decode step of 8 lanes profiled (host ms against the
-              card's kernel ms), with 2-bit and with dense FFN weights,
+              card's kernel ms, the GEMV's share), with 2-bit and with dense FFN weights,
               and at 2 bits under a half-budget residency plan (both 2-bit
               steps twice, in turns), whose logits are held against the
               unbudgeted step's.
@@ -89,6 +94,8 @@ import dataclasses
 import io
 import json
 import math
+import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -160,6 +167,46 @@ def bound_ms(n_bytes: float, flops: float, peak: float = BF16_FLOPS) -> tuple[fl
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def start_ptxas(build) -> dict:
+    """``nvcc -Xptxas -v`` on every kernel source, one process each, started
+    together (beside the build)."""
+    flags = [f for f in build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    return {
+        name: subprocess.Popen(
+            [build._nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", os.devnull,
+             str(build.CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in build.kernel_names()
+    }
+
+
+def ptxas_report(procs: dict) -> dict[str, dict]:
+    """Registers and spill bytes of every kernel entry, by source and
+    (demangled, where ``c++filt`` is found) name."""
+    entries = {}
+    for source, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"nvcc -Xptxas -v failed on {source}.cu:\n{log}")
+        entry = None
+        for line in log.splitlines():
+            if m := re.search(r"Compiling entry function '(\w+)'", line):
+                entry = (source, m.group(1))
+                entries[entry] = {}
+            elif entry and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+                entries[entry].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            elif entry and (m := re.search(r"Used (\d+) registers", line)):
+                entries[entry]["registers"] = int(m.group(1))
+    names = [mangled for _, mangled in entries]
+    if shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()
+        if len(out) == len(names):
+            names = [n.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
+                     for n in out]
+    return {f"{source}:{name}": r for ((source, _), r), name in zip(entries.items(), names)}
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -195,8 +242,14 @@ def main(argv: list[str] | None = None) -> int:
     from repro_torch.kernels import _build
 
     t0 = time.monotonic()
+    ptxas = start_ptxas(_build)
     _build.build_all()
     phase("build", seconds=time.monotonic() - t0, dir=str(_build.BUILD_DIR))
+    report = ptxas_report(ptxas)
+    phase("ptxas", kernels=report)
+    spills = [name for name, r in report.items() if r["spill_stores"] or r["spill_loads"]]
+    if spills:
+        fail(f"ptxas reports register spills in {spills}")
 
     from repro_torch.configs import get_config
     from repro_torch.interop import params_from_reference
@@ -345,14 +398,14 @@ def main(argv: list[str] | None = None) -> int:
     packed_cases = []
     packed_checks = []
 
-    def packed_case(bits, m, k, n, dt, timed):
+    def packed_case(bits, m, k, n, dt, timed, g=gen):
         """``packed_matmul`` on the card against its plain version on the
         same inputs (rel err within PACKED_REL_TOL); timed cases beside the
         plain version, the library's matmul on the pre-decoded weight and
         the bound. A second run must give the same bits (the tensor-core
         path, bf16 x with M > 16, sums its K split in a fixed order)."""
-        w = lm.make_packed(torch.randn((k, n), generator=gen).to(dev), bits)
-        x = torch.randn((m, k), generator=gen).to(dev, dt)
+        w = lm.make_packed(torch.randn((k, n), generator=g).to(dev), bits)
+        x = torch.randn((m, k), generator=g).to(dev, dt)
         got = pm.packed_matmul(x, w["packed"], w["scale"], bits, k)
         want = ref.packed_matmul_ref(x, w["packed"], w["scale"], bits, k)
         again = pm.packed_matmul(x, w["packed"], w["scale"], bits, k)
@@ -365,10 +418,16 @@ def main(argv: list[str] | None = None) -> int:
             fail(f"{label}: rel err {rel}")
         if not same_bits(got, again):
             fail(f"{label}: two runs differ")
-        splits = (pm.split_plan(m, k, n, torch.cuda.get_device_properties(0).multi_processor_count)[0]
-                  if path == "mma" else 1)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        splits, k_per_split = 1, k
+        if path == "gemv":
+            splits, cps = pm.split_plan(m, k, n, sms, bm=pm.GEMV_MAX_M, bn=pm.GEMV_BN, bk=pm.GEMV_BK)
+            k_per_split = cps * pm.GEMV_BK
+        elif path == "mma":
+            splits, cps = pm.split_plan(m, k, n, sms)
+            k_per_split = cps * pm.BK
         base = dict(bits=bits, m=m, k=k, n=n, x=str(dt).replace("torch.", ""), path=path,
-                    splits=splits, max_abs_err=err, rel_err=rel)
+                    splits=splits, k_per_split=min(k, k_per_split), max_abs_err=err, rel_err=rel)
         if not timed:
             packed_checks.append(base)
             phase("kernel", name="packed_matmul", check_only=True, **base)
@@ -402,6 +461,29 @@ def main(argv: list[str] | None = None) -> int:
         for m in (17, 100, 300):
             packed_case(bits, m, 968, 1000, torch.bfloat16, timed=False)
     packed_case(2, 33, 972, 999, torch.bfloat16, timed=False)
+    # the GEMV's edges, from a generator of their own (the later phases'
+    # inputs stay as they were): M 1 and 16 at both decode shapes (timed:
+    # the 8- and 16-row tiles against M=8), M 5; ragged K (968, and 972
+    # at 2 bits: scalar x loads for bf16) with odd N (999, 1000: byte
+    # loads of the carrier); f32 x; and a K of one carrier row, too short
+    # to split
+    gemv_gen = torch.Generator(device="cpu").manual_seed(1)
+    for bits in (1, 2):
+        for k, n in ((d, ff), (ff, d)):
+            for m in (1, 16):
+                packed_case(bits, m, k, n, torch.bfloat16, timed=True, g=gemv_gen)
+            packed_case(bits, 5, k, n, torch.bfloat16, timed=False, g=gemv_gen)
+            packed_case(bits, LANES, k, n, torch.float32, timed=False, g=gemv_gen)
+        packed_case(bits, LANES, 968, 999, torch.bfloat16, timed=False, g=gemv_gen)
+        packed_case(bits, 16, 968, 1000, torch.bfloat16, timed=False, g=gemv_gen)
+    packed_case(2, 5, 972, 1000, torch.bfloat16, timed=False, g=gemv_gen)
+    packed_case(2, LANES, 972, 999, torch.float32, timed=False, g=gemv_gen)
+    packed_case(1, 3, 8, 1000, torch.bfloat16, timed=False, g=gemv_gen)
+    # what the timing method itself shows for a launch that does almost
+    # nothing: the floor under the ~10 us kernel times above
+    one = torch.empty(1, device=dev)
+    timing_floor_ms = median_ms(lambda: one.fill_(0.0))
+    phase("timing_floor", median_ms=timing_floor_ms, launch="torch.Tensor.fill_ of 1 element")
 
     hq, hkv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
     flash_cases = []
@@ -788,6 +870,7 @@ def main(argv: list[str] | None = None) -> int:
         return dict(
             w_bits=c.w_bits, budgeted=plan is not None,
             streamed_layers=sum(kw.get("stream_mask", ())), **stats,
+            gemv_ms=sum(ms for name, ms in by_name.items() if "gemv_kernel<" in name),
             top_kernels_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6]),
         )
 
@@ -1303,6 +1386,7 @@ def main(argv: list[str] | None = None) -> int:
              shape=f"bits=2 M={LANES} K={d} N={ff} bf16",
              tolerance=f"rel {PACKED_REL_TOL}",
              **{k: head_pm[k] for k in nums},
+             timing_floor_ms=timing_floor_ms,
              routes=packed_routes,
              cases=packed_cases, check_cases=packed_checks),
         dict(name="flash_fwd", route="cuda",

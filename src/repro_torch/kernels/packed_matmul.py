@@ -8,7 +8,13 @@ decodes the carrier next to its multiply and masks ragged M, N and K
 itself. Three paths, by M and x's dtype:
 
 * M <= 16 (decode; bound by moving the carrier and by launch latency): a
-  GEMV-shaped kernel that decodes carrier bytes in registers.
+  GEMV whose block covers every row of x and 32 columns, so the carrier is
+  read once. ``split_plan``, given the GEMV's geometry, splits the K sweep
+  over a thread-block cluster until the grid covers the card's SMs (150-160
+  blocks at the decode shapes, where the columns alone give 30-80). A
+  block requests all its carrier bytes with 16-byte ``cp.async`` copies
+  before it stages x, then decodes carrier words in registers next to f32
+  FMAs; the splits are summed in a fixed order in shared memory.
 * M > 16 with bf16 x (prefill; bound by operations): tensor cores. x tiles
   and carrier bytes go through a ``cp.async`` ring, the codes are decoded
   into a shared bf16 tile of -1/0/+1 (exact) that ``ldmatrix.trans``
@@ -36,6 +42,9 @@ from repro_torch.kernels.ref import packed_matmul_ref
 COUNTER = _build.LaunchCounter()
 BITS = (1, 2)
 GEMV_MAX_M = 16  # larger M takes the tiled paths
+# the GEMV's geometry: all M <= 16 rows and GEMV_BN columns a block, its K
+# split in steps of GEMV_BK values (whole carrier rows, 16-byte x loads)
+GEMV_BN, GEMV_BK = 32, 8
 # the mma path's geometry (csrc/packed_matmul.cu): output tile, K step, and
 # the most blocks one cluster (one output tile's K split) may hold
 BM, BN, BK = 64, 128, 64
@@ -54,7 +63,7 @@ def split_plan(
     m: int, k: int, n: int, sms: int, bm: int = BM, bn: int = BN, bk: int = BK
 ) -> tuple[int, int]:
     """(splits, K steps per split) of a tiled kernel's K sweep; by default
-    the mma path's tiles (``mvau`` passes its own).
+    the mma path's tiles (the GEMV and ``mvau`` pass their own).
 
     The output gives ``cdiv(m, bm) * cdiv(n, bn)`` tiles (32 at M=256,
     N=960 for the mma path), fewer than the SMs at the prefill shapes, so
@@ -112,9 +121,13 @@ def packed_matmul(
         return out
     if k == 0:
         return out.zero_()
-    splits, cps = 1, _cdiv(k, BK)
-    if x.dtype == torch.bfloat16 and m > GEMV_MAX_M:
-        splits, cps = split_plan(m, k, n, _build.sm_count(x.device.index))
+    sms = _build.sm_count(x.device.index)
+    if m <= GEMV_MAX_M:
+        splits, cps = split_plan(m, k, n, sms, bm=GEMV_MAX_M, bn=GEMV_BN, bk=GEMV_BK)
+    elif x.dtype == torch.bfloat16:
+        splits, cps = split_plan(m, k, n, sms)
+    else:
+        splits, cps = 1, _cdiv(k, BK)
     lib = _build.load("packed_matmul", "packed_matmul_launch", _ARGTYPES)
     rc = lib.packed_matmul_launch(
         x.data_ptr(), int(x.dtype == torch.bfloat16), carrier.data_ptr(),

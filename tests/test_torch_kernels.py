@@ -323,6 +323,34 @@ def test_packed_split_plan_fills_the_card_and_splits_k_by_per(m, k, n, bits):
         assert blocks >= sms
 
 
+@pytest.mark.parametrize(
+    "m,k,n,bits",
+    [(8, 960, 2560, 2), (8, 960, 2560, 1), (8, 2560, 960, 2), (8, 2560, 960, 1),
+     (16, 2560, 960, 2), (5, 972, 1000, 2), (3, 8, 999, 1)],
+    ids=["d_ff_2bit", "d_ff_1bit", "ff_d_2bit", "ff_d_1bit", "m16", "ragged_k972",
+         "one_carrier_row"],
+)
+def test_gemv_split_plan_fills_the_card_and_splits_k_by_per(m, k, n, bits):
+    """The GEMV's K split (``split_plan`` with the GEMV's geometry, as the
+    wrapper calls it): at most a portable cluster of splits, each with at
+    least one K step; together they cover the sweep once, each K range
+    whole carrier rows; and the four decode shapes put at least one block
+    on each of the H100's 132 SMs, though their columns alone give 30-80."""
+    sms = 132
+    splits, cps = tpm.split_plan(m, k, n, sms, bm=tpm.GEMV_MAX_M, bn=tpm.GEMV_BN, bk=tpm.GEMV_BK)
+    nk = -(-k // tpm.GEMV_BK)
+    assert 1 <= splits <= tpm.MAX_SPLITS
+    assert (splits - 1) * cps < nk <= splits * cps
+    per = 8 // bits
+    bounds = [min(s * cps * tpm.GEMV_BK, k) for s in range(splits + 1)]
+    assert bounds[0] == 0 and bounds[-1] == k
+    assert all(hi > lo and (hi - lo) % per == 0 for lo, hi in zip(bounds, bounds[1:]))
+    blocks = splits * -(-n // tpm.GEMV_BN)
+    assert m <= tpm.GEMV_MAX_M  # one block row: the carrier is read once
+    if m == 8 and {k, n} == {960, 2560}:
+        assert -(-n // tpm.GEMV_BN) < sms <= blocks
+
+
 def test_launch_counter_counts_by_route_and_resets():
     c = tpm.COUNTER
     saved = (c.count, dict(c.routes))
