@@ -22,8 +22,14 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               checked for agreement only (the GEMV at M 1/5/16, ragged K,
               odd N, f32 x and K of one carrier row among them; each case
               line names its K split), and the timing floor: the median of
-              a one-element fill. ``stream_matmul`` at bits 2/1/0 at the plan's ring depths,
-              plus ragged and ring-edge cases checked for agreement only.
+              a one-element fill. ``stream_matmul`` (one launch a call:
+              split K summed in a cluster) at bits 2/1/0 at the plan's ring
+              depths, M 1/8/16 at both decode shapes timed beside the GEMV
+              on the same carrier, plus ragged M/N/K, f32 x, an 8-way split
+              and ring-edge cases (fewer stages than the depth, as many,
+              and cycling past it) checked for agreement only; each case
+              line names its splits, stage length and stages, and a second
+              run must give the same bits.
               ``mvau`` (tensor cores on a three-part bf16 split of x) at
               the CNV layer shapes at batch 256 (bits 1/2, L=3; conv5, fc0
               and fc1 split K in a cluster), plus ragged M/N/K, a ragged
@@ -43,10 +49,10 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               against the card's, split into flash_fwd, packed_matmul and
               the rest); then one
               paged decode step of 8 lanes profiled (host ms against the
-              card's kernel ms, the GEMV's share), with 2-bit and with dense FFN weights,
-              and at 2 bits under a half-budget residency plan (both 2-bit
-              steps twice, in turns), whose logits are held against the
-              unbudgeted step's.
+              card's kernel ms, the GEMV's and stream_matmul's shares),
+              with 2-bit and with dense FFN weights, and at 2 bits under a
+              half-budget residency plan (both 2-bit steps twice, in
+              turns), whose logits are held against the unbudgeted step's.
 5. serve   -- ``repro_torch.launch.serve.main`` at full width and depth,
               --quant 2 then --quant 0, each unbudgeted and then with
               ``--vmem-budget`` at half the plan's tile bytes, with launch
@@ -54,10 +60,9 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               --quant 2 run must launch packed_matmul and flash_fwd (by
               route: prefill through packed_matmul's and flash_fwd's
               tensor-core kernels, decode through the GEMV, never an f32
-              route), each budgeted run stream_matmul's ring kernel
-              exactly 3 x streamed layers x decode steps, and its
-              split_reduce kernel once for each of those calls whose K
-              sweep is split.
+              route), each budgeted run stream_matmul exactly 3 x streamed
+              layers x decode steps (one launch a call), each unbudgeted
+              run never.
 6. cnn     -- the paper's CNV at full width (w1a2, then w2a2), random
               weights with randomised BN statistics and 256 random images
               from a seed: ``cnn_forward_streamlined`` on the card against
@@ -681,63 +686,112 @@ def main(argv: list[str] | None = None) -> int:
     from repro_torch.kernels import weight_stream as ws
     from repro_torch.runtime.residency import compile_residency_plan, stream_ahead_depth
 
-    def stream_case(m, k, n, bits, depth, timed, w_dtype=torch.bfloat16):
-        x = torch.randn((m, k), generator=gen).to(dev, torch.bfloat16)
+    def stream_case(m, k, n, bits, depth, timed, w_dtype=torch.bfloat16,
+                    x_dtype=torch.bfloat16, g=gen, ring=None):
+        """``stream_matmul`` on the card against its plain version on the
+        same inputs (rel err within STREAM_REL_TOL), and the same bits on a
+        second run. ``ring`` names how the split's stages must meet the
+        depth ("fewer", "equal", or "cycles" past it). Timed cases beside the
+        plain version, the library's matmul on the decoded weight, the bound,
+        and ``packed_matmul``'s GEMV on the same carrier (bits 1/2)."""
+        x = torch.randn((m, k), generator=g).to(dev, x_dtype)
         if bits:
             per = 8 // bits
-            packed = lm.make_packed(torch.randn((k + (-k) % per, n), generator=gen), bits)
+            packed = lm.make_packed(torch.randn((k + (-k) % per, n), generator=g), bits)
             w = packed["packed"].to(dev)
             scale = packed["scale"].to(dev)
-            w_dec = ref.decode_weights(w, bits, k).to(torch.bfloat16)
+            w_dec = ref.decode_weights(w, bits, k).to(x_dtype)
         else:
-            w = torch.randn((k, n), generator=gen).to(dev, w_dtype)
-            scale, w_dec = None, w.to(torch.bfloat16)
+            w = torch.randn((k, n), generator=g).to(dev, w_dtype)
+            scale, w_dec = None, w.to(x_dtype)
         got = ws.stream_matmul(x, w, scale, bits, k, depth)
         want = ref.stream_matmul_ref(x, w, scale, bits, k)
+        again = ws.stream_matmul(x, w, scale, bits, k, depth)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         rel = err / max(want.abs().max().item(), 1e-30)
-        label = f"stream_matmul bits={bits} M={m} K={k} N={n} depth={depth} w={w.dtype}"
+        label = (f"stream_matmul bits={bits} M={m} K={k} N={n} depth={depth} w={w.dtype} "
+                 f"x={x_dtype}")
         if not math.isfinite(err) or rel > STREAM_REL_TOL:
             fail(f"{label}: rel err {rel}")
-        splits, cps = ws.split_plan(m, k, n, bits, torch.cuda.get_device_properties(0).multi_processor_count)
+        if not same_bits(got, again):
+            fail(f"{label}: two runs differ")
+        splits, kps = ws.split_plan(m, k, n, sms)
+        sk = ws.stage_len(kps, depth, bits, w.element_size(), x.element_size())
+        stages = -(-min(k, kps) // sk)
+        want_ring = {"fewer": stages < depth, "equal": stages == depth,
+                     "cycles": stages > depth}
+        if ring is not None and not want_ring[ring]:
+            fail(f"{label}: {stages} stages of {sk} for depth {depth}, not '{ring}'")
         case = dict(bits=bits, m=m, k=k, n=n, depth=depth, w_dtype=str(w.dtype),
-                    splits=splits, chunks_per_split=cps, max_abs_err=err, rel_err=rel)
+                    x_dtype=str(x_dtype).replace("torch.", ""), splits=splits,
+                    k_per_split=min(k, kps), stage_k=sk, stages=stages, max_abs_err=err,
+                    rel_err=rel)
         if timed:
-            n_bytes = (x.numel() * 2 + w.numel() * w.element_size() + m * n * 4
+            n_bytes = (x.numel() * x.element_size() + w.numel() * w.element_size() + m * n * 4
                        + (n * 4 if scale is not None else 0))
-            b_ms, b_by = bound_ms(n_bytes, 2.0 * m * k * n)
+            tensor_cores = x_dtype == torch.bfloat16 and w.dtype != torch.float32
+            b_ms, b_by = bound_ms(n_bytes, 2.0 * m * k * n,
+                                  BF16_FLOPS if tensor_cores else F32_FLOPS)
             sc = scale if scale is not None else torch.ones(n, device=dev)
             case.update(
                 ms=median_ms(lambda: ws.stream_matmul(x, w, scale, bits, k, depth)),
                 host_us=host_us(lambda: ws.stream_matmul(x, w, scale, bits, k, depth)),
                 plain_ms=median_ms(lambda: ref.stream_matmul_ref(x, w, scale, bits, k)),
                 library_ms=median_ms(lambda: torch.matmul(x, w_dec) * sc),
+                gemv_ms=(median_ms(lambda: pm.packed_matmul(x, w, scale, bits, k))
+                         if bits and k % (8 // bits) == 0 else None),
                 bound_ms=b_ms, bound_by=b_by,
             )
         phase("kernel", name="stream_matmul", **case)
         return case
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    wide = 32 * 264  # 264 column blocks: the K sweep is not split
     stream_cases = []
     for bits in (2, 1, 0):
         depth = stream_ahead_depth(dataclasses.replace(cfg, w_bits=bits))
         for k, n in ((d, ff), (ff, d)):
             stream_cases.append(stream_case(LANES, k, n, bits, depth, timed=True))
-    # ragged K and N (1-bit padding codes, unaligned row pitches), and the
-    # ring with fewer stages than its depth, as many, and not a multiple
-    # (N = 64 x 264 column blocks leaves the K sweep unsplit)
-    for args in ((6, 100, 70, 1, 2), (6, 100, 70, 2, 3), (6, 100, 70, 0, 2),
-                 (LANES, 384, 64 * 264, 2, 4), (LANES, 512, 64 * 264, 2, 4),
-                 (LANES, 1408, 64 * 264, 2, 4), (20, ff, d, 2, 4), (3, 8192, 100, 1, 8)):
+    # ragged K and N (1-bit padding codes, unaligned row pitches), M over
+    # one 16-row tile, 8 splits, and unsplit sweeps whose stages fall short
+    # of the depth or meet it exactly
+    for args in ((6, 100, 70, 1, 2), (6, 100, 70, 2, 3), (6, 100, 70, 0, 2)):
         stream_case(*args, timed=False)
+    for k, ring in ((384, "fewer"), (512, "equal"), (1408, "equal")):
+        stream_case(LANES, k, 64 * 264, 2, 4, timed=False, ring=ring)
+    stream_case(20, ff, d, 2, 4, timed=False)
+    stream_case(3, 8192, 100, 1, 8, timed=False, ring="equal")
     stream_case(LANES, d, ff, 0, 3, timed=False, w_dtype=torch.float32)
+    # the new cases, from a generator of their own (the later phases'
+    # inputs stay as they were): M 1 and 16 at both decode shapes (timed),
+    # f32 x, a cluster of 8 splits, 3 row tiles (unsplit, so bf16 rows
+    # cycle the ring), and the ring with fewer stages than its depth and
+    # cycling past it, 8 stages (a multiple of the depth) or 9 and 15 (not)
+    stream_gen = torch.Generator(device="cpu").manual_seed(2)
+    for bits in (2, 0):
+        depth = stream_ahead_depth(dataclasses.replace(cfg, w_bits=bits))
+        for k, n in ((d, ff), (ff, d)):
+            for m in (1, 16):
+                stream_cases.append(stream_case(m, k, n, bits, depth, timed=True, g=stream_gen))
+    for k, n in ((d, ff), (ff, d)):
+        stream_case(LANES, k, n, 2, 4, timed=False, x_dtype=torch.float32, g=stream_gen)
+        stream_case(LANES, k, n, 0, 2, timed=False, x_dtype=torch.float32, g=stream_gen)
+    for args, ring in (((LANES, 4096, 512, 2, 4), "equal"), ((33, d, ff, 0, 2), "cycles"),
+                       ((LANES, 40, wide, 2, 4), "fewer"), ((LANES, 400, wide, 1, 8), "fewer"),
+                       ((LANES, 4864, wide, 2, 4), "cycles"), ((LANES, 5000, wide, 2, 4), "cycles"),
+                       ((LANES, 1000, wide, 0, 2), "cycles")):
+        stream_case(*args, timed=False, g=stream_gen, ring=ring)
+    stream_case(LANES, 5000, wide, 2, 4, timed=False, x_dtype=torch.float32, g=stream_gen,
+                ring="cycles")
+    if ws.split_plan(LANES, 4096, 512, sms)[0] != 8:
+        fail(f"stream_matmul M={LANES} K=4096 N=512 is not split 8 ways")
 
     from repro_torch.kernels import mvau as mv
     from repro_torch.models import cnn
     from repro_torch.quant.quantizers import pack_bits
 
     gen_dev = torch.Generator(device=dev).manual_seed(0)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     act_scale = 2.0 / math.sqrt(1.5)  # the LSQ scale of CNV's 2-bit activations
 
     def near_threshold(acc, thr):
@@ -871,6 +925,7 @@ def main(argv: list[str] | None = None) -> int:
             w_bits=c.w_bits, budgeted=plan is not None,
             streamed_layers=sum(kw.get("stream_mask", ())), **stats,
             gemv_ms=sum(ms for name, ms in by_name.items() if "gemv_kernel<" in name),
+            stream_ms=sum(ms for name, ms in by_name.items() if "stream_kernel<" in name),
             top_kernels_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6]),
         )
 
@@ -926,13 +981,6 @@ def main(argv: list[str] | None = None) -> int:
         qcfg = dataclasses.replace(cfg, w_bits=quant)
         plan, budget_mib = half_budget_plan(qcfg)
         n_streamed = sum(plan.layer_stream_mask(qcfg))
-        # split calls per streamed layer and step: w1 and w3 are (d, ff), w2
-        # (ff, d); split_plan gives every M <= 8 (a decode step's lanes) the
-        # same split, since one CTA covers 8 rows
-        split_mats = sum(
-            ws.split_plan(LANES, k, n, quant, sms)[0] > 1
-            for k, n in ((d, ff), (d, ff), (ff, d))
-        )
         for budget in (0.0, budget_mib):
             argv = [
                 "--arch", "smollm_360m", "--quant", str(quant), "--requests", "16",
@@ -967,13 +1015,8 @@ def main(argv: list[str] | None = None) -> int:
                     fail(f"serve --quant {quant} budgeted: stream_matmul launched "
                          f"{counts['stream_matmul']} times, not 3 x {n_streamed} x "
                          f"{metrics['decode_steps']} = {want}")
-                want_reduce = split_mats * n_streamed * metrics["decode_steps"]
-                if counts["split_reduce"] != want_reduce:
-                    fail(f"serve --quant {quant} budgeted: split_reduce launched "
-                         f"{counts['split_reduce']} times, not {split_mats} x "
-                         f"{n_streamed} x {metrics['decode_steps']} = {want_reduce}")
                 print(next(l for l in text.splitlines() if l.startswith("[serve/residency]")))
-            elif counts["stream_matmul"] or counts["split_reduce"]:
+            elif counts["stream_matmul"]:
                 fail(f"serve --quant {quant} unbudgeted launched stream_matmul")
             if quant == 2 and min(counts["packed_matmul"], counts["flash_fwd"]) <= 0:
                 fail(f"serve --quant 2 --vmem-budget {budget} skipped a kernel: {counts}")
@@ -1401,11 +1444,7 @@ def main(argv: list[str] | None = None) -> int:
         dict(name="stream_matmul", route="cuda",
              source="src/repro_torch/csrc/weight_stream.cu",
              replaces="src/repro/kernels/weight_stream.py:112",
-             # a call launches the ring kernel, and split_reduce after it
-             # when the K sweep is split
-             launches=launches["stream_matmul"] + launches["split_reduce"],
-             calls=launches["stream_matmul"],
-             split_reduce_launches=launches["split_reduce"],
+             launches=launches["stream_matmul"],
              shape=f"bits=2 M={LANES} K={d} N={ff} depth={head_sm['depth']} bf16",
              tolerance=f"rel {STREAM_REL_TOL}",
              **{k: head_sm[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -136,7 +136,6 @@ _COUNTERS = {
     "flash_bwd_dkv": _fa.DKV_COUNTER,
     "stream_matmul": _ws.COUNTER,
     "mvau": _mvau.COUNTER,
-    "split_reduce": _ws.REDUCE_COUNTER,  # stream_matmul's second kernel
 }
 
 

@@ -214,20 +214,36 @@ def test_stream_matmul_wrapper_rejects_what_the_kernel_does_not_take():
 @pytest.mark.parametrize(
     "m,k,n,bits",
     [(8, 960, 2560, 2), (8, 2560, 960, 2), (8, 960, 2560, 1), (8, 2560, 960, 0),
-     (16, 960, 2560, 0), (40, 100, 70, 1), (1, 8192, 64, 1)],
+     (16, 960, 2560, 0), (40, 100, 70, 1), (1, 8192, 64, 1), (8, 2560, 960, 1),
+     (20, 2560, 960, 2), (8, 5000, 32 * 264, 2)],
 )
 def test_split_plan_covers_every_stage_once(m, k, n, bits):
-    """Every split gets at least one ring stage, the splits cover all of
-    them, the x tile fits its shared-memory share, and the decode shapes
-    reach about two CTAs per SM of the H100 without running past it."""
-    splits, cps = tws.split_plan(m, k, n, bits, H100_SXM.sms)
+    """The splits cover K once, each a whole number of carrier rows and
+    16-deep slabs, and fit one portable cluster; the ring stays within its
+    shared memory; at the decode shapes the grid covers the H100's SMs and
+    a split's K range fits ``stream_depth`` stages, so all of it is in
+    flight at once (a longer range, 5000 unsplit, cycles the ring). The
+    one exception is f32 rows against f32 x, which decode never runs: 512
+    K values of both would take 213 KB of ring at depth 2."""
+    splits, kps = tws.split_plan(m, k, n, H100_SXM.sms)
     per = 8 // bits if bits else 1
-    nk = -(-(-(-k // per)) // tws.ROWS)
-    assert (splits - 1) * cps < nk <= splits * cps
-    assert tws.MT * cps * tws.ROWS * per * 4 <= tws.X_SMEM_MAX
-    ctas = splits * -(-n // tws.BN) * -(-m // tws.MT)
-    if (m, k) == (8, 960) or (m, k) == (8, 2560):
-        assert H100_SXM.sms <= ctas
+    assert kps % tws.BK == 0 and kps % per == 0
+    assert (splits - 1) * kps < k <= splits * kps
+    assert 1 <= splits <= 8
+    decode = m <= 16 and (k, n) in ((960, 2560), (2560, 960))
+    if decode:
+        assert splits * -(-n // tws.BN) * -(-m // tws.MT) >= H100_SXM.sms
+    depth = tplan.stream_ahead_depth(_cfgs("full", bits)[1])
+    for x_size in (2, 4):
+        for w_size in (1,) if bits else (2, 4):
+            sk = tws.stage_len(kps, depth, bits, w_size, x_size)
+            assert sk % tws.BK == 0
+            assert depth * tws.slot_bytes(sk, bits, w_size, x_size) <= tws.RING_MAX
+            stages = -(-min(kps, k) // sk)
+            if decode and (w_size, x_size) != (4, 4):
+                assert stages <= depth
+            if k == 5000:
+                assert stages > depth
 
 
 def test_build_all_covers_every_kernel_source():
@@ -368,7 +384,7 @@ def test_serve_cli_vmem_budget_prints_the_plan(capsys):
     # the CPU launches no kernel: every counter is there and reads 0
     assert metrics["kernel_launches"] == dict.fromkeys(
         ["packed_matmul", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "stream_matmul",
-         "mvau", "split_reduce"], 0
+         "mvau"], 0
     )
     assert metrics["generated_tokens"] == 12
 
