@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--only kernels|prefill] [--src DIR]
+    python3 chip_smoke.py [--only kernels|prefill] [--src DIR] [--log FILE]
 
 Phases, one JSON line each; any failure exits nonzero with no result:
 
@@ -42,21 +42,42 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               Sq/Sk, G=1, D 32/128, rows without keys, f32 (CUDA cores)
               and not-causal cases for agreement; a second run of both
               passes must give the same bits.
+              Each serve-path kernel (the GEMV, ``packed_matmul``'s and
+              ``flash_fwd``'s ``mma`` routes, ``stream_kernel``) at a
+              serve shape compiled into a CUDA graph
+              (``runtime.steps.CapturedStep``): the replay must be bitwise
+              the eager launch and count one launch by its route; and a
+              fault inside a capture (a launch refused by its launch
+              function) must raise and leave nothing captured.
 4. prefill -- smollm-360m at full width and depth with 2-bit FFN carriers:
               ``prefill_with_cache`` on a 512-token prompt in bf16 on the
               card against float32 on the CPU, same weights; the serve
               path's second 256-token prefill chunk profiled (host ms
               against the card's, split into flash_fwd, packed_matmul and
-              the rest); then one
+              the rest), eager and compiled (a captured CUDA graph) in
+              turns; then one
               paged decode step of 8 lanes profiled (host ms against the
               card's kernel ms, the GEMV's and stream_matmul's shares),
               with 2-bit and with dense FFN weights, and at 2 bits under a
-              half-budget residency plan (both 2-bit steps twice, in
-              turns), whose logits are held against the unbudgeted step's.
+              half-budget residency plan, each eager and compiled (the
+              2-bit steps twice, in turns), whose logits are held against
+              the unbudgeted step's. The compiled chunk's and decode
+              steps' replays are held against the eager step on copies of
+              the same pool state: logits and pools bitwise equal.
 5. serve   -- ``repro_torch.launch.serve.main`` at full width and depth,
               --quant 2 then --quant 0, each unbudgeted and then with
               ``--vmem-budget`` at half the plan's tile bytes, with launch
-              counters reset just before each run and read just after; the
+              counters reset just before each run and read just after;
+              every decode step and prefill chunk runs as a CUDA graph (3
+              graphs a run; every step but each graph's first is a
+              replay). The --quant 2 runs
+              also run with every step eager (``Scheduler(compiled=False)``
+              through ``run_pool_engine``), in turns: the 16 greedy token
+              streams and the launch counts must be identical, and the
+              unbudgeted pair runs with --trace-out, whose spans must tile
+              every request, whose ledger must integrate to every round's
+              gauges (``validate_trace``, ``validate_ledger``) and whose
+              per-request queue / prefill / decode ms are printed; the
               --quant 2 run must launch packed_matmul and flash_fwd (by
               route: prefill through packed_matmul's and flash_fwd's
               tensor-core kernels, decode through the GEMV, never an f32
@@ -155,8 +176,15 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+PHASE_LOG: list[Path] = []  # --log: a file that also gets every phase line and the kernels line
+
+
 def phase(phase_name: str, **fields) -> None:
-    print(json.dumps({"phase": phase_name, **fields}), flush=True)
+    line = json.dumps({"phase": phase_name, **fields})
+    print(line, flush=True)
+    for path in PHASE_LOG:
+        with open(path, "a") as fh:
+            fh.write(line + "\n")
 
 
 def nvidia_smi() -> str:
@@ -223,7 +251,13 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the source tree whose repro_torch to run (default: src beside this "
                          "script); another commit's, to compare the two in one call")
+    ap.add_argument("--log", type=Path,
+                    help="also append every phase line and the kernels line to this file "
+                         "(the end of a long run's output may not hold them all)")
     opts = ap.parse_args(argv)
+    if opts.log:
+        opts.log.parent.mkdir(parents=True, exist_ok=True)
+        PHASE_LOG.append(opts.log)
     if not (opts.src / "repro_torch" / "csrc").is_dir():
         fail(f"no src/repro_torch in {opts.src}; run {Path(__file__).name} from a checkout")
     sys.path.insert(0, str(opts.src.resolve()))
@@ -310,7 +344,9 @@ def main(argv: list[str] | None = None) -> int:
     def profile_window(step) -> tuple[dict, dict[str, float]]:
         """Host wall ms of ``step`` (synchronised, mean of 10 after 3 warm-up
         runs) against the card's kernel ms in a torch.profiler window of 3;
-        with each kernel's ms per step by (cut) name."""
+        with each kernel's ms per step by (cut) name, and the median of 10
+        CUDA-event spans around one step each (the card's start-to-end time
+        of a step, idle gaps included)."""
         for _ in range(3):
             step()
         torch.cuda.synchronize()
@@ -319,6 +355,15 @@ def main(argv: list[str] | None = None) -> int:
             step()
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) / 10 * 1e3
+        spans_ms = []
+        for _ in range(10):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step()
+            end.record()
+            torch.cuda.synchronize()
+            spans_ms.append(start.elapsed_time(end))
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(3):
                 step()
@@ -329,7 +374,39 @@ def main(argv: list[str] | None = None) -> int:
             by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 3e3
         dev_ms = sum(by_name.values())
         return dict(host_step_ms=wall_ms, device_step_ms=dev_ms,
-                    device_busy_share=dev_ms / wall_ms, kernels_per_step=len(kern) / 3), by_name
+                    device_busy_share=dev_ms / wall_ms, kernels_per_step=len(kern) / 3,
+                    event_step_ms=statistics.median(spans_ms)), by_name
+
+    from repro_torch.runtime.steps import CapturedStep
+
+    def hold_replay(label, step_fn, host_in, pk0, pv0) -> dict:
+        """``step_fn(pool_k, pool_v, *inputs) -> logits`` run eagerly on one
+        copy of the pools, and compiled (``CapturedStep``) on another: its
+        first call and capture, then the copy restored to the same state and
+        one replay. Logits and both pools must be bitwise equal to the
+        eager step's (the max |diff| and cosine are printed beside)."""
+        ke, ve = pk0.clone(), pv0.clone()
+        lg_e = step_fn(ke, ve, *(t.to(dev) for t in host_in))
+        kg, vg = pk0.clone(), pv0.clone()
+        graph = CapturedStep(lambda *xs: step_fn(kg, vg, *xs), device=dev,
+                             mempool=torch.cuda.graph_pool_handle())
+        graph(*host_in)
+        kg.copy_(pk0)
+        vg.copy_(pv0)
+        lg_r = graph(*host_in)
+        torch.cuda.synchronize()
+        pairs = {"logits": (lg_r, lg_e), "pool_k": (kg, ke), "pool_v": (vg, ve)}
+        out = {"case": label, "replays": graph.replays}
+        for key, (a, b) in pairs.items():
+            a2, b2 = a.float().flatten(), b.float().flatten()
+            out[f"{key}_bitwise"] = same_bits(a, b)
+            out[f"{key}_max_abs_diff"] = (a2 - b2).abs().max().item()
+            out[f"{key}_cosine"] = F.cosine_similarity(a2, b2, dim=0).item()
+        phase("graph_vs_eager", **out)
+        if graph.replays != 1 or not all(out[f"{k}_bitwise"] for k in pairs):
+            fail(f"{label}: the replay is not the eager step: {out}")
+        del graph, kg, vg, ke, ve
+        return out
 
     def prefill_phase():
         """Phase 4's prefill: smollm-360m at full width and depth with 2-bit
@@ -378,18 +455,41 @@ def main(argv: list[str] | None = None) -> int:
             lm.prefill_chunk_paged(params, cfg2, chunk, pk, pv, table,
                                    table[:, CHUNK:2 * CHUNK], CHUNK, CHUNK - 1)
 
-        stats, by_name = profile_window(chunk_step)
-        split = {"flash_fwd": 0.0, "packed_matmul": 0.0, "rest": 0.0}
-        for name, ms in by_name.items():
-            if "flash_fwd" in name:
-                split["flash_fwd"] += ms
-            elif any(k in name for k in ("mma_kernel<", "tiled_kernel<", "gemv_kernel<")):
-                split["packed_matmul"] += ms
-            else:
-                split["rest"] += ms
-        phase("prefill_profile", src=str(opts.src), chunk=CHUNK, start=CHUNK, pool_rows=MAX_LEN,
-              **stats, device_ms_by_kernel=split,
-              top_kernels_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6]))
+        # the scheduler's compiled chunk: host inputs copied into the graph's
+        # buffers, the last index on the device
+        chunk_in = (chunk.cpu(), table.cpu(), table[:, CHUNK:2 * CHUNK].cpu(),
+                    torch.tensor([CHUNK - 1]))
+
+        def chunk_fn(k_, v_, tok, rows, wr, last):
+            return lm.prefill_chunk_paged(params, cfg2, tok, k_, v_, rows, wr, CHUNK, last)[0]
+
+        chunk_graph = CapturedStep(lambda *xs: chunk_fn(pk, pv, *xs), device=dev,
+                                   mempool=torch.cuda.graph_pool_handle())
+
+        def chunk_graph_step():
+            chunk_graph(*chunk_in)
+
+        # eager and compiled in turns: the host's speed drifts within a call
+        for compiled, step in ((False, chunk_step), (True, chunk_graph_step),
+                               (True, chunk_graph_step), (False, chunk_step)):
+            stats, by_name = profile_window(step)
+            split = {"flash_fwd": 0.0, "packed_matmul": 0.0, "rest": 0.0}
+            for name, ms in by_name.items():
+                if "flash_fwd" in name:
+                    split["flash_fwd"] += ms
+                elif any(k in name for k in ("mma_kernel<", "tiled_kernel<", "gemv_kernel<")):
+                    split["packed_matmul"] += ms
+                else:
+                    split["rest"] += ms
+            phase("prefill_profile", src=str(opts.src), compiled=compiled, chunk=CHUNK,
+                  start=CHUNK, pool_rows=MAX_LEN, **stats, device_ms_by_kernel=split,
+                  top_kernels_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6]))
+        del chunk_graph, pk, pv
+        rows0 = (cfg2.n_layers, MAX_LEN + 16, cfg2.n_kv, cfg2.hd)
+        hold_gen = torch.Generator(device="cpu").manual_seed(4)
+        hold_replay("prefill chunk, --quant 2", chunk_fn, chunk_in,
+                    torch.randn(rows0, generator=hold_gen).to(dev, torch.bfloat16),
+                    torch.randn(rows0, generator=hold_gen).to(dev, torch.bfloat16))
         return params, cfg2
 
     if opts.only == "prefill":
@@ -787,6 +887,99 @@ def main(argv: list[str] | None = None) -> int:
     if ws.split_plan(LANES, 4096, 512, sms)[0] != 8:
         fail(f"stream_matmul M={LANES} K=4096 N=512 is not split 8 ways")
 
+    # ---- the serve path's kernels inside a CUDA graph ----
+    graph_checks = []
+
+    def graph_case(name, route, fn, *inputs):
+        """``fn`` (one wrapper call) compiled by ``CapturedStep`` (an eager
+        first call, then the capture) and replayed on the same inputs: the
+        first call's and the replay's outputs must be bitwise equal to an
+        eager launch's; the capture counts no launch, a replay one (by its
+        route, for a wrapper that counts routes). Times: the replay against
+        the eager call, device medians."""
+        def by_route():
+            return ops.launch_routes().get(name, {}).get(route, 0) if route else 0
+
+        eager = fn(*inputs)
+        step = CapturedStep(fn, device=dev, mempool=torch.cuda.graph_pool_handle())
+        c0, r0 = ops.launch_counts()[name], by_route()
+        first = step(*inputs)
+        c1 = ops.launch_counts()[name]
+        replay = step(*inputs)
+        c2, r2 = ops.launch_counts()[name], by_route()
+        torch.cuda.synchronize()
+        outs = lambda o: o if isinstance(o, tuple) else (o,)  # noqa: E731
+        label = f"{name} {route} in a CUDA graph"
+        if step.graph is None:
+            fail(f"{label}: nothing was captured")
+        if not all(same_bits(a, b) for a, b in zip(outs(first), outs(eager))):
+            fail(f"{label}: the first (eager) call differs from an eager launch")
+        if not all(same_bits(a, b) for a, b in zip(outs(replay), outs(eager))):
+            diff = max((a.float() - b.float()).abs().max().item()
+                       for a, b in zip(outs(replay), outs(eager)))
+            fail(f"{label}: the replay differs from an eager launch (max |diff| {diff})")
+        if (c1 - c0, c2 - c1, r2 - r0) != (1, 1, 2 if route else 0):
+            fail(f"{label}: launches counted {c1 - c0} by the first call, {c2 - c1} by "
+                 f"a replay, {r2 - r0} by route {route}; want 1, 1, 2")
+        case = dict(kernel=name, route=route or "stream_kernel", bitwise_equal=True,
+                    launches_first_call=c1 - c0, launches_per_replay=c2 - c1,
+                    replay_ms=median_ms(lambda: step.graph.replay()),
+                    eager_ms=median_ms(lambda: fn(*inputs)))
+        graph_checks.append(case)
+        phase("graph_kernel", **case)
+        del step
+
+    g_gen = torch.Generator(device="cpu").manual_seed(3)
+    for m, route in ((LANES, "gemv"), (CHUNK, "mma")):
+        w = lm.make_packed(torch.randn((d, ff), generator=g_gen).to(dev), 2)
+        x = torch.randn((m, d), generator=g_gen).to(dev, torch.bfloat16)
+        graph_case("packed_matmul", route,
+                   lambda x_: pm.packed_matmul(x_, w["packed"], w["scale"], 2, d), x)
+    qg = torch.randn((hq, CHUNK, hd), generator=g_gen).to(dev, torch.bfloat16)
+    kg = torch.randn((hkv, MAX_LEN, hd), generator=g_gen).to(dev, torch.bfloat16)
+    vg = torch.randn((hkv, MAX_LEN, hd), generator=g_gen).to(dev, torch.bfloat16)
+    graph_case("flash_fwd", "mma",
+               lambda q_, k_, v_: fa.flash_fwd(q_, k_, v_, causal=True, q_offset=CHUNK),
+               qg, kg, vg)
+    sdepth = stream_ahead_depth(dataclasses.replace(cfg, w_bits=2))
+    sw = lm.make_packed(torch.randn((d, ff), generator=g_gen), 2)
+    swp, sws = sw["packed"].to(dev), sw["scale"].to(dev)
+    xs = torch.randn((LANES, d), generator=g_gen).to(dev, torch.bfloat16)
+    graph_case("stream_matmul", None,
+               lambda x_: ws.stream_matmul(x_, swp, sws, 2, d, sdepth), xs)
+
+    # a fault inside a capture: the launch function refuses a split of 0
+    # (cudaErrorInvalidValue, before any launch); _build.check must raise out
+    # of the capture, and the step must stay uncaptured (no eager fallback)
+    pm_lib = _build.load("packed_matmul", "packed_matmul_launch", pm._ARGTYPES)
+    xf = torch.randn((LANES, d), generator=g_gen).to(dev, torch.bfloat16)
+    wf = lm.make_packed(torch.randn((d, ff), generator=g_gen).to(dev), 2)
+    calls = []
+
+    def faulty(x_):
+        splits, cps = (1, -(-d // pm.GEMV_BK)) if not calls else (0, 1)
+        calls.append(splits)
+        out = torch.empty((LANES, ff), dtype=torch.float32, device=dev)
+        rc = pm_lib.packed_matmul_launch(
+            x_.data_ptr(), 1, wf["packed"].data_ptr(), wf["scale"].data_ptr(),
+            out.data_ptr(), LANES, d, ff, 2, splits, cps,
+            torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(pm_lib, rc, "packed_matmul (a split of 0, inside a capture)")
+        return out
+
+    f_step = CapturedStep(faulty, device=dev, mempool=torch.cuda.graph_pool_handle())
+    try:
+        f_step(xf)
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    torch.cuda.synchronize()
+    if raised is None or calls != [1, 0] or f_step.graph is not None:
+        fail(f"a fault inside a capture: raised {raised!r}, splits asked {calls}, "
+             f"graph {'captured' if f_step.graph is not None else 'none'}")
+    phase("graph_capture_fault", raised=raised, splits_asked=calls, captured=False)
+    del f_step
+
     from repro_torch.kernels import mvau as mv
     from repro_torch.models import cnn
     from repro_torch.quant.quantizers import pack_bits
@@ -903,13 +1096,19 @@ def main(argv: list[str] | None = None) -> int:
             fail(f"half-budget plan of w_bits={c.w_bits} does not split the layers: {mask}")
         return plan, total / 2 / 2**20
 
-    def profile_decode(p, c, plan=None) -> dict:
+    def decode_kw(c, plan):
+        return {} if plan is None else dict(
+            stream_mask=plan.layer_stream_mask(c), stream_depth=plan.stream_ahead)
+
+    def profile_decode(p, c, plan=None, compiled=False) -> dict:
         """One paged decode step of 8 lanes at depth PROMPT + 8: host wall
         time per step (synchronised) against the card's kernel time in a
         torch.profiler window, and the kernels that take it. With a plan,
-        the step is budgeted (its streamed layers run stream_matmul)."""
-        kw = {} if plan is None else dict(
-            stream_mask=plan.layer_stream_mask(c), stream_depth=plan.stream_ahead)
+        the step is budgeted (its streamed layers run stream_matmul).
+        Compiled, it is the scheduler's captured step: host inputs copied
+        into the graph's buffers, then one replay; eager, the inputs are
+        already on the card."""
+        kw = decode_kw(c, plan)
         rows = LANES * MAX_LEN + 16
         pk = torch.zeros((c.n_layers, rows, hkv, hd), dtype=torch.bfloat16, device=dev)
         pv = torch.zeros_like(pk)
@@ -917,25 +1116,33 @@ def main(argv: list[str] | None = None) -> int:
         tok = torch.zeros((LANES, 1), dtype=torch.long, device=dev)
         lens = torch.full((LANES,), PROMPT + 8, device=dev)
 
-        def step():
-            lm.decode_step_paged(p, c, tok, pk, pv, table, lens, **kw)
+        if compiled:
+            graph = CapturedStep(
+                lambda t_, tb, ln: lm.decode_step_paged(p, c, t_, pk, pv, tb, ln, **kw)[0],
+                device=dev, mempool=torch.cuda.graph_pool_handle())
+            host_in = (tok.cpu(), table.cpu(), lens.cpu())
+
+            def step():
+                graph(*host_in)
+        else:
+            def step():
+                lm.decode_step_paged(p, c, tok, pk, pv, table, lens, **kw)
 
         stats, by_name = profile_window(step)
         return dict(
-            w_bits=c.w_bits, budgeted=plan is not None,
+            w_bits=c.w_bits, budgeted=plan is not None, compiled=compiled,
             streamed_layers=sum(kw.get("stream_mask", ())), **stats,
             gemv_ms=sum(ms for name, ms in by_name.items() if "gemv_kernel<" in name),
             stream_ms=sum(ms for name, ms in by_name.items() if "stream_kernel<" in name),
             top_kernels_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6]),
         )
 
-    phase("decode_profile", **profile_decode(params, cfg2))
     plan2, _ = half_budget_plan(cfg2)
-    phase("decode_profile", **profile_decode(params, cfg2, plan2))
-    # the host time of a step drifts within a call: repeat both in the
-    # other order, so the budgeted/unbudgeted difference can be told from it
-    phase("decode_profile", **profile_decode(params, cfg2, plan2))
-    phase("decode_profile", **profile_decode(params, cfg2))
+    # eager and compiled, unbudgeted and budgeted; the host time of a step
+    # drifts within a call: each pair runs twice, in turns
+    for plan_, compiled in ((None, False), (None, True), (plan2, True), (plan2, False),
+                            (plan2, False), (plan2, True), (None, True), (None, False)):
+        phase("decode_profile", **profile_decode(params, cfg2, plan_, compiled))
 
     # the same weights and pool state through the budgeted and the
     # unbudgeted step: the logits must agree
@@ -961,21 +1168,89 @@ def main(argv: list[str] | None = None) -> int:
           finite=bool(torch.isfinite(a).all()))
     if not (cos >= BUDGET_MIN_COS and slack <= BUDGET_TOP1_SLACK and torch.isfinite(a).all()):
         fail(f"budgeted vs unbudgeted decode: cosine {cos}, top-1 gap {slack}")
+    # the compiled decode step against the eager one on the same state
+    decode_in = (tok.cpu(), table.cpu(), lens.cpu())
+    for plan_, label in ((None, "unbudgeted"), (plan2, "budgeted")):
+        kw = decode_kw(cfg2, plan_)
+        hold_replay(f"decode step, --quant 2 {label}",
+                    lambda k_, v_, t_, tb, ln: lm.decode_step_paged(
+                        params, cfg2, t_, k_, v_, tb, ln, **kw)[0],
+                    decode_in, pk0, pv0)
     del params, pk0, pv0
     params0 = lm.init_params(cfg, 0, device=dev)
     phase("decode_profile", **profile_decode(params0, cfg))
+    phase("decode_profile", **profile_decode(params0, cfg, compiled=True))
     del params0
 
     # ---------------- 5. serve at full width and depth ----------------
+    from repro_torch.runtime.memledger import validate_ledger
+    from repro_torch.runtime.spans import decompose, request_spans, validate_trace
+    from repro_torch.runtime.tracker import read_jsonl, replay_summary
+    from repro_torch.perf.trace_export import to_trace_events, validate_trace_events
+
     runs = {}
     launches = dict.fromkeys(ops.launch_counts(), 0)
     # launches by route, main path
     routes = {name: {} for name in ("packed_matmul", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    trace_dir = ROOT / "build" / "chip_smoke"
+    trace_dir.mkdir(parents=True, exist_ok=True)
 
     def add_routes(by_route):
         for name, counts in by_route.items():
             for route, n in counts.items():
                 routes[name][route] = routes[name].get(route, 0) + n
+
+    def check_trace(path, metrics, label) -> dict:
+        """The run's ``--trace-out`` stream: the ledger integrates to every
+        round's gauges (``validate_ledger``), the rounds replay to the run's
+        counters, the export is loadable, and every request's spans tile
+        [submit, done] (``validate_trace``; standalone round records carry
+        no milestone events, as the reference's do not, so they are taken
+        from the spans: admit at the queue span's end, first at the last
+        prefill span's end, done at the last span's end). Returns the mean
+        ms per request of each phase (``decompose``)."""
+        records = read_jsonl(path)
+        by_rid = request_spans(records)
+        events = []
+        for rid, ss in by_rid.items():
+            prefill = [sp for sp in ss if sp["phase"] == "prefill"]
+            if ss[0]["phase"] != "queue" or not prefill:
+                fail(f"{label}: request {rid} spans {[sp['phase'] for sp in ss]}")
+            events += [("admit", rid, ss[0]["t1"]), ("first", rid, prefill[-1]["t1"]),
+                       ("done", rid, ss[-1]["t1"])]
+        errors = validate_trace(records + [{"kind": "metrics", "events": events}])
+        errors += validate_ledger(records)
+        errors += validate_trace_events(to_trace_events(records))
+        replay = replay_summary(records)
+        for key in ("completed", "generated_tokens", "prefill_steps", "decode_steps"):
+            if replay[key] != metrics[key]:
+                errors.append(f"replayed {key} {replay[key]} != {metrics[key]}")
+        if len(by_rid) != 16 or errors:
+            fail(f"{label}: trace of {len(by_rid)} requests: {errors[:5]}")
+        per = decompose(records)
+        return dict(
+            records=len(records), spans=sum(r.get("kind") == "span" for r in records),
+            mem_records=sum(r.get("kind") == "mem" for r in records),
+            mean_ms_per_request={
+                ph: statistics.fmean(d.get(ph, 0.0) for d in per.values()) * 1e3
+                for ph in ("queue", "prefill", "decode", "wait")})
+
+    def eager_serve(argv) -> tuple[dict, dict, dict]:
+        """The run of ``serve.main(argv)`` with every step eager: the same
+        parser, plan, weights and engine (``run_pool_engine``), with the
+        scheduler's ``compiled=False``, which no serve flag reaches."""
+        args = serve.build_parser().parse_args(argv)
+        ecfg = dataclasses.replace(get_config(args.arch), w_bits=args.quant)
+        eparams = lm.init_params(ecfg, args.seed, device=dev)
+        ops.reset_launch_counts()
+        metrics = serve.run_pool_engine(ecfg, eparams, args, dev,
+                                        serve.build_residency_plan(ecfg, args), compiled=False)
+        counts, by_route = ops.launch_counts(), ops.launch_routes()
+        del eparams
+        return metrics, counts, by_route
+
+    def outputs_of(metrics):
+        return {int(rid): toks for rid, toks in metrics["outputs"].items()}
 
     for quant in (2, 0):
         qcfg = dataclasses.replace(cfg, w_bits=quant)
@@ -988,49 +1263,97 @@ def main(argv: list[str] | None = None) -> int:
                 "--max-len", str(MAX_LEN), "--prefill-chunk", str(CHUNK),
                 "--vmem-budget", repr(budget),
             ]
-            buf = io.StringIO()
-            ops.reset_launch_counts()
-            with contextlib.redirect_stdout(buf):
-                rc = serve.main(argv)
-            counts = ops.launch_counts()
-            by_route = ops.launch_routes()
-            text = buf.getvalue()
-            sys.stderr.write(text)
-            if rc != 0:
-                fail(f"serve --quant {quant} --vmem-budget {budget} exited {rc}")
-            metrics = json.loads(
-                next(l for l in text.splitlines() if l.startswith("[serve/metrics] "))
-                .split(" ", 1)[1]
-            )
-            if metrics["completed"] != 16 or metrics["generated_tokens"] != 16 * 64:
-                fail(f"serve --quant {quant} --vmem-budget {budget}: {metrics}")
-            for name, n in counts.items():
-                launches[name] += n
+            traced = quant == 2 and not budget
+            # --quant 2 also runs eagerly, in turns with the compiled run
+            modes = (("compiled",) if quant == 0 else
+                     ("eager", "compiled") if not budget else ("compiled", "eager"))
+            by_mode = {}
+            for mode in modes:
+                trace = trace_dir / f"serve_q{quant}_{mode}.jsonl"
+                trace.unlink(missing_ok=True)
+                run_argv = argv + (["--trace-out", str(trace)] if traced else [])
+                if mode == "eager":
+                    metrics, counts, by_route = eager_serve(run_argv)
+                else:
+                    buf = io.StringIO()
+                    ops.reset_launch_counts()
+                    with contextlib.redirect_stdout(buf):
+                        rc = serve.main(run_argv)
+                    counts = ops.launch_counts()
+                    by_route = ops.launch_routes()
+                    text = buf.getvalue()
+                    sys.stderr.write("".join(l + "\n" for l in text.splitlines()
+                                             if not l.startswith("[serve/metrics] ")))
+                    if rc != 0:
+                        fail(f"serve --quant {quant} --vmem-budget {budget} exited {rc}")
+                    metrics = json.loads(
+                        next(l for l in text.splitlines() if l.startswith("[serve/metrics] "))
+                        .split(" ", 1)[1]
+                    )
+                    if not metrics["compiled"] or metrics["graphs"] != 1 + -(-PROMPT // CHUNK):
+                        fail(f"serve --quant {quant} --vmem-budget {budget}: {metrics['graphs']} "
+                             f"graphs, compiled {metrics['compiled']}: want the decode step "
+                             f"and {-(-PROMPT // CHUNK)} chunk starts")
+                    # every decode step and chunk but each graph's first (eager) call
+                    # is a replay
+                    if metrics["graph_replays"] != (metrics["steps"] - metrics["graphs"]):
+                        fail(f"serve --quant {quant} --vmem-budget {budget}: "
+                             f"{metrics['graph_replays']} replays of {metrics['steps']} steps")
+                    for name, n in counts.items():
+                        launches[name] += n
+                    add_routes(by_route)
+                label = f"serve --quant {quant} --vmem-budget {budget} ({mode})"
+                if metrics["completed"] != 16 or metrics["generated_tokens"] != 16 * 64:
+                    fail(f"{label}: {metrics['completed']} completed, "
+                         f"{metrics['generated_tokens']} tokens")
+                if budget:
+                    if metrics["residency"] != plan.summary():
+                        fail(f"{label}: residency {metrics['residency']} "
+                             f"is not the plan's {plan.summary()}")
+                    want = 3 * n_streamed * metrics["decode_steps"]
+                    if counts["stream_matmul"] != want:
+                        fail(f"{label}: stream_matmul launched "
+                             f"{counts['stream_matmul']} times, not 3 x {n_streamed} x "
+                             f"{metrics['decode_steps']} = {want}")
+                elif counts["stream_matmul"]:
+                    fail(f"{label}: unbudgeted, launched stream_matmul")
+                if quant == 2 and min(counts["packed_matmul"], counts["flash_fwd"]) <= 0:
+                    fail(f"{label}: skipped a kernel: {counts}")
+                # bf16 prefill takes both tensor-core kernels, decode the GEMV
+                pm_routes = by_route.get("packed_matmul", {})
+                fa_routes = by_route.get("flash_fwd", {})
+                if quant == 2 and not (pm_routes.get("mma", 0) > 0
+                                       and set(pm_routes) <= {"mma", "gemv"}):
+                    fail(f"{label}: packed_matmul routes {pm_routes}")
+                if set(fa_routes) != {"mma"}:
+                    fail(f"{label}: flash_fwd routes {fa_routes}")
+                trace_check = check_trace(trace, metrics, label) if traced else None
+                by_mode[mode] = dict(metrics=metrics, counts=counts, by_route=by_route,
+                                     trace=trace_check)
+                phase("serve", quant=quant, vmem_budget_mib=budget, mode=mode,
+                      launches_counted=counts, launches_by_route=by_route, trace=trace_check,
+                      **{k: v for k, v in metrics.items() if k != "outputs"})
+            runs[quant, budget > 0] = by_mode["compiled"]["metrics"]
+            if "eager" in by_mode:
+                c, e = by_mode["compiled"], by_mode["eager"]
+                same_tokens = outputs_of(c["metrics"]) == outputs_of(e["metrics"])
+                same_launches = (c["counts"], c["by_route"]) == (e["counts"], e["by_route"])
+                phase("serve_compiled_vs_eager", quant=quant, vmem_budget_mib=budget,
+                      token_streams_identical=same_tokens, launch_counts_identical=same_launches,
+                      **{f"{key}_{mode}": by_mode[mode]["metrics"][key]
+                         for key in ("tokens_per_s", "decode_step_ms", "mean_ttft_s", "wall_s")
+                         for mode in ("eager", "compiled")},
+                      **({f"mean_ms_per_request_{mode}": by_mode[mode]["trace"][
+                          "mean_ms_per_request"] for mode in ("eager", "compiled")}
+                         if traced else {}))
+                if not same_tokens:
+                    fail(f"serve --quant {quant} --vmem-budget {budget}: compiled and eager "
+                         "token streams differ")
+                if not same_launches:
+                    fail(f"serve --quant {quant} --vmem-budget {budget}: compiled launches "
+                         f"{c['counts']} {c['by_route']} != eager {e['counts']} {e['by_route']}")
             if budget:
-                if metrics["residency"] != plan.summary():
-                    fail(f"serve --quant {quant}: residency {metrics['residency']} "
-                         f"is not the plan's {plan.summary()}")
-                want = 3 * n_streamed * metrics["decode_steps"]
-                if counts["stream_matmul"] != want:
-                    fail(f"serve --quant {quant} budgeted: stream_matmul launched "
-                         f"{counts['stream_matmul']} times, not 3 x {n_streamed} x "
-                         f"{metrics['decode_steps']} = {want}")
-                print(next(l for l in text.splitlines() if l.startswith("[serve/residency]")))
-            elif counts["stream_matmul"]:
-                fail(f"serve --quant {quant} unbudgeted launched stream_matmul")
-            if quant == 2 and min(counts["packed_matmul"], counts["flash_fwd"]) <= 0:
-                fail(f"serve --quant 2 --vmem-budget {budget} skipped a kernel: {counts}")
-            # bf16 prefill takes both tensor-core kernels, decode the GEMV
-            pm_routes, fa_routes = by_route.get("packed_matmul", {}), by_route.get("flash_fwd", {})
-            if quant == 2 and not (pm_routes.get("mma", 0) > 0 and set(pm_routes) <= {"mma", "gemv"}):
-                fail(f"serve --quant 2 --vmem-budget {budget}: packed_matmul routes {pm_routes}")
-            if set(fa_routes) != {"mma"}:
-                fail(f"serve --quant {quant} --vmem-budget {budget}: flash_fwd routes {fa_routes}")
-            add_routes(by_route)
-            runs[quant, budget > 0] = metrics
-            phase("serve", quant=quant, vmem_budget_mib=budget, launches_counted=counts,
-                  launches_by_route=by_route,
-                  **metrics)
+                print(f"[chip_smoke] --quant {quant} budgeted: {n_streamed} layers streamed")
     for quant in (2, 0):
         base, bud = runs[quant, False], runs[quant, True]
         phase("serve_budgeted_vs_unbudgeted", quant=quant, **{
@@ -1431,6 +1754,7 @@ def main(argv: list[str] | None = None) -> int:
              **{k: head_pm[k] for k in nums},
              timing_floor_ms=timing_floor_ms,
              routes=packed_routes,
+             graph_replays=[c for c in graph_checks if c["kernel"] == "packed_matmul"],
              cases=packed_cases, check_cases=packed_checks),
         dict(name="flash_fwd", route="cuda",
              source="src/repro_torch/csrc/flash_fwd.cu",
@@ -1440,6 +1764,7 @@ def main(argv: list[str] | None = None) -> int:
              tolerance=f"out abs {FLASH_OUT_TOL}, lse abs {FLASH_LSE_TOL}",
              **{k: head_fa[k] for k in nums},
              routes=flash_routes,
+             graph_replays=[c for c in graph_checks if c["kernel"] == "flash_fwd"],
              cases=flash_cases, check_cases=flash_checks),
         dict(name="stream_matmul", route="cuda",
              source="src/repro_torch/csrc/weight_stream.cu",
@@ -1449,6 +1774,7 @@ def main(argv: list[str] | None = None) -> int:
              tolerance=f"rel {STREAM_REL_TOL}",
              **{k: head_sm[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")},
+             graph_replays=[c for c in graph_checks if c["kernel"] == "stream_matmul"],
              cases=stream_cases),
         dict(name="mvau", route="cuda",
              source="src/repro_torch/csrc/mvau.cu",
@@ -1491,6 +1817,9 @@ def main(argv: list[str] | None = None) -> int:
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))
+    for path in PHASE_LOG:
+        with open(path, "a") as fh:
+            fh.write(json.dumps({"kernels": kernels}) + "\n")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -14,7 +14,9 @@ returns ``cudaGetLastError()``; ``check`` raises on a nonzero code.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -34,15 +36,58 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 
 class LaunchCounter:
     """Counts a wrapper's kernel launches (one per launch, nowhere else); a
-    wrapper with several kernels also counts each launch by its route."""
+    wrapper with several kernels also counts each launch by its route.
+
+    Inside ``recording_launches`` (a CUDA graph capture, which launches
+    nothing) a launch is recorded instead of counted, and each replay of
+    the graph adds what was recorded (``LaunchRecord.replay``): the counts
+    read what the eager path reads."""
 
     def __init__(self) -> None:
         self.count = 0
         self.routes: dict[str, int] = {}
 
-    def add(self, route: str) -> None:
+    def add(self, route: str | None = None) -> None:
+        if _recording is not None:
+            _recording.launches.append((self, route))
+        else:
+            self._count(route)
+
+    def _count(self, route: str | None) -> None:
         self.count += 1
-        self.routes[route] = self.routes.get(route, 0) + 1
+        if route is not None:
+            self.routes[route] = self.routes.get(route, 0) + 1
+
+
+@dataclasses.dataclass
+class LaunchRecord:
+    """The launches one capture recorded, (counter, route) in order."""
+
+    launches: list[tuple[LaunchCounter, str | None]] = dataclasses.field(
+        default_factory=list
+    )
+
+    def replay(self) -> None:
+        """Count every recorded launch once: one replay of the graph."""
+        for counter, route in self.launches:
+            counter._count(route)
+
+
+_recording: LaunchRecord | None = None
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Record the launches made inside, without counting them; yields the
+    ``LaunchRecord``."""
+    global _recording
+    if _recording is not None:
+        raise RuntimeError("recording_launches does not nest")
+    _recording = rec = LaunchRecord()
+    try:
+        yield rec
+    finally:
+        _recording = None
 
 
 def _nvcc() -> str:

@@ -111,5 +111,5 @@ def mvau(
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, rc, "mvau")
-    COUNTER.count += 1
+    COUNTER.add()
     return out

@@ -145,5 +145,5 @@ def stream_matmul(
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, rc, "stream_matmul")
-    COUNTER.count += 1
+    COUNTER.add()
     return out

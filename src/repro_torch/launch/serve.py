@@ -4,19 +4,27 @@ Port of ``repro.launch.serve``'s pool engine: one physical KV pool
 (``runtime.kv_pool``), token-budget admission, bucketed one-step or
 chunked prefill, and paged decode lanes that each run at their own depth
 (``runtime.scheduler``). Runs on CUDA unless ``--device cpu`` is given;
-without a GPU and without ``--device cpu`` it exits with an error.
+without a GPU and without ``--device cpu`` it exits with an error. On the
+card the decode step and the prefill chunks run as captured CUDA graphs
+(the reference's jitted steps); on the CPU every step runs eagerly.
 
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m --quant 2
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --vmem-budget 0.25
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --trace-out t.jsonl
+    PYTHONPATH=src python -m repro_torch.perf.trace_export t.jsonl --check
 
 ``--vmem-budget`` (MiB) serves budgeted decode under a residency plan
-and prints the reference's ``[serve/residency]`` line. Besides the
-reference's ``[serve/pool]`` line it prints each kernel's
-launch count, and a ``[serve/metrics]`` line with the run's numbers as
-JSON.
+and prints the reference's ``[serve/residency]`` line. ``--trace-out``
+appends the run's round records, request spans (``--no-trace-spans``
+leaves them out) and memory-ledger records to a JSONL file, as the
+reference does; a memory ledger and its pressure monitor run on every
+run and give the ``[serve/mem]`` line. Besides the reference's
+``[serve/pool]`` line it prints each kernel's launch count, and a
+``[serve/metrics]`` line with the run's numbers (and every request's
+tokens) as JSON.
 """
 
 from __future__ import annotations
@@ -34,12 +42,15 @@ from repro_torch.kernels import ops
 from repro_torch.models import lm
 from repro_torch.models.config import PACKING_FAMILIES, PORTED_FAMILIES
 from repro_torch.runtime.kv_pool import KVPool, choose_block_tokens
+from repro_torch.runtime.memledger import MemLedger, MemPressureMonitor
 from repro_torch.runtime.residency import (
     RuntimeResidencyPlan,
     compile_residency_plan,
     supports_budgeted_decode,
 )
 from repro_torch.runtime.scheduler import Scheduler
+from repro_torch.runtime.spans import SpanRecorder
+from repro_torch.runtime.tracker import JsonlTracker
 
 
 def make_requests(args, vocab: int) -> list[np.ndarray]:
@@ -64,7 +75,11 @@ def build_residency_plan(cfg, args) -> RuntimeResidencyPlan | None:
     )
 
 
-def build_pool_engine(cfg, params, args, device, residency=None) -> Scheduler:
+def build_pool_engine(
+    cfg, params, args, device, residency=None, *, compiled: bool | None = None
+) -> Scheduler:
+    """The pool scheduler of ``args``; ``compiled`` is the scheduler's
+    (None: CUDA graphs on the card, eager on the CPU)."""
     total = args.prompt_len + args.gen_len
     block_tokens = args.block_tokens or choose_block_tokens(
         [total] * args.requests
@@ -73,6 +88,15 @@ def build_pool_engine(cfg, params, args, device, residency=None) -> Scheduler:
         cfg, slots=args.batch, max_len=args.max_len,
         block_tokens=block_tokens, device=device,
     )
+    tracker = spans = None
+    if args.trace_out:
+        tracker = JsonlTracker(args.trace_out)
+        if args.trace_spans:
+            # standalone serving stamps spans on the host's monotonic clock
+            spans = SpanRecorder(time.monotonic, tracker=tracker)
+    # no engine stamp: standalone round records carry none either, and the
+    # ledger's and the metrics' engine keys must agree for validate_ledger
+    ledger = MemLedger(time.monotonic, tracker=tracker)
     return Scheduler(
         cfg,
         params,
@@ -89,16 +113,35 @@ def build_pool_engine(cfg, params, args, device, residency=None) -> Scheduler:
         ),
         prefill_chunk=args.prefill_chunk or None,
         residency=residency,
+        compiled=compiled,
+        tracker=tracker,
+        spans=spans,
+        ledger=ledger,
+        mem_monitor=MemPressureMonitor(),
     )
 
 
-def run_pool_engine(cfg, params, args, device, residency=None) -> dict:
-    sched = build_pool_engine(cfg, params, args, device, residency)
+def _replay_step_ms(sched, stats) -> float | None:
+    """The mean decode step without the decode graph's eager first call
+    and capture (both inside ``decode_time``); None when not compiled."""
+    g = sched.decode_graph
+    if g is None or stats.decode_steps < 2:
+        return None
+    setup = g.first_call_s + g.capture_s
+    return (stats.decode_time - setup) / (stats.decode_steps - 1) * 1e3
+
+
+def run_pool_engine(
+    cfg, params, args, device, residency=None, *, compiled: bool | None = None
+) -> dict:
+    sched = build_pool_engine(cfg, params, args, device, residency, compiled=compiled)
     for prompt in make_requests(args, cfg.vocab):
         sched.submit(prompt, args.gen_len)
     t0 = time.monotonic()
     stats = sched.run()
     dt = time.monotonic() - t0
+    if sched.tracker is not None:
+        sched.tracker.finish()
     outputs = sched.outputs()
     if stats.completed != args.requests or any(
         len(v) != args.gen_len for v in outputs.values()
@@ -110,6 +153,7 @@ def run_pool_engine(cfg, params, args, device, residency=None) -> dict:
     return {
         "engine": "pool",
         "device": str(device),
+        "compiled": sched.compiled,
         "requests": args.requests,
         "completed": stats.completed,
         "generated_tokens": stats.generated_tokens,
@@ -127,6 +171,17 @@ def run_pool_engine(cfg, params, args, device, residency=None) -> dict:
         "pool_utilization": stats.steady_state_utilization,
         "block_tokens": sched.pool.block_tokens,
         "residency": residency.summary() if residency is not None else None,
+        "graphs": len(sched.graphs),
+        "graph_replays": sum(g.replays for g in sched.graphs),
+        "graph_pool_bytes": sum(g.pool_bytes for g in sched.graphs),
+        "graph_first_call_s": sum(g.first_call_s for g in sched.graphs),
+        "graph_capture_s": sum(g.capture_s for g in sched.graphs),
+        "decode_step_ms_replay": _replay_step_ms(sched, stats),
+        "span_records": sched.spans.n_spans if sched.spans else 0,
+        "mem": sched.mem_summary(),
+        "mem_records": sched.ledger.n_records,
+        "fragmentation": sched.pool.fragmentation_report(),
+        "outputs": outputs,
     }
 
 
@@ -165,6 +220,15 @@ def build_parser() -> argparse.ArgumentParser:
                          "layer streams its FFN weights each decode step "
                          "through stream_matmul's shared-memory ring "
                          "(0 = unbudgeted)")
+    ap.add_argument("--trace-out", default="",
+                    help="append one JSONL record per scheduler round, with "
+                         "the memory ledger's records (runtime.tracker stream)")
+    ap.add_argument("--trace-spans", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="emit per-request lifecycle span records into "
+                         "--trace-out (host-clock stamps; export with "
+                         "repro_torch.perf.trace_export; --no-trace-spans "
+                         "for rounds-only streams)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain versions")
     return ap
@@ -219,6 +283,37 @@ def main(argv=None) -> int:
             f"stream_matmul; the HBM traffic on the card is the same, since "
             f"resident layers also read their weights every step"
         )
+    if m["compiled"]:
+        print(
+            f"[serve/graphs] decode step and prefill chunks compiled: "
+            f"{m['graphs']} CUDA graphs, {m['graph_replays']} replays, "
+            f"{m['graph_pool_bytes'] / 2**20:.1f} MiB in their memory pool; "
+            f"first calls {m['graph_first_call_s']:.3f}s and captures "
+            f"{m['graph_capture_s']:.3f}s"
+            + (
+                f"; decode step {m['decode_step_ms']:.2f} ms mean, "
+                f"{m['decode_step_ms_replay']:.2f} ms without its first "
+                f"call and capture"
+                if m["decode_step_ms_replay"] is not None
+                else ""
+            )
+        )
+    mm = m["mem"]
+    frag = mm.get("frag_at_peak") or {}
+    line = (
+        f"[serve/mem] signal {mm['signal']}, peak occupancy "
+        f"{mm['peak_occupancy']*100:.1f}% "
+        f"({mm['peak_held_blocks']} blocks, headroom "
+        f"{mm['headroom_blocks']}), {mm['evicted_blocks']} blocks "
+        f"evicted, {m['mem_records']} ledger records"
+    )
+    if frag:
+        line += (
+            f", packing at peak "
+            f"{frag.get('baseline_efficiency', 1.0)*100:.1f}% "
+            f"(FFD bound {frag.get('ffd_efficiency', 1.0)*100:.1f}%)"
+        )
+    print(line)
     print(
         "[serve/kernels] "
         + ", ".join(f"{k} {n} launches" for k, n in m["kernel_launches"].items())

@@ -490,15 +490,19 @@ def prefill_chunk_paged(
     row_table: torch.Tensor,
     write_rows: torch.Tensor,
     start: int,
-    last_idx: int,
+    last_idx: int | torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Prefill one chunk of a prompt against the shared KV pool.
 
     tokens: (B, C) chunk tokens, right-padded; write_rows: (B, C)
     physical pool row per chunk token (scratch row for padding);
     row_table: (B, S_max) the request's full row table; start: position
-    of the chunk's first token; last_idx: in-chunk index of the prompt's
-    last token. The chunk's K/V rows are written into the pool in place,
+    of the chunk's first token, a kernel argument (``flash_fwd``'s
+    ``q_offset``); last_idx: in-chunk index of the prompt's last token, an
+    int or a one-element integer tensor on the pool's device, selected on
+    the device either way, so one captured chunk serves every last
+    index. The chunk's K/V rows are
+    written into the pool in place,
     then the chunk attends causally over the gathered rows through the
     flash kernel with ``q_offset = start`` (rows past the chunk, scratch
     padding included, are masked by causality), which computes what the
@@ -526,8 +530,9 @@ def prefill_chunk_paged(
         )
         x = x + dense(o.reshape(b, c, -1), lp["wo"])
         x = _ffn_block(lp, cfg, x)
-    last = int(last_idx)
-    return _unembed(params, cfg, x[:, last : last + 1]), pool_k, pool_v
+    idx = torch.as_tensor(last_idx, device=x.device).reshape(1).long()
+    x_last = x.index_select(1, idx)
+    return _unembed(params, cfg, x_last), pool_k, pool_v
 
 
 # --------------------------------------------------------------------------

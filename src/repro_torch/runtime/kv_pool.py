@@ -1,7 +1,9 @@
 """Shared physical KV pool for continuous-batching decode.
 
-Port of ``repro.runtime.kv_pool`` without prefix adoption, draft brackets,
-the ledger hooks and ``fragmentation_report`` (later slices). Device side:
+Port of ``repro.runtime.kv_pool`` without refcounted sharing, prefix
+adoption and draft brackets (later slices); a memory ledger
+(``runtime.memledger``) attached as ``ledger`` hears every admit, block
+growth and release, as in the reference. Device side:
 ``k``/``v`` are (n_kv_cache_layers, n_blocks * block_tokens, n_kv, hd)
 row-addressed tensors (the block is an allocator concept only), updated
 in place with indexed writes where the reference rebuilt its arrays. Host
@@ -23,9 +25,27 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.buffers import WeightBuffer
+from repro_torch.core.packing import PackItem, baseline_packing, pack_ffd
+from repro_torch.core.resource_model import RamPrimitive
 from repro_torch.models.config import PORTED_FAMILIES, ModelConfig, torch_dtype
 
 SCRATCH_BLOCK = 0  # block 0 is never allocated; idle slots write/read it
+
+
+def kv_block_ram(block_tokens: int) -> RamPrimitive:
+    """A pool block as a RAM primitive: one legal shape, 1 x block_tokens."""
+    return RamPrimitive(
+        name="KVBLOCK",
+        capacity_bits=block_tokens,
+        n_ports=2,
+        configs=((1, block_tokens),),
+    )
+
+
+def request_buffer(rid: int, n_tokens: int) -> WeightBuffer:
+    """A request's KV footprint as a logical buffer (1 lane x tokens)."""
+    return WeightBuffer(f"req{rid}", width_bits=1, depth_words=n_tokens, w_bits=1)
 
 
 def blocks_for_tokens(n_tokens: int, block_tokens: int) -> int:
@@ -71,6 +91,11 @@ class PoolStats:
     held_tokens: int
     free_blocks: int
     committed_blocks: int
+    # the reference's sharing and prefix-cache gauges: 0 on a pool whose
+    # blocks are all private and uncached, as the reference reports them
+    shared_blocks: int = 0
+    cached_blocks: int = 0
+    evictable_blocks: int = 0
 
     @property
     def utilization(self) -> float:
@@ -78,6 +103,10 @@ class PoolStats:
         if self.held_blocks == 0:
             return 1.0
         return self.held_tokens / (self.held_blocks * self.block_tokens)
+
+    @property
+    def occupancy(self) -> float:
+        return self.held_blocks / max(1, self.n_blocks)
 
 
 class KVPool:
@@ -102,6 +131,7 @@ class KVPool:
         self.cfg = cfg
         self.n_blocks = n_blocks
         self.block_tokens = block_tokens
+        self.ram = kv_block_ram(block_tokens)
         self.device = resolve_device(device)
         shape = (cfg.n_kv_cache_layers, n_blocks * block_tokens, cfg.n_kv, cfg.hd)
         dt = dtype or torch_dtype(cfg)
@@ -115,6 +145,10 @@ class KVPool:
         # lifetime counters: alloc - freed always equals the held-block count
         self.alloc_blocks = 0
         self.freed_blocks = 0
+        self.cow_copies = 0  # no copy-on-write without prefix adoption
+        # the attached memory ledger (runtime.memledger.MemLedger.attach);
+        # every mutation below notifies it
+        self.ledger = None
 
     @classmethod
     def for_slots(
@@ -176,10 +210,15 @@ class KVPool:
         self._committed[rid] = self.blocks_for(total_tokens)
         self._held[rid] = []
         self._tokens[rid] = 0
+        if self.ledger is not None:
+            self.ledger.record(
+                "admit", owner="request", rid=rid, committed=self._committed[rid]
+            )
 
     def ensure_rows(self, rid: int, n_tokens: int) -> None:
         """Grow the request's block list to hold ``n_tokens`` rows."""
         held = self._held[rid]
+        before = len(held)
         while len(held) * self.block_tokens < n_tokens:
             if len(held) >= self._committed[rid]:
                 raise RuntimeError(
@@ -188,6 +227,12 @@ class KVPool:
                 )
             held.append(self._free.pop())
             self.alloc_blocks += 1
+        # note_tokens-driven row-coverage drift does not emit (one record a
+        # decode token); the ledger's round sync() folds it in
+        if self.ledger is not None and len(held) > before:
+            self.ledger.record(
+                "grow", owner="request", rid=rid, grown=len(held) - before
+            )
 
     def note_tokens(self, rid: int, n_tokens: int) -> None:
         """Record the request's token count (monotone while held)."""
@@ -208,11 +253,19 @@ class KVPool:
         self.freed_blocks += len(blocks)
         self._used_total -= self._tokens.pop(rid)
         del self._committed[rid]
+        if self.ledger is not None:
+            self.ledger.record("release", owner="request", rid=rid)
 
     # ---------------- introspection ----------------
 
+    def live_requests(self) -> list[int]:
+        return list(self._held)
+
     def blocks_held(self, rid: int) -> int:
         return len(self._held[rid])
+
+    def tokens_held(self, rid: int) -> int:
+        return self._tokens[rid]
 
     # ---------------- device-side addressing ----------------
 
@@ -284,3 +337,24 @@ class KVPool:
                 f"block conservation violated: {self.alloc_blocks} allocated"
                 f" - {self.freed_blocks} freed != {len(held)} held"
             )
+
+    def fragmentation_report(self) -> dict:
+        """Baseline (private blocks) vs the ``pack_ffd`` tail-sharing bound.
+
+        Each request's footprint is its own buffer (``baseline_packing``);
+        FFD with height H_B=4 quotes what packing request tails into shared
+        blocks would save: the serving analogue of the paper's baseline vs
+        FCMP BRAM comparison."""
+        items = [
+            PackItem(request_buffer(rid, self._tokens[rid]))
+            for rid in sorted(self._held)
+            if self._tokens[rid] > 0
+        ]
+        base = baseline_packing(items, self.ram)
+        packed = pack_ffd(items, max_height=4, ram=self.ram)
+        return {
+            "baseline_blocks": base.total_blocks,
+            "ffd_blocks": packed.total_blocks,
+            "baseline_efficiency": base.efficiency,
+            "ffd_efficiency": packed.efficiency,
+        }

@@ -11,14 +11,18 @@ ordinary FFN path and streamed layers run
 from repro_torch.runtime.residency.executor import supports_budgeted_decode
 from repro_torch.runtime.residency.plan import (
     RuntimeResidencyPlan,
+    TrafficProfile,
     compile_residency_plan,
+    fixed_hbm_bytes,
     stream_ahead_depth,
     weight_blocks,
 )
 
 __all__ = [
     "RuntimeResidencyPlan",
+    "TrafficProfile",
     "compile_residency_plan",
+    "fixed_hbm_bytes",
     "stream_ahead_depth",
     "supports_budgeted_decode",
     "weight_blocks",

@@ -45,6 +45,22 @@ CHIP = H100_SXM
 MAX_HEIGHT = 4  # bin height H_B of the packing, as in the reference's default
 
 
+@dataclasses.dataclass(frozen=True)
+class TrafficProfile:
+    """What the serve tier is asked to do (the paper's §V "at what
+    traffic?"): the dense plan does not depend on it; ``fixed_hbm_bytes``
+    does."""
+
+    lanes: int = 8  # concurrent decode lanes (batch)
+    prompt_len: int = 512
+    gen_len: int = 128
+
+    @property
+    def mean_context(self) -> int:
+        """Average KV rows held per lane over a request's decode phase."""
+        return self.prompt_len + self.gen_len // 2
+
+
 def _dtype_bytes(cfg: ModelConfig) -> int:
     return torch.empty((), dtype=torch_dtype(cfg)).element_size()
 
@@ -79,6 +95,19 @@ def _region_of(name: str) -> str:
     Bins never mix regions and the knapsack marks whole regions, so every
     resident byte is one the layer-granular executor can use."""
     return name.rsplit(".", 1)[0]
+
+
+def fixed_hbm_bytes(cfg: ModelConfig, traffic: TrafficProfile) -> int:
+    """Per-decode-step bytes outside the plan: attention projections, the
+    unembedding row product, and the lanes' KV-row reads (plan
+    arithmetic, as in the reference)."""
+    d, hd = cfg.d_model, cfg.hd
+    attn = cfg.n_layers * (
+        d * cfg.n_heads * hd + 2 * d * cfg.n_kv * hd + cfg.n_heads * hd * d
+    )
+    unembed = cfg.padded_vocab * d
+    kv = traffic.lanes * cfg.n_layers * 2 * cfg.n_kv * hd * traffic.mean_context
+    return (attn + unembed + kv) * _dtype_bytes(cfg)
 
 
 def stream_ahead_depth(cfg: ModelConfig) -> int:
@@ -139,6 +168,28 @@ class RuntimeResidencyPlan:
         reads its weights from HBM every step too)."""
         res = self.block_resident()
         return sum(b.padded_bytes(self.chip) for b in self.blocks if not res[b.name])
+
+    @property
+    def hbm_traffic_reduction(self) -> float:
+        """Share of the streamable bytes the plan keeps off
+        ``stream_matmul`` (plan arithmetic; the reference's name)."""
+        return 1.0 - self.streamed_bytes_per_step / max(
+            1.0, self.streamable_bytes_per_step
+        )
+
+    @property
+    def ring_bytes(self) -> int:
+        """Bytes of a ``stream_ahead``-slot ring sized for the largest
+        streamed block, as the reference sizes its VMEM ring (plan
+        arithmetic: ``stream_matmul``'s ring on the card is a few KB of
+        shared memory a block). The memory ledger reports it as the
+        ``ring-slot`` owner."""
+        res = self.block_resident()
+        slot = max(
+            (b.padded_bytes(self.chip) for b in self.blocks if not res[b.name]),
+            default=0,
+        )
+        return int(self.stream_ahead * slot)
 
     @property
     def stream_fraction(self) -> float:

@@ -17,9 +17,24 @@ with H_B = slots co-resident requests over a dual-port memory.
 budgeted step: the plan's streamed layers run their FFN through
 ``stream_matmul``, the rest the resident path; prefill stays resident.
 
-Not ported yet: ``prefix_cache``, ``speculative``, ``handoff``,
-``tracker``, ``spans`` and ``ledger`` (and with them the residency
-plan's ledger records and per-round gauges).
+Compiled steps, the counterpart of the reference's jitted ones: on a CUDA
+pool the decode step and each prefill chunk run as captured CUDA graphs
+(``runtime.steps.CapturedStep``). They belong to this scheduler, since a
+graph binds the addresses of its parameters and pool: one decode graph
+(its slots, ``S_max`` and residency plan are fixed here) and one graph per
+chunk start (``start`` is ``flash_fwd``'s ``q_offset``, a kernel argument
+fixed at capture), all in one memory pool. The whole-prompt prefill takes
+a new shape for every bucket and stays eager. ``compiled=False`` runs
+every step eagerly on the card; the CPU has no graphs, so a CPU pool runs
+eagerly and ``compiled=True`` on it raises.
+
+Observability, as in the reference: ``tracker`` gets one record a round
+(``runtime.tracker``), ``spans`` a ``SpanRecorder`` (``runtime.spans``),
+``ledger`` a ``MemLedger`` attached to the pool (``runtime.memledger``)
+and ``mem_monitor`` a ``MemPressureMonitor`` fed once a round.
+
+Not ported yet: ``prefix_cache``, ``speculative``, ``handoff`` and the
+fleet's ``on_round`` and ``charge`` hooks; their counters stay 0.
 """
 
 from __future__ import annotations
@@ -36,9 +51,11 @@ import torch
 from repro_torch.core.gals import required_rf
 from repro_torch.models.config import PORTED_FAMILIES, ModelConfig
 from repro_torch.models.lm import LMParams, SamplingParams, sample_logits
+from repro_torch.runtime.tracker import DELTA_KEYS
 from repro_torch.runtime.kv_pool import KVPool
 from repro_torch.runtime.residency.plan import RuntimeResidencyPlan
 from repro_torch.runtime.steps import (
+    CapturedStep,
     make_budgeted_paged_serve_step,
     make_chunk_prefill_step,
     make_paged_serve_step,
@@ -80,11 +97,22 @@ class SchedulerStats:
     generated_tokens: int = 0
     prefill_steps: int = 0
     prefill_tokens: int = 0
+    # the reference's counters of features the port has not ported yet
+    # (prefix cache, prefill/decode handoff, MoE, speculation): 0, as the
+    # reference reports them on a run without those features
+    prefix_hits: int = 0
+    prefix_hit_tokens: int = 0
     decode_steps: int = 0
+    handoffs: int = 0
+    expert_tokens: int = 0
+    accepted_tokens: int = 0
+    draft_tokens: int = 0
+    verify_steps: int = 0
     rounds: int = 0
     ttfts: list[float] = dataclasses.field(default_factory=list)
     util_samples: list[float] = dataclasses.field(default_factory=list)
     util_samples_any: list[float] = dataclasses.field(default_factory=list)
+    shared_blocks_peak: int = 0
     decode_time: float = 0.0
 
     @property
@@ -119,6 +147,11 @@ class Scheduler:
         sampling: SamplingParams | None = None,
         prefill_chunk: int | None = None,
         residency: RuntimeResidencyPlan | None = None,
+        compiled: bool | None = None,
+        tracker=None,
+        spans=None,
+        ledger=None,
+        mem_monitor=None,
     ):
         if cfg.family not in PORTED_FAMILIES:
             raise ValueError(f"Scheduler: family {cfg.family!r} is not ported")
@@ -126,6 +159,19 @@ class Scheduler:
         self.params = params
         self.pool = pool
         self.device = pool.device
+        # compiled steps are CUDA graphs: on by default on a CUDA pool; the
+        # CPU has none, and asking for them there is an error, not a fallback
+        if compiled is None:
+            compiled = self.device.type == "cuda"
+        if compiled and self.device.type != "cuda":
+            raise ValueError(
+                f"compiled steps are CUDA graphs; the pool is on {self.device}, "
+                "which has none (pass compiled=False or leave it None)"
+            )
+        self.compiled = compiled
+        self._graph_pool = torch.cuda.graph_pool_handle() if compiled else None
+        self._decode_graph: CapturedStep | None = None
+        self._chunk_graphs: dict[int, CapturedStep] = {}
         self.slots = slots
         self.max_len = max_len
         self.s_max = pool.max_rows(max_len)
@@ -157,15 +203,89 @@ class Scheduler:
         self._token = np.zeros((slots, 1), np.int32)
         self._lengths = np.zeros((slots,), np.int32)
         # per-lane physical row tables, updated on admission / block growth
-        # / completion; the device copy is re-uploaded only when dirty
+        # / completion; eager steps re-upload the device copy only when it
+        # is dirty, compiled ones copy it into the graph's buffer every step
         self._row_table = np.tile(pool.scratch_rows(self.s_max), (slots, 1))
         self._row_table_dev = self._to_device(self._row_table)
         self._table_dirty = False
         self._next_rid = 0
         self.stats = SchedulerStats()
+        # one record per round (runtime.tracker): counters as deltas
+        # against ``_emit_base``, so replaying a stream gives the totals
+        self.tracker = tracker
+        self._emit_base: dict[str, int] = {}
+        self._emit_ttft_base = 0
+        # request-lifecycle spans (runtime.spans.SpanRecorder): queue /
+        # prefill chunk / decode slice per request, tiled without gaps
+        self.spans = spans
+        # open decode slices: rid -> [t_slice_start, steps] for the
+        # contiguous decode steps a lane ran this round (one span each)
+        self._decode_open: dict[int, list] = {}
+        # event-sourced memory ledger (runtime.memledger.MemLedger): every
+        # pool mutation emits a kind="mem" delta record; the round emission
+        # syncs + flushes it before the gauge record
+        self.ledger = ledger
+        if ledger is not None and ledger.pool is None:
+            ledger.attach(pool)
+        self.mem_monitor = mem_monitor
+        if ledger is not None and residency is not None:
+            # static owners: the plan's resident tiles and its stream ring
+            # (plan arithmetic, as in the reference)
+            ledger.reserve(
+                "weight-resident",
+                residency.resident_bytes,
+                blocks=residency.resident_block_count,
+            )
+            ledger.reserve(
+                "ring-slot", residency.ring_bytes, depth=residency.stream_ahead
+            )
+        if tracker is not None:
+            hp = {
+                "surface": "scheduler",
+                "arch": cfg.name,
+                "family": cfg.family,
+                "slots": slots,
+                "max_len": max_len,
+                "token_budget": self.token_budget,
+                "decode_per_round": self.decode_per_round,
+                "prefill_chunk": self.prefill_chunk,
+                "block_tokens": pool.block_tokens,
+                "pool_blocks": pool.usable_blocks,
+                "prefix_cache": False,
+                "compiled": self.compiled,
+            }
+            if residency is not None:
+                hp["residency"] = residency.summary()
+            tracker.log_hyperparameters(hp)
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.asarray(a, np.int64)).to(self.device)
+    def _mem_clock(self) -> float:
+        """The pressure monitor's clock: the spans' when there are spans,
+        else the host's monotonic clock (``mem_summary`` reads the same)."""
+        return self.spans.now() if self.spans is not None else time.monotonic()
+
+    def mem_summary(self) -> dict:
+        """The pressure monitor's summary now, on the clock it was fed."""
+        return self.mem_monitor.summary(now=self._mem_clock())
+
+    @property
+    def decode_graph(self) -> CapturedStep | None:
+        """The captured decode step, once the first compiled step ran."""
+        return self._decode_graph
+
+    @property
+    def graphs(self) -> list[CapturedStep]:
+        """The captured steps so far: the decode step's, then each chunk
+        start's."""
+        decode = [self._decode_graph] if self._decode_graph is not None else []
+        return decode + list(self._chunk_graphs.values())
+
+    @staticmethod
+    def _host_tensor(a) -> torch.Tensor:
+        """An int64 host tensor of ``a``, for a captured step's buffers."""
+        return torch.from_numpy(np.asarray(a, np.int64))
+
+    def _to_device(self, a) -> torch.Tensor:
+        return self._host_tensor(a).to(self.device)
 
     # ---------------- submission ----------------
 
@@ -196,6 +316,8 @@ class Scheduler:
         req._enter(RequestState.QUEUED)
         self.queue.append(req)
         self.requests[rid] = req
+        if self.spans is not None:
+            self.spans.open(rid, "queue")
         return rid
 
     # ---------------- internals ----------------
@@ -227,18 +349,23 @@ class Scheduler:
 
     # ---------------- admission / prefill ----------------
 
-    def _start_decode(self, slot: int, req: Request, first: int) -> None:
-        """Move a fully-prefilled request onto its decode lane."""
+    def _start_decode(self, slot: int, req: Request, first: int, t_first: float) -> None:
+        """Move a fully-prefilled request onto its decode lane. ``t_first``
+        is the span clock's end of the prefill step that made ``first``."""
         req.t_first_token = time.monotonic()
         self.stats.ttfts.append(req.ttft)
         req.output.append(first)
+        if self.spans is not None:
+            # the first token exists the instant its prefill step ends: the
+            # stamp is that span's end, a boundary on any clock
+            self.spans.event("first", req.rid, t_first)
         req._enter(RequestState.DECODE)
         self._token[slot, 0] = first
         self._lengths[slot] = len(req.prompt)
         self._row_table[slot] = self.pool.rows_of(req.rid, pad_to=self.s_max)
         self._table_dirty = True
         if len(req.output) >= req.max_new_tokens:
-            self._complete(slot)
+            self._complete(slot, t_first)
 
     def _admit_one(self) -> bool:
         """Admit the head-of-queue request if resources allow.
@@ -260,6 +387,9 @@ class Scheduler:
             return False
         self.queue.popleft()
         req._enter(RequestState.PREFILL)
+        if self.spans is not None:
+            t_admit = self.spans.close(req.rid)  # ends the queue span
+            self.spans.event("admit", req.rid, t_admit)
         self.pool.admit(req.rid, req.total_tokens)
         p = len(req.prompt)
 
@@ -273,16 +403,50 @@ class Scheduler:
         bucket = max(t, -(-p // t) * t)
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :p] = req.prompt
+        t0 = self.spans.now() if self.spans is not None else 0.0
+        # a new shape for every bucket: the whole-prompt prefill is eager
         logits, ks, vs = self._prefill(
             self.params, self._to_device(padded), p - 1
         )
         self.pool.write_prefill(req.rid, ks[:, 0], vs[:, 0], n_tokens=p)
         self.stats.prefill_steps += 1
         self.stats.prefill_tokens += p
+        t1 = 0.0
+        if self.spans is not None:
+            t1 = self.spans.now()
+            self.spans.mark(req.rid, "prefill", t0, t1, tokens=p)
         first = self._sample_one(req, self._host(logits[0, 0]))
         self.active[slot] = req.rid
-        self._start_decode(slot, req, first)
+        self._start_decode(slot, req, first, t1)
         return True
+
+    def _run_chunk(self, tokens, row_table, write_rows, start: int, last: int):
+        """One prefill chunk: the captured graph of its ``start`` (captured
+        on first use), or the eager step."""
+        if not self.compiled:
+            logits, self.pool.k, self.pool.v = self._chunk_prefill(
+                self.params, self._to_device(tokens), self.pool.k, self.pool.v,
+                self._to_device(row_table), self._to_device(write_rows),
+                start, last,
+            )
+            return logits
+        step = self._chunk_graphs.get(start)
+        if step is None:
+            # the closure holds what the graph binds, not the scheduler: a
+            # scheduler and its graphs are freed when the last reference goes
+            prefill, params, pk, pv = (
+                self._chunk_prefill, self.params, self.pool.k, self.pool.v
+            )
+
+            def chunk(tok, table, rows, last_idx):
+                return prefill(params, tok, pk, pv, table, rows, start, last_idx)[0]
+
+            step = CapturedStep(chunk, device=self.device, mempool=self._graph_pool)
+            self._chunk_graphs[start] = step
+        return step(
+            self._host_tensor(tokens), self._host_tensor(row_table),
+            self._host_tensor(write_rows), self._host_tensor([last]),
+        )
 
     def _prefill_one_chunk(self, slot: int) -> None:
         """Run one ``prefill_chunk``-sized piece of a long prompt, padded
@@ -293,6 +457,7 @@ class Scheduler:
         p = len(req.prompt)
         c = self.prefill_chunk
         n = min(c, p - c0)
+        t0 = self.spans.now() if self.spans is not None else 0.0
         self.pool.note_tokens(rid, c0 + n)
         rows = self.pool.rows_of(rid)[c0 : c0 + n]
         row_table = self.pool.rows_of(rid, pad_to=self.s_max)[None]
@@ -301,25 +466,20 @@ class Scheduler:
         write_rows[0, :n] = rows
         tokens = np.zeros((1, c), np.int32)
         tokens[0, :n] = req.prompt[c0 : c0 + n]
-        logits, self.pool.k, self.pool.v = self._chunk_prefill(
-            self.params,
-            self._to_device(tokens),
-            self.pool.k,
-            self.pool.v,
-            self._to_device(row_table),
-            self._to_device(write_rows),
-            c0,
-            n - 1,
-        )
+        logits = self._run_chunk(tokens, row_table, write_rows, c0, n - 1)
         self.stats.prefill_steps += 1
         self.stats.prefill_tokens += n
+        t1 = 0.0
+        if self.spans is not None:
+            t1 = self.spans.now()
+            self.spans.mark(rid, "prefill", t0, t1, tokens=n, chunk_start=c0)
         self._chunk_cursor[rid] = c0 + n
         if c0 + n >= p:
             del self._chunk_cursor[rid]
             first = self._sample_one(req, self._host(logits[0, 0]))
-            self._start_decode(slot, req, first)
+            self._start_decode(slot, req, first, t1)
 
-    def _complete(self, slot: int) -> None:
+    def _complete(self, slot: int, t_done: float | None = None) -> None:
         rid = self.active[slot]
         req = self.requests[rid]
         req._enter(RequestState.DONE)
@@ -331,11 +491,51 @@ class Scheduler:
         self._table_dirty = True
         self.stats.completed += 1
         self.stats.generated_tokens += len(req.output)
+        if self.spans is not None:
+            t = self.spans.now() if t_done is None else t_done
+            sl = self._decode_open.pop(rid, None)
+            if sl is not None:
+                # completion lands exactly on this decode slice's end
+                self.spans.mark(rid, "decode", sl[0], t, steps=sl[1])
+            self.spans.event("done", rid, t)
+            self.spans.forget(rid)
 
     def _decoding(self, rid: int | None) -> bool:
         return rid is not None and self.requests[rid].state is RequestState.DECODE
 
+    def _run_decode(self) -> torch.Tensor:
+        """One decode step over every lane: the captured graph (captured
+        on first use), or the eager step."""
+        if not self.compiled:
+            if self._table_dirty:
+                self._row_table_dev = self._to_device(self._row_table)
+                self._table_dirty = False
+            logits, self.pool.k, self.pool.v = self._decode(
+                self.params,
+                self._to_device(self._token),
+                self.pool.k,
+                self.pool.v,
+                self._row_table_dev,
+                self._to_device(self._lengths),
+            )
+            return logits
+        if self._decode_graph is None:
+            step, params, pk, pv = self._decode, self.params, self.pool.k, self.pool.v
+
+            def decode(token, table, lengths):
+                return step(params, token, pk, pv, table, lengths)[0]
+
+            self._decode_graph = CapturedStep(
+                decode, device=self.device, mempool=self._graph_pool
+            )
+        return self._decode_graph(
+            self._host_tensor(self._token),
+            self._host_tensor(self._row_table),
+            self._host_tensor(self._lengths),
+        )
+
     def _decode_step(self) -> None:
+        t0_step = self.spans.now() if self.spans is not None else 0.0
         for i, rid in enumerate(self.active):
             if not self._decoding(rid):
                 continue  # empty lane, or a mid-chunked-prefill reservation
@@ -344,20 +544,24 @@ class Scheduler:
             if self.pool.blocks_held(rid) != before:
                 self._row_table[i] = self.pool.rows_of(rid, pad_to=self.s_max)
                 self._table_dirty = True
-        if self._table_dirty:
-            self._row_table_dev = self._to_device(self._row_table)
-            self._table_dirty = False
-        logits, self.pool.k, self.pool.v = self._decode(
-            self.params,
-            self._to_device(self._token),
-            self.pool.k,
-            self.pool.v,
-            self._row_table_dev,
-            self._to_device(self._lengths),
-        )
+        logits = self._run_decode()
         self.stats.decode_steps += 1
+        if self.spans is not None:
+            # extend (or open) each participating lane's decode slice; a
+            # lane's contiguous steps this round become one span
+            for rid in self.active:
+                if self._decoding(rid):
+                    sl = self._decode_open.get(rid)
+                    if sl is None:
+                        self._decode_open[rid] = [t0_step, 1]
+                    else:
+                        sl[1] += 1
         rows = self._host(logits[:, 0, :])
-        util = self.pool.stats().utilization
+        pool_st = self.pool.stats()
+        util = pool_st.utilization
+        self.stats.shared_blocks_peak = max(
+            self.stats.shared_blocks_peak, pool_st.shared_blocks
+        )
         self.stats.util_samples_any.append(util)
         if all(r is not None for r in self.active):
             self.stats.util_samples.append(util)
@@ -388,7 +592,77 @@ class Scheduler:
                 break
             self._decode_step()
         self.stats.decode_time += time.monotonic() - t0
+        if self.spans is not None and self._decode_open:
+            # close still-running lanes' slices at the round's decode end
+            t = self.spans.now()
+            for rid, (ts, steps) in self._decode_open.items():
+                self.spans.mark(rid, "decode", ts, t, steps=steps)
+            self._decode_open.clear()
         self.stats.rounds += 1
+        if self.mem_monitor is not None:
+            self.mem_monitor.observe(t=self._mem_clock(), pool=self.pool)
+        if self.tracker is not None:
+            self._emit_round()
+        if self.spans is not None:
+            self.spans.flush()
+
+    # ---------------- observability ----------------
+
+    def _emit_round(self) -> None:
+        """One structured record per round (see ``runtime.tracker``), the
+        reference's fields: counters as deltas against the previous
+        emission, gauges at emission time."""
+        s = self.stats
+        # mem-ledger barrier: fold un-evented note_tokens drift into one
+        # sync record and flush the buffer before the gauge record, so
+        # every mem record precedes the metrics record it integrates to
+        if self.ledger is not None:
+            self.ledger.sync()
+            self.ledger.flush()
+        rec: dict = {"round": s.rounds}
+        for k in DELTA_KEYS:
+            cur = getattr(s, k)
+            rec[k] = cur - self._emit_base.get(k, 0)
+            self._emit_base[k] = cur
+        rec["ttfts"] = [round(t, 6) for t in s.ttfts[self._emit_ttft_base :]]
+        self._emit_ttft_base = len(s.ttfts)
+        rec["queued"] = len(self.queue)
+        rec["queued_tokens"] = sum(r.total_tokens for r in self.queue)
+        rec["active"] = sum(r is not None for r in self.active)
+        rec["committed_tokens"] = self.committed_tokens
+        rec["chunked_prefills"] = len(self._chunk_cursor)
+        p = self.pool.stats()
+        rec.update(
+            pool_utilization=round(p.utilization, 4),
+            pool_occupancy=round(p.occupancy, 4),
+            pool_free_blocks=p.free_blocks,
+            pool_held_blocks=p.held_blocks,
+            pool_held_tokens=p.held_tokens,
+            pool_committed_blocks=p.committed_blocks,
+            pool_shared_blocks=p.shared_blocks,
+            pool_cached_blocks=p.cached_blocks,
+            pool_evictable_blocks=p.evictable_blocks,
+            pool_alloc_blocks=self.pool.alloc_blocks,
+            pool_freed_blocks=self.pool.freed_blocks,
+            pool_cow_copies=self.pool.cow_copies,
+        )
+        if self.residency is not None:
+            # the plan's gauges (plan arithmetic) and the cumulative
+            # streamed bytes the trace export turns into a MiB/s track
+            rp = self.residency
+            rec.update(
+                residency_resident_bytes=int(rp.resident_bytes),
+                residency_streamed_bytes_per_step=round(
+                    rp.streamed_bytes_per_step, 3
+                ),
+                residency_hbm_traffic_reduction=round(
+                    rp.hbm_traffic_reduction, 4
+                ),
+                residency_streamed_mib=round(
+                    s.decode_steps * rp.streamed_bytes_per_step / 2**20, 6
+                ),
+            )
+        self.tracker.log_metrics(rec, step=s.rounds)
 
     def run(self, max_rounds: int | None = None) -> SchedulerStats:
         """Drain the queue to empty and finish every in-flight request."""
@@ -404,6 +678,11 @@ class Scheduler:
                 )
             self.round()
         self.pool.validate()
+        if self.ledger is not None:
+            # releases after the last emitted round would otherwise sit in
+            # the buffer; a trailing sync keeps the stream complete
+            self.ledger.sync()
+            self.ledger.flush()
         return self.stats
 
     def outputs(self) -> dict[int, list[int]]:

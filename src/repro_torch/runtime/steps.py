@@ -1,18 +1,25 @@
 """Step builders: the train step and the pool steps of the
-continuous-batching scheduler.
+continuous-batching scheduler, and ``CapturedStep``, which compiles a pool
+step into a CUDA graph.
 
-Port of ``repro.runtime.steps`` for the dense family. PyTorch runs
-eagerly, so a step is the model function closed over the config (no jit,
-no buffer donation: the train step updates the parameters and the
-optimizer state in place, the pool steps the pool tensors).
+Port of ``repro.runtime.steps`` for the dense family. A step is the model
+function closed over the config; there is no buffer donation: the train
+step updates the parameters and the optimizer state in place, the pool
+steps the pool tensors. The reference jits its pool steps; the port's
+counterpart is ``CapturedStep``, which the scheduler wraps around the
+decode step and the prefill chunk on a CUDA pool. The train step and the
+whole-prompt prefill run eagerly.
 """
 
 from __future__ import annotations
 
+import gc
+import time
 from typing import Callable
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adamw import AdamW, param_tree
@@ -130,3 +137,100 @@ def make_budgeted_paged_serve_step(
         )
 
     return step
+
+
+class CapturedStep:
+    """A pool step compiled into a CUDA graph: the port's counterpart of
+    the reference's jitted steps.
+
+    ``fn(*inputs)`` takes the tensors that change from call to call (token
+    ids, row tables, lengths, an index) and closes over the rest:
+    parameters and the KV pool, whose addresses the graph binds, so they
+    must be updated in place and never reallocated. Every call copies the
+    inputs (on any device) into static buffers on ``device``.
+
+    The first call runs ``fn`` eagerly on the buffers: that is the step's
+    real result, and it builds and loads every kernel the step launches.
+    It then captures ``fn`` once on a side stream into ``mempool`` (one
+    scheduler's graphs share one pool), reading the same buffers. A
+    capture launches nothing and writes nothing, so the pool rows the
+    eager call wrote are not written twice; the kernel launches it meets
+    are recorded (``_build.recording_launches``), not counted. Every later
+    call copies its inputs in, replays the graph and counts the recorded
+    launches once, so the launch counters read what the eager path reads.
+    The outputs of a replay are the graph's static tensors, which the next
+    replay overwrites: read them before the next call. ``pool_bytes`` is
+    what the capture added to the card's reserved memory: the segments
+    ``mempool`` took for it. ``first_call_s`` and ``capture_s`` are the
+    host seconds of the eager first call (to the card's finish) and of the
+    capture: what the first call costs beyond a replay.
+
+    There is no fallback: a capture or replay that fails raises, and the
+    step is not run eagerly in its place. No garbage collection runs
+    during a capture: a graph freed there (say, an earlier scheduler's, in
+    a reference cycle) frees device memory, which a capture forbids, and
+    that invalidates the capture.
+    """
+
+    def __init__(self, fn: Callable, *, device: torch.device, mempool):
+        device = torch.device(device)
+        if device.type != "cuda":
+            raise ValueError(
+                f"CapturedStep compiles a step into a CUDA graph; {device} has none"
+            )
+        self.fn = fn
+        self.device = device
+        self.mempool = mempool
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.replays = 0
+        self.pool_bytes = 0
+        self.first_call_s = 0.0
+        self.capture_s = 0.0
+        self._inputs: tuple[torch.Tensor, ...] = ()
+        self._outputs = None
+        self._launches: _build.LaunchRecord | None = None
+
+    def __call__(self, *inputs: torch.Tensor):
+        if self.graph is None:
+            t0 = time.monotonic()
+            self._inputs = tuple(
+                torch.empty(x.shape, dtype=x.dtype, device=self.device).copy_(x)
+                for x in inputs
+            )
+            out = self.fn(*self._inputs)
+            torch.cuda.synchronize(self.device)
+            t1 = time.monotonic()
+            self._capture()
+            self.first_call_s, self.capture_s = t1 - t0, time.monotonic() - t1
+            return out
+        if len(inputs) != len(self._inputs):
+            raise ValueError(
+                f"captured step takes {len(self._inputs)} inputs, got {len(inputs)}"
+            )
+        for buf, x in zip(self._inputs, inputs):
+            buf.copy_(x)
+        self.graph.replay()
+        self._launches.replay()
+        self.replays += 1
+        return self._outputs
+
+    def _capture(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        # free what is garbage now, before the capture; torch.cuda.graph
+        # empties the cache before it captures: do it here too, so the
+        # reserved bytes before and after differ by the pool's growth
+        gc.collect()
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with _build.recording_launches() as launches:
+                with torch.cuda.graph(graph, pool=self.mempool):
+                    outputs = self.fn(*self._inputs)
+        finally:
+            if collecting:
+                gc.enable()
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        self.graph, self._outputs, self._launches = graph, outputs, launches
