@@ -21,8 +21,10 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               the CUDA cores), plus ragged, split-K and no-key-row cases
               checked for agreement only (the GEMV at M 1/5/16, ragged K,
               odd N, f32 x and K of one carrier row among them; each case
-              line names its K split), and the timing floor: the median of
-              a one-element fill. ``stream_matmul`` (one launch a call:
+              line names its K split); each row's bits independent of M
+              (the mma path at 17-240 rows against its M=256 launch, the
+              GEMV at 1-15 against M=16); and the timing floor: the median
+              of a one-element fill. ``stream_matmul`` (one launch a call:
               split K summed in a cluster) at bits 2/1/0 at the plan's ring
               depths, M 1/8/16 at both decode shapes timed beside the GEMV
               on the same carrier, plus ragged M/N/K, f32 x, an 8-way split
@@ -42,6 +44,11 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               Sq/Sk, G=1, D 32/128, rows without keys, f32 (CUDA cores)
               and not-causal cases for agreement; a second run of both
               passes must give the same bits.
+              ``flash_fwd`` with a device ``q_offset`` (one int32 on the
+              card) at the chunk shape, starts 0, 37, 256 and 383: bitwise
+              the host-int launch at the same offset, both timed; and a
+              causal 208 x 208 bucket (a partial 64-row tile) against the
+              plain version.
               Each serve-path kernel (the GEMV, ``packed_matmul``'s and
               ``flash_fwd``'s ``mma`` routes, ``stream_kernel``) at a
               serve shape compiled into a CUDA graph
@@ -63,14 +70,23 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               2-bit steps twice, in turns), whose logits are held against
               the unbudgeted step's. The compiled chunk's and decode
               steps' replays are held against the eager step on copies of
-              the same pool state: logits and pools bitwise equal.
+              the same pool state: logits and pools bitwise equal; the
+              chunk graph, captured at start 256, also replayed at starts
+              37 and 383 (one graph serves every start), each held against
+              the eager step at that start. The whole-prompt prefill of a
+              bucket (16: the GEMV route; 208: a partial flash tile) as a
+              graph, bitwise its eager step in logits, K/V rows and the
+              pools they are written to; a 208-token bucket profiled eager
+              and compiled in turns.
 5. serve   -- ``repro_torch.launch.serve.main`` at full width and depth,
               --quant 2 then --quant 0, each unbudgeted and then with
               ``--vmem-budget`` at half the plan's tile bytes, with launch
               counters reset just before each run and read just after;
-              every decode step and prefill chunk runs as a CUDA graph (3
-              graphs a run; every step but each graph's first is a
-              replay). The --quant 2 runs
+              with the prefix cache on, as ``serve`` has it by default;
+              every decode step and prefill chunk runs as a CUDA graph (2
+              graphs a run: the decode step and one chunk graph for every
+              start; every step but each graph's first is a replay). The
+              --quant 2 runs
               also run with every step eager (``Scheduler(compiled=False)``
               through ``run_pool_engine``), in turns: the 16 greedy token
               streams and the launch counts must be identical, and the
@@ -83,7 +99,25 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               tensor-core kernels, decode through the GEMV, never an f32
               route), each budgeted run stream_matmul exactly 3 x streamed
               layers x decode steps (one launch a call), each unbudgeted
-              run never.
+              run never. Then (a) 16 short prompts (36-240 tokens, four
+              16-token buckets), 32 generated each, 8 lanes, --quant 2,
+              through serve's engine, eager and compiled in turns: the
+              tokens and launch counts identical, one graph per bucket,
+              each whole-prompt prefill's host ms; and (b) the reference's
+              multi-turn shared-prefix traffic (4 sessions x 4 turns of 96
+              new tokens, a sibling 3 tokens short of each turn prompt; 32
+              generated, 8 lanes, --prefill-chunk 256, --quant 2, compiled)
+              with the cache and without: identical tokens and every
+              sampled position's logits row bitwise equal, a prompt's K
+              rows the same bits from a prefill of its first half and of
+              all of it, and each op of that prefill (RMSNorm, the four
+              projections, flash_fwd as a bucket and as a chunk at a
+              device q_offset, the three packed FFN matmuls) giving a
+              row the same bits at half the rows and padded to the chunk;
+              shared blocks at peak > 0, exactly one chunk
+              graph, and prefill tokens cut by at least 30%; a third,
+              cached run with a planted fault (the copy-on-write copy
+              skipped) must be seen to differ.
 6. cnn     -- the paper's CNV at full width (w1a2, then w2a2), random
               weights with randomised BN statistics and 256 random images
               from a seed: ``cnn_forward_streamlined`` on the card against
@@ -117,6 +151,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import math
@@ -138,6 +173,17 @@ F32_FLOPS = 67e12  # float32 outside the tensor cores, NVIDIA data sheet
 REPS = 30
 SLEEP_CYCLES = 2_000_000  # ~1 ms at the H100's clock: covers the host's enqueue
 PROMPT, CHUNK, LANES, MAX_LEN = 512, 256, 8, 640
+BUCKET = 208  # a whole-prompt bucket whose length is no multiple of flash's 64-row tile
+# phase 5 (a): short prompts in four 16-token buckets (48, 112, 160, 240)
+SHORT_LENS = ((48, 40, 45, 36), (100, 97, 110, 112), (150, 155, 160, 145), (240, 230, 225, 236))
+SHORT_GEN, SHORT_MAX_LEN = 32, 272
+# phase 5 (b): the reference's prefix bench traffic at full width
+SESSIONS, TURNS, TURN_TOKENS, SESSION_GEN, SESSION_MAX_LEN = 4, 4, 96, 32, 416
+PREFIX_MIN_CUT = 0.30  # the reference's prefix_bench floor on the prefill-token cut
+TOP_LOGITS = 8  # logits kept per sampled position, to read a gap where streams part
+# the mma path's row counts held against its M=256 launch, row by row: the
+# short buckets, the trace's prompts and the chunk's partial tails
+INVARIANT_MS = (17, 48, 96, 112, 160, 192, 208, 240)
 
 # tolerances, each with its reason
 PACKED_REL_TOL = 1e-5  # both sides f32 sums of exact +-1/0 weights; only order differs
@@ -379,34 +425,40 @@ def main(argv: list[str] | None = None) -> int:
 
     from repro_torch.runtime.steps import CapturedStep
 
-    def hold_replay(label, step_fn, host_in, pk0, pv0) -> dict:
-        """``step_fn(pool_k, pool_v, *inputs) -> logits`` run eagerly on one
-        copy of the pools, and compiled (``CapturedStep``) on another: its
-        first call and capture, then the copy restored to the same state and
-        one replay. Logits and both pools must be bitwise equal to the
-        eager step's (the max |diff| and cosine are printed beside)."""
-        ke, ve = pk0.clone(), pv0.clone()
-        lg_e = step_fn(ke, ve, *(t.to(dev) for t in host_in))
+    def hold_replay(label, step_fn, host_in, pk0, pv0, replay_in=None) -> list[dict]:
+        """``step_fn(pool_k, pool_v, *inputs) -> logits`` compiled
+        (``CapturedStep``) on a copy of the pools: its first call and
+        capture on ``host_in``; then, for each of ``replay_in`` (default:
+        ``host_in`` again), the copy restored to the same state and one
+        replay on those inputs, against the eager step on another copy.
+        Logits and both pools must be bitwise equal to the eager step's
+        (the max |diff| and cosine are printed beside)."""
         kg, vg = pk0.clone(), pv0.clone()
         graph = CapturedStep(lambda *xs: step_fn(kg, vg, *xs), device=dev,
                              mempool=torch.cuda.graph_pool_handle())
         graph(*host_in)
-        kg.copy_(pk0)
-        vg.copy_(pv0)
-        lg_r = graph(*host_in)
-        torch.cuda.synchronize()
-        pairs = {"logits": (lg_r, lg_e), "pool_k": (kg, ke), "pool_v": (vg, ve)}
-        out = {"case": label, "replays": graph.replays}
-        for key, (a, b) in pairs.items():
-            a2, b2 = a.float().flatten(), b.float().flatten()
-            out[f"{key}_bitwise"] = same_bits(a, b)
-            out[f"{key}_max_abs_diff"] = (a2 - b2).abs().max().item()
-            out[f"{key}_cosine"] = F.cosine_similarity(a2, b2, dim=0).item()
-        phase("graph_vs_eager", **out)
-        if graph.replays != 1 or not all(out[f"{k}_bitwise"] for k in pairs):
-            fail(f"{label}: the replay is not the eager step: {out}")
-        del graph, kg, vg, ke, ve
-        return out
+        outs = []
+        for i, inputs in enumerate(replay_in or (host_in,)):
+            ke, ve = pk0.clone(), pv0.clone()
+            lg_e = step_fn(ke, ve, *(t.to(dev) for t in inputs))
+            kg.copy_(pk0)
+            vg.copy_(pv0)
+            lg_r = graph(*inputs)
+            torch.cuda.synchronize()
+            pairs = {"logits": (lg_r, lg_e), "pool_k": (kg, ke), "pool_v": (vg, ve)}
+            out = {"case": label, "replay": i, "replays": graph.replays}
+            for key, (a, b) in pairs.items():
+                a2, b2 = a.float().flatten(), b.float().flatten()
+                out[f"{key}_bitwise"] = same_bits(a, b)
+                out[f"{key}_max_abs_diff"] = (a2 - b2).abs().max().item()
+                out[f"{key}_cosine"] = F.cosine_similarity(a2, b2, dim=0).item()
+            phase("graph_vs_eager", **out)
+            if graph.replays != i + 1 or not all(out[f"{k}_bitwise"] for k in pairs):
+                fail(f"{label}: replay {i} is not the eager step: {out}")
+            outs.append(out)
+            del ke, ve
+        del graph, kg, vg
+        return outs
 
     def prefill_phase():
         """Phase 4's prefill: smollm-360m at full width and depth with 2-bit
@@ -451,17 +503,20 @@ def main(argv: list[str] | None = None) -> int:
         chunk = torch.from_numpy(
             np.random.default_rng(2).integers(0, cfg2.vocab, size=(1, CHUNK))).to(dev)
 
+        # the scheduler's chunk: start and last index as device tensors;
+        # compiled, host inputs copied into the graph's buffers
+        def chunk_in_at(start):
+            return (chunk.cpu(), table.cpu(), table[:, start:start + CHUNK].cpu(),
+                    torch.tensor([start]), torch.tensor([CHUNK - 1]))
+
+        chunk_in = chunk_in_at(CHUNK)
+        chunk_dev = tuple(t.to(dev) for t in chunk_in)
+
         def chunk_step():
-            lm.prefill_chunk_paged(params, cfg2, chunk, pk, pv, table,
-                                   table[:, CHUNK:2 * CHUNK], CHUNK, CHUNK - 1)
+            lm.prefill_chunk_paged(params, cfg2, chunk_dev[0], pk, pv, *chunk_dev[1:])
 
-        # the scheduler's compiled chunk: host inputs copied into the graph's
-        # buffers, the last index on the device
-        chunk_in = (chunk.cpu(), table.cpu(), table[:, CHUNK:2 * CHUNK].cpu(),
-                    torch.tensor([CHUNK - 1]))
-
-        def chunk_fn(k_, v_, tok, rows, wr, last):
-            return lm.prefill_chunk_paged(params, cfg2, tok, k_, v_, rows, wr, CHUNK, last)[0]
+        def chunk_fn(k_, v_, tok, rows, wr, start, last):
+            return lm.prefill_chunk_paged(params, cfg2, tok, k_, v_, rows, wr, start, last)[0]
 
         chunk_graph = CapturedStep(lambda *xs: chunk_fn(pk, pv, *xs), device=dev,
                                    mempool=torch.cuda.graph_pool_handle())
@@ -487,9 +542,67 @@ def main(argv: list[str] | None = None) -> int:
         del chunk_graph, pk, pv
         rows0 = (cfg2.n_layers, MAX_LEN + 16, cfg2.n_kv, cfg2.hd)
         hold_gen = torch.Generator(device="cpu").manual_seed(4)
-        hold_replay("prefill chunk, --quant 2", chunk_fn, chunk_in,
-                    torch.randn(rows0, generator=hold_gen).to(dev, torch.bfloat16),
-                    torch.randn(rows0, generator=hold_gen).to(dev, torch.bfloat16))
+        pk0 = torch.randn(rows0, generator=hold_gen).to(dev, torch.bfloat16)
+        pv0 = torch.randn(rows0, generator=hold_gen).to(dev, torch.bfloat16)
+        # the scheduler's one chunk graph: captured at start CHUNK, then
+        # replayed at that start and at two others (37, 383: mid-block, as
+        # after a prefix-cache hit), each against the eager step there
+        hold_replay("prefill chunk, --quant 2", chunk_fn, chunk_in, pk0, pv0,
+                    replay_in=[chunk_in_at(s) for s in (CHUNK, 37, MAX_LEN - CHUNK - 1)])
+
+        # whole-prompt prefill, one graph per bucket: 16 (packed_matmul's
+        # GEMV route) and 208 (flash_fwd's partial 64-row tile), the prompt
+        # ending mid-bucket; the replay's logits and K/V rows, and the pools
+        # after the scheduler's write of those rows, bitwise the eager step's
+        def bucket_fn(tok, last):
+            return lm.prefill_with_cache(params, cfg2, tok, last)
+
+        for bucket, p in ((16, 11), (BUCKET, BUCKET - 5)):
+            tok = torch.zeros((1, bucket), dtype=torch.long)
+            tok[0, :p] = torch.from_numpy(
+                np.random.default_rng(bucket).integers(0, cfg2.vocab, size=p))
+            b_in = (tok, torch.tensor([p - 1]))
+            rows = torch.arange(16, 16 + bucket, device=dev)
+            rows[p:] = 0  # padding goes to the scratch row, as write_prefill sends it
+            graph = CapturedStep(bucket_fn, device=dev, mempool=torch.cuda.graph_pool_handle())
+            graph(*b_in)
+            got = graph(*b_in)
+            want = bucket_fn(*(t.to(dev) for t in b_in))
+            pools = []
+            for lg_, ks_, vs_ in (got, want):
+                k_, v_ = pk0.clone(), pv0.clone()
+                k_.index_copy_(1, rows, ks_[:, 0])
+                v_.index_copy_(1, rows, vs_[:, 0])
+                pools.append((k_, v_))
+            torch.cuda.synchronize()
+            out = dict(case=f"prefill bucket {bucket} ({p} tokens), --quant 2",
+                       replays=graph.replays,
+                       logits_bitwise=same_bits(got[0], want[0]),
+                       ks_bitwise=same_bits(got[1], want[1]),
+                       vs_bitwise=same_bits(got[2], want[2]),
+                       # the scratch row takes the padding's writes in no set order
+                       pool_k_bitwise=same_bits(pools[0][0][:, 1:], pools[1][0][:, 1:]),
+                       pool_v_bitwise=same_bits(pools[0][1][:, 1:], pools[1][1][:, 1:]),
+                       logits_max_abs_diff=(got[0] - want[0]).abs().max().item())
+            phase("graph_vs_eager", **out)
+            if graph.replays != 1 or not all(v for k, v in out.items() if k.endswith("bitwise")):
+                fail(f"prefill bucket {bucket}: the replay is not the eager step: {out}")
+            del graph, got, want, pools
+
+        # a bucket's prefill, host ms against the card's, eager and compiled
+        # in turns (the scheduler's: device last index; compiled, host inputs
+        # copied into the graph's buffers)
+        tok = torch.from_numpy(
+            np.random.default_rng(3).integers(0, cfg2.vocab, size=(1, BUCKET)))
+        b_in = (tok, torch.tensor([BUCKET - 1]))
+        b_dev = tuple(t.to(dev) for t in b_in)
+        graph = CapturedStep(bucket_fn, device=dev, mempool=torch.cuda.graph_pool_handle())
+        for compiled in (False, True, True, False):
+            step = (lambda: graph(*b_in)) if compiled else (lambda: bucket_fn(*b_dev))
+            stats, by_name = profile_window(step)
+            phase("bucket_profile", src=str(opts.src), compiled=compiled, bucket=BUCKET,
+                  **stats, top_kernels_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6]))
+        del graph, pk0, pv0
         return params, cfg2
 
     if opts.only == "prefill":
@@ -529,7 +642,7 @@ def main(argv: list[str] | None = None) -> int:
             splits, cps = pm.split_plan(m, k, n, sms, bm=pm.GEMV_MAX_M, bn=pm.GEMV_BN, bk=pm.GEMV_BK)
             k_per_split = cps * pm.GEMV_BK
         elif path == "mma":
-            splits, cps = pm.split_plan(m, k, n, sms)
+            splits, cps = pm.mma_plan(k, n, sms)
             k_per_split = cps * pm.BK
         base = dict(bits=bits, m=m, k=k, n=n, x=str(dt).replace("torch.", ""), path=path,
                     splits=splits, k_per_split=min(k, k_per_split), max_abs_err=err, rel_err=rel)
@@ -584,6 +697,28 @@ def main(argv: list[str] | None = None) -> int:
     packed_case(2, 5, 972, 1000, torch.bfloat16, timed=False, g=gemv_gen)
     packed_case(2, LANES, 972, 999, torch.float32, timed=False, g=gemv_gen)
     packed_case(1, 3, 8, 1000, torch.bfloat16, timed=False, g=gemv_gen)
+    # a row's bits must not follow M: the mma path at every M in
+    # INVARIANT_MS bitwise equal, row by row, to the same rows in the
+    # M=256 launch (a prompt's rows in a bucket, in a chunk, or prefilled
+    # after a prefix-cache hit), and the GEMV's at M 1-15 to its M=16 rows
+    inv_gen = torch.Generator(device="cpu").manual_seed(6)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for bits in (1, 2):
+        for k, n in ((d, ff), (ff, d)):
+            w = lm.make_packed(torch.randn((k, n), generator=inv_gen).to(dev), bits)
+            x = torch.randn((CHUNK, k), generator=inv_gen).to(dev, torch.bfloat16)
+            full = pm.packed_matmul(x, w["packed"], w["scale"], bits, k)
+            small = pm.packed_matmul(x[:16], w["packed"], w["scale"], bits, k)
+            mma_off = [m for m in INVARIANT_MS if not same_bits(
+                pm.packed_matmul(x[:m], w["packed"], w["scale"], bits, k), full[:m])]
+            gemv_off = [m for m in range(1, 16) if not same_bits(
+                pm.packed_matmul(x[:m], w["packed"], w["scale"], bits, k), small[:m])]
+            phase("packed_matmul_rows_do_not_follow_m", bits=bits, k=k, n=n,
+                  mma_ms=INVARIANT_MS, mma_splits=pm.mma_plan(k, n, sms)[0],
+                  mma_ms_whose_rows_differ=mma_off, gemv_ms_whose_rows_differ=gemv_off)
+            if mma_off or gemv_off:
+                fail(f"packed_matmul bits={bits} K={k} N={n}: rows follow M (mma at M "
+                     f"{mma_off}, GEMV at M {gemv_off})")
     # what the timing method itself shows for a launch that does almost
     # nothing: the floor under the ~10 us kernel times above
     one = torch.empty(1, device=dev)
@@ -594,14 +729,14 @@ def main(argv: list[str] | None = None) -> int:
     flash_cases = []
     flash_checks = []
 
-    def flash_case(label, h, h_kv, sq, sk, dh, causal, window, q_off, dt, timed):
+    def flash_case(label, h, h_kv, sq, sk, dh, causal, window, q_off, dt, timed, g=gen):
         """``flash_fwd`` on the card against its plain version on the same
         inputs (out within FLASH_OUT_TOL, lse within FLASH_LSE_TOL); timed
         cases beside the plain version, SDPA and the bound. Rows that see
         no key must give out exactly 0 and lse <= -1e29."""
-        q = torch.randn((h, sq, dh), generator=gen).to(dev, dt)
-        kk = torch.randn((h_kv, sk, dh), generator=gen).to(dev, dt)
-        vv = torch.randn((h_kv, sk, dh), generator=gen).to(dev, dt)
+        q = torch.randn((h, sq, dh), generator=g).to(dev, dt)
+        kk = torch.randn((h_kv, sk, dh), generator=g).to(dev, dt)
+        vv = torch.randn((h_kv, sk, dh), generator=g).to(dev, dt)
         kw = dict(causal=causal, window=window, q_offset=q_off)
         out, lse = fa.flash_fwd(q, kk, vv, **kw)
         want_o, want_lse = ref.flash_fwd_ref(q, kk, vv, **kw)
@@ -678,6 +813,40 @@ def main(argv: list[str] | None = None) -> int:
     blind = next(c["rows_without_keys"] for c in flash_checks if c["case"] == "no_key_rows")
     if blind != 64:
         fail(f"flash_fwd no_key_rows: {blind} rows without keys, not 64")
+    # the device q_offset (one int32 on the card, which the kernel reads: the
+    # scheduler's one chunk graph serves every start) at the chunk shape,
+    # bitwise against the host-int launch at the same offset and within
+    # tolerance of the plain version, both launches timed; then a
+    # whole-prompt bucket whose Sq = Sk is no multiple of the 64-row tile.
+    # Inputs from a generator of their own (the later phases' stay as they were)
+    qo_gen = torch.Generator(device="cpu").manual_seed(5)
+    qc, kc, vc = (torch.randn((h_, n_, hd), generator=qo_gen).to(dev, bf16)
+                  for h_, n_ in ((hq, CHUNK), (hkv, MAX_LEN), (hkv, MAX_LEN)))
+    q_offset_cases = []
+    for start in (0, 37, CHUNK, MAX_LEN - CHUNK - 1):
+        dev_off = torch.tensor([start], dtype=torch.int32, device=dev)
+        host = fa.flash_fwd(qc, kc, vc, causal=True, q_offset=start)
+        on_dev = fa.flash_fwd(qc, kc, vc, causal=True, q_offset=dev_off)
+        want_o, want_lse = ref.flash_fwd_ref(qc, kc, vc, causal=True, q_offset=start)
+        torch.cuda.synchronize()
+        case = dict(
+            case="device_q_offset", sq=CHUNK, sk=MAX_LEN, heads=hq, kv_heads=hkv, d=hd,
+            q_offset=start, bitwise_equal_to_host_int=all(map(same_bits, on_dev, host)),
+            max_abs_err=(on_dev[0].float() - want_o.float()).abs().max().item(),
+            lse_err=(on_dev[1] - want_lse).abs().max().item(),
+            ms_device_q_offset=median_ms(
+                lambda: fa.flash_fwd(qc, kc, vc, causal=True, q_offset=dev_off)),
+            ms_host_q_offset=median_ms(
+                lambda: fa.flash_fwd(qc, kc, vc, causal=True, q_offset=start)),
+        )
+        q_offset_cases.append(case)
+        phase("kernel", name="flash_fwd", check_only=True, **case)
+        if not case["bitwise_equal_to_host_int"]:
+            fail(f"flash_fwd device q_offset {start}: differs from the host-int launch")
+        if not (case["max_abs_err"] <= FLASH_OUT_TOL and case["lse_err"] <= FLASH_LSE_TOL):
+            fail(f"flash_fwd device q_offset {start}: out err {case['max_abs_err']}, "
+                 f"lse err {case['lse_err']}")
+    flash_case("bucket_208", hq, hkv, 208, 208, hd, True, 0, 0, bf16, False, g=qo_gen)
 
     def visible_pairs(sq, sk, causal, window, q_off) -> int:
         qp = q_off + np.arange(sq)[:, None]
@@ -1290,10 +1459,12 @@ def main(argv: list[str] | None = None) -> int:
                         next(l for l in text.splitlines() if l.startswith("[serve/metrics] "))
                         .split(" ", 1)[1]
                     )
-                    if not metrics["compiled"] or metrics["graphs"] != 1 + -(-PROMPT // CHUNK):
+                    if not metrics["compiled"] or metrics["graphs"] != 2:
                         fail(f"serve --quant {quant} --vmem-budget {budget}: {metrics['graphs']} "
                              f"graphs, compiled {metrics['compiled']}: want the decode step "
-                             f"and {-(-PROMPT // CHUNK)} chunk starts")
+                             f"and one chunk graph for every start")
+                    if not metrics["prefix_cache"]:
+                        fail(f"serve --quant {quant}: the prefix cache is not on by default")
                     # every decode step and chunk but each graph's first (eager) call
                     # is a replay
                     if metrics["graph_replays"] != (metrics["steps"] - metrics["graphs"]):
@@ -1361,6 +1532,310 @@ def main(argv: list[str] | None = None) -> int:
             for key in ("tokens_per_s", "decode_step_ms", "mean_ttft_s")
             for side, run in (("unbudgeted", base), ("budgeted", bud))
         })
+
+    from repro_torch.runtime.kv_pool import KVPool
+    from repro_torch.runtime.prefix_cache import PrefixCache
+    from repro_torch.runtime.scheduler import Scheduler
+
+    cfg_q2 = dataclasses.replace(cfg, w_bits=2)
+    params_q2 = lm.init_params(cfg_q2, 0, device=dev)
+
+    def drive(sched, waves, gen) -> dict:
+        """Each wave submitted, then rounds until it drains, launch counters
+        reset just before and read just after; every whole-prompt prefill
+        timed to the card's finish (host ms), and of every sampled position
+        a digest of its whole logits row and its TOP_LOGITS largest logits
+        kept."""
+        prefill_s = []
+        top, digests = {}, {}
+        run_prefill = sched._run_prefill
+        sample_one = sched._sample_one
+
+        def recording_sample(req, row):
+            ids = np.argpartition(row, -TOP_LOGITS)[-TOP_LOGITS:]
+            top[req.rid, len(req.output)] = {int(i): float(row[i]) for i in ids}
+            digests[req.rid, len(req.output)] = hashlib.blake2b(
+                np.ascontiguousarray(row).tobytes(), digest_size=16).digest()
+            return sample_one(req, row)
+
+        def timed_prefill(tokens, last):
+            t0 = time.perf_counter()
+            out = run_prefill(tokens, last)
+            torch.cuda.synchronize()
+            prefill_s.append((tokens.shape[1], time.perf_counter() - t0))
+            return out
+
+        sched._run_prefill = timed_prefill
+        sched._sample_one = recording_sample
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        for wave in waves:
+            for p in wave:
+                sched.submit(p, gen)
+            while sched.queue or any(r is not None for r in sched.active):
+                sched.round()
+            sched.pool.validate()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts, by_route = ops.launch_counts(), ops.launch_routes()
+        st = sched.stats
+        bucket_graphs = sched.prefill_buckets
+        first = {}
+        for b, t in prefill_s:
+            first.setdefault(b, t)
+        replayed = [t for i, (b, t) in enumerate(prefill_s)
+                    if any(bb == b for bb, _ in prefill_s[:i])]
+        return dict(
+            counts=counts, by_route=by_route, outputs=sched.outputs(), top_logits=top,
+            digests=digests,
+            metrics=dict(
+                compiled=sched.compiled, prefix_cache=sched.prefix_cache is not None,
+                requests=len(sched.requests), completed=st.completed,
+                generated_tokens=st.generated_tokens, wall_s=wall,
+                tokens_per_s=st.generated_tokens / wall, mean_ttft_s=st.mean_ttft,
+                prefill_steps=st.prefill_steps, prefill_tokens=st.prefill_tokens,
+                prefix_hits=st.prefix_hits, prefix_hit_tokens=st.prefix_hit_tokens,
+                prefix_hit_rate=st.prefix_hit_rate, cow_copies=sched.pool.cow_copies,
+                shared_blocks_peak=st.shared_blocks_peak,
+                evicted_blocks=(sched.prefix_cache.evicted_blocks
+                                if sched.prefix_cache is not None else 0),
+                graphs=len(sched.graphs), bucket_graphs=bucket_graphs,
+                chunk_graphs=len(sched.graphs) - len(bucket_graphs)
+                - (sched.decode_graph is not None),
+                graph_capture_s=sum(g.capture_s for g in sched.graphs),
+                graph_first_call_s=sum(g.first_call_s for g in sched.graphs),
+                whole_prompt_prefills=len(prefill_s),
+                prefill_host_ms_mean=(statistics.fmean(t for _, t in prefill_s) * 1e3
+                                      if prefill_s else None),
+                prefill_host_ms_repeat_bucket_mean=(
+                    statistics.fmean(replayed) * 1e3 if replayed else None),
+                prefill_host_ms_first_of_bucket_mean=(
+                    statistics.fmean(first.values()) * 1e3 if first else None),
+            ))
+
+    def short_prompt_run(compiled) -> dict:
+        """(a) 16 requests of 48-240 tokens over four 16-token buckets, 32
+        generated each, 8 lanes, --quant 2, through serve's engine (its
+        defaults: the prefix cache on)."""
+        args = serve.build_parser().parse_args([
+            "--arch", "smollm_360m", "--quant", "2", "--batch", str(LANES),
+            "--gen-len", str(SHORT_GEN), "--max-len", str(SHORT_MAX_LEN),
+            "--block-tokens", "16", "--prefill-chunk", str(CHUNK)])
+        sched = serve.build_pool_engine(cfg_q2, params_q2, args, dev, compiled=compiled)
+        return drive(sched, [list(short_prompts)], SHORT_GEN)
+
+    lengths = [n for group in SHORT_LENS for n in group]
+    short_prompts = [np.random.default_rng(100 + i).integers(0, cfg.vocab, size=n)
+                     .astype(np.int32) for i, n in enumerate(lengths)]
+    short_prompts = [short_prompts[i] for i in np.random.default_rng(7).permutation(len(lengths))]
+    short = {}
+    for compiled in (False, True, True, False):
+        r = short_prompt_run(compiled)
+        phase("serve_short_prompts", launches_counted=r["counts"],
+              launches_by_route=r["by_route"], **r["metrics"])
+        if r["metrics"]["completed"] != len(lengths):
+            fail(f"short prompts (compiled {compiled}): {r['metrics']['completed']} completed")
+        if compiled:
+            if r["metrics"]["bucket_graphs"] != sorted({-(-n // 16) * 16 for n in lengths}):
+                fail(f"short prompts: bucket graphs {r['metrics']['bucket_graphs']}")
+            if r["metrics"]["whole_prompt_prefills"] + r["metrics"]["prefix_hits"] != len(lengths):
+                fail(f"short prompts: {r['metrics']['whole_prompt_prefills']} whole-prompt "
+                     f"prefills")
+        if min(r["counts"]["packed_matmul"], r["counts"]["flash_fwd"]) <= 0:
+            fail(f"short prompts: skipped a kernel: {r['counts']}")
+        if compiled not in short:
+            short[compiled] = r
+            if compiled:
+                for name, n in r["counts"].items():
+                    launches[name] += n
+                add_routes(r["by_route"])
+    same_tokens = short[True]["outputs"] == short[False]["outputs"]
+    same_launches = ((short[True]["counts"], short[True]["by_route"])
+                     == (short[False]["counts"], short[False]["by_route"]))
+    phase("serve_short_prompts_compiled_vs_eager", token_streams_identical=same_tokens,
+          launch_counts_identical=same_launches,
+          **{f"{key}_{'compiled' if c else 'eager'}": short[c]["metrics"][key]
+             for key in ("tokens_per_s", "mean_ttft_s", "prefill_host_ms_mean",
+                         "prefill_host_ms_repeat_bucket_mean", "wall_s") for c in (False, True)})
+    if not (same_tokens and same_launches):
+        fail(f"short prompts: compiled and eager differ (tokens {same_tokens}, launches "
+             f"{same_launches})")
+
+    def session_waves(vocab, seed=3):
+        """(b) the reference's prefix bench traffic (``_session_waves``): per
+        session a nested turn prompt (the last turn's plus TURN_TOKENS fresh
+        tokens) and a sibling sharing all but its last 3 tokens, so siblings
+        match mid-block (copy-on-write)."""
+        rng = np.random.default_rng(seed)
+        fresh = lambda n: rng.integers(0, vocab, size=(n,)).astype(np.int32)  # noqa: E731
+        prompts = [fresh(TURN_TOKENS) for _ in range(SESSIONS)]
+        waves = []
+        for t in range(TURNS):
+            if t:
+                prompts = [np.concatenate([p, fresh(TURN_TOKENS)]) for p in prompts]
+            waves.append([x for p in prompts for x in (p, np.concatenate([p[:-3], fresh(3)]))])
+        return waves
+
+    waves = session_waves(cfg.vocab)
+
+    def skip_cow_copy(pool):
+        """The planted fault: a copy-on-write adoption whose tail block is
+        left unwritten (zeros where the matched rows should be)."""
+        adopt, t = pool.adopt_prefix, pool.block_tokens
+
+        def faulty(rid, shared, tail_block, n_tokens):
+            adopt(rid, shared, tail_block, n_tokens)
+            if tail_block is not None:
+                b = pool.blocks_of(rid)[-1]
+                pool.k[:, b * t:(b + 1) * t].zero_()
+                pool.v[:, b * t:(b + 1) * t].zero_()
+
+        pool.adopt_prefix = faulty
+
+    shared = {}
+    for run in ("no_cache", "cache", "cache_planted_fault"):
+        cached = run != "no_cache"
+        pool = KVPool.for_slots(cfg_q2, slots=LANES, max_len=SESSION_MAX_LEN, block_tokens=16,
+                                device=dev)
+        if run == "cache_planted_fault":
+            skip_cow_copy(pool)
+        sched = Scheduler(cfg_q2, params_q2, pool, slots=LANES, max_len=SESSION_MAX_LEN,
+                          prefill_chunk=CHUNK,
+                          prefix_cache=PrefixCache(pool) if cached else None)
+        r = drive(sched, waves, SESSION_GEN)
+        del sched, pool
+        phase("serve_shared_prefix", run=run, sessions=SESSIONS, turns=TURNS,
+              turn_tokens=TURN_TOKENS, launches_counted=r["counts"],
+              launches_by_route=r["by_route"], **r["metrics"])
+        shared[run] = r
+        if run == "cache_planted_fault":
+            continue  # a control, not the main path: its launches are not counted
+        for name, n in r["counts"].items():
+            launches[name] += n
+        add_routes(r["by_route"])
+        if min(r["counts"]["packed_matmul"], r["counts"]["flash_fwd"]) <= 0:
+            fail(f"shared-prefix trace (cached {cached}): skipped a kernel: {r['counts']}")
+    warm, cold = shared["cache"]["metrics"], shared["no_cache"]["metrics"]
+    cut = 1.0 - warm["prefill_tokens"] / max(1, cold["prefill_tokens"])
+
+    def against_uncached(run) -> dict:
+        """A cached run against the uncached one: the streams that part
+        (with the two tokens' logit gaps in both runs where they do), and
+        the sampled positions whose whole logits row is not bitwise the
+        uncached run's."""
+        a, b = shared[run], shared["no_cache"]
+        parted = []
+        for rid, toks in a["outputs"].items():
+            other = b["outputs"][rid]
+            j = next((i for i, (x, y) in enumerate(zip(toks, other)) if x != y), None)
+            if j is None:
+                continue
+            x, y = toks[j], other[j]
+            ta, tb = a["top_logits"][rid, j], b["top_logits"][rid, j]
+            parted.append(dict(rid=rid, position=j, token_cache=x, token_no_cache=y,
+                               gap_cache=ta[x] - ta.get(y, -math.inf),
+                               gap_no_cache=tb[y] - tb.get(x, -math.inf)))
+        rows_off = sorted(key for key in b["digests"] if a["digests"].get(key) != b["digests"][key])
+        top_diff = max((abs(a["top_logits"][key][i] - v) for key in rows_off
+                        if key in a["top_logits"] for i, v in b["top_logits"][key].items()
+                        if i in a["top_logits"][key]), default=0.0)
+        return dict(streams_identical=len(a["outputs"]) - len(parted),
+                    streams=len(a["outputs"]), parted=parted[:8],
+                    positions=len(b["digests"]), positions_whose_logits_differ=len(rows_off),
+                    max_abs_top_logit_diff=top_diff)
+
+    honest, planted = against_uncached("cache"), against_uncached("cache_planted_fault")
+
+    def ops_whose_rows_follow_m(tokens) -> dict[str, int]:
+        """Along a whole-prompt prefill of ``tokens`` (S rows), each op of
+        each layer fed that prefill's own input twice more: its first S/2
+        rows (a bucket of half the length) and the rows padded to CHUNK (a
+        chunk); flash also as a chunk at q_offset S/2 over the rows padded
+        to MAX_LEN. Returns, per op, the layers whose rows came out other
+        bits than in the S-row call."""
+        s_len = tokens.shape[1]
+        h_len = s_len // 2
+        off = {}
+
+        def same(name, a, b):
+            off[name] = off.get(name, 0) + int(not same_bits(a, b))
+
+        def pad(x, n):
+            return torch.cat([x, x.new_zeros((x.shape[0], n - x.shape[1]) + x.shape[2:])], 1)
+
+        x = lm.embed(tokens, params_q2["embed"], lm.torch_dtype(cfg_q2))
+        pos = torch.arange(s_len, device=dev)[None]
+        for i in range(cfg_q2.n_layers):
+            lp = params_q2.layer(i)
+            h = lm.rms_norm(x, lp["ln1"], cfg_q2.norm_eps)
+            same("rms_norm", lm.rms_norm(x[:, :h_len], lp["ln1"], cfg_q2.norm_eps), h[:, :h_len])
+            qkv = {}
+            for w in ("wq", "wk", "wv", "wo"):
+                src = h if w != "wo" else qkv["o"]
+                qkv[w] = y = lm.dense(src, lp[w])
+                same(f"dense_{w}", lm.dense(src[:, :h_len], lp[w]), y[:, :h_len])
+                same(f"dense_{w}", lm.dense(pad(src, CHUNK), lp[w])[:, :s_len], y)
+                if w == "wv":
+                    shape = lambda t, n: t.reshape(1, s_len, n, cfg_q2.hd)  # noqa: E731
+                    q = lm.apply_rope(shape(qkv["wq"], cfg_q2.n_heads), pos, cfg_q2.rope_theta)
+                    k = lm.apply_rope(shape(qkv["wk"], cfg_q2.n_kv), pos, cfg_q2.rope_theta)
+                    v = shape(y, cfg_q2.n_kv)
+                    o = ops.flash_attention(q, k, v, causal=True)
+                    same("flash_fwd", ops.flash_attention(
+                        q[:, :h_len], k[:, :h_len], v[:, :h_len], causal=True), o[:, :h_len])
+                    start = torch.tensor([h_len], dtype=torch.int32, device=dev)
+                    same("flash_fwd", ops.flash_attention(
+                        pad(q[:, h_len:], CHUNK), pad(k, MAX_LEN), pad(v, MAX_LEN), causal=True,
+                        q_offset=start)[:, :s_len - h_len], o[:, h_len:])
+                    qkv["o"] = o.reshape(1, s_len, -1)
+            x = x + qkv["wo"]
+            h = lm.rms_norm(x, lp["ln2"], cfg_q2.norm_eps)[0]
+            g = None
+            for w in ("w1", "w3", "w2"):
+                src = h if w != "w2" else g
+                y = lm.packed_dense(src, lp[w], cfg_q2.w_bits)
+                same(f"packed_matmul_{w}", lm.packed_dense(src[:h_len], lp[w], cfg_q2.w_bits),
+                     y[:h_len])
+                same(f"packed_matmul_{w}", lm.packed_dense(
+                    pad(src[None], CHUNK)[0], lp[w], cfg_q2.w_bits)[:s_len], y)
+                g = F.silu(y) if w == "w1" else g * y if w == "w3" else g
+            x = x + y[None]
+        return off
+
+    rows_follow_m = ops_whose_rows_follow_m(torch.from_numpy(waves[1][0][None]).to(dev))
+    # a prompt's K rows from a prefill of its first half and from one of
+    # all of it (the cached and the uncached route's batches), at every layer
+    half = torch.from_numpy(waves[1][0][None]).to(dev)
+    _, k_half, _ = lm.prefill_with_cache(params_q2, cfg_q2, half[:, :TURN_TOKENS],
+                                         TURN_TOKENS - 1)
+    _, k_all, _ = lm.prefill_with_cache(params_q2, cfg_q2, half, half.shape[1] - 1)
+    k_all = k_all[:, :, :TURN_TOKENS]
+    k_layers_off = [i for i in range(cfg_q2.n_layers) if not same_bits(k_half[i], k_all[i])]
+    phase("serve_shared_prefix_cache_vs_none",
+          layers_whose_k_rows_differ=k_layers_off,
+          layers_whose_op_rows_follow_m=rows_follow_m,
+          token_streams_identical=honest["streams_identical"] == honest["streams"],
+          logits_identical=honest["positions_whose_logits_differ"] == 0,
+          cache=honest, planted_fault=planted,
+          prefill_token_cut=cut, **{f"{key}_{side}": m[key] for key in (
+              "prefill_tokens", "mean_ttft_s", "tokens_per_s", "prefix_hit_rate",
+              "cow_copies", "shared_blocks_peak", "chunk_graphs", "graphs")
+              for side, m in (("cache", warm), ("no_cache", cold))})
+    if k_layers_off or any(rows_follow_m.values()):
+        fail(f"shared-prefix trace: a prompt's K rows follow the prefill's length at "
+             f"layers {k_layers_off[:8]}; op rows follow M: {rows_follow_m}")
+    if honest["parted"] or honest["positions_whose_logits_differ"]:
+        fail(f"shared-prefix trace: cached and uncached serving differ: "
+             f"{honest['streams'] - honest['streams_identical']} streams part, the logits "
+             f"of {honest['positions_whose_logits_differ']} positions differ; "
+             f"{honest['parted'][:4]}")
+    if not planted["positions_whose_logits_differ"]:
+        fail("shared-prefix trace: a skipped copy-on-write copy went unseen by the comparison")
+    if not (warm["shared_blocks_peak"] > 0 and warm["chunk_graphs"] == 1
+            and cut >= PREFIX_MIN_CUT and warm["cow_copies"] > 0):
+        fail(f"shared-prefix trace: shared peak {warm['shared_blocks_peak']}, chunk graphs "
+             f"{warm['chunk_graphs']}, prefill cut {cut}, cow copies {warm['cow_copies']}")
+    del params_q2
 
     # ---------------- 6. CNV at full width, card vs CPU ----------------
     def cnn_setup(w_bits):
@@ -1765,6 +2240,7 @@ def main(argv: list[str] | None = None) -> int:
              **{k: head_fa[k] for k in nums},
              routes=flash_routes,
              graph_replays=[c for c in graph_checks if c["kernel"] == "flash_fwd"],
+             device_q_offset_cases=q_offset_cases,
              cases=flash_cases, check_cases=flash_checks),
         dict(name="stream_matmul", route="cuda",
              source="src/repro_torch/csrc/weight_stream.cu",

@@ -3,7 +3,11 @@
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::flash_fwd
 // (_fwd_kernel). q: (BH, Sq, D); k, v: (BKV, Sk, D), BH % BKV == 0; q row
 // bh reads kv row bh / g (g = BH / BKV: GQA without replicating K/V).
-// Query i sits at position q_offset + i; key j at position j. A key is
+// Query i sits at position q_offset + i; key j at position j. q_offset is
+// a kernel argument, or, when q_offset_dev is not null, the int32 it points
+// to on the device, read by every block before anything else: one launch
+// configuration (the grid depends on Sq only) then serves every offset, so
+// a captured CUDA graph replays at any offset written into that int. A key is
 // visible if (!causal || q_pos >= k_pos) and (window <= 0 ||
 // q_pos - k_pos < window). Writes out (BH, Sq, D) in q's dtype and the f32
 // log-sum-exp lse (BH, Sq); a row that sees no key gets out 0, lse -1e30.
@@ -62,7 +66,9 @@ __global__ void __launch_bounds__(BQ)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
                  float* __restrict__ lse, int Sq, int Sk, int g, int causal,
-                 int window, int q_offset, float scale) {
+                 int window, int q_offset, const int* __restrict__ q_offset_dev,
+                 float scale) {
+  if (q_offset_dev != nullptr) q_offset = *q_offset_dev;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* qs = reinterpret_cast<float*>(smem_raw);
   T* ks = reinterpret_cast<T*>(qs + BQ * (D + 1));
@@ -147,7 +153,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
            int BH, int Sq, int Sk, int g, int causal, int window, int q_offset,
-           float scale, cudaStream_t stream) {
+           const int* q_offset_dev, float scale, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D, T>();
   auto kern = flash_fwd_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -157,7 +163,7 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
   kern<<<grid, BQ, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), static_cast<float*>(lse), Sq, Sk, g, causal, window,
-      q_offset, scale);
+      q_offset, q_offset_dev, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -183,7 +189,9 @@ __global__ void __launch_bounds__(MMA_THREADS)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ out,
                      float* __restrict__ lse, int Sq, int Sk, int g, int causal,
-                     int window, int q_offset, float scale) {
+                     int window, int q_offset, const int* __restrict__ q_offset_dev,
+                     float scale) {
+  if (q_offset_dev != nullptr) q_offset = *q_offset_dev;
   constexpr int LD = ld<D>();
   constexpr int NT = MK / 8;   // n8 tiles of S per warp
   constexpr int DT = D / 8;    // n8 tiles of O per warp
@@ -340,7 +348,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* out, void* lse,
                int BH, int Sq, int Sk, int g, int causal, int window, int q_offset,
-               float scale, cudaStream_t stream) {
+               const int* q_offset_dev, float scale, cudaStream_t stream) {
   constexpr size_t bytes = mma_smem_bytes<D>();
   auto kern = flash_fwd_mma_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -350,7 +358,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, void* lse
   kern<<<grid, MMA_THREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(out), static_cast<float*>(lse), Sq, Sk, g, causal, window,
-      q_offset, scale);
+      q_offset, q_offset_dev, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -358,25 +366,30 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, void* lse
 template <int D>
 int launch_route(int bf16_in, const void* q, const void* k, const void* v, void* out,
                  void* lse, int BH, int Sq, int Sk, int g, int causal, int window,
-                 int q_offset, float scale, cudaStream_t s) {
+                 int q_offset, const int* q_offset_dev, float scale, cudaStream_t s) {
   if (bf16_in)
-    return launch_mma<D>(q, k, v, out, lse, BH, Sq, Sk, g, causal, window, q_offset, scale, s);
-  return launch<float, D>(q, k, v, out, lse, BH, Sq, Sk, g, causal, window, q_offset, scale, s);
+    return launch_mma<D>(q, k, v, out, lse, BH, Sq, Sk, g, causal, window, q_offset,
+                         q_offset_dev, scale, s);
+  return launch<float, D>(q, k, v, out, lse, BH, Sq, Sk, g, causal, window, q_offset,
+                          q_offset_dev, scale, s);
 }
 
 }  // namespace
 
 // is_bf16: 0 -> q/k/v/out are f32, 1 -> bf16 (16-byte aligned). D in
-// {32, 64, 128}.
+// {32, 64, 128}. q_offset_dev: null (q_offset is the offset) or a device
+// int32 holding the offset.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* out, void* lse, int is_bf16, int BH, int Sq,
                                 int Sk, int D, int g, int causal, int window,
-                                int q_offset, float scale, void* stream) {
+                                int q_offset, const void* q_offset_dev, float scale,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* qo = static_cast<const int*>(q_offset_dev);
   switch (D) {
-    case 32: return launch_route<32>(is_bf16, q, k, v, out, lse, BH, Sq, Sk, g, causal, window, q_offset, scale, s);
-    case 64: return launch_route<64>(is_bf16, q, k, v, out, lse, BH, Sq, Sk, g, causal, window, q_offset, scale, s);
-    case 128: return launch_route<128>(is_bf16, q, k, v, out, lse, BH, Sq, Sk, g, causal, window, q_offset, scale, s);
+    case 32: return launch_route<32>(is_bf16, q, k, v, out, lse, BH, Sq, Sk, g, causal, window, q_offset, qo, scale, s);
+    case 64: return launch_route<64>(is_bf16, q, k, v, out, lse, BH, Sq, Sk, g, causal, window, q_offset, qo, scale, s);
+    case 128: return launch_route<128>(is_bf16, q, k, v, out, lse, BH, Sq, Sk, g, causal, window, q_offset, qo, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -50,12 +50,17 @@ HEAD_DIMS = (32, 64, 128)
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+# flash_fwd_launch: 5 pointers, 9 ints, the device q_offset's pointer (or
+# null), scale, stream
+_ARGTYPES = [_P] * 5 + [_I] * 9 + [_P, ctypes.c_float, _P]
 # flash_bwd_dq_launch and flash_bwd_dkv_launch: 8 pointers, 9 ints, scale, stream
 _BWD_ARGTYPES = [_P] * 8 + [_I] * 9 + [ctypes.c_float, _P]
 
 
-def _check(q, k, v, window: int, q_offset: int) -> None:
+def _check(q, k, v, window: int, q_offset) -> None:
+    """The inputs' shapes, types and devices. ``q_offset`` is an int, or a
+    one-element int32 tensor on q's device whose value is not read here (a
+    read would synchronise the host, which a CUDA graph capture forbids)."""
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
         raise ValueError(
             f"need q (BH, Sq, D) and k, v (BKV, Sk, D); got {tuple(q.shape)}, "
@@ -69,6 +74,13 @@ def _check(q, k, v, window: int, q_offset: int) -> None:
         raise ValueError(f"q, k, v must share float32 or bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
+    if isinstance(q_offset, torch.Tensor):
+        if (q_offset.numel(), q_offset.dtype, q_offset.device) != (1, torch.int32, q.device):
+            raise ValueError(
+                f"a tensor q_offset must be one int32 on q's device {q.device}, got "
+                f"{q_offset.numel()} x {q_offset.dtype} on {q_offset.device}"
+            )
+        q_offset = 0
     if window < 0 or q_offset < 0:
         raise ValueError(f"window and q_offset must be >= 0, got {window}, {q_offset}")
 
@@ -102,9 +114,12 @@ def flash_fwd(
     *,
     causal: bool = True,
     window: int = 0,
-    q_offset: int = 0,
+    q_offset: int | torch.Tensor = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """q: (BH, Sq, D); k/v: (BKV, Sk, D); BH % BKV == 0 (GQA).
+    """q: (BH, Sq, D); k/v: (BKV, Sk, D); BH % BKV == 0 (GQA). ``q_offset``
+    (query i sits at position q_offset + i) is an int, a kernel argument,
+    or a one-element int32 tensor on q's device, which the kernel reads:
+    one captured launch then serves every offset written into it.
 
     Returns (out (BH, Sq, D) in q's dtype, lse (BH, Sq) f32).
     """
@@ -116,11 +131,13 @@ def flash_fwd(
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     if sq == 0:
         return out, lse
+    on_device = isinstance(q_offset, torch.Tensor)
     lib = _build.load("flash_fwd", "flash_fwd_launch", _ARGTYPES)
     rc = lib.flash_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         int(q.dtype == torch.bfloat16), bh, sq, k.shape[1], d, bh // k.shape[0],
-        int(causal), window, q_offset, 1.0 / math.sqrt(d),
+        int(causal), window, 0 if on_device else q_offset,
+        q_offset.data_ptr() if on_device else None, 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, rc, "flash_fwd")

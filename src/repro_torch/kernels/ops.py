@@ -111,15 +111,24 @@ def flash_attention(
     *,
     causal: bool = True,
     window: int = 0,
-    q_offset: int = 0,
+    q_offset: int | torch.Tensor = 0,
 ) -> torch.Tensor:
     """Flash attention, differentiable. q: (B, Sq, Hq, D); k/v: (B, Sk,
-    Hkv, D).
+    Hkv, D); q_offset an int or a one-element int32 tensor on q's device
+    (the forward only: the backward kernels take an int, so a tensor
+    offset with inputs that need a gradient raises).
 
     Heads go to the kernels' (B*H, S, D) layout with row order b*H + h,
     which is what their GQA map (``bh // g``) expects. Returns (B, Sq, Hq,
     D); its gradient runs ``flash_bwd``'s two kernels.
     """
+    if isinstance(q_offset, torch.Tensor) and torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad
+    ):
+        raise ValueError(
+            "a tensor q_offset is forward-only (flash_bwd takes an int): pass "
+            "an int where a gradient is needed, or run under torch.no_grad()"
+        )
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     qf = q.transpose(1, 2).reshape(b * hq, sq, d).contiguous()

@@ -20,9 +20,12 @@ itself. Three paths, by M and x's dtype:
   into a shared bf16 tile of -1/0/+1 (exact) that ``ldmatrix.trans``
   reads as the B operand of ``mma.sync`` (f32 accumulate), and the scale
   is applied in the epilogue. Where the output has too few 64x128 tiles
-  for the card's SMs, ``split_plan`` splits the K sweep over a
+  for the card's SMs, ``mma_plan`` splits the K sweep over a
   thread-block cluster, whose blocks sum their partial tiles in a fixed
-  order in shared memory: one launch, the same bits every run.
+  order in shared memory: one launch, the same bits every run. The split
+  follows K and N only, never M, so a row's bits do not depend on how
+  many rows share its launch: a prompt prefilled whole, in chunks, or
+  after a prefix-cache hit gives the same K/V rows and logits.
 * M > 16 with f32 x: the shared-memory tiled kernel on the CUDA cores (TF32
   would round x, and the +-1/0 sums are exact only in f32).
 
@@ -49,6 +52,10 @@ GEMV_BN, GEMV_BK = 32, 8
 # the most blocks one cluster (one output tile's K split) may hold
 BM, BN, BK = 64, 128, 64
 MAX_SPLITS = 8
+# the row count the mma path plans its K split for, whatever M is (the
+# default prefill chunk): M would change the split, and with it the order
+# in which a row's K sum is taken
+PLAN_ROWS = 256
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -77,6 +84,12 @@ def split_plan(
     want = max(1, min(MAX_SPLITS, nk, _cdiv(sms, tiles)))
     cps = _cdiv(nk, want)
     return _cdiv(nk, cps), cps
+
+
+def mma_plan(k: int, n: int, sms: int) -> tuple[int, int]:
+    """The mma path's (splits, K steps per split): ``split_plan`` at
+    ``PLAN_ROWS`` rows, the same for every M."""
+    return split_plan(PLAN_ROWS, k, n, sms)
 
 
 def _check(x, carrier, scale, bits: int, k: int) -> None:
@@ -125,7 +138,7 @@ def packed_matmul(
     if m <= GEMV_MAX_M:
         splits, cps = split_plan(m, k, n, sms, bm=GEMV_MAX_M, bn=GEMV_BN, bk=GEMV_BK)
     elif x.dtype == torch.bfloat16:
-        splits, cps = split_plan(m, k, n, sms)
+        splits, cps = mma_plan(k, n, sms)
     else:
         splits, cps = 1, _cdiv(k, BK)
     lib = _build.load("packed_matmul", "packed_matmul_launch", _ARGTYPES)

@@ -87,13 +87,14 @@ def flash_fwd_ref(
     *,
     causal: bool = True,
     window: int = 0,
-    q_offset: int = 0,
+    q_offset: int | torch.Tensor = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Dense-softmax version of ``flash_fwd`` over the (B*H, S, D) layout.
 
     q: (BH, Sq, D); k/v: (BKV, Sk, D) with BH % BKV == 0; q row ``bh``
     reads kv row ``bh // (BH // BKV)``. Query ``i`` sits at position
-    ``q_offset + i``. Returns (out (BH, Sq, D) in q's dtype, lse (BH, Sq)
+    ``q_offset + i``; ``q_offset`` is an int or a one-element integer
+    tensor on q's device, used on the device. Returns (out (BH, Sq, D) in q's dtype, lse (BH, Sq)
     f32); a row that sees no key gets out 0 and lse -1e30, as the kernel.
     """
     bh, sq, d = q.shape

@@ -3,15 +3,19 @@
 Port of ``repro.launch.serve``'s pool engine: one physical KV pool
 (``runtime.kv_pool``), token-budget admission, bucketed one-step or
 chunked prefill, and paged decode lanes that each run at their own depth
-(``runtime.scheduler``). Runs on CUDA unless ``--device cpu`` is given;
-without a GPU and without ``--device cpu`` it exits with an error. On the
-card the decode step and the prefill chunks run as captured CUDA graphs
-(the reference's jitted steps); on the CPU every step runs eagerly.
+(``runtime.scheduler``), with the radix prefix cache over the pool on by
+default, as in the reference (``--no-prefix-cache`` turns it off). Runs
+on CUDA unless ``--device cpu`` is given; without a GPU and without
+``--device cpu`` it exits with an error. On the card every step runs as a
+captured CUDA graph (the reference's jitted steps): the decode step, the
+prefill chunk and the whole-prompt prefill of each bucket; on the CPU
+every step runs eagerly.
 
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m --quant 2
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --no-prefix-cache
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --vmem-budget 0.25
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --trace-out t.jsonl
     PYTHONPATH=src python -m repro_torch.perf.trace_export t.jsonl --check
@@ -22,9 +26,9 @@ appends the run's round records, request spans (``--no-trace-spans``
 leaves them out) and memory-ledger records to a JSONL file, as the
 reference does; a memory ledger and its pressure monitor run on every
 run and give the ``[serve/mem]`` line. Besides the reference's
-``[serve/pool]`` line it prints each kernel's launch count, and a
-``[serve/metrics]`` line with the run's numbers (and every request's
-tokens) as JSON.
+``[serve/pool]`` and ``[serve/prefix]`` lines it prints each kernel's
+launch count, and a ``[serve/metrics]`` line with the run's numbers (and
+every request's tokens) as JSON.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from repro_torch.models import lm
 from repro_torch.models.config import PACKING_FAMILIES, PORTED_FAMILIES
 from repro_torch.runtime.kv_pool import KVPool, choose_block_tokens
 from repro_torch.runtime.memledger import MemLedger, MemPressureMonitor
+from repro_torch.runtime.prefix_cache import PrefixCache
 from repro_torch.runtime.residency import (
     RuntimeResidencyPlan,
     compile_residency_plan,
@@ -88,6 +93,7 @@ def build_pool_engine(
         cfg, slots=args.batch, max_len=args.max_len,
         block_tokens=block_tokens, device=device,
     )
+    prefix_cache = PrefixCache(pool) if args.prefix_cache else None
     tracker = spans = None
     if args.trace_out:
         tracker = JsonlTracker(args.trace_out)
@@ -114,6 +120,7 @@ def build_pool_engine(
         prefill_chunk=args.prefill_chunk or None,
         residency=residency,
         compiled=compiled,
+        prefix_cache=prefix_cache,
         tracker=tracker,
         spans=spans,
         ledger=ledger,
@@ -170,6 +177,13 @@ def run_pool_engine(
         "mean_ttft_s": stats.mean_ttft,
         "pool_utilization": stats.steady_state_utilization,
         "block_tokens": sched.pool.block_tokens,
+        "prefix_cache": sched.prefix_cache is not None,
+        "prefix_hits": stats.prefix_hits,
+        "prefix_hit_tokens": stats.prefix_hit_tokens,
+        "prefix_hit_rate": stats.prefix_hit_rate,
+        "shared_blocks_peak": stats.shared_blocks_peak,
+        "cached_blocks": sched.pool.cached_blocks,
+        "prefill_tokens": stats.prefill_tokens,
         "residency": residency.summary() if residency is not None else None,
         "graphs": len(sched.graphs),
         "graph_replays": sum(g.replays for g in sched.graphs),
@@ -204,6 +218,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="prefill chunk size for long prompts; "
                          "0 = the admission token budget")
+    ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="radix prefix cache over the KV pool: requests "
+                         "adopt their longest cached prefix's blocks and "
+                         "prefill only the unmatched suffix "
+                         "(--no-prefix-cache disables)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature; 0 = greedy")
     ap.add_argument("--top-k", type=int, default=0,
@@ -271,6 +291,14 @@ def main(argv=None) -> int:
         f"TTFT {m['mean_ttft_s']*1e3:.0f} ms), "
         f"pool utilization {m['pool_utilization']*100:.1f}%"
     )
+    if m["prefix_cache"]:
+        print(
+            f"[serve/prefix] {m['prefix_hits']} prefix hits, "
+            f"{m['prefix_hit_tokens']} prompt tokens served from cache "
+            f"(hit rate {m['prefix_hit_rate']*100:.1f}%), "
+            f"{m['shared_blocks_peak']} shared blocks at peak, "
+            f"{m['cached_blocks']} blocks cached at drain"
+        )
     if m["residency"]:
         r = m["residency"]
         print(
@@ -285,7 +313,7 @@ def main(argv=None) -> int:
         )
     if m["compiled"]:
         print(
-            f"[serve/graphs] decode step and prefill chunks compiled: "
+            f"[serve/graphs] decode step, prefill chunk and prefill buckets compiled: "
             f"{m['graphs']} CUDA graphs, {m['graph_replays']} replays, "
             f"{m['graph_pool_bytes'] / 2**20:.1f} MiB in their memory pool; "
             f"first calls {m['graph_first_call_s']:.3f}s and captures "

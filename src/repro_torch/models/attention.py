@@ -25,10 +25,11 @@ def flash_attention(
     *,
     causal: bool = True,
     window: int = 0,
-    q_offset: int = 0,
+    q_offset: int | torch.Tensor = 0,
 ) -> torch.Tensor:
-    """q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D); Hq % Hkv == 0. Returns
-    (B, Sq, Hq, D)."""
+    """q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D); Hq % Hkv == 0; q_offset
+    an int or a one-element int32 tensor on q's device. Returns (B, Sq,
+    Hq, D)."""
     return ops.flash_attention(
         q, k, v, causal=causal, window=window, q_offset=q_offset
     )

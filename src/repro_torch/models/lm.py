@@ -391,12 +391,16 @@ def loss_fn(
 
 @torch.no_grad()
 def prefill_with_cache(
-    params: LMParams, cfg: ModelConfig, tokens: torch.Tensor, last_idx: int
+    params: LMParams, cfg: ModelConfig, tokens: torch.Tensor,
+    last_idx: int | torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-sequence prefill that keeps the per-layer K/V rows.
 
     tokens: (B, S) right-padded prompts; ``last_idx`` the index of the
-    last real token (causality keeps the padded tail inert). Returns
+    last real token (causality keeps the padded tail inert), an int or a
+    one-element integer tensor on the tokens' device, selected on the
+    device either way, so one captured prefill serves every prompt length
+    of its bucket. Returns
     (next-token logits (B, 1, V) f32, ks, vs stacked (L, B, S, n_kv, hd),
     already RoPE'd: exactly the rows the pool stores).
     """
@@ -412,8 +416,8 @@ def prefill_with_cache(
         x = _ffn_block(lp, cfg, x)
         ks.append(k)
         vs.append(v)
-    last = int(last_idx)
-    lg = _unembed(params, cfg, x[:, last : last + 1])
+    idx = torch.as_tensor(last_idx, device=x.device).reshape(1).long()
+    lg = _unembed(params, cfg, x.index_select(1, idx))
     return lg, torch.stack(ks), torch.stack(vs)
 
 
@@ -489,7 +493,7 @@ def prefill_chunk_paged(
     pool_v: torch.Tensor,
     row_table: torch.Tensor,
     write_rows: torch.Tensor,
-    start: int,
+    start: int | torch.Tensor,
     last_idx: int | torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Prefill one chunk of a prompt against the shared KV pool.
@@ -497,16 +501,17 @@ def prefill_chunk_paged(
     tokens: (B, C) chunk tokens, right-padded; write_rows: (B, C)
     physical pool row per chunk token (scratch row for padding);
     row_table: (B, S_max) the request's full row table; start: position
-    of the chunk's first token, a kernel argument (``flash_fwd``'s
-    ``q_offset``); last_idx: in-chunk index of the prompt's last token, an
-    int or a one-element integer tensor on the pool's device, selected on
-    the device either way, so one captured chunk serves every last
-    index. The chunk's K/V rows are
-    written into the pool in place,
-    then the chunk attends causally over the gathered rows through the
-    flash kernel with ``q_offset = start`` (rows past the chunk, scratch
-    padding included, are masked by causality), which computes what the
-    reference's ``chunk_attention`` computes.
+    of the chunk's first token; last_idx: in-chunk index of the prompt's
+    last token. Each of the two is an int or a one-element integer tensor
+    on the pool's device, and is used on the device either way: ``start``
+    is the base of the RoPE positions and ``flash_fwd``'s device
+    ``q_offset``, ``last_idx`` an ``index_select``, so one captured chunk
+    serves every start and every last index. The chunk's K/V rows are
+    written into the pool in place, then the chunk attends causally over
+    the gathered rows through the flash kernel with ``q_offset = start``
+    (rows past the chunk, scratch padding included, are masked by
+    causality), which computes what the reference's ``chunk_attention``
+    computes.
 
     Returns (logits at last_idx (B, 1, V) f32, pool_k, pool_v), the
     pools updated in place.
@@ -514,8 +519,8 @@ def prefill_chunk_paged(
     _require_ported(cfg, "prefill_chunk_paged")
     x = embed(tokens, params["embed"], torch_dtype(cfg))
     b, c, _ = x.shape
-    start = int(start)
-    positions = start + torch.arange(c, device=x.device)[None, :]
+    q_offset = torch.as_tensor(start, device=x.device).reshape(1).to(torch.int32)
+    positions = q_offset.long() + torch.arange(c, device=x.device)[None, :]
     row_table = row_table.long()
     write_rows = write_rows.long()
     for i in range(cfg.n_layers):
@@ -526,7 +531,7 @@ def prefill_chunk_paged(
         pv[write_rows] = v.to(pv.dtype)
         o = attn.flash_attention(
             q, pk[row_table], pv[row_table], causal=True,
-            window=cfg.sliding_window, q_offset=start,
+            window=cfg.sliding_window, q_offset=q_offset,
         )
         x = x + dense(o.reshape(b, c, -1), lp["wo"])
         x = _ffn_block(lp, cfg, x)

@@ -1,25 +1,38 @@
 """Shared physical KV pool for continuous-batching decode.
 
-Port of ``repro.runtime.kv_pool`` without refcounted sharing, prefix
-adoption and draft brackets (later slices); a memory ledger
-(``runtime.memledger``) attached as ``ledger`` hears every admit, block
-growth and release, as in the reference. Device side:
-``k``/``v`` are (n_kv_cache_layers, n_blocks * block_tokens, n_kv, hd)
-row-addressed tensors (the block is an allocator concept only), updated
-in place with indexed writes where the reference rebuilt its arrays. Host
-side: a free-block list and per-request block tables. Block 0 is the
-scratch block idle lanes and padding write to and read from.
+Port of ``repro.runtime.kv_pool`` without the draft brackets of
+speculation (a later slice). Blocks are **refcounted**: a request's block
+table may alias blocks held by other requests or pinned by the radix
+prefix cache (``runtime.prefix_cache``), and a block returns to the free
+list only when its last holder lets go. Shared blocks are read-only; a
+request that must write into a *partially* matched block first takes a
+private copy (``adopt_prefix``'s copy-on-write of the tail block). Cached
+blocks no live request holds are reclaimable: under admission pressure the
+pool asks its attached cache (the ``evictor`` hook) to evict LRU entries.
+A memory ledger (``runtime.memledger``) attached as ``ledger`` hears every
+mutation, as in the reference.
+
+Device side: ``k``/``v`` are (n_kv_cache_layers, n_blocks * block_tokens,
+n_kv, hd) row-addressed tensors (the block is an allocator concept only),
+updated in place where the reference rebuilt its arrays. They are never
+rebound: a captured CUDA graph binds their addresses, so the
+copy-on-write copy is an in-place copy between two row ranges. Host side:
+a free-block list, per-request block tables, a per-block refcount and the
+set of blocks the cache pins. Block 0 is the scratch block idle lanes and
+padding write to and read from.
 
 Admission reserves a request's full block commitment (``blocks_for``)
 but hands out blocks lazily as tokens arrive:
 
-    invariant:  sum(committed - held) over live requests <= free blocks
+    invariant:  sum(committed - held) over live requests
+                <= free blocks + evictable cached blocks
 """
 
 from __future__ import annotations
 
 import dataclasses
 from collections import Counter
+from typing import Callable
 
 import numpy as np
 import torch
@@ -87,19 +100,18 @@ def choose_block_tokens(
 class PoolStats:
     n_blocks: int
     block_tokens: int
-    held_blocks: int
-    held_tokens: int
+    held_blocks: int  # unique physical blocks held by live requests
+    held_tokens: int  # useful rows in them, each physical row counted once
     free_blocks: int
     committed_blocks: int
-    # the reference's sharing and prefix-cache gauges: 0 on a pool whose
-    # blocks are all private and uncached, as the reference reports them
-    shared_blocks: int = 0
-    cached_blocks: int = 0
-    evictable_blocks: int = 0
+    shared_blocks: int = 0  # request-held blocks with > 1 request holder
+    cached_blocks: int = 0  # blocks pinned by the prefix cache
+    evictable_blocks: int = 0  # cached blocks no live request holds
 
     @property
     def utilization(self) -> float:
-        """Useful KV rows / physical rows held."""
+        """Useful KV rows / physical rows held; a block shared by N
+        requests counts its rows once."""
         if self.held_blocks == 0:
             return 1.0
         return self.held_tokens / (self.held_blocks * self.block_tokens)
@@ -110,7 +122,7 @@ class PoolStats:
 
 
 class KVPool:
-    """One contiguous physical KV cache carved into fixed-size blocks."""
+    """One contiguous physical KV cache with refcounted block sharing."""
 
     def __init__(
         self,
@@ -141,11 +153,21 @@ class KVPool:
         self._held: dict[int, list[int]] = {}
         self._tokens: dict[int, int] = {}
         self._committed: dict[int, int] = {}
-        self._used_total = 0  # rows in use over all held blocks
-        # lifetime counters: alloc - freed always equals the held-block count
+        self._cached: set[int] = set()  # blocks pinned by the prefix cache
+        # incremental aggregates, so the stats() read of every decode step
+        # never rescans the block tables (validate() recounts them)
+        self._users: Counter = Counter()  # block -> live request holders
+        self._used: dict[int, int] = {}  # block -> deepest row any holder uses
+        self._used_total = 0
+        self._shared = 0  # blocks with > 1 request holder
+        self._evictable = 0  # cached blocks with no request holder
+        # the attached prefix cache's eviction hook: (blocks needed) ->
+        # blocks actually returned to the free list
+        self.evictor: Callable[[int], int] | None = None
+        # lifetime counters: alloc - freed always equals the referenced blocks
         self.alloc_blocks = 0
         self.freed_blocks = 0
-        self.cow_copies = 0  # no copy-on-write without prefix adoption
+        self.cow_copies = 0
         # the attached memory ledger (runtime.memledger.MemLedger.attach);
         # every mutation below notifies it
         self.ledger = None
@@ -183,10 +205,50 @@ class KVPool:
         return len(self._free)
 
     @property
+    def cached_blocks(self) -> int:
+        return len(self._cached)
+
+    @property
+    def evictable_blocks(self) -> int:
+        """Cached blocks no live request holds: reclaimable on demand."""
+        return self._evictable
+
+    # ---------------- incremental accounting ----------------
+
+    def _add_user(self, block: int) -> None:
+        self._users[block] += 1
+        if self._users[block] == 2:
+            self._shared += 1
+        if self._users[block] == 1 and block in self._cached:
+            self._evictable -= 1
+
+    def _drop_user(self, block: int) -> None:
+        c = self._users[block] - 1
+        if c == 0:
+            del self._users[block]
+            self._used_total -= self._used.pop(block, 0)
+            if block in self._cached:
+                self._evictable += 1
+        else:
+            self._users[block] = c
+            if c == 1:
+                self._shared -= 1
+
+    def _count_use(self, block: int, rows: int) -> None:
+        old = self._used.get(block, 0)
+        if rows > old:
+            self._used[block] = rows
+            self._used_total += rows - old
+
+    @property
     def outstanding_commitment(self) -> int:
         return sum(
             max(0, self._committed[r] - len(self._held[r])) for r in self._held
         )
+
+    def ref_count(self, block: int) -> int:
+        """Live request holders, plus one while the prefix cache pins it."""
+        return self._users.get(block, 0) + (block in self._cached)
 
     def max_rows(self, max_tokens: int) -> int:
         """Fixed gather width for a serve step admitting <= max_tokens."""
@@ -196,7 +258,8 @@ class KVPool:
 
     def can_admit(self, total_tokens: int) -> bool:
         need = self.blocks_for(total_tokens)
-        return self.free_blocks - self.outstanding_commitment >= need
+        avail = self.free_blocks + self.evictable_blocks
+        return avail - self.outstanding_commitment >= need
 
     def admit(self, rid: int, total_tokens: int) -> None:
         if rid in self._held:
@@ -205,7 +268,8 @@ class KVPool:
             raise RuntimeError(
                 f"pool cannot admit request {rid} "
                 f"({self.blocks_for(total_tokens)} blocks needed, "
-                f"{self.free_blocks - self.outstanding_commitment} uncommitted)"
+                f"{self.free_blocks + self.evictable_blocks - self.outstanding_commitment}"
+                " uncommitted)"
             )
         self._committed[rid] = self.blocks_for(total_tokens)
         self._held[rid] = []
@@ -214,6 +278,18 @@ class KVPool:
             self.ledger.record(
                 "admit", owner="request", rid=rid, committed=self._committed[rid]
             )
+
+    def _pop_free(self) -> int:
+        """Take a block off the free list, evicting cached blocks first
+        when it is empty. Commitment accounting guarantees this succeeds
+        for any in-commitment growth."""
+        if not self._free and self.evictor is not None:
+            self.evictor(1)
+        if not self._free:
+            raise RuntimeError("pool free list empty and nothing evictable")
+        b = self._free.pop()
+        self.alloc_blocks += 1
+        return b
 
     def ensure_rows(self, rid: int, n_tokens: int) -> None:
         """Grow the request's block list to hold ``n_tokens`` rows."""
@@ -225,8 +301,9 @@ class KVPool:
                     f"request {rid} exceeds its {self._committed[rid]}-block "
                     "commitment"
                 )
-            held.append(self._free.pop())
-            self.alloc_blocks += 1
+            b = self._pop_free()
+            self._add_user(b)
+            held.append(b)
         # note_tokens-driven row-coverage drift does not emit (one record a
         # decode token); the ledger's round sync() folds it in
         if self.ledger is not None and len(held) > before:
@@ -235,12 +312,73 @@ class KVPool:
             )
 
     def note_tokens(self, rid: int, n_tokens: int) -> None:
-        """Record the request's token count (monotone while held)."""
+        """Record the request's token count (monotone while held: a
+        smaller count than already noted keeps the deeper coverage)."""
         self.ensure_rows(rid, n_tokens)
         old = self._tokens[rid]
-        if n_tokens > old:
-            self._tokens[rid] = n_tokens
-            self._used_total += n_tokens - old
+        if n_tokens <= old:
+            return
+        self._tokens[rid] = n_tokens
+        held, t = self._held[rid], self.block_tokens
+        for idx in range(0 if old == 0 else (old - 1) // t, (n_tokens - 1) // t + 1):
+            self._count_use(held[idx], min(t, n_tokens - idx * t))
+
+    def adopt_prefix(
+        self,
+        rid: int,
+        shared: tuple[int, ...],
+        tail_block: int | None,
+        n_tokens: int,
+    ) -> None:
+        """Alias a matched prefix's blocks into a fresh request's table.
+
+        ``shared`` are the cache's full blocks covering rows
+        ``[0, len(shared) * block_tokens)``, adopted read-only (refcount
+        bumped). ``tail_block`` (required iff ``n_tokens`` is not
+        block-aligned) holds the partially matched block: the request will
+        write rows ``n_tokens..`` of that block span, so it gets a private
+        copy-on-write duplicate, copied in place inside ``k`` and ``v``.
+        Must run right after ``admit``, before any rows are held.
+        """
+        held = self._held[rid]
+        if held or self._tokens[rid]:
+            raise RuntimeError(f"request {rid} must adopt a prefix before holding rows")
+        t = self.block_tokens
+        if len(shared) != n_tokens // t:
+            raise ValueError(
+                f"{len(shared)} shared blocks cannot cover "
+                f"{n_tokens // t} full blocks of {n_tokens} tokens"
+            )
+        if (tail_block is None) != (n_tokens % t == 0):
+            raise ValueError(
+                f"tail block required iff the matched prefix ({n_tokens} "
+                f"tokens) ends mid-block (block_tokens={t})"
+            )
+        if len(shared) + (tail_block is not None) > self._committed[rid]:
+            raise RuntimeError(f"adopted prefix exceeds request {rid}'s commitment")
+        for b in shared:
+            if b == SCRATCH_BLOCK or not self.ref_count(b):
+                raise ValueError(f"cannot adopt unallocated block {b}")
+            self._add_user(b)
+            held.append(b)
+        if tail_block is not None:
+            if tail_block == SCRATCH_BLOCK or not self.ref_count(tail_block):
+                raise ValueError(f"cannot adopt unallocated block {tail_block}")
+            new = self._pop_free()
+            # in place: the captured steps hold these tensors' addresses
+            for pool in (self.k, self.v):
+                pool[:, new * t : (new + 1) * t].copy_(
+                    pool[:, tail_block * t : (tail_block + 1) * t]
+                )
+            self._add_user(new)
+            held.append(new)
+            self.cow_copies += 1
+        self.note_tokens(rid, n_tokens)
+        if self.ledger is not None:
+            self.ledger.record(
+                "adopt_prefix", owner="request", rid=rid, shared=len(shared),
+                cow=int(tail_block is not None),
+            )
 
     def release(self, rid: int) -> None:
         if rid not in self._held:
@@ -248,18 +386,50 @@ class KVPool:
                 f"release of unknown request {rid}: it was never admitted "
                 "or was already released (double free)"
             )
-        blocks = self._held.pop(rid)
-        self._free.extend(blocks)
-        self.freed_blocks += len(blocks)
-        self._used_total -= self._tokens.pop(rid)
-        del self._committed[rid]
+        for b in self._held.pop(rid):
+            self._drop_user(b)
+            if not self.ref_count(b):
+                self._free.append(b)
+                self.freed_blocks += 1
+        del self._tokens[rid], self._committed[rid]
         if self.ledger is not None:
             self.ledger.record("release", owner="request", rid=rid)
+
+    # ---------------- prefix-cache pinning ----------------
+
+    def retain_cached(self, block: int) -> None:
+        """Pin a block on behalf of the prefix cache (one pin per block)."""
+        if block == SCRATCH_BLOCK or not self.ref_count(block):
+            raise ValueError(f"cannot cache unallocated block {block}")
+        if block in self._cached:
+            raise ValueError(f"block {block} already cached")
+        self._cached.add(block)
+        if self.ledger is not None:
+            self.ledger.record("retain_cached", owner="prefix-cache", block=block)
+
+    def uncache(self, block: int) -> int:
+        """Drop the cache's pin; returns 1 if the block went free, else 0.
+        A block a live request holds never goes free here."""
+        if block not in self._cached:
+            raise ValueError(f"block {block} is not cached")
+        self._cached.remove(block)
+        freed = 0
+        if not self.ref_count(block):
+            self._free.append(block)
+            self._evictable -= 1  # it was cache-only; now it is free
+            self.freed_blocks += 1
+            freed = 1
+        if self.ledger is not None:
+            self.ledger.record("uncache", owner="prefix-cache", block=block)
+        return freed
 
     # ---------------- introspection ----------------
 
     def live_requests(self) -> list[int]:
         return list(self._held)
+
+    def blocks_of(self, rid: int) -> tuple[int, ...]:
+        return tuple(self._held[rid])
 
     def blocks_held(self, rid: int) -> int:
         return len(self._held[rid])
@@ -290,8 +460,11 @@ class KVPool:
         n_tokens: int | None = None,
     ) -> None:
         """Write a prefilled (L, P, n_kv, hd) KV prefix into the pool, in
-        place. ``ks``/``vs`` may be right-padded past ``n_tokens`` (the
-        prefill bucket); padded rows land in the scratch block."""
+        place. Cold path only: the request's blocks must be private (a warm
+        admission writes its suffix through the chunk step, which never
+        touches adopted rows). ``ks``/``vs`` may be right-padded past
+        ``n_tokens`` (the prefill bucket); padded rows land in the scratch
+        block."""
         p = n_tokens if n_tokens is not None else ks.shape[1]
         self.note_tokens(rid, p)
         rows = self.rows_of(rid)[:p]
@@ -307,35 +480,55 @@ class KVPool:
         return PoolStats(
             n_blocks=self.usable_blocks,
             block_tokens=self.block_tokens,
-            held_blocks=sum(len(b) for b in self._held.values()),
+            held_blocks=len(self._users),
             held_tokens=self._used_total,
             free_blocks=self.free_blocks,
             committed_blocks=self.outstanding_commitment,
+            shared_blocks=self._shared,
+            cached_blocks=len(self._cached),
+            evictable_blocks=self._evictable,
         )
 
     def validate(self) -> None:
-        """Allocator invariants: no free+held overlap, free-list
-        uniqueness, full accounting, block conservation."""
+        """Allocator invariants: no free+referenced overlap, free-list
+        uniqueness, full accounting, the incremental aggregates equal to a
+        recount, block conservation."""
         if len(self._free) != len(set(self._free)):
             raise AssertionError("free list holds duplicate blocks")
-        held = [b for bs in self._held.values() for b in bs]
-        if len(held) != len(set(held)):
-            raise AssertionError("a block is held twice")
-        if SCRATCH_BLOCK in held or SCRATCH_BLOCK in self._free:
+        holders: Counter = Counter()
+        for bs in self._held.values():
+            holders.update(bs)
+        referenced = set(holders) | self._cached
+        if SCRATCH_BLOCK in referenced or SCRATCH_BLOCK in self._free:
             raise AssertionError("scratch block entered circulation")
-        if set(held) & set(self._free):
-            raise AssertionError("block simultaneously held and free")
-        if len(held) + len(self._free) != self.usable_blocks:
+        if referenced & set(self._free):
+            raise AssertionError("block simultaneously referenced and free")
+        if len(referenced) + len(self._free) != self.usable_blocks:
             raise AssertionError("blocks leaked")
         for rid, bs in self._held.items():
+            if len(bs) != len(set(bs)):
+                raise AssertionError(f"request {rid} holds a block twice")
             if self._tokens[rid] > len(bs) * self.block_tokens:
                 raise AssertionError(f"request {rid} overflows its blocks")
-        if self._used_total != sum(self._tokens.values()):
-            raise AssertionError("row-coverage tally drifted")
-        if self.alloc_blocks - self.freed_blocks != len(held):
+        used: dict[int, int] = {}
+        t = self.block_tokens
+        for rid, bs in self._held.items():
+            for i, b in enumerate(bs):
+                r = min(t, max(0, self._tokens[rid] - i * t))
+                if r:
+                    used[b] = max(used.get(b, 0), r)
+        if holders != self._users:
+            raise AssertionError("per-block holder counts drifted")
+        if used != self._used or sum(used.values()) != self._used_total:
+            raise AssertionError("per-block row-coverage drifted")
+        if self._shared != sum(1 for n in holders.values() if n > 1):
+            raise AssertionError("shared-block tally drifted")
+        if self._evictable != sum(1 for b in self._cached if b not in holders):
+            raise AssertionError("evictable-block tally drifted")
+        if self.alloc_blocks - self.freed_blocks != len(referenced):
             raise AssertionError(
                 f"block conservation violated: {self.alloc_blocks} allocated"
-                f" - {self.freed_blocks} freed != {len(held)} held"
+                f" - {self.freed_blocks} freed != {len(referenced)} live"
             )
 
     def fragmentation_report(self) -> dict:

@@ -3,14 +3,14 @@
 Port of ``repro.runtime.memledger`` (plain Python, copied). The span
 recorder (``runtime.spans``) gives an exact *time* decomposition; this
 module is the *memory* counterpart. Every KV-pool mutation — ``admit`` /
-block growth in ``ensure_rows`` / ``release`` — emits a ``kind="mem"``
-delta record through the tracker backends, interleaved with round
-metrics and spans on one JSONL stream. Static owners (the residency
-plan's resident FFN tiles and its stream ring) emit ``op="reserve"``
-records, so the byte attribution covers more than the KV pool. The ops
-of the reference's prefix cache and speculation (``adopt_prefix``,
-``retain_cached``, ``uncache``, evictions, draft brackets) come with
-those features.
+block growth in ``ensure_rows`` / ``adopt_prefix`` (with its
+copy-on-write) / ``release`` / ``retain_cached`` / ``uncache`` / the
+prefix cache's ``evict`` — emits a ``kind="mem"`` delta record through
+the tracker backends, interleaved with round metrics and spans on one
+JSONL stream. Static owners (the residency plan's resident FFN tiles and
+its stream ring) emit ``op="reserve"`` records, so the byte attribution
+covers more than the KV pool. The draft brackets of speculation come
+with that feature.
 
 Record schema (``kind="mem"``)::
 

@@ -17,14 +17,23 @@ with H_B = slots co-resident requests over a dual-port memory.
 budgeted step: the plan's streamed layers run their FFN through
 ``stream_matmul``, the rest the resident path; prefill stays resident.
 
+``prefix_cache`` (a ``runtime.prefix_cache.PrefixCache`` over this pool)
+makes a new request adopt its longest cached prefix's blocks and prefill
+only the unmatched suffix, through the chunk step from the matched
+position on, whatever the prompt's length. A prompt is committed to the
+cache at its first token, and again with its generated tokens at
+completion, so a follow-up turn adopts the whole transcript.
+
 Compiled steps, the counterpart of the reference's jitted ones: on a CUDA
-pool the decode step and each prefill chunk run as captured CUDA graphs
-(``runtime.steps.CapturedStep``). They belong to this scheduler, since a
-graph binds the addresses of its parameters and pool: one decode graph
-(its slots, ``S_max`` and residency plan are fixed here) and one graph per
-chunk start (``start`` is ``flash_fwd``'s ``q_offset``, a kernel argument
-fixed at capture), all in one memory pool. The whole-prompt prefill takes
-a new shape for every bucket and stays eager. ``compiled=False`` runs
+pool every step runs as a captured CUDA graph
+(``runtime.steps.CapturedStep``), captured at its first use. They belong
+to this scheduler, since a graph binds the addresses of its parameters and
+pool: one decode graph (its slots, ``S_max`` and residency plan are fixed
+here), one chunk graph for every chunk (``start`` and the last index are
+device inputs: ``flash_fwd`` reads its ``q_offset`` from the card), and
+one whole-prompt prefill graph per bucket (a multiple of
+``block_tokens`` up to ``prefill_chunk``, as the reference compiles one
+program per bucket shape), all in one memory pool. ``compiled=False`` runs
 every step eagerly on the card; the CPU has no graphs, so a CPU pool runs
 eagerly and ``compiled=True`` on it raises.
 
@@ -33,8 +42,8 @@ Observability, as in the reference: ``tracker`` gets one record a round
 ``ledger`` a ``MemLedger`` attached to the pool (``runtime.memledger``)
 and ``mem_monitor`` a ``MemPressureMonitor`` fed once a round.
 
-Not ported yet: ``prefix_cache``, ``speculative``, ``handoff`` and the
-fleet's ``on_round`` and ``charge`` hooks; their counters stay 0.
+Not ported yet: ``speculative``, ``handoff`` and the fleet's ``on_round``
+and ``charge`` hooks; their counters stay 0.
 """
 
 from __future__ import annotations
@@ -49,7 +58,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.gals import required_rf
-from repro_torch.models.config import PORTED_FAMILIES, ModelConfig
+from repro_torch.models.config import (
+    PORTED_FAMILIES,
+    PREFIX_CACHE_FAMILIES,
+    ModelConfig,
+)
 from repro_torch.models.lm import LMParams, SamplingParams, sample_logits
 from repro_torch.runtime.tracker import DELTA_KEYS
 from repro_torch.runtime.kv_pool import KVPool
@@ -96,13 +109,13 @@ class SchedulerStats:
     completed: int = 0
     generated_tokens: int = 0
     prefill_steps: int = 0
-    prefill_tokens: int = 0
-    # the reference's counters of features the port has not ported yet
-    # (prefix cache, prefill/decode handoff, MoE, speculation): 0, as the
-    # reference reports them on a run without those features
+    prefill_tokens: int = 0  # charged for the *unmatched* suffix only
     prefix_hits: int = 0
-    prefix_hit_tokens: int = 0
+    prefix_hit_tokens: int = 0  # prompt tokens served from cached blocks
     decode_steps: int = 0
+    # the reference's counters of features the port has not ported yet
+    # (prefill/decode handoff, MoE, speculation): 0, as the reference
+    # reports them on a run without those features
     handoffs: int = 0
     expert_tokens: int = 0
     accepted_tokens: int = 0
@@ -118,6 +131,13 @@ class SchedulerStats:
     @property
     def mean_ttft(self) -> float:
         return sum(self.ttfts) / len(self.ttfts) if self.ttfts else 0.0
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        """Fraction of submitted prompt tokens served from the cache
+        (hit tokens / (hit tokens + prefilled tokens))."""
+        total = self.prefix_hit_tokens + self.prefill_tokens
+        return self.prefix_hit_tokens / total if total else 0.0
 
     @property
     def steady_state_utilization(self) -> float:
@@ -148,6 +168,7 @@ class Scheduler:
         prefill_chunk: int | None = None,
         residency: RuntimeResidencyPlan | None = None,
         compiled: bool | None = None,
+        prefix_cache=None,
         tracker=None,
         spans=None,
         ledger=None,
@@ -171,7 +192,17 @@ class Scheduler:
         self.compiled = compiled
         self._graph_pool = torch.cuda.graph_pool_handle() if compiled else None
         self._decode_graph: CapturedStep | None = None
-        self._chunk_graphs: dict[int, CapturedStep] = {}
+        self._chunk_graph: CapturedStep | None = None
+        self._prefill_graphs: dict[int, CapturedStep] = {}  # by bucket
+        if prefix_cache is not None:
+            if cfg.family not in PREFIX_CACHE_FAMILIES:
+                raise ValueError(
+                    f"prefix caching covers {PREFIX_CACHE_FAMILIES}; "
+                    f"family {cfg.family!r} cannot prefill a bare suffix"
+                )
+            if prefix_cache.pool is not pool:
+                raise ValueError("prefix cache must index this pool")
+        self.prefix_cache = prefix_cache
         self.slots = slots
         self.max_len = max_len
         self.s_max = pool.max_rows(max_len)
@@ -251,7 +282,7 @@ class Scheduler:
                 "prefill_chunk": self.prefill_chunk,
                 "block_tokens": pool.block_tokens,
                 "pool_blocks": pool.usable_blocks,
-                "prefix_cache": False,
+                "prefix_cache": prefix_cache is not None,
                 "compiled": self.compiled,
             }
             if residency is not None:
@@ -274,10 +305,15 @@ class Scheduler:
 
     @property
     def graphs(self) -> list[CapturedStep]:
-        """The captured steps so far: the decode step's, then each chunk
-        start's."""
-        decode = [self._decode_graph] if self._decode_graph is not None else []
-        return decode + list(self._chunk_graphs.values())
+        """The captured steps so far: the decode step's, the chunk's, then
+        each prefill bucket's."""
+        one = [g for g in (self._decode_graph, self._chunk_graph) if g is not None]
+        return one + list(self._prefill_graphs.values())
+
+    @property
+    def prefill_buckets(self) -> list[int]:
+        """The buckets whose whole-prompt prefill has a captured graph."""
+        return sorted(self._prefill_graphs)
 
     @staticmethod
     def _host_tensor(a) -> torch.Tensor:
@@ -349,12 +385,32 @@ class Scheduler:
 
     # ---------------- admission / prefill ----------------
 
+    def _commit_prefix(self, req: Request) -> None:
+        """Index the freshly prefilled prompt in the radix cache: its full
+        blocks become shared nodes."""
+        if self.prefix_cache is not None:
+            self.prefix_cache.commit(req.prompt, self.pool.blocks_of(req.rid))
+
+    def _commit_generated(self, req: Request) -> None:
+        """Re-index the finished conversation, prompt plus generated
+        tokens, so a follow-up turn adopts the whole transcript's blocks.
+        The last sampled token never went through the model and has no KV
+        row, so the committed sequence stops one short of the output. Runs
+        before ``pool.release``: the cache pins blocks of a live request."""
+        if self.prefix_cache is None:
+            return
+        seq = np.concatenate([req.prompt, np.asarray(req.output[:-1], np.int32)])
+        if len(seq) == len(req.prompt):
+            return  # a 1-token request: the prompt's commit covers it
+        self.prefix_cache.commit(seq, self.pool.blocks_of(req.rid))
+
     def _start_decode(self, slot: int, req: Request, first: int, t_first: float) -> None:
         """Move a fully-prefilled request onto its decode lane. ``t_first``
         is the span clock's end of the prefill step that made ``first``."""
         req.t_first_token = time.monotonic()
         self.stats.ttfts.append(req.ttft)
         req.output.append(first)
+        self._commit_prefix(req)
         if self.spans is not None:
             # the first token exists the instant its prefill step ends: the
             # stamp is that span's end, a boundary on any clock
@@ -372,7 +428,9 @@ class Scheduler:
 
         Prompts within ``prefill_chunk`` prefill in one bucketed step;
         longer prompts are admitted only when no other request holds
-        budget, then stream through ``prefill_chunk``-sized rounds.
+        budget, then stream through ``prefill_chunk``-sized rounds. A
+        prefix-cache hit adopts the matched blocks and prefills the rest
+        through chunks from the matched position, whatever the length.
         """
         if not self.queue:
             return False
@@ -387,15 +445,34 @@ class Scheduler:
             return False
         self.queue.popleft()
         req._enter(RequestState.PREFILL)
+        t_admit = 0.0
         if self.spans is not None:
             t_admit = self.spans.close(req.rid)  # ends the queue span
             self.spans.event("admit", req.rid, t_admit)
         self.pool.admit(req.rid, req.total_tokens)
         p = len(req.prompt)
 
-        if p > self.prefill_chunk:
+        # radix-cache lookup: adopt the longest cached prefix's blocks
+        # (refcount bump; copy-on-write for a partially matched block)
+        match = None
+        if self.prefix_cache is not None:
+            match = self.prefix_cache.lookup(req.prompt)
+        if match is not None:
+            self.pool.adopt_prefix(req.rid, match.shared, match.tail_block, match.matched)
+            self.stats.prefix_hits += 1
+            self.stats.prefix_hit_tokens += match.matched
+        if self.spans is not None and self.prefix_cache is not None:
+            # zero-width: the lookup is bookkeeping, its matched length the signal
+            self.spans.mark(
+                req.rid, "prefix_lookup", t_admit, t_admit,
+                matched=match.matched if match is not None else 0,
+                hit=match is not None,
+            )
+
+        if match is not None or p > self.prefill_chunk:
+            # chunked prefill from the matched position (0 on a miss)
             self.active[slot] = req.rid
-            self._chunk_cursor[req.rid] = 0
+            self._chunk_cursor[req.rid] = match.matched if match is not None else 0
             self._prefill_one_chunk(slot)
             return True
 
@@ -404,10 +481,7 @@ class Scheduler:
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :p] = req.prompt
         t0 = self.spans.now() if self.spans is not None else 0.0
-        # a new shape for every bucket: the whole-prompt prefill is eager
-        logits, ks, vs = self._prefill(
-            self.params, self._to_device(padded), p - 1
-        )
+        logits, ks, vs = self._run_prefill(padded, p - 1)
         self.pool.write_prefill(req.rid, ks[:, 0], vs[:, 0], n_tokens=p)
         self.stats.prefill_steps += 1
         self.stats.prefill_tokens += p
@@ -420,32 +494,53 @@ class Scheduler:
         self._start_decode(slot, req, first, t1)
         return True
 
-    def _run_chunk(self, tokens, row_table, write_rows, start: int, last: int):
-        """One prefill chunk: the captured graph of its ``start`` (captured
-        on first use), or the eager step."""
+    def _run_prefill(self, tokens: np.ndarray, last: int):
+        """The whole-prompt prefill of one bucket (``tokens`` (1, bucket)):
+        the bucket's captured graph (captured on first use), or the eager
+        step. Returns (logits, ks, vs); a graph's are its static outputs,
+        which its next replay overwrites."""
         if not self.compiled:
-            logits, self.pool.k, self.pool.v = self._chunk_prefill(
-                self.params, self._to_device(tokens), self.pool.k, self.pool.v,
-                self._to_device(row_table), self._to_device(write_rows),
-                start, last,
+            return self._prefill(
+                self.params, self._to_device(tokens), self._to_device([last])
             )
-            return logits
-        step = self._chunk_graphs.get(start)
+        step = self._prefill_graphs.get(tokens.shape[1])
         if step is None:
             # the closure holds what the graph binds, not the scheduler: a
             # scheduler and its graphs are freed when the last reference goes
+            prefill, params = self._prefill, self.params
+
+            def whole(tok, last_idx):
+                return prefill(params, tok, last_idx)
+
+            step = CapturedStep(whole, device=self.device, mempool=self._graph_pool)
+            self._prefill_graphs[tokens.shape[1]] = step
+        return step(self._host_tensor(tokens), self._host_tensor([last]))
+
+    def _run_chunk(self, tokens, row_table, write_rows, start: int, last: int):
+        """One prefill chunk: the captured chunk graph (captured on first
+        use; ``start`` and ``last`` are its device inputs, so it serves
+        every chunk), or the eager step, given the same device tensors."""
+        if not self.compiled:
+            return self._chunk_prefill(
+                self.params, self._to_device(tokens), self.pool.k, self.pool.v,
+                self._to_device(row_table), self._to_device(write_rows),
+                self._to_device([start]), self._to_device([last]),
+            )[0]
+        if self._chunk_graph is None:
             prefill, params, pk, pv = (
                 self._chunk_prefill, self.params, self.pool.k, self.pool.v
             )
 
-            def chunk(tok, table, rows, last_idx):
-                return prefill(params, tok, pk, pv, table, rows, start, last_idx)[0]
+            def chunk(tok, table, rows, start_idx, last_idx):
+                return prefill(params, tok, pk, pv, table, rows, start_idx, last_idx)[0]
 
-            step = CapturedStep(chunk, device=self.device, mempool=self._graph_pool)
-            self._chunk_graphs[start] = step
-        return step(
+            self._chunk_graph = CapturedStep(
+                chunk, device=self.device, mempool=self._graph_pool
+            )
+        return self._chunk_graph(
             self._host_tensor(tokens), self._host_tensor(row_table),
-            self._host_tensor(write_rows), self._host_tensor([last]),
+            self._host_tensor(write_rows), self._host_tensor([start]),
+            self._host_tensor([last]),
         )
 
     def _prefill_one_chunk(self, slot: int) -> None:
@@ -483,6 +578,7 @@ class Scheduler:
         rid = self.active[slot]
         req = self.requests[rid]
         req._enter(RequestState.DONE)
+        self._commit_generated(req)
         self.pool.release(rid)
         self.active[slot] = None
         self._token[slot, 0] = 0
@@ -510,15 +606,14 @@ class Scheduler:
             if self._table_dirty:
                 self._row_table_dev = self._to_device(self._row_table)
                 self._table_dirty = False
-            logits, self.pool.k, self.pool.v = self._decode(
+            return self._decode(
                 self.params,
                 self._to_device(self._token),
                 self.pool.k,
                 self.pool.v,
                 self._row_table_dev,
                 self._to_device(self._lengths),
-            )
-            return logits
+            )[0]
         if self._decode_graph is None:
             step, params, pk, pv = self._decode, self.params, self.pool.k, self.pool.v
 
@@ -600,7 +695,15 @@ class Scheduler:
             self._decode_open.clear()
         self.stats.rounds += 1
         if self.mem_monitor is not None:
-            self.mem_monitor.observe(t=self._mem_clock(), pool=self.pool)
+            self.mem_monitor.observe(
+                t=self._mem_clock(),
+                pool=self.pool,
+                evicted_blocks=(
+                    self.prefix_cache.evicted_blocks
+                    if self.prefix_cache is not None
+                    else 0
+                ),
+            )
         if self.tracker is not None:
             self._emit_round()
         if self.spans is not None:
@@ -661,6 +764,13 @@ class Scheduler:
                 residency_streamed_mib=round(
                     s.decode_steps * rp.streamed_bytes_per_step / 2**20, 6
                 ),
+            )
+        if self.prefix_cache is not None:
+            c = self.prefix_cache.stats()
+            rec.update(
+                cache_nodes=c["nodes"],
+                cache_anchors=c["anchors"],
+                cache_evicted_blocks=c["evicted_blocks"],
             )
         self.tracker.log_metrics(rec, step=s.rounds)
 

@@ -6,9 +6,9 @@ Port of ``repro.runtime.steps`` for the dense family. A step is the model
 function closed over the config; there is no buffer donation: the train
 step updates the parameters and the optimizer state in place, the pool
 steps the pool tensors. The reference jits its pool steps; the port's
-counterpart is ``CapturedStep``, which the scheduler wraps around the
-decode step and the prefill chunk on a CUDA pool. The train step and the
-whole-prompt prefill run eagerly.
+counterpart is ``CapturedStep``, which the scheduler wraps around every
+pool step on a CUDA pool: the decode step, the prefill chunk and the
+whole-prompt prefill of each bucket. The train step runs eagerly.
 """
 
 from __future__ import annotations
@@ -97,7 +97,8 @@ def make_paged_serve_step(cfg: ModelConfig) -> Callable:
 
 def make_pool_prefill_step(cfg: ModelConfig) -> Callable:
     """(params, tokens (B, S), last_idx) -> (next-token logits (B, 1, V),
-    ks, vs stacked (L, B, S, n_kv, hd)). One call fills a whole prompt."""
+    ks, vs stacked (L, B, S, n_kv, hd)). One call fills a whole prompt;
+    ``last_idx`` is an int or a one-element tensor on the tokens' device."""
 
     def step(params, tokens, last_idx):
         return lm.prefill_with_cache(params, cfg, tokens, last_idx)
@@ -108,7 +109,9 @@ def make_pool_prefill_step(cfg: ModelConfig) -> Callable:
 def make_chunk_prefill_step(cfg: ModelConfig) -> Callable:
     """(params, tokens (B, C), pool_k, pool_v, row_table (B, S_max),
     write_rows (B, C), start, last_idx) -> (logits at last_idx (B, 1, V),
-    pool_k, pool_v). One prompt chunk against the pool, written in place."""
+    pool_k, pool_v). One prompt chunk against the pool, written in place;
+    ``start`` and ``last_idx`` are ints or one-element tensors on the
+    pool's device."""
 
     def step(params, tokens, pool_k, pool_v, row_table, write_rows, start,
              last_idx):

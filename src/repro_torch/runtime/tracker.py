@@ -29,10 +29,12 @@ Record schema (``kind="metrics"``, one per round):
                           held/committed/shared/cached/evictable blocks)
                           + cumulative alloc/freed/cow counters
     residency_*           the residency plan's gauges (budgeted decode)
+    cache_*               the prefix cache's nodes, anchors and evicted
+                          blocks (with a cache attached)
 
-The port's scheduler runs none of prefix caching, speculation, MoE or
-prefill/decode handoff yet, so their deltas and gauges stay 0, as the
-reference reports them on a run without those features.
+The port's scheduler runs none of speculation, MoE or prefill/decode
+handoff yet, so their deltas stay 0, as the reference reports them on a
+run without those features.
 
 A second record kind, ``kind="span"`` (emitted via ``log_spans`` by
 ``runtime.spans.SpanRecorder``), interleaves per-request lifecycle spans

@@ -117,7 +117,8 @@ def test_cpu_pool_runs_eagerly(compiled):
         sched.submit(rng.integers(0, 100, p).astype(np.int32), 4)
     stats = sched.run()
     assert stats.completed == 2 and stats.prefill_steps == 3
-    assert sched._decode_graph is None and sched._chunk_graphs == {}
+    assert sched._decode_graph is None and sched._chunk_graph is None
+    assert sched._prefill_graphs == {} and sched.graphs == []
 
 
 def test_captured_step_needs_a_cuda_device():

@@ -324,6 +324,29 @@ def test_packed_split_plan_fills_the_card_and_splits_k_by_per(m, k, n, bits):
 
 
 @pytest.mark.parametrize(
+    "k,n,bits",
+    [(960, 2560, 2), (2560, 960, 2), (960, 960, 1), (968, 1000, 2)],
+    ids=["d_ff", "ff_d", "d_d", "ragged"],
+)
+def test_mma_plan_does_not_follow_m(k, n, bits):
+    """The tensor-core path plans its K split from K and N alone
+    (``split_plan`` at ``PLAN_ROWS`` rows), so a row's K sum is taken in
+    the same order at every M the path serves, which is what makes a
+    prompt's rows the same bits in a bucket, a chunk or after a prefix-cache
+    hit. The plan covers the sweep in whole carrier rows, and at the serve
+    shapes the chunk's M puts a block on each of the 132 SMs."""
+    sms = 132
+    splits, cps = tpm.mma_plan(k, n, sms)
+    assert (splits, cps) == tpm.split_plan(tpm.PLAN_ROWS, k, n, sms)
+    nk = -(-k // tpm.BK)
+    assert 1 <= splits <= tpm.MAX_SPLITS and (splits - 1) * cps < nk <= splits * cps
+    bounds = [min(s * cps * tpm.BK, k) for s in range(splits + 1)]
+    assert all(hi > lo and (hi - lo) % (8 // bits) == 0 for lo, hi in zip(bounds, bounds[1:]))
+    if {k, n} == {960, 2560}:
+        assert splits * -(-tpm.PLAN_ROWS // tpm.BM) * -(-n // tpm.BN) >= sms
+
+
+@pytest.mark.parametrize(
     "m,k,n,bits",
     [(8, 960, 2560, 2), (8, 960, 2560, 1), (8, 2560, 960, 2), (8, 2560, 960, 1),
      (16, 2560, 960, 2), (5, 972, 1000, 2), (3, 8, 999, 1)],

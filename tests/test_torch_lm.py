@@ -174,6 +174,103 @@ def test_prefill_chunk_paged_matches_reference(w_bits):
     _close(tv[:, 1:], np.asarray(jv)[:, 1:])
 
 
+@pytest.mark.parametrize("w_bits", [0, 2])
+@pytest.mark.parametrize("start", [0, 3, 6])
+def test_prefill_chunk_paged_device_start_is_the_int_call(w_bits, start):
+    """``start`` as a one-element tensor (the captured chunk's input, the
+    RoPE base and flash's device ``q_offset``) gives bitwise the int
+    call's logits and pool rows, and agrees with the reference."""
+    jc, tc, jp, _, params = _weights(w_bits)
+    pk, pv = _pool(jc, 32, 30 + start)
+    c, n = 8, 6
+    row_table = np.zeros((1, 16), np.int32)
+    row_table[0, :14] = np.arange(4, 18)
+    write_rows = np.zeros((1, c), np.int32)
+    write_rows[0, :n] = row_table[0, start : start + n]
+    tokens = np.zeros((1, c), np.int32)
+    tokens[0, :n] = np.random.default_rng(start).integers(0, jc.vocab, n)
+
+    def run(first):
+        tk, tv = _t(pk), _t(pv)
+        lg, _, _ = tlm.prefill_chunk_paged(
+            params, tc, _t(tokens), tk, tv, _t(row_table), _t(write_rows), first, n - 1
+        )
+        return lg, tk, tv
+
+    got = run(torch.tensor([start]))
+    want = run(start)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(run(torch.tensor(start)), want))
+    lg, _, _ = jlm.prefill_chunk_paged(
+        jp, jc, jnp.asarray(tokens), jnp.asarray(pk), jnp.asarray(pv),
+        jnp.asarray(row_table), jnp.asarray(write_rows),
+        jnp.asarray(start, jnp.int32), jnp.asarray(n - 1, jnp.int32),
+    )
+    _close(got[0], lg)
+
+
+@pytest.mark.parametrize("w_bits", [0, 2])
+@pytest.mark.parametrize("last", [0, 6, 11])
+def test_prefill_with_cache_device_last_index_is_the_int_call(w_bits, last):
+    """``last_idx`` as a one-element tensor (a bucket graph's input) gives
+    bitwise the int call's logits and K/V rows, and agrees with the
+    reference."""
+    jc, tc, jp, _, params = _weights(w_bits)
+    tokens = np.random.default_rng(last).integers(0, jc.vocab, size=(1, 12)).astype(np.int32)
+    got = tlm.prefill_with_cache(params, tc, _t(tokens), torch.tensor([last]))
+    want = tlm.prefill_with_cache(params, tc, _t(tokens), last)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    lg, _, _ = jlm.prefill_with_cache(jp, jc, jnp.asarray(tokens), last)
+    _close(got[0], lg)
+
+
+@pytest.mark.parametrize("q_offset", [0, 5, 17])
+def test_flash_fwd_ref_takes_a_tensor_q_offset(q_offset):
+    """The plain flash version with ``q_offset`` as a one-element int32
+    tensor equals the int call, causal and windowed."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_fwd_ref
+
+    g = torch.Generator().manual_seed(q_offset)
+    q = torch.randn((6, 9, 16), generator=g)
+    k = torch.randn((2, 30, 16), generator=g)
+    v = torch.randn((2, 30, 16), generator=g)
+    for window in (0, 7):
+        kw = dict(causal=True, window=window)
+        want = flash_fwd_ref(q, k, v, q_offset=q_offset, **kw)
+        dev = torch.tensor([q_offset], dtype=torch.int32)
+        for got in (flash_fwd_ref(q, k, v, q_offset=dev, **kw),
+                    fa.flash_fwd(q, k, v, q_offset=dev, **kw)):
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="one int32"):
+        fa.flash_fwd(q, k, v, q_offset=torch.tensor([q_offset]))
+
+
+def test_tensor_q_offset_is_forward_only():
+    """``ops.flash_attention`` takes a tensor ``q_offset`` without a
+    gradient (no_grad, or inputs that need none) and refuses it where one
+    would be needed, since ``flash_bwd`` takes an int; the int form is
+    differentiable."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((1, 5, 4, 8), generator=g)
+    k = torch.randn((1, 12, 2, 8), generator=g)
+    v = torch.randn((1, 12, 2, 8), generator=g)
+    off = torch.tensor([7], dtype=torch.int32)
+    want = ops.flash_attention(q, k, v, q_offset=7)
+    assert torch.equal(ops.flash_attention(q, k, v, q_offset=off), want)
+    qg = q.clone().requires_grad_()
+    with torch.no_grad():
+        assert torch.equal(ops.flash_attention(qg, k, v, q_offset=off), want)
+    with pytest.raises(ValueError, match="forward-only"):
+        ops.flash_attention(qg, k, v, q_offset=off)
+    ops.flash_attention(qg, k, v, q_offset=7).sum().backward()
+    assert qg.grad is not None and bool(torch.isfinite(qg.grad).all())
+
+
 def test_unported_family_raises():
     _, tc = _configs(0)
     with pytest.raises(ValueError, match="not ported"):

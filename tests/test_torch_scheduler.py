@@ -3,6 +3,7 @@ reference's on the same weights and submitted trace, plus the pool's
 allocator invariants and the CPU serve entry point."""
 
 import dataclasses
+import json
 
 import pytest
 
@@ -136,6 +137,43 @@ def test_serve_cli_runs_on_cpu(capsys):
     assert rc == 0
     assert "[serve/pool] 4 requests, 20 generated tokens" in out
     assert "[serve/kernels] packed_matmul 0 launches, flash_fwd 0 launches" in out
+
+
+def _serve_lines(main, argv, capsys):
+    assert main(argv) == 0
+    return capsys.readouterr().out.splitlines()
+
+
+def test_serve_cli_prefix_cache_is_on_by_default(capsys):
+    """``serve`` attaches the prefix cache unless ``--no-prefix-cache``, as
+    the reference's does, and prints the reference's ``[serve/prefix]``
+    line; its random prompts get no hits, so the two runs give the same
+    tokens. The line equals the reference's on the same trace (nothing in
+    it depends on the weights: no prompt shares a block)."""
+    from repro.launch import serve as j_serve
+
+    argv = ["--smoke", "--quant", "2", "--requests", "6", "--batch", "2",
+            "--prompt-len", "14", "--gen-len", "5", "--max-len", "24",
+            "--prefill-chunk", "8"]
+    assert serve.build_parser().parse_args([]).prefix_cache is True
+    runs = {}
+    for flag in ([], ["--no-prefix-cache"]):
+        lines = _serve_lines(serve.main, argv + flag + ["--device", "cpu"], capsys)
+        m = json.loads(next(l for l in lines if l.startswith("[serve/metrics] "))
+                       .split(" ", 1)[1])
+        runs[bool(flag)] = (lines, m)
+    (lines, m), (off_lines, off) = runs[False], runs[True]
+    for key in ("prefix_cache", "prefix_hits", "prefix_hit_tokens", "prefix_hit_rate",
+                "shared_blocks_peak"):
+        assert key in m and key in off
+    assert (m["prefix_cache"], off["prefix_cache"]) == (True, False)
+    assert m["cached_blocks"] > 0 and off["cached_blocks"] == 0
+    assert m["prefix_hits"] == off["prefix_hits"] == 0
+    assert m["outputs"] == off["outputs"]
+    prefix = [l for l in lines if l.startswith("[serve/prefix]")]
+    assert len(prefix) == 1 and not any(l.startswith("[serve/prefix]") for l in off_lines)
+    j_lines = _serve_lines(j_serve.main, argv, capsys)
+    assert prefix == [l for l in j_lines if l.startswith("[serve/prefix]")]
 
 
 def test_entry_points_do_not_fall_back_to_the_cpu():
