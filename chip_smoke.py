@@ -49,6 +49,16 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               the host-int launch at the same offset, both timed; and a
               causal 208 x 208 bucket (a partial 64-row tile) against the
               plain version.
+              The other dense archs' shapes: at each one's FFN shapes
+              (2048x8192, 2560x6912, 5120x17920 and back; bits 2) the GEMV
+              and ``stream_matmul`` at M=8 and the mma path at M=256, timed,
+              and its rows independent of M at one shape per arch; the
+              prefill's causal attention at llama's (32/8, D 64) and phi3's
+              (40/10, D 128) heads; head dim 80 (h2o-danube's 32/8 heads) on
+              both routes: causal 512, the chunk, the 4096 window at a chunk
+              past it (Sq 256 over Sk 4352 at q_offset 4096), ragged cases,
+              a device q_offset bitwise the host int, and both backward
+              passes at the gradient check's shape (timed) and ragged.
               Each serve-path kernel (the GEMV, ``packed_matmul``'s and
               ``flash_fwd``'s ``mma`` routes, ``stream_kernel``) at a
               serve shape compiled into a CUDA graph
@@ -118,6 +128,27 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               graph, and prefill tokens cut by at least 30%; a third,
               cached run with a planted fault (the copy-on-write copy
               skipped) must be seen to differ.
+4-5 (the other dense archs: llama3.2-1b, h2o-danube-1.8b, phi3-medium-14b;
+              run last, after phase 7: run after phase 5, they left phase
+              6's profiler windows short of an mvau record in two runs of
+              two), each in turn, with
+              2-bit FFN carriers unless named: the
+              512-token prefill at full width and depth 2 (2 of 16 / 24 / 40
+              layers, so the CPU's float32 side stays in seconds) in bf16 on
+              the card against float32 on the CPU; for h2o-danube a
+              depth-2 run past its 4096-token window (a 4352-token prompt in
+              256-token chunks, then 16 greedy decode steps), every chunk's
+              and step's logits against the CPU's, and the CPU without the
+              window beside it; ``init_params`` at full width and depth
+              (seconds, host memory, device MiB); its decode step and
+              prefill chunk captured, each replay bitwise its eager step;
+              a compiled decode step and prefill chunk profiled (card ms);
+              the serve cell (16 x (512 + 64), 8 lanes, --prefill-chunk 256,
+              --max-len 640, the prefix cache on) at --quant 2 on those
+              weights, eagerly and compiled in turns (identical tokens and
+              launches by route: prefill on the tensor-core kernels, decode
+              on the GEMV, never an f32 route or stream_matmul), and at
+              --quant 0 compiled through ``serve.main`` (its own weights).
 6. cnn     -- the paper's CNV at full width (w1a2, then w2a2), random
               weights with randomised BN statistics and 256 random images
               from a seed: ``cnn_forward_streamlined`` on the card against
@@ -141,7 +172,11 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               one train step under torch.profiler (host ms against the
               card's kernel ms, the largest kernels, flash's share); a
               checkpoint of the trained state saved and restored into
-              fresh modules on the card, bit for bit.
+              fresh modules on the card, bit for bit. Last, h2o-danube's
+              gradient check at full width and depth 2 (head dim 80: both
+              ``flash_bwd`` passes on their tensor-core kernels).
+
+A ``seconds`` line follows each phase (and each new arch).
 
 The last lines are nvidia-smi's, then ``{"kernels": [...]}``, then
 ``{"ok": true, "device": {...}}``.
@@ -153,6 +188,7 @@ import contextlib
 import dataclasses
 import hashlib
 import io
+import itertools
 import json
 import math
 import os
@@ -161,6 +197,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -215,6 +252,9 @@ GRAD_DEPTH, GRAD_BATCH, GRAD_SEQ = 4, 2, 256
 GRAD_LOSS_RTOL = 2e-2  # bf16 weights and activations on the card vs float32 on the CPU
 GRAD_MIN_COS = 0.99  # the same, per gradient leaf
 REMAT_MIN_COS = 0.9999  # --remat full/dots vs none on the card: atomics order only
+# the other dense archs, each served at full width and depth (phases 4-5)
+NEW_ARCHS = ("llama3p2_1b", "h2o_danube_1p8b", "phi3_medium_14b")
+WINDOW_STEPS = 16  # decode steps of h2o-danube's run past its window
 
 
 def fail(msg: str) -> None:
@@ -316,6 +356,17 @@ def main(argv: list[str] | None = None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+
+    clock = [time.monotonic()] * 2  # the run's start, the last phase's end
+
+    def phase_seconds(name: str) -> None:
+        """The phase's seconds, the run's, and the card's memory after it."""
+        now = time.monotonic()
+        phase("seconds", done=name, seconds=now - clock[1], run_seconds=now - clock[0],
+              device_allocated_mib=torch.cuda.memory_allocated() / 2**20,
+              device_reserved_mib=torch.cuda.memory_reserved() / 2**20,
+              device_peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+        clock[1] = now
 
     # ---------------- 1. device ----------------
     smi = nvidia_smi()
@@ -460,6 +511,60 @@ def main(argv: list[str] | None = None) -> int:
         del graph, kg, vg
         return outs
 
+    def logits_vs_cpu(a, b, label, **fields) -> dict:
+        """Next-token logits from the card (``a``) against the CPU's (``b``):
+        their cosine >= PREFILL_MIN_COS and the card's top-1 token within
+        PREFILL_TOP1_SLACK of the CPU's max logit, or the run fails."""
+        a, b = a.float().cpu(), b.float()
+        cos = F.cosine_similarity(a, b, dim=0).item()
+        top_gpu, top_cpu = int(a.argmax()), int(b.argmax())
+        slack = (b.max() - b[top_gpu]).item()
+        out = dict(**fields, cosine=cos, top1_card=top_gpu, top1_cpu=top_cpu,
+                   top1_cpu_logit_gap=slack, max_abs_logit_err=(a - b).abs().max().item())
+        if not (cos >= PREFILL_MIN_COS and slack <= PREFILL_TOP1_SLACK):
+            fail(f"{label} card vs CPU: cosine {cos}, top-1 gap {slack}")
+        return out
+
+    def cpu_copy(c, params):
+        """The config and weights in float32 on the CPU (the same weights)."""
+        cpu_c = dataclasses.replace(c, dtype="float32")
+        return cpu_c, params_from_reference(_to_cpu(params.tree()), cpu_c, device="cpu",
+                                            dtype=torch.float32)
+
+    def prefill_vs_cpu(c, params, **fields) -> None:
+        """``prefill_with_cache`` on a PROMPT-token prompt in bf16 on the
+        card against float32 on the CPU, same weights (``logits_vs_cpu``)."""
+        cpu_c, cpu_params = cpu_copy(c, params)
+        tokens = torch.from_numpy(
+            np.random.default_rng(0).integers(0, c.vocab, size=(1, PROMPT))
+        )
+        t0 = time.monotonic()
+        lg_gpu, ks, _ = lm.prefill_with_cache(params, c, tokens.to(dev), PROMPT - 1)
+        torch.cuda.synchronize()
+        gpu_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        lg_cpu, _, _ = lm.prefill_with_cache(cpu_params, cpu_c, tokens, PROMPT - 1)
+        cpu_s = time.monotonic() - t0
+        out = logits_vs_cpu(lg_gpu[0, 0, : c.vocab], lg_cpu[0, 0, : c.vocab],
+                            f"prefill {c.name}", **fields, tokens=PROMPT)
+        phase("prefill", **out, card_s=gpu_s, cpu_s=cpu_s,
+              kv_rows_finite=bool(torch.isfinite(ks).all()))
+
+    def chunk_profile(step) -> dict:
+        """``profile_window`` of a prefill chunk, its card ms split into
+        ``flash_fwd``, ``packed_matmul`` and the rest."""
+        stats, by_name = profile_window(step)
+        split = {"flash_fwd": 0.0, "packed_matmul": 0.0, "rest": 0.0}
+        for name, ms in by_name.items():
+            if "flash_fwd" in name:
+                split["flash_fwd"] += ms
+            elif any(k in name for k in ("mma_kernel<", "tiled_kernel<", "gemv_kernel<")):
+                split["packed_matmul"] += ms
+            else:
+                split["rest"] += ms
+        return dict(**stats, device_ms_by_kernel=split,
+                    top_kernels_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6]))
+
     def prefill_phase():
         """Phase 4's prefill: smollm-360m at full width and depth with 2-bit
         FFN carriers, ``prefill_with_cache`` on a 512-token prompt in bf16
@@ -470,31 +575,7 @@ def main(argv: list[str] | None = None) -> int:
         ``packed_matmul`` and the rest. Returns (params, config)."""
         cfg2 = dataclasses.replace(get_config("smollm_360m"), w_bits=2)
         params = lm.init_params(cfg2, 0, device=dev)
-        cpu_cfg = dataclasses.replace(cfg2, dtype="float32")
-        cpu_params = params_from_reference(
-            _to_cpu(params.tree()), cpu_cfg, device="cpu", dtype=torch.float32
-        )
-        tokens = torch.from_numpy(
-            np.random.default_rng(0).integers(0, cfg2.vocab, size=(1, PROMPT))
-        )
-        t0 = time.monotonic()
-        lg_gpu, ks, _ = lm.prefill_with_cache(params, cfg2, tokens.to(dev), PROMPT - 1)
-        torch.cuda.synchronize()
-        gpu_s = time.monotonic() - t0
-        t0 = time.monotonic()
-        lg_cpu, _, _ = lm.prefill_with_cache(cpu_params, cpu_cfg, tokens, PROMPT - 1)
-        cpu_s = time.monotonic() - t0
-        a = lg_gpu[0, 0, : cfg2.vocab].float().cpu()
-        b = lg_cpu[0, 0, : cfg2.vocab]
-        cos = F.cosine_similarity(a, b, dim=0).item()
-        top_gpu, top_cpu = int(a.argmax()), int(b.argmax())
-        slack = (b.max() - b[top_gpu]).item()
-        phase("prefill", tokens=PROMPT, cosine=cos, top1_card=top_gpu, top1_cpu=top_cpu,
-              top1_cpu_logit_gap=slack, max_abs_logit_err=(a - b).abs().max().item(),
-              card_s=gpu_s, cpu_s=cpu_s, kv_rows_finite=bool(torch.isfinite(ks).all()))
-        if not (cos >= PREFILL_MIN_COS and slack <= PREFILL_TOP1_SLACK):
-            fail(f"prefill card vs CPU: cosine {cos}, top-1 gap {slack}")
-        del cpu_params, ks
+        prefill_vs_cpu(cfg2, params)
 
         pk = torch.zeros((cfg2.n_layers, MAX_LEN + 16, cfg2.n_kv, cfg2.hd),
                          dtype=torch.bfloat16, device=dev)
@@ -527,18 +608,8 @@ def main(argv: list[str] | None = None) -> int:
         # eager and compiled in turns: the host's speed drifts within a call
         for compiled, step in ((False, chunk_step), (True, chunk_graph_step),
                                (True, chunk_graph_step), (False, chunk_step)):
-            stats, by_name = profile_window(step)
-            split = {"flash_fwd": 0.0, "packed_matmul": 0.0, "rest": 0.0}
-            for name, ms in by_name.items():
-                if "flash_fwd" in name:
-                    split["flash_fwd"] += ms
-                elif any(k in name for k in ("mma_kernel<", "tiled_kernel<", "gemv_kernel<")):
-                    split["packed_matmul"] += ms
-                else:
-                    split["rest"] += ms
             phase("prefill_profile", src=str(opts.src), compiled=compiled, chunk=CHUNK,
-                  start=CHUNK, pool_rows=MAX_LEN, **stats, device_ms_by_kernel=split,
-                  top_kernels_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6]))
+                  start=CHUNK, pool_rows=MAX_LEN, **chunk_profile(step))
         del chunk_graph, pk, pv
         rows0 = (cfg2.n_layers, MAX_LEN + 16, cfg2.n_kv, cfg2.hd)
         hold_gen = torch.Generator(device="cpu").manual_seed(4)
@@ -609,6 +680,8 @@ def main(argv: list[str] | None = None) -> int:
         prefill_phase()
         print("[chip_smoke] --only prefill: stopped after the prefill profile", file=sys.stderr)
         return 0
+
+    phase_seconds("1-2 device, build")
 
     # ---------------- 3. kernels vs their plain versions ----------------
     cfg = get_config("smollm_360m")
@@ -703,22 +776,26 @@ def main(argv: list[str] | None = None) -> int:
     # after a prefix-cache hit), and the GEMV's at M 1-15 to its M=16 rows
     inv_gen = torch.Generator(device="cpu").manual_seed(6)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def rows_do_not_follow_m(bits, k, n, g, arch="smollm_360m"):
+        w = lm.make_packed(torch.randn((k, n), generator=g).to(dev), bits)
+        x = torch.randn((CHUNK, k), generator=g).to(dev, torch.bfloat16)
+        full = pm.packed_matmul(x, w["packed"], w["scale"], bits, k)
+        small = pm.packed_matmul(x[:16], w["packed"], w["scale"], bits, k)
+        mma_off = [m for m in INVARIANT_MS if not same_bits(
+            pm.packed_matmul(x[:m], w["packed"], w["scale"], bits, k), full[:m])]
+        gemv_off = [m for m in range(1, 16) if not same_bits(
+            pm.packed_matmul(x[:m], w["packed"], w["scale"], bits, k), small[:m])]
+        phase("packed_matmul_rows_do_not_follow_m", arch=arch, bits=bits, k=k, n=n,
+              mma_ms=INVARIANT_MS, mma_splits=pm.mma_plan(k, n, sms)[0],
+              mma_ms_whose_rows_differ=mma_off, gemv_ms_whose_rows_differ=gemv_off)
+        if mma_off or gemv_off:
+            fail(f"packed_matmul bits={bits} K={k} N={n}: rows follow M (mma at M "
+                 f"{mma_off}, GEMV at M {gemv_off})")
+
     for bits in (1, 2):
         for k, n in ((d, ff), (ff, d)):
-            w = lm.make_packed(torch.randn((k, n), generator=inv_gen).to(dev), bits)
-            x = torch.randn((CHUNK, k), generator=inv_gen).to(dev, torch.bfloat16)
-            full = pm.packed_matmul(x, w["packed"], w["scale"], bits, k)
-            small = pm.packed_matmul(x[:16], w["packed"], w["scale"], bits, k)
-            mma_off = [m for m in INVARIANT_MS if not same_bits(
-                pm.packed_matmul(x[:m], w["packed"], w["scale"], bits, k), full[:m])]
-            gemv_off = [m for m in range(1, 16) if not same_bits(
-                pm.packed_matmul(x[:m], w["packed"], w["scale"], bits, k), small[:m])]
-            phase("packed_matmul_rows_do_not_follow_m", bits=bits, k=k, n=n,
-                  mma_ms=INVARIANT_MS, mma_splits=pm.mma_plan(k, n, sms)[0],
-                  mma_ms_whose_rows_differ=mma_off, gemv_ms_whose_rows_differ=gemv_off)
-            if mma_off or gemv_off:
-                fail(f"packed_matmul bits={bits} K={k} N={n}: rows follow M (mma at M "
-                     f"{mma_off}, GEMV at M {gemv_off})")
+            rows_do_not_follow_m(bits, k, n, inv_gen)
     # what the timing method itself shows for a launch that does almost
     # nothing: the floor under the ~10 us kernel times above
     one = torch.empty(1, device=dev)
@@ -779,7 +856,7 @@ def main(argv: list[str] | None = None) -> int:
                 lambda: F.scaled_dot_product_attention(
                     q4, k4, v4, attn_mask=mask, enable_gqa=True
                 )
-            ) if label != "prefill_causal" else median_ms(
+            ) if not (causal and not window and q_off == 0 and sq == sk) else median_ms(
                 lambda: F.scaled_dot_product_attention(
                     q4, k4, v4, is_causal=True, enable_gqa=True
                 )
@@ -859,14 +936,14 @@ def main(argv: list[str] | None = None) -> int:
         return int(vis.sum())
 
     def flash_bwd_case(label, b, h, h_kv, sq, sk, dh, dt, timed=False,
-                       causal=True, window=0, q_off=0):
+                       causal=True, window=0, q_off=0, g=gen):
         """Both passes on the card against ``flash_bwd_dq_ref`` /
         ``flash_bwd_dkv_ref`` in f32 on the same inputs (the bf16 tensors
         upcast): every output within FLASH_BWD_TOL of its largest value."""
-        q = torch.randn((b * h, sq, dh), generator=gen).to(dev, dt)
-        kk = torch.randn((b * h_kv, sk, dh), generator=gen).to(dev, dt)
-        vv = torch.randn((b * h_kv, sk, dh), generator=gen).to(dev, dt)
-        do = torch.randn((b * h, sq, dh), generator=gen).to(dev, dt)
+        q = torch.randn((b * h, sq, dh), generator=g).to(dev, dt)
+        kk = torch.randn((b * h_kv, sk, dh), generator=g).to(dev, dt)
+        vv = torch.randn((b * h_kv, sk, dh), generator=g).to(dev, dt)
+        do = torch.randn((b * h, sq, dh), generator=g).to(dev, dt)
         kw = dict(causal=causal, window=window, q_offset=q_off)
         out, lse = fa.flash_fwd(q, kk, vv, **kw)
         dq, delta = fa.flash_bwd_dq(q, kk, vv, out, lse, do, **kw)
@@ -898,13 +975,14 @@ def main(argv: list[str] | None = None) -> int:
         # each input read once, each output written once
         dq_bytes = e * (4 * q.numel() + 2 * kk.numel()) + 8 * lse.numel()
         dkv_bytes = e * (2 * q.numel() + 4 * kk.numel()) + 8 * lse.numel()
-        dq_bound, dq_by = bound_ms(dq_bytes, 6.0 * dh * pairs)
-        dkv_bound, dkv_by = bound_ms(dkv_bytes, 8.0 * dh * pairs)
+        peak = BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS
+        dq_bound, dq_by = bound_ms(dq_bytes, 6.0 * dh * pairs, peak)
+        dkv_bound, dkv_by = bound_ms(dkv_bytes, 8.0 * dh * pairs, peak)
         # the library's yardstick: one backward of SDPA (dq, dk and dv together)
         q4 = q.reshape(b, h, sq, dh).detach().requires_grad_()
         k4 = kk.reshape(b, h_kv, sk, dh).detach().requires_grad_()
         v4 = vv.reshape(b, h_kv, sk, dh).detach().requires_grad_()
-        o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True, enable_gqa=True)
+        o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal, enable_gqa=True)
         do4 = do.reshape(b, h, sq, dh)
         library = median_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True))
         dq_case = dict(
@@ -1247,6 +1325,60 @@ def main(argv: list[str] | None = None) -> int:
         )
     ]
 
+    # ---- the other dense archs' shapes, from a generator of their own ----
+    arch_gen = torch.Generator(device="cpu").manual_seed(8)
+    for arch in NEW_ARCHS:
+        ac = get_config(arch)
+        depth2 = stream_ahead_depth(dataclasses.replace(ac, w_bits=2))
+        # the FFN at 2 bits: decode (the GEMV, and stream_matmul on budgeted
+        # layers) and a prefill chunk (the mma path)
+        for k, n in ((ac.d_model, ac.d_ff), (ac.d_ff, ac.d_model)):
+            packed_case(2, LANES, k, n, bf16, timed=True, g=arch_gen)
+            packed_case(2, CHUNK, k, n, bf16, timed=True, g=arch_gen)
+            stream_cases.append(stream_case(LANES, k, n, 2, depth2, timed=True, g=arch_gen))
+        rows_do_not_follow_m(2, ac.d_model, ac.d_ff, arch_gen, arch)
+        if ac.hd != 80:  # the prefill's attention at the arch's heads (D 80 below)
+            flash_case(f"{arch}_prefill_causal", ac.n_heads, ac.n_kv, PROMPT, PROMPT, ac.hd,
+                       True, 0, 0, bf16, True, g=arch_gen)
+    # head dim 80 (h2o-danube's 32 / 8 heads) on both routes: the prefill, the
+    # serve chunk, the window (4096) at a chunk past it, a ragged case, and
+    # the device q_offset bitwise the host int
+    dn = get_config("h2o_danube_1p8b")
+    w80 = dn.sliding_window
+    for dt in (bf16, torch.float32):
+        flash_case("d80_prefill_causal", dn.n_heads, dn.n_kv, PROMPT, PROMPT, 80, True, 0, 0,
+                   dt, True, g=arch_gen)
+        flash_case("d80_chunk_q_offset", dn.n_heads, dn.n_kv, CHUNK, MAX_LEN, 80, True, 0,
+                   CHUNK, dt, True, g=arch_gen)
+        flash_case("d80_window_past_it", dn.n_heads, dn.n_kv, CHUNK, w80 + CHUNK, 80, True,
+                   w80, w80, dt, True, g=arch_gen)
+        flash_case("d80_ragged_q_offset", 6, 2, 77, 333, 80, True, 0, 256, dt, False, g=arch_gen)
+        flash_case("d80_ragged_window", 4, 2, 130, 130, 80, True, 17, 0, dt, False, g=arch_gen)
+        qc, kc, vc = (torch.randn((h_, n_, 80), generator=arch_gen).to(dev, dt)
+                      for h_, n_ in ((dn.n_heads, CHUNK), (dn.n_kv, MAX_LEN), (dn.n_kv, MAX_LEN)))
+        for start in (37, CHUNK):
+            dev_off = torch.tensor([start], dtype=torch.int32, device=dev)
+            host = fa.flash_fwd(qc, kc, vc, causal=True, q_offset=start)
+            on_dev = fa.flash_fwd(qc, kc, vc, causal=True, q_offset=dev_off)
+            torch.cuda.synchronize()
+            same = all(map(same_bits, on_dev, host))
+            case = dict(case="d80_device_q_offset", sq=CHUNK, sk=MAX_LEN, heads=dn.n_heads,
+                        kv_heads=dn.n_kv, d=80, dtype=str(dt).replace("torch.", ""),
+                        q_offset=start, bitwise_equal_to_host_int=same)
+            q_offset_cases.append(case)
+            phase("kernel", name="flash_fwd", check_only=True, **case)
+            if not same:
+                fail(f"flash_fwd D 80 {dt} device q_offset {start}: differs from the host int")
+    # both backward passes at D 80, at the gradient check's shape (timed), and
+    # a windowed ragged case at a q_offset (the dk/dv pass stages 64 rows)
+    d80_bwd = []
+    for dt in (bf16, torch.float32):
+        d80_bwd.append(flash_bwd_case("d80_grad_causal", GRAD_BATCH, dn.n_heads, dn.n_kv,
+                                      GRAD_SEQ, GRAD_SEQ, 80, dt, timed=True, g=arch_gen))
+        flash_bwd_case("d80_window_q_offset", 1, 4, 2, 130, 200, 80, dt, False, True, 17, 70,
+                       g=arch_gen)
+
+    phase_seconds("3 kernels")
     if opts.only == "kernels":
         print("[chip_smoke] --only kernels: stopped after phase 3", file=sys.stderr)
         return 0
@@ -1279,7 +1411,7 @@ def main(argv: list[str] | None = None) -> int:
         already on the card."""
         kw = decode_kw(c, plan)
         rows = LANES * MAX_LEN + 16
-        pk = torch.zeros((c.n_layers, rows, hkv, hd), dtype=torch.bfloat16, device=dev)
+        pk = torch.zeros((c.n_layers, rows, c.n_kv, c.hd), dtype=torch.bfloat16, device=dev)
         pv = torch.zeros_like(pk)
         table = (16 + torch.arange(LANES * MAX_LEN, device=dev)).reshape(LANES, MAX_LEN)
         tok = torch.zeros((LANES, 1), dtype=torch.long, device=dev)
@@ -1351,6 +1483,8 @@ def main(argv: list[str] | None = None) -> int:
     phase("decode_profile", **profile_decode(params0, cfg, compiled=True))
     del params0
 
+    phase_seconds("4 prefill and decode, smollm-360m")
+
     # ---------------- 5. serve at full width and depth ----------------
     from repro_torch.runtime.memledger import validate_ledger
     from repro_torch.runtime.spans import decompose, request_spans, validate_trace
@@ -1418,8 +1552,58 @@ def main(argv: list[str] | None = None) -> int:
         del eparams
         return metrics, counts, by_route
 
+    def serve_main(argv, label) -> tuple[dict, dict, dict]:
+        """``serve.main(argv)``, launch counters reset just before and read
+        just after: its ``[serve/metrics]``, the counts and the counts by
+        route; the rest of its output goes to stderr."""
+        buf = io.StringIO()
+        ops.reset_launch_counts()
+        with contextlib.redirect_stdout(buf):
+            rc = serve.main(argv)
+        counts, by_route = ops.launch_counts(), ops.launch_routes()
+        text = buf.getvalue()
+        sys.stderr.write("".join(l + "\n" for l in text.splitlines()
+                                 if not l.startswith("[serve/metrics] ")))
+        if rc != 0:
+            fail(f"{label} exited {rc}")
+        metrics = json.loads(next(l for l in text.splitlines()
+                                  if l.startswith("[serve/metrics] ")).split(" ", 1)[1])
+        return metrics, counts, by_route
+
     def outputs_of(metrics):
         return {int(rid): toks for rid, toks in metrics["outputs"].items()}
+
+    def check_pool_run(label, metrics, counts, by_route, quant, compiled,
+                       streamed_layers=0, residency=None) -> None:
+        """A serve cell run: every request done; 2 graphs (the decode step,
+        one chunk graph for every start) and every other step a replay when
+        compiled; the prefix cache on by default; prefill on the tensor-core
+        kernels, decode on the GEMV at 2 bits, no f32 route, no backward
+        kernel; ``stream_matmul`` 3 times a step for each of
+        ``streamed_layers``, and the plan's ``residency`` where a budget
+        set one."""
+        if metrics["completed"] != 16 or metrics["generated_tokens"] != 16 * 64:
+            fail(f"{label}: {metrics['completed']} completed, "
+                 f"{metrics['generated_tokens']} tokens")
+        if compiled and not (metrics["compiled"] and metrics["graphs"] == 2 and
+                             metrics["graph_replays"] == metrics["steps"] - metrics["graphs"]):
+            fail(f"{label}: compiled {metrics['compiled']}, {metrics['graphs']} graphs, "
+                 f"{metrics['graph_replays']} replays of {metrics['steps']} steps: want the "
+                 "decode step and one chunk graph for every start, every other step a replay")
+        if not metrics["prefix_cache"]:
+            fail(f"{label}: the prefix cache is not on by default")
+        if residency is not None and metrics["residency"] != residency:
+            fail(f"{label}: residency {metrics['residency']} is not the plan's {residency}")
+        want_stream = 3 * streamed_layers * metrics["decode_steps"]
+        if counts["stream_matmul"] != want_stream:
+            fail(f"{label}: stream_matmul launched {counts['stream_matmul']} times, not "
+                 f"3 x {streamed_layers} x {metrics['decode_steps']} = {want_stream}")
+        want_pm = {"mma", "gemv"} if quant else set()
+        pm_routes = by_route.get("packed_matmul", {})
+        if (set(pm_routes) != want_pm or min(pm_routes.values(), default=1) <= 0
+                or by_route.get("flash_fwd", {}).keys() != {"mma"}
+                or counts["flash_bwd_dq"] or counts["flash_bwd_dkv"]):
+            fail(f"{label}: launches {counts}, by route {by_route}")
 
     for quant in (2, 0):
         qcfg = dataclasses.replace(cfg, w_bits=quant)
@@ -1444,60 +1628,15 @@ def main(argv: list[str] | None = None) -> int:
                 if mode == "eager":
                     metrics, counts, by_route = eager_serve(run_argv)
                 else:
-                    buf = io.StringIO()
-                    ops.reset_launch_counts()
-                    with contextlib.redirect_stdout(buf):
-                        rc = serve.main(run_argv)
-                    counts = ops.launch_counts()
-                    by_route = ops.launch_routes()
-                    text = buf.getvalue()
-                    sys.stderr.write("".join(l + "\n" for l in text.splitlines()
-                                             if not l.startswith("[serve/metrics] ")))
-                    if rc != 0:
-                        fail(f"serve --quant {quant} --vmem-budget {budget} exited {rc}")
-                    metrics = json.loads(
-                        next(l for l in text.splitlines() if l.startswith("[serve/metrics] "))
-                        .split(" ", 1)[1]
-                    )
-                    if not metrics["compiled"] or metrics["graphs"] != 2:
-                        fail(f"serve --quant {quant} --vmem-budget {budget}: {metrics['graphs']} "
-                             f"graphs, compiled {metrics['compiled']}: want the decode step "
-                             f"and one chunk graph for every start")
-                    if not metrics["prefix_cache"]:
-                        fail(f"serve --quant {quant}: the prefix cache is not on by default")
-                    # every decode step and chunk but each graph's first (eager) call
-                    # is a replay
-                    if metrics["graph_replays"] != (metrics["steps"] - metrics["graphs"]):
-                        fail(f"serve --quant {quant} --vmem-budget {budget}: "
-                             f"{metrics['graph_replays']} replays of {metrics['steps']} steps")
+                    metrics, counts, by_route = serve_main(
+                        run_argv, f"serve --quant {quant} --vmem-budget {budget}")
                     for name, n in counts.items():
                         launches[name] += n
                     add_routes(by_route)
                 label = f"serve --quant {quant} --vmem-budget {budget} ({mode})"
-                if metrics["completed"] != 16 or metrics["generated_tokens"] != 16 * 64:
-                    fail(f"{label}: {metrics['completed']} completed, "
-                         f"{metrics['generated_tokens']} tokens")
-                if budget:
-                    if metrics["residency"] != plan.summary():
-                        fail(f"{label}: residency {metrics['residency']} "
-                             f"is not the plan's {plan.summary()}")
-                    want = 3 * n_streamed * metrics["decode_steps"]
-                    if counts["stream_matmul"] != want:
-                        fail(f"{label}: stream_matmul launched "
-                             f"{counts['stream_matmul']} times, not 3 x {n_streamed} x "
-                             f"{metrics['decode_steps']} = {want}")
-                elif counts["stream_matmul"]:
-                    fail(f"{label}: unbudgeted, launched stream_matmul")
-                if quant == 2 and min(counts["packed_matmul"], counts["flash_fwd"]) <= 0:
-                    fail(f"{label}: skipped a kernel: {counts}")
-                # bf16 prefill takes both tensor-core kernels, decode the GEMV
-                pm_routes = by_route.get("packed_matmul", {})
-                fa_routes = by_route.get("flash_fwd", {})
-                if quant == 2 and not (pm_routes.get("mma", 0) > 0
-                                       and set(pm_routes) <= {"mma", "gemv"}):
-                    fail(f"{label}: packed_matmul routes {pm_routes}")
-                if set(fa_routes) != {"mma"}:
-                    fail(f"{label}: flash_fwd routes {fa_routes}")
+                check_pool_run(label, metrics, counts, by_route, quant, mode == "compiled",
+                               streamed_layers=n_streamed if budget else 0,
+                               residency=plan.summary() if budget else None)
                 trace_check = check_trace(trace, metrics, label) if traced else None
                 by_mode[mode] = dict(metrics=metrics, counts=counts, by_route=by_route,
                                      trace=trace_check)
@@ -1539,6 +1678,36 @@ def main(argv: list[str] | None = None) -> int:
 
     cfg_q2 = dataclasses.replace(cfg, w_bits=2)
     params_q2 = lm.init_params(cfg_q2, 0, device=dev)
+
+    def init_diff(card, other, bits) -> dict:
+        """``card``'s leaves against ``other``'s, tree by tree: the dense
+        leaves that differ in any bit, the packed codes that differ and the
+        largest difference of a packed scale."""
+        out = dict(dense_leaves_differing=0, codes_differing=0, max_abs_scale_diff=0.0)
+        for name, a in card.items():
+            b = other[name]
+            if isinstance(a, dict) and "packed" not in a:
+                for key, v in init_diff(a, b, bits).items():
+                    out[key] = max(out[key], v) if key.startswith("max") else out[key] + v
+            elif isinstance(a, dict):
+                codes = lm._unpack_codes(b["packed"].to(dev), bits)
+                out["codes_differing"] += int((lm._unpack_codes(a["packed"], bits) != codes).sum())
+                out["max_abs_scale_diff"] = max(out["max_abs_scale_diff"], (
+                    a["scale"] - b["scale"].to(dev)).abs().max().item())
+            else:
+                out["dense_leaves_differing"] += int(not same_bits(a, b.to(dev)))
+        return out
+
+    # the packed weights do not depend on the device they were drawn for,
+    # nor on whether a dense draw was packed later (as the other archs are)
+    across = dict(
+        cpu_init=init_diff(params_q2.tree(), lm.init_params(cfg_q2, 0, device="cpu").tree(), 2),
+        card_dense_packed=init_diff(params_q2.tree(), lm.pack_ffn_params(
+            lm.init_params(cfg, 0, device=dev), 2).tree(), 2))
+    phase("init_across_devices", arch=cfg.name, w_bits=2, card_init_vs=across)
+    if any(v for diff in across.values() for v in diff.values()):
+        fail(f"{cfg.name} w_bits 2: the card's init differs: {across}")
+    torch.cuda.empty_cache()
 
     def drive(sched, waves, gen) -> dict:
         """Each wave submitted, then rounds until it drains, launch counters
@@ -1837,6 +2006,209 @@ def main(argv: list[str] | None = None) -> int:
              f"{warm['chunk_graphs']}, prefill cut {cut}, cow copies {warm['cow_copies']}")
     del params_q2
 
+    # ------- 4-5 for the other dense archs, at full width (and depth) -------
+    page = os.sysconf("SC_PAGE_SIZE")
+
+    def rss() -> int:
+        with open("/proc/self/statm") as fh:
+            return int(fh.read().split()[1]) * page
+
+    def timed_init(c) -> tuple:
+        """``lm.init_params(c, 0)`` on the card: the weights, and the seconds
+        it took (to the card's finish), the host's resident memory at its
+        start and at its peak (sampled every 20 ms; memory freed by earlier
+        phases and kept by the host allocator is reused, so the peak may not
+        rise) and the weights' device MiB."""
+        base, peak, done = rss(), [0], threading.Event()
+
+        def sample():
+            while not done.wait(0.02):
+                peak[0] = max(peak[0], rss())
+
+        sampler = threading.Thread(target=sample)
+        sampler.start()
+        dev0 = torch.cuda.memory_allocated()
+        t0 = time.monotonic()
+        try:
+            p = lm.init_params(c, 0, device=dev)
+            torch.cuda.synchronize()
+            init_s = time.monotonic() - t0
+        finally:
+            done.set()
+            sampler.join()
+        return p, dict(init_s=init_s, init_host_rss_mib_start=base / 2**20,
+                       init_host_rss_mib_peak=max(peak[0], rss()) / 2**20,
+                       weights_mib=(torch.cuda.memory_allocated() - dev0) / 2**20)
+
+    def window_vs_cpu(c, params) -> None:
+        """Past the sliding window: a (window + CHUNK)-token prompt in
+        CHUNK-token chunks, then WINDOW_STEPS greedy decode steps (the
+        card's tokens fed to every side), in bf16 on the card against
+        float32 on the CPU with the same weights; each chunk's and step's
+        logits held by ``logits_vs_cpu``. The CPU also runs without the
+        window: past it, the card must be closer to the windowed CPU than
+        the unwindowed CPU is (the mask moves the logits more than bf16
+        does)."""
+        w = c.sliding_window
+        n_prompt = w + CHUNK
+        total = n_prompt + WINDOW_STEPS
+        cpu_c, cpu_p = cpu_copy(c, params)
+        prompt = torch.from_numpy(
+            np.random.default_rng(9).integers(0, c.vocab, size=(1, n_prompt)))
+        table = (16 + torch.arange(total))[None]
+        sides = {"card": (c, params, dev), "cpu": (cpu_c, cpu_p, "cpu"),
+                 "cpu_no_window": (dataclasses.replace(cpu_c, sliding_window=0), cpu_p, "cpu")}
+        pools = {name: [torch.zeros((c.n_layers, total + 16, c.n_kv, c.hd),
+                                    dtype=lm.torch_dtype(sc), device=sd) for _ in range(2)]
+                 for name, (sc, _, sd) in sides.items()}
+        logits = {name: [] for name in sides}
+        t0 = time.monotonic()
+        for s0 in range(0, n_prompt, CHUNK):
+            for name, (sc, sp, sd) in sides.items():
+                lg, _, _ = lm.prefill_chunk_paged(
+                    sp, sc, prompt[:, s0:s0 + CHUNK].to(sd), *pools[name], table.to(sd),
+                    table[:, s0:s0 + CHUNK].to(sd), s0, CHUNK - 1)
+                logits[name].append(lg[0, 0, : c.vocab].float().cpu())
+        for i in range(WINDOW_STEPS):
+            tok = logits["card"][-1].argmax().reshape(1, 1)
+            for name, (sc, sp, sd) in sides.items():
+                lg, _, _ = lm.decode_step_paged(sp, sc, tok.to(sd), *pools[name], table.to(sd),
+                                                torch.tensor([n_prompt + i], device=sd))
+                logits[name].append(lg[0, 0, : c.vocab].float().cpu())
+        positions = [s0 + CHUNK - 1 for s0 in range(0, n_prompt, CHUNK)] + [
+            n_prompt + i for i in range(WINDOW_STEPS)]
+        held = [logits_vs_cpu(a, b, f"{c.name} past its window", position=pos)
+                for pos, a, b in zip(positions, logits["card"], logits["cpu"])]
+        past = [i for i, pos in enumerate(positions) if pos >= w]
+        err_past = max(held[i]["max_abs_logit_err"] for i in past)
+        moves = min((logits["cpu"][i] - logits["cpu_no_window"][i]).abs().max().item()
+                    for i in past)
+        phase("window", arch=c.name, layers=c.n_layers, window=w, prompt=n_prompt, chunk=CHUNK,
+              decode_steps=WINDOW_STEPS, positions_held=len(held), positions_past_window=len(past),
+              min_cosine=min(h["cosine"] for h in held),
+              max_top1_cpu_logit_gap=max(h["top1_cpu_logit_gap"] for h in held),
+              max_abs_logit_err=max(h["max_abs_logit_err"] for h in held),
+              max_abs_logit_err_past_window=err_past,
+              window_moves_cpu_logits_min_over_positions=moves,
+              seconds=time.monotonic() - t0)
+        if not err_past < moves:
+            fail(f"{c.name} past its window: the card is {err_past} from the windowed CPU, "
+                 f"the unwindowed CPU only {moves}")
+
+    def serve_arch(arch) -> None:
+        """Phases 4 and 5 for one of the other dense archs: its prefill at
+        full width and depth 2 against the CPU (and h2o-danube's run past its
+        window); the serve cell at --quant 0 on one dense draw at full width
+        and depth; that draw's FFN leaves packed (``pack_ffn_params``,
+        bitwise ``init_params`` at w_bits 2); its decode step and prefill
+        chunk captured, each replay bitwise its eager step; then the serve
+        cell at --quant 2, eagerly and compiled in turns (identical tokens
+        and launches)."""
+        full = get_config(arch)
+        c2 = dataclasses.replace(full, n_layers=2, w_bits=2)
+        p2, init2 = timed_init(c2)
+        prefill_vs_cpu(c2, p2, arch=arch, layers=2, depth_cut="2 of "
+                       f"{full.n_layers} layers: the CPU's float32 side stays in seconds", **init2)
+        if full.sliding_window:
+            window_vs_cpu(c2, p2)
+        del p2
+
+        argv = ["--arch", arch, "--requests", "16", "--batch", str(LANES), "--prompt-len",
+                str(PROMPT), "--gen-len", "64", "--max-len", str(MAX_LEN), "--prefill-chunk",
+                str(CHUNK)]
+        cq0 = dataclasses.replace(full, w_bits=0)
+        params0, init = timed_init(cq0)
+        phase("init", arch=arch, quant=0, layers=cq0.n_layers, **init)
+        ops.reset_launch_counts()
+        metrics = serve.run_pool_engine(cq0, params0, serve.build_parser().parse_args(
+            argv + ["--quant", "0"]), dev)
+        counts, by_route = ops.launch_counts(), ops.launch_routes()
+        check_pool_run(f"serve {arch} --quant 0", metrics, counts, by_route, 0, True)
+        phase("serve", arch=arch, quant=0, mode="compiled", init_s=init["init_s"],
+              launches_counted=counts, launches_by_route=by_route,
+              **{k: v for k, v in metrics.items() if k != "outputs"})
+        for name, n in counts.items():
+            launches[name] += n
+        add_routes(by_route)
+
+        cq2 = dataclasses.replace(full, w_bits=2)
+        t0 = time.monotonic()
+        params = lm.pack_ffn_params(params0, cq2.w_bits)
+        torch.cuda.synchronize()
+        pack_s = time.monotonic() - t0
+        del params0
+        torch.cuda.empty_cache()
+        phase("init", arch=arch, quant=2, layers=cq2.n_layers, dense_init_s=init["init_s"],
+              pack_s=pack_s, weights_mib=sum(t.nbytes for t in itertools.chain(
+                  params.parameters(), params.buffers())) / 2**20)
+        rows0 = (cq2.n_layers, LANES * MAX_LEN + 16, cq2.n_kv, cq2.hd)
+        pool_gen = torch.Generator(device=dev).manual_seed(4)
+        pk0 = torch.randn(rows0, generator=pool_gen, device=dev, dtype=torch.bfloat16)
+        pv0 = torch.randn(rows0, generator=pool_gen, device=dev, dtype=torch.bfloat16)
+        table = (16 + torch.arange(LANES * MAX_LEN)).reshape(LANES, MAX_LEN)
+        tok = torch.from_numpy(np.random.default_rng(1).integers(0, cq2.vocab, (LANES, 1)))
+        hold_replay(f"{arch} decode step, --quant 2",
+                    lambda k_, v_, t_, tb, ln: lm.decode_step_paged(
+                        params, cq2, t_, k_, v_, tb, ln)[0],
+                    (tok, table, torch.full((LANES,), PROMPT + 8)), pk0, pv0)
+        chunk = torch.from_numpy(
+            np.random.default_rng(2).integers(0, cq2.vocab, size=(1, CHUNK)))
+        one = table[:1]
+
+        def chunk_in_at(start):
+            return (chunk, one, one[:, start:start + CHUNK], torch.tensor([start]),
+                    torch.tensor([CHUNK - 1]))
+
+        hold_replay(f"{arch} prefill chunk, --quant 2",
+                    lambda k_, v_, t_, rows, wr, st, last: lm.prefill_chunk_paged(
+                        params, cq2, t_, k_, v_, rows, wr, st, last)[0],
+                    chunk_in_at(CHUNK), pk0, pv0, replay_in=[chunk_in_at(s) for s in (CHUNK, 37)])
+        del pk0, pv0
+        # where a compiled decode step's and prefill chunk's time goes
+        phase("decode_profile", arch=arch, **profile_decode(params, cq2, compiled=True))
+        pk1 = torch.zeros((cq2.n_layers, MAX_LEN + 16, cq2.n_kv, cq2.hd),
+                          dtype=torch.bfloat16, device=dev)
+        pv1 = torch.zeros_like(pk1)
+        chunk_graph = CapturedStep(
+            lambda t_, rows, wr, st, last: lm.prefill_chunk_paged(
+                params, cq2, t_, pk1, pv1, rows, wr, st, last)[0],
+            device=dev, mempool=torch.cuda.graph_pool_handle())
+        phase("prefill_profile", arch=arch, compiled=True, chunk=CHUNK, start=CHUNK,
+              pool_rows=MAX_LEN, **chunk_profile(lambda: chunk_graph(*chunk_in_at(CHUNK))))
+        del chunk_graph, pk1, pv1
+
+        by_mode = {}
+        for mode in ("eager", "compiled"):
+            args = serve.build_parser().parse_args(argv + ["--quant", "2"])
+            ops.reset_launch_counts()
+            metrics = serve.run_pool_engine(cq2, params, args, dev,
+                                            compiled=None if mode == "compiled" else False)
+            counts, by_route = ops.launch_counts(), ops.launch_routes()
+            label = f"serve {arch} --quant 2 ({mode})"
+            check_pool_run(label, metrics, counts, by_route, 2, mode == "compiled")
+            by_mode[mode] = (metrics, counts, by_route)
+            phase("serve", arch=arch, quant=2, mode=mode, init_s=init["init_s"] + pack_s,
+                  launches_counted=counts, launches_by_route=by_route,
+                  **{k: v for k, v in metrics.items() if k != "outputs"})
+        (cm, cc, cr), (em, ec, er) = by_mode["compiled"], by_mode["eager"]
+        same_tokens = outputs_of(cm) == outputs_of(em)
+        same_launches = (cc, cr) == (ec, er)
+        phase("serve_compiled_vs_eager", arch=arch, quant=2, token_streams_identical=same_tokens,
+              launch_counts_identical=same_launches,
+              **{f"{key}_{mode}": by_mode[mode][0][key]
+                 for key in ("tokens_per_s", "decode_step_ms", "mean_ttft_s", "wall_s")
+                 for mode in ("eager", "compiled")})
+        if not (same_tokens and same_launches):
+            fail(f"serve {arch} --quant 2: compiled and eager differ (tokens {same_tokens}, "
+                 f"launches {cc} {cr} != {ec} {er})")
+        for name, n in cc.items():
+            launches[name] += n
+        add_routes(cr)
+        del params, by_mode
+        torch.cuda.empty_cache()
+
+    phase_seconds("5 serve, smollm-360m")
+
     # ---------------- 6. CNV at full width, card vs CPU ----------------
     def cnn_setup(w_bits):
         """CNV with random weights from a seed, randomised BN statistics
@@ -2004,6 +2376,8 @@ def main(argv: list[str] | None = None) -> int:
         phase("cnn", **run)
         del sp_card, x_card, params, sp_cpu
 
+    phase_seconds("6 cnn")
+
     # ---------------- 7. training at full width and depth ----------------
     from repro_torch.ckpt import CheckpointManager
     from repro_torch.data.pipeline import TokenPipeline
@@ -2021,41 +2395,53 @@ def main(argv: list[str] | None = None) -> int:
                 out.append((prefix + k, tree[k]))
         return out
 
-    # (a) gradients at full width, depth 4: bf16 with the kernels on the
-    # card against float32 with the plain versions on the CPU
-    gcfg = dataclasses.replace(cfg, n_layers=GRAD_DEPTH)
-    gparams = lm.init_params(gcfg, 0, device=dev, trainable=True)
-    cpu_gcfg = dataclasses.replace(gcfg, dtype="float32")
-    cpu_gparams = params_from_reference(
-        _to_cpu(gparams.tree()), cpu_gcfg, device="cpu", dtype=torch.float32, trainable=True
-    )
-    gbatch = TokenPipeline(vocab=cfg.vocab, batch=GRAD_BATCH, seq_len=GRAD_SEQ, seed=0).batch_at(0)
-
     def loss_and_grads(p, c, device, remat="none"):
-        tb = {k: torch.from_numpy(v).to(device) for k, v in gbatch.items()}
+        tb = {k: torch.from_numpy(v).to(device) for k, v in TokenPipeline(
+            vocab=c.vocab, batch=GRAD_BATCH, seq_len=GRAD_SEQ, seed=0).batch_at(0).items()}
         loss, _ = lm.loss_fn(p, c, tb["tokens"], tb["labels"], remat=remat)
         names, leaves = zip(*flat(p.tree()))
         return loss.item(), dict(zip(names, torch.autograd.grad(loss, leaves)))
 
-    t0 = time.monotonic()
-    loss_card, grads_card = loss_and_grads(gparams, gcfg, dev)
-    card_s = time.monotonic() - t0
-    t0 = time.monotonic()
-    loss_cpu, grads_cpu = loss_and_grads(cpu_gparams, cpu_gcfg, "cpu")
-    cpu_s = time.monotonic() - t0
-    cosines = {
-        name: F.cosine_similarity(g.float().cpu().flatten(), grads_cpu[name].flatten(), dim=0).item()
-        for name, g in grads_card.items()
-    }
-    worst = min(cosines, key=cosines.get)
-    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
-    phase("train_gradients", layers=GRAD_DEPTH, batch=GRAD_BATCH, seq=GRAD_SEQ,
-          loss_card=loss_card, loss_cpu=loss_cpu, loss_rel_err=loss_rel,
-          worst_leaf=worst, worst_cosine=cosines[worst], cosines=cosines,
-          card_s=card_s, cpu_s=cpu_s)
-    if not (loss_rel <= GRAD_LOSS_RTOL and cosines[worst] >= GRAD_MIN_COS):
-        fail(f"train gradients card vs CPU: loss rel err {loss_rel}, "
-             f"worst cosine {cosines[worst]} ({worst})")
+    def grads_vs_cpu(c, **fields):
+        """(a) gradients at full width: ``loss_fn`` and its backward in bf16
+        with the kernels on the card against float32 with the plain versions
+        on the CPU, same weights and batch (GRAD_BATCH x GRAD_SEQ): the loss
+        within GRAD_LOSS_RTOL, each leaf's gradient cosine >= GRAD_MIN_COS.
+        Returns the card's weights, loss and gradients."""
+        p = lm.init_params(c, 0, device=dev, trainable=True)
+        cpu_c = dataclasses.replace(c, dtype="float32")
+        cpu_p = params_from_reference(
+            _to_cpu(p.tree()), cpu_c, device="cpu", dtype=torch.float32, trainable=True)
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        loss_card, grads_card = loss_and_grads(p, c, dev)
+        card_s = time.monotonic() - t0
+        by_route = ops.launch_routes()
+        t0 = time.monotonic()
+        loss_cpu, grads_cpu = loss_and_grads(cpu_p, cpu_c, "cpu")
+        cpu_s = time.monotonic() - t0
+        cosines = {
+            name: F.cosine_similarity(g.float().cpu().flatten(), grads_cpu[name].flatten(),
+                                      dim=0).item()
+            for name, g in grads_card.items()
+        }
+        worst = min(cosines, key=cosines.get)
+        loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+        phase("train_gradients", **fields, layers=c.n_layers, batch=GRAD_BATCH, seq=GRAD_SEQ,
+              head_dim=c.hd, loss_card=loss_card, loss_cpu=loss_cpu, loss_rel_err=loss_rel,
+              worst_leaf=worst, worst_cosine=cosines[worst], cosines=cosines,
+              launches_by_route=by_route, card_s=card_s, cpu_s=cpu_s)
+        if not (loss_rel <= GRAD_LOSS_RTOL and cosines[worst] >= GRAD_MIN_COS):
+            fail(f"train gradients {c.name} card vs CPU: loss rel err {loss_rel}, "
+                 f"worst cosine {cosines[worst]} ({worst})")
+        want = {name: {"mma": c.n_layers} for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        if by_route != want:
+            fail(f"train gradients {c.name}: launches by route {by_route}, not {want}")
+        return p, loss_card, grads_card
+
+    # smollm-360m at depth 4, then h2o-danube-1.8b (head dim 80) at depth 2
+    gcfg = dataclasses.replace(cfg, n_layers=GRAD_DEPTH)
+    gparams, loss_card, grads_card = grads_vs_cpu(gcfg)
     # the recomputing modes on the card recompute the same bf16 forward
     # (the kernels are deterministic): the same loss (1e-5), and the same
     # gradients but for the order of the embedding backward's atomics
@@ -2072,7 +2458,10 @@ def main(argv: list[str] | None = None) -> int:
         if abs(loss_r - loss_card) > 1e-5 * abs(loss_card) or cos_r[worst_r] < REMAT_MIN_COS:
             fail(f"--remat {remat} on the card: loss {loss_r} vs {loss_card}, "
                  f"worst cosine {cos_r[worst_r]} ({worst_r})")
-    del gparams, cpu_gparams, grads_card, grads_cpu, grads_r
+    del gparams, grads_card, grads_r
+    dn2 = dataclasses.replace(get_config("h2o_danube_1p8b"), n_layers=2)
+    grads_vs_cpu(dn2, arch="h2o_danube_1p8b",
+                 depth_cut="2 of 24 layers: the CPU's float32 side stays in seconds")
 
     # (b) the train CLI: 20 steps, then 5 under --remat full
     n_layers = cfg.n_layers
@@ -2182,7 +2571,14 @@ def main(argv: list[str] | None = None) -> int:
           restore_s=restore_s, extra=extra, leaves_differing=differ)
     if differ or extra != {"data_step": 6}:
         fail(f"checkpoint on the card: {len(differ)} leaves differ after restore: {differ[:5]}")
-    del params, state, fresh, fresh_state
+    del params, state, fresh, fresh_state, want_tree, got_tree, got_leaves
+
+    phase_seconds("7 train")
+
+    # ---------------- 4-5 for the other dense archs (last) ----------------
+    for arch in NEW_ARCHS:
+        serve_arch(arch)
+        phase_seconds(f"4-5 {arch}")
 
     # ---------------- result ----------------
     head_pm = next(c for c in packed_cases if (c["bits"], c["m"], c["k"]) == (2, LANES, d))
@@ -2277,7 +2673,8 @@ def main(argv: list[str] | None = None) -> int:
              library_call="backward of scaled_dot_product_attention(is_causal=True, "
                           "enable_gqa=True): dq, dk and dv together",
              **{k: head_dq[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms", "host_us")}),
+                                        "bound_by", "library_ms", "host_us")},
+             cases=[head_dq] + [dq for dq, _ in d80_bwd]),
         dict(name="flash_bwd_dkv", route="cuda",
              source="src/repro_torch/csrc/flash_bwd.cu",
              replaces="src/repro/kernels/flash_attention.py:306",
@@ -2289,7 +2686,8 @@ def main(argv: list[str] | None = None) -> int:
              library_call="backward of scaled_dot_product_attention(is_causal=True, "
                           "enable_gqa=True): dq, dk and dv together",
              **{k: head_dkv[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms", "host_us")}),
+                                         "bound_by", "library_ms", "host_us")},
+             cases=[head_dkv] + [dkv for _, dkv in d80_bwd]),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

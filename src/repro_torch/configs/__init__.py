@@ -3,9 +3,10 @@
 ``get_config(name)`` returns the full-size ``ModelConfig``,
 ``get_smoke_config(name)`` the reduced same-family config the CPU tests
 use. Only the archs already ported are registered; any other id raises
-``ValueError`` naming them. The paper's FPGA accelerator models (CNV and
-ResNet-50 as MVAU layer sets) come from ``get_accelerator(name)``; the LM
-lookups refuse their ids, as the reference's do.
+``ValueError`` naming them; ``all_configs()`` maps each ported arch to its
+full-size config. The paper's FPGA accelerator models (CNV and ResNet-50
+as MVAU layer sets) come from ``get_accelerator(name)``; the LM lookups
+refuse their ids, as the reference's do.
 """
 
 from __future__ import annotations
@@ -14,32 +15,41 @@ import importlib
 
 from repro_torch.models.config import ModelConfig, reduced
 
-ARCH_IDS = ["smollm_360m"]
+# the reference's dense archs, in its order
+ARCH_IDS = ["h2o_danube_1p8b", "llama3p2_1b", "phi3_medium_14b", "smollm_360m"]
 
 # assignment ids (dashes/dots) -> module names
-ALIASES = {"smollm-360m": "smollm_360m"}
+ALIASES = {
+    "h2o-danube-1.8b": "h2o_danube_1p8b",
+    "llama3.2-1b": "llama3p2_1b",
+    "phi3-medium-14b": "phi3_medium_14b",
+    "smollm-360m": "smollm_360m",
+}
 
 
 ACCEL_IDS = ["cnv_w1a1", "cnv_w2a2", "rn50_w1a2", "rn50_w2a2"]
 
 
-def _canonical(name: str) -> str:
-    return ALIASES.get(name, name.replace("-", "_").replace(".", "p"))
+def canonical(name: str) -> str:
+    """Canonical module id for a ported arch or an accelerator name; an
+    unknown or not-yet-ported name raises ``ValueError`` listing the valid
+    ids, so every ``--arch``-taking entry point fails cleanly."""
+    cand = ALIASES.get(name, name.replace("-", "_").replace(".", "p"))
+    if cand not in ARCH_IDS and cand not in ACCEL_IDS:
+        raise ValueError(
+            f"unknown or not yet ported arch {name!r}; ported archs: "
+            f"{', '.join(ARCH_IDS)}; accelerators: {', '.join(ACCEL_IDS)}"
+        )
+    return cand
 
 
 def canonical_arch(name: str) -> str:
-    """Canonical module id for an LM arch name; accelerator ids and unknown
-    or not-yet-ported names raise ``ValueError`` listing the ported archs."""
-    cand = _canonical(name)
+    """``canonical`` restricted to LM archs (what ``--arch`` entry points take)."""
+    cand = canonical(name)
     if cand in ACCEL_IDS:
         raise ValueError(
             f"{name!r} is an FPGA accelerator config, not an LM arch; "
             f"use get_accelerator(). Ported archs: {', '.join(ARCH_IDS)}"
-        )
-    if cand not in ARCH_IDS:
-        raise ValueError(
-            f"unknown or not yet ported arch {name!r}; ported archs: "
-            f"{', '.join(ARCH_IDS)}"
         )
     return cand
 
@@ -58,10 +68,14 @@ def get_smoke_config(name: str) -> ModelConfig:
 
 def get_accelerator(name: str):
     """The ``AccelConfig`` of one of the paper's accelerators."""
-    cand = _canonical(name)
+    cand = canonical(name)
     if cand not in ACCEL_IDS:
         raise ValueError(
             f"{name!r} is not an accelerator config; valid accelerators: "
             f"{', '.join(ACCEL_IDS)}"
         )
     return importlib.import_module(f"repro_torch.configs.{cand}").ACCEL
+
+
+def all_configs() -> dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}

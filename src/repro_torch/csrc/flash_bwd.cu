@@ -27,7 +27,7 @@
 // (BH, Sk, D) f32 partials never reach device memory. delta = rowsum(dout
 // * out) is computed by the dq pass for its rows (out is read once there)
 // and written for the dk/dv pass, which runs after it on the same stream.
-// Any Sq and Sk are handled by masking; D is 32, 64 or 128.
+// Any Sq and Sk are handled by masking; D is 32, 64, 80 or 128.
 //
 // bf16 route (flash_bwd_dq_mma_kernel, flash_bwd_dkv_mma_kernel; the train
 // path's): all five tile products on the tensor cores, mma.sync m16n8k16
@@ -54,14 +54,22 @@
 //   lse and delta tiles go through a 2-stage cp.async ring that runs on
 //   from one q head of the group to the next. At D 128 a staged query tile
 //   is 32 rows, not 64 (the score tiles then take half the registers).
+// * D 80 takes the D 128 way for the fragments (re-read from shared
+//   memory in both passes) and the D 64 way for the staged query tile (64
+//   rows: 32 rows of 10 16-byte copies would not share out evenly over 128
+//   threads); its register arrays (scores 64, dK and dV 80) are fewer than
+//   those of the D 64 kernel, which holds its fragments (64 + 64 + 64).
+//   ptxas gives the D 80 passes 168 (dq) and 235 (dk/dv) registers and no
+//   spill; holding Q and dO (40 more) might still fit the dq pass.
 //   The grid's slow axis is the key tile, so the first key tiles, which
 //   under the causal mask see the most query tiles, start first.
 //
 // f32 route (flash_bwd_dq_kernel, flash_bwd_dkv_kernel): the CUDA cores,
 // f32 throughout (the tensor cores would round q, k, v and dout). A row is
-// split over TPR = D / 32 neighbouring threads, each owning 32 columns
-// strided by TPR, dot products finished with __shfl_xor_sync; no main path
-// runs it.
+// split over TPR neighbouring threads (1 at D 32, 2 at D 64, 4 at D 80 and
+// 128), each owning the D / TPR columns c = cc * TPR + its lane (cc < D /
+// TPR), so together they own every column; dot products are finished with
+// __shfl_xor_sync. No main path runs it.
 #include "common.cuh"
 
 namespace {
@@ -77,7 +85,12 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int sk, int causal, 
 
 // ---------------- f32 route: CUDA cores ----------------
 
-constexpr int COLS = 32;  // columns each thread owns; TPR = D / COLS threads per row
+// Threads that share a row, and the columns each of them owns.
+template <int D> __host__ __device__ constexpr int tpr() { return D <= 32 ? 1 : D <= 64 ? 2 : 4; }
+template <int D> __host__ __device__ constexpr int cols() {
+  static_assert(D % tpr<D>() == 0, "each thread of a row owns D / TPR columns");
+  return D / tpr<D>();
+}
 
 // Sum over the TPR neighbouring lanes that share a row (TPR in {1, 2, 4}).
 template <int TPR>
@@ -88,13 +101,13 @@ __device__ __forceinline__ float row_sum(float x) {
 }
 
 template <int D>
-__global__ void __launch_bounds__(BQ * (D / COLS))
+__global__ void __launch_bounds__(BQ * tpr<D>())
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ out,
                     const float* __restrict__ dout, const float* __restrict__ lse,
                     float* __restrict__ dq, float* __restrict__ delta, int Sq, int Sk,
                     int g, int causal, int window, int q_offset, float scale) {
-  constexpr int TPR = D / COLS;
+  constexpr int TPR = tpr<D>(), COLS = cols<D>();
   constexpr int NT = BQ * TPR;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* ks = reinterpret_cast<float*>(smem_raw);
@@ -167,13 +180,13 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int D>
-__global__ void __launch_bounds__(BK * (D / COLS))
+__global__ void __launch_bounds__(BK * tpr<D>())
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk, int g,
                      int causal, int window, int q_offset, float scale) {
-  constexpr int TPR = D / COLS;
+  constexpr int TPR = tpr<D>(), COLS = cols<D>();
   constexpr int NT = BK * TPR;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* ls = reinterpret_cast<float*>(smem_raw);
@@ -272,7 +285,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* out,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(cdiv(Sq, BQ), BH);
-  kern<<<grid, BQ * (D / COLS), bytes, stream>>>(
+  kern<<<grid, BQ * tpr<D>(), bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(out), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<float*>(dq), static_cast<float*>(delta),
@@ -292,7 +305,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(cdiv(Sk, BK), BKV);
-  kern<<<grid, BK * (D / COLS), bytes, stream>>>(
+  kern<<<grid, BK * tpr<D>(), bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), Sq,
@@ -312,10 +325,10 @@ template <int D> __host__ __device__ constexpr int ld() { return D + 8; }
 
 // At D <= 64 the fragments a warp reads on every tile (Q and dO in the dq
 // pass, K and V in the dk/dv pass) are held in registers for the sweep;
-// at D 128 they are re-read from shared memory, and the dk/dv pass stages
-// 32 query rows at a time, so neither kernel spills.
+// at D 80 and 128 they are re-read from shared memory, and at D 128 the
+// dk/dv pass stages 32 query rows at a time, so no kernel spills.
 template <int D> __host__ __device__ constexpr bool hold() { return D <= 64; }
-template <int D> __host__ __device__ constexpr int dkv_rows() { return D <= 64 ? 64 : 32; }
+template <int D> __host__ __device__ constexpr int dkv_rows() { return D <= 80 ? 64 : 32; }
 
 template <int D>
 constexpr size_t dq_mma_smem() {  // q, dout tiles; 2 stages of k and v; delta
@@ -712,6 +725,7 @@ int launch_dkv_mma(const void* q, const void* k, const void* v, const void* dout
   switch (D) {                                                   \
     case 32: return FN<32>(__VA_ARGS__);                         \
     case 64: return FN<64>(__VA_ARGS__);                         \
+    case 80: return FN<80>(__VA_ARGS__);                         \
     case 128: return FN<128>(__VA_ARGS__);                       \
     default: return static_cast<int>(cudaErrorInvalidValue);     \
   }
@@ -720,7 +734,7 @@ int launch_dkv_mma(const void* q, const void* k, const void* v, const void* dout
 
 // is_bf16: 0 -> q/k/v/out/dout/dq are f32 (the CUDA-core kernel), 1 -> bf16
 // (the tensor-core kernel; q, k, v, out and dout 16-byte aligned). D in
-// {32, 64, 128}. Writes dq (BH, Sq, D) and delta (BH, Sq) f32.
+// {32, 64, 80, 128}. Writes dq (BH, Sq, D) and delta (BH, Sq) f32.
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v,
                                    const void* out, const void* dout, const void* lse,
                                    void* dq, void* delta, int is_bf16, int BH, int Sq,

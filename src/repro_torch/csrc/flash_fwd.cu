@@ -11,7 +11,8 @@
 // visible if (!causal || q_pos >= k_pos) and (window <= 0 ||
 // q_pos - k_pos < window). Writes out (BH, Sq, D) in q's dtype and the f32
 // log-sum-exp lse (BH, Sq); a row that sees no key gets out 0, lse -1e30.
-// Any Sq and Sk are handled by masking in the kernel; D is 32, 64 or 128.
+// Any Sq and Sk are handled by masking in the kernel; D is 32, 64, 80 or
+// 128.
 //
 // What bounds it on the H100: at the serve path's shapes (Sq = Sk = 512,
 // D = 64, 15 heads) it moves ~0.4 MB and does ~0.5 GFLOP, so it is bound
@@ -176,7 +177,10 @@ constexpr int MMA_THREADS = 128;
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Row stride of the shared tiles, in bf16: 16 bytes of padding, so the 8
-// rows one ldmatrix matrix reads fall in distinct banks.
+// rows one ldmatrix matrix reads fall in distinct banks. The rows are
+// 16 * (D / 8 + 1) bytes apart; D / 8 + 1 is odd at every D taken (5, 9,
+// 11, 17), so 8 consecutive rows start at 8 distinct 16-byte offsets of
+// the 128-byte bank window.
 template <int D> __host__ __device__ constexpr int ld() { return D + 8; }
 
 template <int D>
@@ -377,7 +381,7 @@ int launch_route(int bf16_in, const void* q, const void* k, const void* v, void*
 }  // namespace
 
 // is_bf16: 0 -> q/k/v/out are f32, 1 -> bf16 (16-byte aligned). D in
-// {32, 64, 128}. q_offset_dev: null (q_offset is the offset) or a device
+// {32, 64, 80, 128}. q_offset_dev: null (q_offset is the offset) or a device
 // int32 holding the offset.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* out, void* lse, int is_bf16, int BH, int Sq,
@@ -389,6 +393,7 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
   switch (D) {
     case 32: return launch_route<32>(is_bf16, q, k, v, out, lse, BH, Sq, Sk, g, causal, window, q_offset, qo, scale, s);
     case 64: return launch_route<64>(is_bf16, q, k, v, out, lse, BH, Sq, Sk, g, causal, window, q_offset, qo, scale, s);
+    case 80: return launch_route<80>(is_bf16, q, k, v, out, lse, BH, Sq, Sk, g, causal, window, q_offset, qo, scale, s);
     case 128: return launch_route<128>(is_bf16, q, k, v, out, lse, BH, Sq, Sk, g, causal, window, q_offset, qo, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

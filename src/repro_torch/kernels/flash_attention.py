@@ -8,7 +8,7 @@ What bounds it on the H100: at the serve path's prefill shapes (Sq = Sk =
 block per (bh, 64-query tile), keep the online-softmax state in f32, map
 GQA by ``bh // g`` without replicating K/V, never load a tile the causal /
 window mask hides, and handle any Sq and Sk by masking, not by a
-block-divisor search; D must be 32, 64 or 128.
+block-divisor search; D must be 32, 64, 80 or 128.
 
 * bf16 (the serve and train paths): tensor cores. Four warps of 16 query
   rows hold their Q fragments in registers; K/V tiles of 64 keys arrive
@@ -46,7 +46,7 @@ from repro_torch.kernels.ref import flash_bwd_dkv_ref, flash_bwd_dq_ref, flash_f
 COUNTER = _build.LaunchCounter()
 DQ_COUNTER = _build.LaunchCounter()  # flash_bwd's dq pass
 DKV_COUNTER = _build.LaunchCounter()  # flash_bwd's dk/dv pass
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int

@@ -11,10 +11,15 @@ captured CUDA graph (the reference's jitted steps): the decode step, the
 prefill chunk and the whole-prompt prefill of each bucket; on the CPU
 every step runs eagerly.
 
+``--arch`` takes every ported arch: smollm-360m (the default),
+llama3.2-1b, h2o-danube-1.8b and phi3-medium-14b (or their module ids).
+
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m --quant 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-medium-14b --quant 2
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b --smoke --device cpu --quant 2
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --no-prefix-cache
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --vmem-budget 0.25
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --trace-out t.jsonl
@@ -27,8 +32,9 @@ leaves them out) and memory-ledger records to a JSONL file, as the
 reference does; a memory ledger and its pressure monitor run on every
 run and give the ``[serve/mem]`` line. Besides the reference's
 ``[serve/pool]`` and ``[serve/prefix]`` lines it prints each kernel's
-launch count, and a ``[serve/metrics]`` line with the run's numbers (and
-every request's tokens) as JSON.
+launch count, and a ``[serve/metrics]`` line with the run's numbers (the
+seconds ``init_params`` took to draw the weights among them, and every
+request's tokens) as JSON.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import json
 import time
 
 import numpy as np
+import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
@@ -272,7 +279,11 @@ def main(argv=None) -> int:
         print(f"[serve] {e}")
         return 2
     device = resolve_device(args.device)
+    t0 = time.monotonic()
     params = lm.init_params(cfg, args.seed, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    init_s = time.monotonic() - t0
     before = ops.launch_counts()
     try:
         m = run_pool_engine(cfg, params, args, device, residency)
@@ -280,6 +291,7 @@ def main(argv=None) -> int:
         # bad request/budget geometry (e.g. prompt+gen > --max-len)
         print(f"[serve] {e}")
         return 2
+    m["init_s"] = init_s
     m["kernel_launches"] = {
         name: n - before[name] for name, n in ops.launch_counts().items()
     }
@@ -289,7 +301,8 @@ def main(argv=None) -> int:
         f"({m['prefill_steps']} prefill + {m['decode_steps']} decode), "
         f"{m['wall_s']:.1f}s ({m['tokens_per_s']:.1f} tok/s, "
         f"TTFT {m['mean_ttft_s']*1e3:.0f} ms), "
-        f"pool utilization {m['pool_utilization']*100:.1f}%"
+        f"pool utilization {m['pool_utilization']*100:.1f}%; "
+        f"weights of {cfg.name} drawn in {init_s:.1f}s"
     )
     if m["prefix_cache"]:
         print(

@@ -197,10 +197,36 @@ class LMParams(nn.Module):
         return {**self.top.tree(), "layers": self.layers.tree()}
 
 
-def _maybe_pack(w: torch.Tensor, cfg: ModelConfig):
-    if cfg.w_bits in (1, 2):
-        return make_packed(w, cfg.w_bits)
-    return w
+EMBED_ROWS = 8192  # embedding rows drawn at a time by init_params
+FFN_LEAVES = ("w1", "w3", "w2")
+
+
+def pack_ffn(w: torch.Tensor, bits: int) -> dict[str, torch.Tensor]:
+    """A stacked dense FFN leaf (L, K, N) packed by ``make_packed`` one
+    layer at a time on the host, into a pair on ``w``'s device. ``make_packed``
+    reduces in the weight's dtype, and the card reduces in another order than
+    the host, so packing on the host keeps the packed weights the same bits
+    wherever the dense ones live; the host holds one layer at a time."""
+    l, k, n = w.shape
+    out = {
+        "packed": torch.empty((l, k * bits // 8, n), dtype=torch.uint8, device=w.device),
+        "scale": torch.empty((l, n), dtype=torch.float32, device=w.device),
+    }
+    for i in range(l):
+        layer = make_packed(w[i].cpu(), bits)
+        for key, leaf in out.items():
+            leaf[i] = layer[key]
+    return out
+
+
+def pack_ffn_params(params: LMParams, bits: int) -> LMParams:
+    """Dense ``params`` with their FFN leaves packed (``pack_ffn``), the
+    other leaves shared: bitwise ``init_params`` at ``w_bits=bits`` when
+    ``params`` is its dense (``w_bits=0``) draw of the same seed."""
+    tree = params.tree()
+    tree["layers"] = {name: pack_ffn(leaf, bits) if name in FFN_LEAVES else leaf
+                      for name, leaf in tree["layers"].items()}
+    return LMParams(tree)
 
 
 def init_params(
@@ -211,7 +237,17 @@ def init_params(
     so every device gets the same numbers (JAX's numbers differ: share
     weights across the packages with ``interop.params_from_reference``).
     The weights land on ``device``: CUDA unless the caller asks for the
-    CPU. ``trainable`` makes the float leaves require gradients."""
+    CPU. ``trainable`` makes the float leaves require gradients.
+
+    Each leaf is drawn in slices (a layer, or ``EMBED_ROWS`` embedding
+    rows) in f32, scaled, rounded to the model dtype and written into its
+    place on ``device``; with ``cfg.w_bits`` 1/2 the FFN leaves are then
+    packed (``pack_ffn``). So the host holds one slice at a time (367 MB
+    of f32 at phi3-medium's widest, not the 14.7 GB of its stacked ``w1``).
+    A slice of a multiple of 16 values takes the same draws from the
+    generator as the whole leaf would, so the numbers are those of one
+    draw per leaf.
+    """
     _require_ported(cfg, "init_params")
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
@@ -219,28 +255,39 @@ def init_params(
     d, ff, l, pv = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.padded_vocab
     hd, hq, hkv = cfg.hd, cfg.n_heads, cfg.n_kv
 
-    def normal(shape, std):
-        return (torch.randn(shape, generator=gen, dtype=torch.float32) * std).to(dt)
+    def draw(shape, std) -> torch.Tensor:
+        host = torch.randn(shape, generator=gen, dtype=torch.float32).mul_(std)
+        return host.to(device=device, dtype=dt)
+
+    def normal(shape, std, step=1) -> torch.Tensor:
+        out = torch.empty(shape, dtype=dt, device=device)
+        for i in range(0, shape[0], step):
+            out[i:i + step] = draw((min(step, shape[0] - i),) + shape[1:], std)
+        return out
+
+    def ffn(k, n, std):
+        w = normal((l, k, n), std)
+        return pack_ffn(w, cfg.w_bits) if cfg.w_bits in (1, 2) else w
 
     s = d ** -0.5
     tree: dict[str, Any] = {
-        "embed": normal((pv, d), 0.02),
-        "final_norm": torch.ones((d,), dtype=torch.float32),
+        "embed": normal((pv, d), 0.02, EMBED_ROWS),
+        "final_norm": torch.ones((d,), dtype=torch.float32, device=device),
     }
     if not cfg.tie_embeddings:
-        tree["unembed"] = normal((pv, d), 0.02)
+        tree["unembed"] = normal((pv, d), 0.02, EMBED_ROWS)
     tree["layers"] = {
-        "ln1": torch.ones((l, d), dtype=torch.float32),
-        "ln2": torch.ones((l, d), dtype=torch.float32),
+        "ln1": torch.ones((l, d), dtype=torch.float32, device=device),
+        "ln2": torch.ones((l, d), dtype=torch.float32, device=device),
         "wq": normal((l, d, hq * hd), s),
         "wk": normal((l, d, hkv * hd), s),
         "wv": normal((l, d, hkv * hd), s),
         "wo": normal((l, hq * hd, d), s),
-        "w1": _maybe_pack(normal((l, d, ff), s), cfg),
-        "w3": _maybe_pack(normal((l, d, ff), s), cfg),
-        "w2": _maybe_pack(normal((l, ff, d), s * 0.5), cfg),
+        "w1": ffn(d, ff, s),
+        "w3": ffn(d, ff, s),
+        "w2": ffn(ff, d, s * 0.5),
     }
-    return LMParams(tree, trainable).to(device)
+    return LMParams(tree, trainable)
 
 
 # --------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Port parity: the port's ``Scheduler`` over its ``KVPool`` against the
-reference's on the same weights and submitted trace, plus the pool's
-allocator invariants and the CPU serve entry point."""
+reference's on the same weights and submitted trace (every ported arch's
+smoke config, and h2o-danube reduced with its head dim of 80), plus the
+pool's allocator invariants and the CPU serve entry point."""
 
 import dataclasses
 import json
@@ -12,15 +13,19 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.configs import get_config as j_full  # noqa: E402
 from repro.configs import get_smoke_config as j_smoke  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
+from repro.models.config import reduced as j_reduced  # noqa: E402
 from repro.runtime.kv_pool import KVPool as JPool  # noqa: E402
 from repro.runtime.kv_pool import choose_block_tokens as j_choose  # noqa: E402
 from repro.runtime.scheduler import Scheduler as JSched  # noqa: E402
+from repro_torch.configs import get_config as t_full  # noqa: E402
 from repro_torch.configs import get_smoke_config as t_smoke  # noqa: E402
 from repro_torch.interop import params_from_reference  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
+from repro_torch.models.config import reduced as t_reduced  # noqa: E402
 from repro_torch.runtime.kv_pool import KVPool as TPool  # noqa: E402
 from repro_torch.runtime.kv_pool import choose_block_tokens as t_choose  # noqa: E402
 from repro_torch.runtime.scheduler import Scheduler as TSched  # noqa: E402
@@ -32,6 +37,9 @@ PROMPT_LENS = (5, 17, 9, 3, 21, 12)
 GEN = (6, 4, 8, 5, 3, 7)
 COUNTERS = ("completed", "generated_tokens", "prefill_steps", "prefill_tokens",
             "decode_steps", "rounds")
+# every ported arch's smoke config, and h2o-danube with head dim 80
+CASES = ("smollm_360m", "llama3p2_1b", "h2o_danube_1p8b", "phi3_medium_14b",
+         "h2o_danube_1p8b@d80")
 
 
 @pytest.fixture(autouse=True)
@@ -42,26 +50,35 @@ def _one_thread():
     torch.set_num_threads(prev)
 
 
-@pytest.fixture(scope="module")
-def weights():
-    jc = dataclasses.replace(j_smoke("smollm_360m"), w_bits=2)
-    tc = dataclasses.replace(t_smoke("smollm_360m"), w_bits=2)
+@pytest.fixture(scope="module", params=CASES)
+def weights(request):
+    arch, _, variant = request.param.partition("@")
+    if variant == "d80":
+        jc = j_reduced(j_full(arch), head_dim=80)
+        tc = t_reduced(t_full(arch), head_dim=80)
+    else:
+        jc, tc = j_smoke(arch), t_smoke(arch)
+    jc = dataclasses.replace(jc, w_bits=2)
+    tc = dataclasses.replace(tc, w_bits=2)
     jp = jlm.init_params(jc, jax.random.key(3))
     tp = params_from_reference(jax.tree.map(np.asarray, jp), tc, device="cpu")
     return jc, tc, jp, tp
 
 
-def _trace(vocab):
+def _trace(cfg):
+    """The trace's prompts; under a sliding window each is longer by the
+    window, so prefill, chunks and decode all run past it."""
     rng = np.random.default_rng(42)
-    return [rng.integers(0, vocab, size=p).astype(np.int32) for p in PROMPT_LENS]
+    return [rng.integers(0, cfg.vocab, size=p + cfg.sliding_window).astype(np.int32)
+            for p in PROMPT_LENS]
 
 
 def _run(sched_cls, pool, cfg, params, sampling):
     sched = sched_cls(
-        cfg, params, pool, slots=SLOTS, max_len=MAX_LEN,
+        cfg, params, pool, slots=SLOTS, max_len=MAX_LEN + cfg.sliding_window,
         prefill_chunk=CHUNK, sampling=sampling,
     )
-    for prompt, gen in zip(_trace(cfg.vocab), GEN):
+    for prompt, gen in zip(_trace(cfg), GEN):
         sched.submit(prompt, gen)
     stats = sched.run()
     return sched.outputs(), stats
@@ -74,14 +91,15 @@ def _run(sched_cls, pool, cfg, params, sampling):
 )
 def test_scheduler_token_streams_match_reference(weights, sampling):
     jc, tc, jp, tp = weights
+    max_len = MAX_LEN + jc.sliding_window
     j_out, j_stats = _run(
         JSched,
-        JPool.for_slots(jc, slots=SLOTS, max_len=MAX_LEN, block_tokens=BLOCK),
+        JPool.for_slots(jc, slots=SLOTS, max_len=max_len, block_tokens=BLOCK),
         jc, jp, jlm.SamplingParams(**sampling),
     )
     t_out, t_stats = _run(
         TSched,
-        TPool.for_slots(tc, slots=SLOTS, max_len=MAX_LEN, block_tokens=BLOCK,
+        TPool.for_slots(tc, slots=SLOTS, max_len=max_len, block_tokens=BLOCK,
                         device="cpu"),
         tc, tp, tlm.SamplingParams(**sampling),
     )
@@ -190,4 +208,21 @@ def test_entry_points_do_not_fall_back_to_the_cpu():
 
 def test_serve_cli_rejects_unported_arch(capsys):
     assert serve.main(["--arch", "olmoe_1b_7b", "--device", "cpu"]) == 2
-    assert "ported archs: smollm_360m" in capsys.readouterr().out
+    assert ("ported archs: h2o_danube_1p8b, llama3p2_1b, phi3_medium_14b, smollm_360m"
+            in capsys.readouterr().out)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "h2o-danube-1.8b", "phi3-medium-14b"])
+def test_serve_cli_serves_the_other_dense_archs(arch, capsys):
+    """``serve --arch`` takes each new arch by its assignment id and serves
+    its smoke config on the CPU (h2o-danube's past its 64-token window),
+    dense and packed."""
+    for quant in ("0", "2"):
+        lines = _serve_lines(serve.main, [
+            "--arch", arch, "--smoke", "--device", "cpu", "--quant", quant, "--requests", "3",
+            "--batch", "2", "--prompt-len", "70", "--gen-len", "4", "--max-len", "80",
+            "--prefill-chunk", "32"], capsys)
+        m = json.loads(next(l for l in lines if l.startswith("[serve/metrics] "))
+                       .split(" ", 1)[1])
+        assert (m["completed"], m["generated_tokens"]) == (3, 12)
+        assert m["init_s"] >= 0 and m["prefix_cache"]

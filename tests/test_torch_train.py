@@ -1,8 +1,10 @@
 """Port parity for training: the losses, ``loss_fn`` and its gradients, AdamW,
 the train step, the data pipelines, checkpoints in both directions, the
 train loop and the train CLI, against the reference on the CPU (smollm_360m
-SMOKE, float32 unless a test says otherwise), with the reference's weights
-carried over by ``interop`` and inputs made with numpy."""
+SMOKE, float32 unless a test says otherwise; ``loss_fn`` and its gradients
+also at every other ported arch's smoke config and at h2o-danube reduced
+with its head dim of 80), with the reference's weights carried over by
+``interop`` and inputs made with numpy."""
 
 import dataclasses
 import json
@@ -17,14 +19,17 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.ckpt import CheckpointManager as JCkpt  # noqa: E402
+from repro.configs import get_config as j_full  # noqa: E402
 from repro.configs import get_smoke_config as j_smoke  # noqa: E402
 from repro.data import pipeline as jpipe  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
+from repro.models.config import reduced as j_reduced  # noqa: E402
 from repro.optim.adamw import AdamW as JAdamW  # noqa: E402
 from repro.runtime.steps import make_loss_fn as j_loss_fn  # noqa: E402
 from repro.runtime.steps import make_train_step as j_train_step  # noqa: E402
 from repro_torch.ckpt import CheckpointManager  # noqa: E402
+from repro_torch.configs import get_config as t_full  # noqa: E402
 from repro_torch.configs import get_smoke_config as t_smoke  # noqa: E402
 from repro_torch.data import pipeline as tpipe  # noqa: E402
 from repro_torch.interop import (  # noqa: E402
@@ -36,6 +41,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
+from repro_torch.models.config import reduced as t_reduced  # noqa: E402
 from repro_torch.optim.adamw import AdamW, OptState  # noqa: E402
 from repro_torch.runtime.steps import make_loss_fn, make_train_step  # noqa: E402
 from repro_torch.runtime.train import TrainLoop, TrainLoopConfig  # noqa: E402
@@ -51,13 +57,17 @@ def _one_thread():
     torch.set_num_threads(prev)
 
 
-def _configs(dtype="float32"):
-    return (dataclasses.replace(j_smoke("smollm_360m"), dtype=dtype),
-            dataclasses.replace(t_smoke("smollm_360m"), dtype=dtype))
+def _configs(dtype="float32", case="smollm_360m"):
+    arch, _, variant = case.partition("@")
+    if variant == "d80":  # h2o-danube's head dim of 80, reduced
+        jc, tc = j_reduced(j_full(arch), head_dim=80), t_reduced(t_full(arch), head_dim=80)
+    else:
+        jc, tc = j_smoke(arch), t_smoke(arch)
+    return dataclasses.replace(jc, dtype=dtype), dataclasses.replace(tc, dtype=dtype)
 
 
-def _weights(seed=0, dtype="float32"):
-    jc, tc = _configs(dtype)
+def _weights(seed=0, dtype="float32", case="smollm_360m"):
+    jc, tc = _configs(dtype, case)
     tree = jax.tree.map(np.asarray, jlm.init_params(jc, jax.random.key(seed)))
     return jc, tc, tree, params_from_reference(tree, tc, "cpu", trainable=True)
 
@@ -129,13 +139,19 @@ LOSS_RTOL, GRAD_TOL = 1e-5, 1e-4
 
 
 @pytest.mark.parametrize(
-    "remat,ce_chunk",
-    [("none", 0), ("full", 0), ("dots", 0), ("none", 8), ("full", 8)],
-    ids=["none", "full", "dots", "none_chunked", "full_chunked"],
+    "case,remat,ce_chunk",
+    [("smollm_360m", "none", 0), ("smollm_360m", "full", 0), ("smollm_360m", "dots", 0),
+     ("smollm_360m", "none", 8), ("smollm_360m", "full", 8)]
+    + [(case, "none", 0) for case in ("llama3p2_1b", "h2o_danube_1p8b", "phi3_medium_14b",
+                                      "h2o_danube_1p8b@d80")],
+    ids=["none", "full", "dots", "none_chunked", "full_chunked", "llama3p2_1b",
+         "h2o_danube_1p8b", "phi3_medium_14b", "h2o_danube_1p8b_d80"],
 )
-def test_loss_and_every_gradient_match_reference(remat, ce_chunk):
-    jc, tc, tree, params = _weights()
-    batch = _batch(jc.vocab)
+def test_loss_and_every_gradient_match_reference(case, remat, ce_chunk):
+    """Under a sliding window the sequence is longer by the window, so the
+    mask binds."""
+    jc, tc, tree, params = _weights(case=case)
+    batch = _batch(jc.vocab, s=S + jc.sliding_window)
     want, wgrads = jax.value_and_grad(j_loss_fn(jc, remat=remat, ce_chunk=ce_chunk))(
         jax.tree.map(jnp.asarray, tree), jax.tree.map(jnp.asarray, batch))
     got = make_loss_fn(tc, remat=remat, ce_chunk=ce_chunk)(params, _tbatch(batch))
