@@ -48,7 +48,12 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               card) at the chunk shape, starts 0, 37, 256 and 383: bitwise
               the host-int launch at the same offset, both timed; and a
               causal 208 x 208 bucket (a partial 64-row tile) against the
-              plain version.
+              plain version. Phase 5 (c)'s shapes, from a generator of
+              their own: ``packed_matmul``'s mma path at M 24 and 32 (the
+              verify step on 8 lanes at chains 3 and 4) and 640 (the twin
+              drafter's prompt prefill) at both FFN shapes, bits 1 and 2
+              (bits 2 at M 32 and 640 timed), and a causal 640 x 640
+              ``flash_fwd``.
               The other dense archs' shapes: at each one's FFN shapes
               (2048x8192, 2560x6912, 5120x17920 and back; bits 2) the GEMV
               and ``stream_matmul`` at M=8 and the mma path at M=256, timed,
@@ -127,7 +132,49 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               shared blocks at peak > 0, exactly one chunk
               graph, and prefill tokens cut by at least 30%; a third,
               cached run with a planted fault (the copy-on-write copy
-              skipped) must be seen to differ.
+              skipped) must be seen to differ. Then (c) speculative
+              decoding on the serve cell's traffic (--spec-depth 4), on the
+              --quant 2 target and on a dequantized one (seed 0's FFN
+              leaves decoded from their 2-bit carriers,
+              ``dequantize_ffn_params``, whose twin packs them again
+              losslessly): (i) on serve's engine (n-gram drafter,
+              compiled), its lanes prefilled with 8 random 640-token
+              prompts, one verify step of 4 tokens on 8 lanes against the
+              same tokens fed through 4 decode steps, on copies of one
+              pool state; a gate holds the verify path's logits to plain
+              decode's: the largest |logit difference| and top-1 / top-2
+              gap shift within SPEC_LOGIT_STEPS bf16 steps at the largest
+              |logit|, the argmax the same at SPEC_MIN_ARGMAX_SHARE of the
+              positions; a planted fault (every start one too far) must
+              fail the same gate; the scheduler's own verify graph
+              (``_run_verify``) at each chain length 1-4 (1 and 4
+              dequantized), each replay bitwise the eager step in logits
+              and pools, and profiled (card ms); the twin drafter as serve
+              builds it (``build_speculator``), its steps as graphs,
+              against an eager drafter on the same weights: ``start_lane``
+              (the 640-token prompt prefill's graph) and ``propose`` (the
+              decode graph), the graphs' outputs, the proposals and both
+              drafters' buffers bitwise, both graphs profiled; (ii) plain
+              compiled decode of the cell, every sampled logits row kept,
+              then the same streams teacher-forced through speculative
+              serving (a drafter proposing plain decode's tokens, taken in
+              place of each sample), through the same gate; (iii) the
+              n-gram drafter through ``serve.main`` at --quant 2, eager
+              and compiled in turns, each with --trace-out (spans and
+              ledger validated); (iv) the twin (--speculate smollm_360m
+              --spec-quant 2) on the dequantized target through
+              ``run_pool_engine``, eager and compiled. For each drafter:
+              compiled and eager identical in tokens and launches by route;
+              launches exactly flash_fwd 32 x (prefill chunks + drafter
+              prefills) on its tensor-core route, packed_matmul 96 x
+              (verify steps of <= 16 rows at --quant 2 + drafter decode
+              steps) on the GEMV and 96 x (chunks and the longer verify
+              steps at --quant 2 + drafter prefills) on the mma path, no
+              other kernel; one graph per verify chain length, the
+              drafter's two, every other call a replay; the streams equal
+              to plain compiled decode's counted, and every stream that
+              parts does so where plain decode's top-1 / top-2 gap lies
+              within (ii)'s largest shift of that gap.
 4-5 (the other dense archs: llama3.2-1b, h2o-danube-1.8b, phi3-medium-14b;
               run last, after phase 7: run after phase 5, they left phase
               6's profiler windows short of an mvau record in two runs of
@@ -216,6 +263,13 @@ SHORT_LENS = ((48, 40, 45, 36), (100, 97, 110, 112), (150, 155, 160, 145), (240,
 SHORT_GEN, SHORT_MAX_LEN = 32, 272
 # phase 5 (b): the reference's prefix bench traffic at full width
 SESSIONS, TURNS, TURN_TOKENS, SESSION_GEN, SESSION_MAX_LEN = 4, 4, 96, 32, 416
+SPEC_DEPTH = 4  # phase 5 (c): --spec-depth, the serve cell's
+# phase 5 (c)'s gate on the verify path's logits against plain decode's
+# (which run other kernels, summing in other orders): the largest |logit
+# difference| and top-1 / top-2 gap shift within this many bf16 steps at
+# the largest |logit|, and the argmax the same at this share of positions
+SPEC_LOGIT_STEPS = 4
+SPEC_MIN_ARGMAX_SHARE = 0.85
 PREFIX_MIN_CUT = 0.30  # the reference's prefix_bench floor on the prefill-token cut
 TOP_LOGITS = 8  # logits kept per sampled position, to read a gap where streams part
 # the mma path's row counts held against its M=256 launch, row by row: the
@@ -476,6 +530,23 @@ def main(argv: list[str] | None = None) -> int:
 
     from repro_torch.runtime.steps import CapturedStep
 
+    def replay_matches(label, i, replays, want_replays, pairs) -> dict:
+        """Replay ``i`` of a graph (``replays`` counted so far, which must
+        be ``want_replays``) against the eager step: each of ``pairs``
+        (name: (replayed, eager)) bitwise equal (the max |diff| and cosine
+        are printed beside), or the run fails."""
+        torch.cuda.synchronize()
+        out = {"case": label, "replay": i, "replays": replays}
+        for key, (a, b) in pairs.items():
+            a2, b2 = a.float().flatten(), b.float().flatten()
+            out[f"{key}_bitwise"] = same_bits(a, b)
+            out[f"{key}_max_abs_diff"] = (a2 - b2).abs().max().item()
+            out[f"{key}_cosine"] = F.cosine_similarity(a2, b2, dim=0).item()
+        phase("graph_vs_eager", **out)
+        if replays != want_replays or not all(out[f"{k}_bitwise"] for k in pairs):
+            fail(f"{label}: replay {i} is not the eager step: {out}")
+        return out
+
     def hold_replay(label, step_fn, host_in, pk0, pv0, replay_in=None) -> list[dict]:
         """``step_fn(pool_k, pool_v, *inputs) -> logits`` compiled
         (``CapturedStep``) on a copy of the pools: its first call and
@@ -496,17 +567,8 @@ def main(argv: list[str] | None = None) -> int:
             vg.copy_(pv0)
             lg_r = graph(*inputs)
             torch.cuda.synchronize()
-            pairs = {"logits": (lg_r, lg_e), "pool_k": (kg, ke), "pool_v": (vg, ve)}
-            out = {"case": label, "replay": i, "replays": graph.replays}
-            for key, (a, b) in pairs.items():
-                a2, b2 = a.float().flatten(), b.float().flatten()
-                out[f"{key}_bitwise"] = same_bits(a, b)
-                out[f"{key}_max_abs_diff"] = (a2 - b2).abs().max().item()
-                out[f"{key}_cosine"] = F.cosine_similarity(a2, b2, dim=0).item()
-            phase("graph_vs_eager", **out)
-            if graph.replays != i + 1 or not all(out[f"{k}_bitwise"] for k in pairs):
-                fail(f"{label}: replay {i} is not the eager step: {out}")
-            outs.append(out)
+            outs.append(replay_matches(label, i, graph.replays, i + 1, {
+                "logits": (lg_r, lg_e), "pool_k": (kg, ke), "pool_v": (vg, ve)}))
             del ke, ve
         del graph, kg, vg
         return outs
@@ -924,6 +986,18 @@ def main(argv: list[str] | None = None) -> int:
             fail(f"flash_fwd device q_offset {start}: out err {case['max_abs_err']}, "
                  f"lse err {case['lse_err']}")
     flash_case("bucket_208", hq, hkv, 208, 208, hd, True, 0, 0, bf16, False, g=qo_gen)
+    # phase 5 (c)'s shapes, from a generator of their own: the verify step
+    # at --quant 2 on 8 lanes (chains of 3 and 4: the mma path at M 24 and
+    # 32) and the twin drafter's (1, MAX_LEN) prompt prefill (the mma path
+    # at M = MAX_LEN, a causal MAX_LEN x MAX_LEN flash_fwd)
+    spec_gen = torch.Generator(device="cpu").manual_seed(11)
+    for bits in (1, 2):
+        for k, n in ((d, ff), (ff, d)):
+            for m in (LANES * (SPEC_DEPTH - 1), LANES * SPEC_DEPTH, MAX_LEN):
+                packed_case(bits, m, k, n, bf16, timed=bits == 2 and m != LANES * (SPEC_DEPTH - 1),
+                            g=spec_gen)
+    flash_case("drafter_prefill", hq, hkv, MAX_LEN, MAX_LEN, hd, True, 0, 0, bf16, False,
+               g=spec_gen)
 
     def visible_pairs(sq, sk, causal, window, q_off) -> int:
         qp = q_off + np.arange(sq)[:, None]
@@ -1503,7 +1577,8 @@ def main(argv: list[str] | None = None) -> int:
             for route, n in counts.items():
                 routes[name][route] = routes[name].get(route, 0) + n
 
-    def check_trace(path, metrics, label) -> dict:
+    def check_trace(path, metrics, label,
+                    phases=("queue", "prefill", "decode", "wait")) -> dict:
         """The run's ``--trace-out`` stream: the ledger integrates to every
         round's gauges (``validate_ledger``), the rounds replay to the run's
         counters, the export is loadable, and every request's spans tile
@@ -1536,7 +1611,7 @@ def main(argv: list[str] | None = None) -> int:
             mem_records=sum(r.get("kind") == "mem" for r in records),
             mean_ms_per_request={
                 ph: statistics.fmean(d.get(ph, 0.0) for d in per.values()) * 1e3
-                for ph in ("queue", "prefill", "decode", "wait")})
+                for ph in phases})
 
     def eager_serve(argv) -> tuple[dict, dict, dict]:
         """The run of ``serve.main(argv)`` with every step eager: the same
@@ -1604,6 +1679,457 @@ def main(argv: list[str] | None = None) -> int:
                 or by_route.get("flash_fwd", {}).keys() != {"mma"}
                 or counts["flash_bwd_dq"] or counts["flash_bwd_dkv"]):
             fail(f"{label}: launches {counts}, by route {by_route}")
+
+    # ---------------- 5 (c): speculative decoding ----------------
+    def speculative_phase(cfg_q2, params_q2, plain_q2_run) -> None:
+        """Phase 5 (c) (the module docstring says what it holds).
+        ``plain_q2_run`` is phase 5's compiled --quant 2 run's metrics."""
+        from repro_torch.runtime import speculative as spec
+
+        cfg_q0 = dataclasses.replace(cfg, w_bits=0)
+        t0 = time.monotonic()
+        # the twin's lossless pairing: a dequantized target (its FFN leaves
+        # the decoded 2-bit carriers of seed 0's dense draw, in bf16), whose
+        # twin serve builds by packing them again (--spec-quant 2)
+        dense0 = lm.init_params(cfg_q0, 0, device=dev)
+        params_dq = spec.dequantize_ffn_params(dense0, 2)
+        del dense0
+        torch.cuda.synchronize()
+        phase("spec_weights", target="dequantized smollm-360m (w_bits 0)",
+              seconds=time.monotonic() - t0)
+        spec_layers = cfg.n_layers
+        spec_argv = ["--arch", "smollm_360m", "--requests", "16", "--batch", str(LANES),
+                     "--prompt-len", str(PROMPT), "--gen-len", "64", "--max-len", str(MAX_LEN),
+                     "--prefill-chunk", str(CHUNK), "--spec-depth", str(SPEC_DEPTH)]
+
+        def logit_gate(label, max_diff, gap_shift, agree, n, scale, planted=False) -> dict:
+            """The verify path's logits against plain decode's: the largest
+            |difference| and the largest shift of plain decode's top-1 /
+            top-2 gap within SPEC_LOGIT_STEPS bf16 steps at the largest
+            |logit| (``scale``), and the argmax the same at no fewer than
+            SPEC_MIN_ARGMAX_SHARE of the ``n`` positions, or the run fails;
+            a ``planted`` fault must fail the same gate."""
+            step = 2.0 ** (math.floor(math.log2(scale)) - 7)  # bf16: 8 significant bits
+            ceiling = SPEC_LOGIT_STEPS * step
+            within = (max_diff <= ceiling and gap_shift <= ceiling
+                      and agree >= SPEC_MIN_ARGMAX_SHARE * n)
+            out = dict(max_abs_logit=scale, bf16_step=step, ceiling=ceiling,
+                       max_abs_logit_diff=max_diff, max_top1_top2_gap_shift=gap_shift,
+                       max_abs_logit_diff_steps=max_diff / step,
+                       max_top1_top2_gap_shift_steps=gap_shift / step,
+                       argmax_agree=agree, positions=n, argmax_share=agree / n,
+                       within_gate=within)
+            if within == planted:
+                fail(f"{label}: " + ("the planted fault passes the gate" if planted else
+                                     "the verify path's logits lie outside the gate") + f": {out}")
+            return out
+
+        def rows_vs(got, want) -> tuple:
+            """(N, V) logits rows against plain decode's ``want``: the
+            largest |difference|, the largest shift of want's top-1 / top-2
+            gap, the rows whose argmax agrees, and want's largest |logit|."""
+            top2 = torch.topk(want, 2, dim=-1).indices
+            g, w = got.gather(1, top2), want.gather(1, top2)
+            shift = ((g[:, 0] - g[:, 1]) - (w[:, 0] - w[:, 1])).abs().max().item()
+            return ((got - want).abs().max().item(), shift,
+                    int((got.argmax(-1) == want.argmax(-1)).sum()), want.abs().max().item())
+
+        def verify_checks(c, p, label, lengths) -> None:
+            """On serve's engine for ``c`` / ``p`` with the n-gram drafter
+            (compiled), its pool's lanes prefilled with 8 random 640-token
+            prompts: (i) one verify step of SPEC_DEPTH tokens on every lane
+            (lanes at depths PROMPT + 8 + i), eager, against the same tokens
+            fed through SPEC_DEPTH decode steps on a copy of the pool
+            (``logit_gate``; the K/V rows each wrote), and the planted fault,
+            the verify step with every start one too far; then the
+            scheduler's own verify graph (``_run_verify``) at each chain
+            length in ``lengths``, each replay bitwise the eager step in
+            logits and pools, at other tokens and depths too; its chain-4
+            graph profiled."""
+            args = serve.build_parser().parse_args(
+                spec_argv + ["--quant", str(c.w_bits), "--speculate", "ngram"])
+            sched = serve.build_pool_engine(c, p, args, dev)
+            pool, s_max = sched.pool, sched.s_max
+            base = pool.k.shape[1] - LANES * s_max
+            table = (base + np.arange(LANES * s_max).reshape(LANES, s_max)).astype(np.int32)
+            prompts = torch.from_numpy(np.random.default_rng(5).integers(
+                0, c.vocab, (LANES, MAX_LEN))).to(dev)
+            _, ks, vs = lm.prefill_with_cache(p, c, prompts, MAX_LEN - 1)
+            rows = torch.from_numpy(table[:, :MAX_LEN].reshape(-1).astype(np.int64)).to(dev)
+            pool.k.index_copy_(1, rows, ks.flatten(1, 2))
+            pool.v.index_copy_(1, rows, vs.flatten(1, 2))
+            del ks, vs, prompts
+            sched._row_table[:] = table
+            sched._table_dirty = True
+            pk0, pv0 = pool.k.clone(), pool.v.clone()
+            starts = (PROMPT + 8 + np.arange(LANES)).astype(np.int32)
+            toks = np.random.default_rng(6).integers(0, c.vocab, (LANES, SPEC_DEPTH))
+            other = np.random.default_rng(7).integers(0, c.vocab, (LANES, SPEC_DEPTH))
+
+            def step_in(tokens, st, k):
+                """The scheduler's host inputs of a chain of ``k``."""
+                wr = np.take_along_axis(table, st[:, None] + np.arange(k)[None], 1)
+                return tokens[:, :k].astype(np.int32), wr, st
+
+            def eager(kk, vv, tokens, wr, st):
+                return sched._verify(p, sched._to_device(tokens), kk, vv,
+                                     sched._to_device(table), sched._to_device(wr),
+                                     sched._to_device(st))[0]
+
+            ke, ve = pk0.clone(), pv0.clone()
+            lg_v = eager(ke, ve, *step_in(toks, starts, SPEC_DEPTH))[..., :c.vocab].float()
+            kd, vd = pk0.clone(), pv0.clone()
+            table_dev, starts_dev = sched._to_device(table), sched._to_device(starts)
+            lg_d = torch.stack([lm.decode_step_paged(
+                p, c, sched._to_device(toks[:, j:j + 1]), kd, vd, table_dev,
+                starts_dev + j)[0][:, 0, :c.vocab].float() for j in range(SPEC_DEPTH)], 1)
+            per_pos = []
+            for j in range(SPEC_DEPTH):
+                diff, _, agree, _ = rows_vs(lg_v[:, j], lg_d[:, j])
+                per_pos.append(dict(position=j, max_abs_logit_diff=diff, argmax_agree=agree))
+            want = lg_d.flatten(0, 1)
+            n = LANES * SPEC_DEPTH
+            diff, shift, agree, scale = rows_vs(lg_v.flatten(0, 1), want)
+            gate = logit_gate(f"{label} verify vs decode", diff, shift, agree, n, scale)
+            wr = step_in(toks, starts, SPEC_DEPTH)[1].reshape(-1).astype(np.int64)
+            wr_dev = torch.from_numpy(wr).to(dev)
+            kc, vc = pk0.clone(), pv0.clone()
+            lg_c = eager(kc, vc, toks.astype(np.int32), wr.reshape(LANES, SPEC_DEPTH),
+                         starts + 1)[..., :c.vocab].float().flatten(0, 1)
+            diff, shift, agree, scale = rows_vs(lg_c, want)
+            control = logit_gate(f"{label} planted fault (starts + 1)", diff, shift, agree, n,
+                                 scale, planted=True)
+            phase("spec_verify_vs_decode", target=label, lanes=LANES, chain=SPEC_DEPTH,
+                  pool=f"{LANES} random {MAX_LEN}-token prompts, prefilled", depths=starts.tolist(),
+                  positions=per_pos, gate=gate, planted_starts_plus_1=control,
+                  k_rows_bitwise=same_bits(ke[:, wr_dev], kd[:, wr_dev]),
+                  max_abs_k_row_diff=(ke[:, wr_dev].float() - kd[:, wr_dev].float()).abs().max().item(),
+                  max_abs_v_row_diff=(ve[:, wr_dev].float() - vd[:, wr_dev].float()).abs().max().item())
+            del ke, ve, kd, vd, kc, vc, lg_v, lg_d, lg_c, want
+            for k in lengths:
+                cases = [step_in(toks, starts, k), step_in(other, starts + 3, k)]
+                pool.k.copy_(pk0)
+                pool.v.copy_(pv0)
+                sched._run_verify(*cases[0])  # the graph's first call and capture
+                for i, inputs in enumerate(cases):
+                    pool.k.copy_(pk0)
+                    pool.v.copy_(pv0)
+                    lg_r = sched._run_verify(*inputs)
+                    ke, ve = pk0.clone(), pv0.clone()
+                    lg_e = eager(ke, ve, *inputs)
+                    replay_matches(f"{label} served verify graph, chain {k}", i,
+                                   sched.verify_graphs[k].replays, i + 1,
+                                   {"logits": (lg_r, lg_e), "pool_k": (pool.k, ke),
+                                    "pool_v": (pool.v, ve)})
+                    del ke, ve
+            stats, by_name = profile_window(
+                lambda: sched._run_verify(*step_in(toks, starts, SPEC_DEPTH)))
+            phase("spec_verify_profile", target=label, compiled=True, lanes=LANES,
+                  chain=SPEC_DEPTH, **stats,
+                  top_kernels_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:5]))
+            del sched, pool, pk0, pv0
+            torch.cuda.empty_cache()
+
+        def drafter_checks() -> None:
+            """The twin drafter as serve builds it (``build_speculator`` on
+            the dequantized target, packing its FFN leaves at 2 bits) with
+            its steps as CUDA graphs, against an eager drafter on the same
+            weights: ``start_lane`` (the prompt prefill's graph at (1,
+            MAX_LEN), the scatter into its buffers after it) on three lanes,
+            then ``propose`` (SPEC_DEPTH steps of the decode graph over its
+            static row table) and one more decode step; each replay's
+            outputs (logits, the prefill's K/V rows, the proposals) and both
+            drafters' buffers bitwise equal (the scratch row 0 aside: the
+            padding's rows land there in no set order); both graphs
+            profiled."""
+            gs = spec.build_speculator(cfg_q0, params_dq, spec.SpecConfig(
+                "smollm_360m", SPEC_DEPTH, 2), slots=LANES, max_len=MAX_LEN)
+            gs.use_graphs(torch.cuda.graph_pool_handle())
+            gd = gs.drafter
+            ed = spec.ModelDrafter(gd.cfg, gd.params, slots=LANES, max_len=MAX_LEN)
+            rng = np.random.default_rng(10)
+            lanes = [(0, PROMPT), (3, PROMPT - 40), (5, PROMPT + 100)]  # (slot, prompt length)
+            prompts = {s: rng.integers(0, cfg.vocab, n).astype(np.int32) for s, n in lanes}
+
+            def padded(s):
+                out = np.zeros((1, MAX_LEN), np.int32)
+                out[0, :len(prompts[s])] = prompts[s]
+                return out, len(prompts[s]) - 1
+
+            def buffers():
+                return {"drafter_k": (gd.k[:, 1:], ed.k[:, 1:]),
+                        "drafter_v": (gd.v[:, 1:], ed.v[:, 1:])}
+
+            gd.start_lane(0, prompts[0])  # the prefill graph's first call and capture
+            ed.start_lane(0, prompts[0])
+            for i, (s, _) in enumerate(lanes):
+                gd.start_lane(s, prompts[s])
+                ed.start_lane(s, prompts[s])
+                got = gd._prefill_graph._outputs
+                want = ed._run_prefill(*padded(s))
+                replay_matches("twin drafter prompt prefill (served)", i,
+                               gd._prefill_graph.replays, i + 1,
+                               {"logits": (got[0], want[0]), "ks": (got[1], want[1]),
+                                "vs": (got[2], want[2]), **buffers()})
+            views = [spec.LaneDraft(slot=s, rid=s, pending=int(prompts[s][-1]), out_len=0,
+                                    n_rows=len(prompts[s]),
+                                    history=prompts[s]) for s, _ in lanes]
+            sampling = lm.SamplingParams()
+            props_g, _ = gd.propose(views, SPEC_DEPTH, sampling)
+            props_e, _ = ed.propose(views, SPEC_DEPTH, sampling)
+            # propose's first decode step is the graph's first call
+            replay_matches("twin drafter propose (served decode graph)", SPEC_DEPTH - 2,
+                           gd._decode_graph.replays, SPEC_DEPTH - 1,
+                           {"proposals": (torch.from_numpy(props_g), torch.from_numpy(props_e)),
+                            **buffers()})
+            token = np.zeros((LANES, 1), np.int32)
+            token[[s for s, _ in lanes], 0] = props_g[:, -1]
+            lengths = gd.lengths + SPEC_DEPTH
+            lg_g = gd._run_decode(token, lengths)
+            lg_e = ed._run_decode(token, lengths)
+            replay_matches("twin drafter decode step (served)", SPEC_DEPTH - 1,
+                           gd._decode_graph.replays, SPEC_DEPTH,
+                           {"logits": (lg_g, lg_e), **buffers()})
+            for step, fn in (("twin drafter decode", lambda: gd._run_decode(token, lengths)),
+                             ("twin drafter prefill", lambda: gd._run_prefill(*padded(3)))):
+                stats, by_name = profile_window(fn)
+                phase("spec_drafter_profile", step=step, compiled=True, lanes=LANES, **stats,
+                      top_kernels_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:5]))
+            del gs, gd, ed
+            torch.cuda.empty_cache()
+
+        verify_checks(cfg_q2, params_q2, "--quant 2", range(1, SPEC_DEPTH + 1))
+        verify_checks(cfg_q0, params_dq, "dequantized --quant 0", (1, SPEC_DEPTH))
+        drafter_checks()
+        class OracleDrafter:
+            """Proposes plain decode's own tokens (teacher forcing's drafter)."""
+
+            is_model = False
+
+            def __init__(self, oracle):
+                self.oracle = oracle
+
+            def start_lane(self, slot, prompt):
+                return 0, 0
+
+            def release_lane(self, slot):
+                pass
+
+            def accept(self, slot, n_rows):
+                pass
+
+            def propose(self, lanes, k, sampling):
+                props = np.zeros((len(lanes), k - 1), np.int32)
+                for j, ln in enumerate(lanes):
+                    out = self.oracle[ln.rid]
+                    for m in range(k - 1):
+                        pos = ln.out_len + m
+                        props[j, m] = out[pos] if pos < len(out) else 0
+                return props, 0
+
+        def observed_run(c, p, on_row, speculative=None) -> tuple:
+            """The serve cell on ``serve``'s compiled engine, every sampled
+            position's (V,) logits row handed to ``on_row((rid, position),
+            row)``, which may return a token to take in place of the sample
+            (teacher forcing). Returns (outputs, metrics)."""
+            args = serve.build_parser().parse_args(spec_argv)
+            sched = serve.build_pool_engine(c, p, args, dev, speculative=speculative)
+            sample_one = sched._sample_one
+
+            def observed(req, row):
+                tok = sample_one(req, row)
+                forced = on_row((req.rid, len(req.output)), row[: c.vocab])
+                return tok if forced is None else forced
+
+            sched._sample_one = observed
+            for prompt in serve.make_requests(args, c.vocab):
+                sched.submit(prompt, args.gen_len)
+            t0 = time.monotonic()
+            st = sched.run()
+            wall = time.monotonic() - t0
+            return sched.outputs(), dict(tokens_per_s=st.generated_tokens / wall,
+                                         mean_ttft_s=st.mean_ttft, wall_s=wall,
+                                         verify_steps=st.verify_steps,
+                                         accepted_per_step=st.accepted_per_step)
+
+        def plain_and_forced(c, p, label) -> dict:
+            """(ii) Plain compiled decode of the serve cell, each sampled
+            position's logits row and top-1 / top-2 gap kept; then the same
+            streams teacher-forced through speculative serving (a drafter that
+            proposes plain decode's tokens, which are also taken in place of
+            each sample, so every chain is accepted whole and every verify row
+            sees plain decode's history): the largest |logit difference|
+            and top-1 / top-2 gap shift between the verify path and plain
+            decode, through ``logit_gate``. Returns plain decode's streams
+            and gaps, and the largest gap shift: the bound for a parting."""
+            rows, gaps = {}, {}
+
+            def keep(key, row):
+                rows[key] = row.copy()
+                top = int(np.argmax(row))
+                gaps[key] = (top, float(row[top] - np.partition(row, -2)[-2]))
+
+            plain_out, plain_m = observed_run(c, p, keep)
+            diffs, agree, pair_shift = {}, 0, 0.0
+
+            def force(key, row):
+                nonlocal agree, pair_shift
+                want = rows[key]
+                diffs[key] = float(np.abs(row - want).max())
+                top = int(np.argmax(want))
+                second = int(np.argmax(np.where(np.arange(len(want)) == top, -np.inf, want)))
+                agree += int(np.argmax(row) == top)
+                pair_shift = max(pair_shift, abs(float((row[top] - row[second])
+                                                       - (want[top] - want[second]))))
+                return plain_out[key[0]][key[1]]
+
+            forced_out, forced_m = observed_run(
+                c, p, force, speculative=spec.Speculator(OracleDrafter(plain_out), depth=SPEC_DEPTH))
+            if forced_out != plain_out or len(diffs) != len(rows):
+                fail(f"{label}: the teacher-forced run did not follow plain decode")
+            rid0 = [d for (rid, _), d in diffs.items() if rid == 0]
+            gate = logit_gate(f"{label} teacher-forced", max(diffs.values()), pair_shift, agree,
+                              len(diffs), max(float(np.abs(r).max()) for r in rows.values()))
+            out = dict(target=label, gate=gate, max_abs_logit_diff_stream_0=max(rid0),
+                       median_max_abs_logit_diff=statistics.median(diffs.values()),
+                       positions_bitwise=sum(d == 0.0 for d in diffs.values()),
+                       forced_verify_steps=forced_m["verify_steps"],
+                       forced_accepted_per_step=forced_m["accepted_per_step"],
+                       plain_tokens_per_s=plain_m["tokens_per_s"],
+                       plain_mean_ttft_s=plain_m["mean_ttft_s"])
+            phase("spec_teacher_forced", **out)
+            del rows
+            return dict(outputs=plain_out, gaps=gaps, bound=pair_shift, plain=plain_m)
+
+        def check_spec_run(label, m, counts, by_route, quant, compiled, twin) -> None:
+            """A speculative serve cell run: every request done, every decode
+            token from a verify step; when compiled, one chunk graph, one
+            verify graph per chain length seen and (twin) the drafter's decode
+            and prefill graphs, every other call a replay; launches exactly:
+            flash_fwd 32 x (prefill chunks + drafter prefills) on the tensor
+            cores, packed_matmul 96 x (verify steps at <= 16 rows [quant] +
+            drafter decode steps) on the GEMV and 96 x (prefill chunks and the
+            rest of the verify steps [quant] + drafter prefills) on the mma
+            path, nothing else."""
+            if (m["completed"] != 16 or m["generated_tokens"] != 16 * 64 or m["decode_steps"]
+                    or m["accepted_tokens"] != 16 * 63 or not m["verify_steps"]):
+                fail(f"{label}: {m['completed']} completed, {m['generated_tokens']} tokens, "
+                     f"{m['decode_steps']} decode steps, {m['accepted_tokens']} accepted")
+            drafted = m["draft_steps"] + m["draft_prefills"]
+            if twin != bool(drafted) or (twin and m["draft_prefills"] != 16):
+                fail(f"{label}: {m['draft_steps']} drafter steps, {m['draft_prefills']} prefills")
+            if compiled:
+                n_graphs = 1 + len(m["verify_graph_lengths"]) + 2 * twin
+                calls = m["prefill_steps"] + m["verify_steps"] + drafted
+                if not (m["compiled"] and m["graphs"] == n_graphs
+                        and m["graph_replays"] == calls - n_graphs
+                        and m["verify_graph_lengths"] == sorted(map(int, m["verify_steps_by_length"]))):
+                    fail(f"{label}: {m['graphs']} graphs (want {n_graphs}), {m['graph_replays']} "
+                         f"replays of {calls} calls, verify graphs {m['verify_graph_lengths']}")
+            short = sum(n for k, n in m["verify_steps_by_length"].items() if LANES * int(k) <= 16)
+            long_ = m["verify_steps"] - short
+            per = 3 * spec_layers
+            want_pm = {"gemv": per * ((short if quant else 0) + m["draft_steps"]),
+                       "mma": per * ((m["prefill_steps"] + long_ if quant else 0)
+                                     + m["draft_prefills"])}
+            want_pm = {k: v for k, v in want_pm.items() if v}
+            want_fa = spec_layers * (m["prefill_steps"] + m["draft_prefills"])
+            others = {k: n for k, n in counts.items() if k not in ("packed_matmul", "flash_fwd")}
+            if (by_route.get("packed_matmul", {}) != want_pm
+                    or by_route.get("flash_fwd", {}) != {"mma": want_fa}
+                    or counts["packed_matmul"] != sum(want_pm.values())
+                    or counts["flash_fwd"] != want_fa or any(others.values())):
+                fail(f"{label}: launches {counts}, by route {by_route}; want packed_matmul "
+                     f"{want_pm}, flash_fwd mma {want_fa}")
+
+        def parted_streams(outputs, ref, label) -> dict:
+            """The streams that part from plain compiled decode's, each with
+            plain decode's top-1 / top-2 gap at its first differing position,
+            which must lie within the teacher-forced run's largest shift of
+            that gap, or the phase fails."""
+            parted = []
+            for rid, toks in outputs.items():
+                plain = ref["outputs"][rid]
+                j = next((i for i, (x, y) in enumerate(zip(toks, plain)) if x != y), None)
+                if j is not None:
+                    parted.append(dict(rid=rid, position=j, token=toks[j], plain_token=plain[j],
+                                       plain_top1_top2_gap=ref["gaps"][rid, j][1]))
+            out = dict(streams_identical=len(outputs) - len(parted), streams=len(outputs),
+                       parted=parted, near_tie_bound=ref["bound"])
+            wide = [q for q in parted if not q["plain_top1_top2_gap"] <= ref["bound"]]
+            if wide:
+                fail(f"{label}: streams part from plain decode where its top-1 / top-2 gap "
+                     f"exceeds the verify path's largest shift of it {ref['bound']}: {wide}")
+            return out
+
+        spec_runs = {}
+        for drafter, quant, c_, p_ in (("ngram", 2, cfg_q2, params_q2),
+                                       ("smollm_360m", 0, cfg_q0, params_dq)):
+            twin = drafter != "ngram"
+            label = "dequantized --quant 0" if twin else "--quant 2"
+            ref = plain_and_forced(c_, p_, label)
+            argv = spec_argv + ["--quant", str(quant), "--speculate", drafter, "--spec-quant", "2"]
+            by_mode = {}
+            for mode in ("eager", "compiled"):
+                run_label = f"serve --speculate {drafter} ({label}, {mode})"
+                trace = trace_dir / f"serve_spec_{drafter}_{mode}.jsonl"
+                trace.unlink(missing_ok=True)
+                if twin:
+                    # serve's engine on the dequantized target: --speculate
+                    # builds the twin (its FFN leaves packed at --spec-quant)
+                    ops.reset_launch_counts()
+                    metrics = serve.run_pool_engine(
+                        c_, p_, serve.build_parser().parse_args(argv), dev,
+                        compiled=None if mode == "compiled" else False)
+                    counts, by_route = ops.launch_counts(), ops.launch_routes()
+                elif mode == "eager":
+                    metrics, counts, by_route = eager_serve(argv + ["--trace-out", str(trace)])
+                else:
+                    metrics, counts, by_route = serve_main(argv + ["--trace-out", str(trace)],
+                                                           run_label)
+                check_spec_run(run_label, metrics, counts, by_route, quant, mode == "compiled", twin)
+                trace_check = None if twin else check_trace(
+                    trace, metrics, run_label,
+                    phases=("queue", "prefill", "draft", "verify", "wait"))
+                by_mode[mode] = dict(metrics=metrics, counts=counts, by_route=by_route)
+                phase("serve_spec", drafter=drafter, target=label, mode=mode,
+                      launches_counted=counts, launches_by_route=by_route, trace=trace_check,
+                      **{k: v for k, v in metrics.items() if k != "outputs"})
+                if mode == "compiled":
+                    for name, n in counts.items():
+                        launches[name] += n
+                    add_routes(by_route)
+            c, e = by_mode["compiled"], by_mode["eager"]
+            same_tokens = outputs_of(c["metrics"]) == outputs_of(e["metrics"])
+            same_launches = (c["counts"], c["by_route"]) == (e["counts"], e["by_route"])
+            vs_plain = parted_streams(outputs_of(c["metrics"]), ref, run_label)
+            cm = c["metrics"]
+            spec_runs[drafter] = dict(
+                drafter=drafter, target=label, token_streams_identical=same_tokens,
+                launch_counts_identical=same_launches, vs_plain_compiled=vs_plain,
+                eager_vs_plain_streams_identical=parted_streams(
+                    outputs_of(e["metrics"]), ref, run_label + " eager")["streams_identical"],
+                plain_tokens_per_s=ref["plain"]["tokens_per_s"],
+                plain_mean_ttft_s=ref["plain"]["mean_ttft_s"],
+                **{f"{key}_{mode}": by_mode[mode]["metrics"][key]
+                   for key in ("tokens_per_s", "mean_ttft_s", "wall_s", "verify_step_ms")
+                   for mode in ("eager", "compiled")},
+                **{key: cm[key] for key in (
+                    "accepted_per_step", "accepted_tokens", "draft_tokens", "verify_steps",
+                    "verify_steps_by_length", "verify_step_ms_replay", "propose_ms_per_verify_step",
+                    "draft_steps", "draft_step_ms", "draft_prefills", "draft_prefill_ms")})
+            if not twin:
+                # the plain recording run against phase 5's serve --quant 2 run
+                spec_runs[drafter]["plain_streams_equal_phase_5_serve_run"] = (
+                    outputs_of(plain_q2_run) == ref["outputs"])
+            phase("serve_spec_compiled_vs_eager", **spec_runs[drafter])
+            if not (same_tokens and same_launches):
+                fail(f"serve --speculate {drafter}: compiled and eager differ (tokens "
+                     f"{same_tokens}, launches {c['counts']} {c['by_route']} != "
+                     f"{e['counts']} {e['by_route']})")
+            del ref
+        del params_dq
+        torch.cuda.empty_cache()
 
     for quant in (2, 0):
         qcfg = dataclasses.replace(cfg, w_bits=quant)
@@ -2004,6 +2530,8 @@ def main(argv: list[str] | None = None) -> int:
             and cut >= PREFIX_MIN_CUT and warm["cow_copies"] > 0):
         fail(f"shared-prefix trace: shared peak {warm['shared_blocks_peak']}, chunk graphs "
              f"{warm['chunk_graphs']}, prefill cut {cut}, cow copies {warm['cow_copies']}")
+
+    speculative_phase(cfg_q2, params_q2, runs[2, False])
     del params_q2
 
     # ------- 4-5 for the other dense archs, at full width (and depth) -------

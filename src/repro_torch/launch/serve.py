@@ -14,6 +14,12 @@ every step runs eagerly.
 ``--arch`` takes every ported arch: smollm-360m (the default),
 llama3.2-1b, h2o-danube-1.8b and phi3-medium-14b (or their module ids).
 
+``--speculate`` serves with speculative decoding (``runtime.speculative``):
+``ngram`` (the self-drafting suffix match) or an arch whose packed twin,
+at ``--spec-quant`` bits, drafts ``--spec-depth``-token chains; a drafter
+that cannot serve the target exits 2 with the compatible drafters listed.
+It prints the reference's ``[serve/spec]`` line.
+
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m --quant 2
@@ -21,6 +27,8 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b --smoke --device cpu --quant 2
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --no-prefix-cache
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --speculate ngram
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --speculate smollm_360m --spec-quant 2
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --vmem-budget 0.25
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --trace-out t.jsonl
     PYTHONPATH=src python -m repro_torch.perf.trace_export t.jsonl --check
@@ -33,8 +41,9 @@ reference does; a memory ledger and its pressure monitor run on every
 run and give the ``[serve/mem]`` line. Besides the reference's
 ``[serve/pool]`` and ``[serve/prefix]`` lines it prints each kernel's
 launch count, and a ``[serve/metrics]`` line with the run's numbers (the
-seconds ``init_params`` took to draw the weights among them, and every
-request's tokens) as JSON.
+seconds ``init_params`` took to draw the weights among them, the host ms
+of a verify step and of a model drafter's steps, each to its logits on the
+host, and every request's tokens) as JSON.
 """
 
 from __future__ import annotations
@@ -62,6 +71,7 @@ from repro_torch.runtime.residency import (
 )
 from repro_torch.runtime.scheduler import Scheduler
 from repro_torch.runtime.spans import SpanRecorder
+from repro_torch.runtime.speculative import SpecConfig, build_speculator, resolve
 from repro_torch.runtime.tracker import JsonlTracker
 
 
@@ -87,11 +97,21 @@ def build_residency_plan(cfg, args) -> RuntimeResidencyPlan | None:
     )
 
 
+def spec_config(args) -> SpecConfig | None:
+    """The ``--speculate`` / ``--spec-depth`` / ``--spec-quant`` choice."""
+    if not args.speculate:
+        return None
+    return SpecConfig(drafter=args.speculate, depth=args.spec_depth, quant=args.spec_quant)
+
+
 def build_pool_engine(
-    cfg, params, args, device, residency=None, *, compiled: bool | None = None
+    cfg, params, args, device, residency=None, *, compiled: bool | None = None,
+    speculative=None,
 ) -> Scheduler:
     """The pool scheduler of ``args``; ``compiled`` is the scheduler's
-    (None: CUDA graphs on the card, eager on the CPU)."""
+    (None: CUDA graphs on the card, eager on the CPU). ``speculative`` is
+    a built ``Speculator``; None builds the one ``--speculate`` names
+    (none without it)."""
     total = args.prompt_len + args.gen_len
     block_tokens = args.block_tokens or choose_block_tokens(
         [total] * args.requests
@@ -110,6 +130,11 @@ def build_pool_engine(
     # no engine stamp: standalone round records carry none either, and the
     # ledger's and the metrics' engine keys must agree for validate_ledger
     ledger = MemLedger(time.monotonic, tracker=tracker)
+    spec = spec_config(args)
+    if speculative is None and spec is not None:
+        speculative = build_speculator(
+            cfg, params, spec, slots=args.batch, max_len=args.max_len, smoke=args.smoke
+        )
     return Scheduler(
         cfg,
         params,
@@ -128,6 +153,7 @@ def build_pool_engine(
         residency=residency,
         compiled=compiled,
         prefix_cache=prefix_cache,
+        speculative=speculative,
         tracker=tracker,
         spans=spans,
         ledger=ledger,
@@ -143,6 +169,43 @@ def _replay_step_ms(sched, stats) -> float | None:
         return None
     setup = g.first_call_s + g.capture_s
     return (stats.decode_time - setup) / (stats.decode_steps - 1) * 1e3
+
+
+def _spec_metrics(sched, stats) -> dict:
+    """The speculative keys of ``[serve/metrics]``: the reference's
+    counters, and host ms: a verify step's (its graphs' first calls and
+    captures left out of ``verify_step_ms_replay``), a drafter's proposal
+    per verify step, and a model drafter's decode step and prompt prefill,
+    each to its logits on the host."""
+    spec = sched.speculative
+    out = {
+        "speculate": spec.name if spec is not None else "",
+        "spec_depth": spec.depth if spec is not None else 0,
+        "accepted_tokens": stats.accepted_tokens,
+        "draft_tokens": stats.draft_tokens,
+        "verify_steps": stats.verify_steps,
+        "accepted_per_step": stats.accepted_per_step,
+    }
+    if spec is None:
+        return out
+    n = stats.verify_steps
+    setup = sum(g.first_call_s + g.capture_s for g in sched.verify_graphs.values())
+    replays = sum(g.replays for g in sched.verify_graphs.values())
+    ds = getattr(spec.drafter, "stats", None)
+    out.update(
+        verify_step_ms=sched.verify_s / n * 1e3 if n else 0.0,
+        verify_step_ms_replay=(
+            (sched.verify_s - setup) / replays * 1e3 if replays else None
+        ),
+        verify_graph_lengths=sorted(sched.verify_graphs),
+        verify_steps_by_length={str(k): c for k, c in sorted(sched.verify_lengths.items())},
+        propose_ms_per_verify_step=sched.propose_s / n * 1e3 if n else 0.0,
+        draft_steps=ds.decode_steps if ds else 0,
+        draft_step_ms=ds.decode_s / ds.decode_steps * 1e3 if ds and ds.decode_steps else None,
+        draft_prefills=ds.prefills if ds else 0,
+        draft_prefill_ms=ds.prefill_s / ds.prefills * 1e3 if ds and ds.prefills else None,
+    )
+    return out
 
 
 def run_pool_engine(
@@ -191,6 +254,7 @@ def run_pool_engine(
         "shared_blocks_peak": stats.shared_blocks_peak,
         "cached_blocks": sched.pool.cached_blocks,
         "prefill_tokens": stats.prefill_tokens,
+        **_spec_metrics(sched, stats),
         "residency": residency.summary() if residency is not None else None,
         "graphs": len(sched.graphs),
         "graph_replays": sum(g.replays for g in sched.graphs),
@@ -237,6 +301,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="restrict sampling to the top-k logits; 0 = off")
     ap.add_argument("--top-p", type=float, default=1.0,
                     help="nucleus sampling mass; 1.0 = off")
+    ap.add_argument("--speculate", default="",
+                    help="speculative decoding drafter: 'ngram' (self-drafting "
+                         "suffix match) or an arch id whose packed twin drafts "
+                         "for the target (dense family)")
+    ap.add_argument("--spec-depth", type=int, default=4,
+                    help="draft chain depth k: each verify step scores the "
+                         "pending token plus k-1 proposals")
+    ap.add_argument("--spec-quant", type=int, default=2, choices=[1, 2],
+                    help="packed-carrier width of a model drafter's FFN "
+                         "(the twin's w_bits)")
     ap.add_argument("--quant", type=int, default=0, choices=[0, 1, 2],
                     help="serve with FCMP-packed 1/2-bit FFN weights")
     ap.add_argument("--vmem-budget", type=float, default=0.0,
@@ -275,6 +349,9 @@ def main(argv=None) -> int:
         cfg = dataclasses.replace(cfg, w_bits=args.quant)
     try:
         residency = build_residency_plan(cfg, args)
+        spec = spec_config(args)
+        if spec is not None:
+            resolve(cfg, spec, smoke=args.smoke)  # before the weights are drawn
     except ValueError as e:
         print(f"[serve] {e}")
         return 2
@@ -304,6 +381,13 @@ def main(argv=None) -> int:
         f"pool utilization {m['pool_utilization']*100:.1f}%; "
         f"weights of {cfg.name} drawn in {init_s:.1f}s"
     )
+    if m["speculate"]:
+        print(
+            f"[serve/spec] drafter {m['speculate']} depth {m['spec_depth']}: "
+            f"{m['accepted_tokens']} tokens from {m['verify_steps']} verify "
+            f"steps ({m['accepted_per_step']:.2f} accepted/step, "
+            f"{m['draft_tokens']} drafted)"
+        )
     if m["prefix_cache"]:
         print(
             f"[serve/prefix] {m['prefix_hits']} prefix hits, "
@@ -326,7 +410,7 @@ def main(argv=None) -> int:
         )
     if m["compiled"]:
         print(
-            f"[serve/graphs] decode step, prefill chunk and prefill buckets compiled: "
+            f"[serve/graphs] serve steps compiled: "
             f"{m['graphs']} CUDA graphs, {m['graph_replays']} replays, "
             f"{m['graph_pool_bytes'] / 2**20:.1f} MiB in their memory pool; "
             f"first calls {m['graph_first_call_s']:.3f}s and captures "

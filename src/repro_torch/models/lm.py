@@ -587,6 +587,61 @@ def prefill_chunk_paged(
     return _unembed(params, cfg, x_last), pool_k, pool_v
 
 
+@torch.no_grad()
+def verify_chunk_paged(
+    params: LMParams,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,
+    pool_k: torch.Tensor,
+    pool_v: torch.Tensor,
+    row_table: torch.Tensor,
+    write_rows: torch.Tensor,
+    starts: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Score a depth-C draft chain per lane against the shared KV pool.
+
+    The speculative-decoding verifier (``runtime.speculative``): each lane
+    feeds its pending token plus the drafter's proposals as one chunk, so
+    the target scores every draft position in one batched step instead of
+    C sequential ``decode_step_paged`` calls. ``prefill_chunk_paged``
+    generalised two ways: ``starts`` is per lane (decode lanes sit at
+    different depths), and the full (B, C, V) logits come back, since
+    longest-accepted-prefix selection needs the distribution at every
+    draft position. The chain's K/V rows are written into the lanes' own
+    blocks in place; rows past a lane's accepted prefix are overwritten by
+    the next chain, which makes rejection free.
+
+    tokens: (B, C) draft chains, right-padded; write_rows: (B, C) physical
+    pool row per chain token (the scratch row for padding); row_table:
+    (B, S_max); starts: (B,) position of each lane's first fed token. The
+    chain attends through the plain ``chunk_attention`` with per-lane
+    query positions, as the reference's does (``flash_fwd`` takes one
+    ``q_offset`` for the batch). Dense family only (the reference's moe
+    branch waits for the MoE port).
+
+    Returns (logits (B, C, V) f32, pool_k, pool_v), the pools updated in
+    place.
+    """
+    _require_ported(cfg, "verify_chunk_paged")
+    x = embed(tokens, params["embed"], torch_dtype(cfg))
+    b, c, _ = x.shape
+    positions = starts.long()[:, None] + torch.arange(c, device=x.device)[None, :]
+    row_table = row_table.long()
+    write_rows = write_rows.long()
+    for i in range(cfg.n_layers):
+        lp = params.layer(i)
+        pk, pv = pool_k[i], pool_v[i]
+        q, k, v = _qkv(lp, cfg, x, positions)
+        pk[write_rows] = k.to(pk.dtype)
+        pv[write_rows] = v.to(pv.dtype)
+        o = attn.chunk_attention(
+            q, pk[row_table], pv[row_table], positions, window=cfg.sliding_window
+        )
+        x = x + dense(o.reshape(b, c, -1), lp["wo"])
+        x = _ffn_block(lp, cfg, x)
+    return _unembed(params, cfg, x), pool_k, pool_v
+
+
 # --------------------------------------------------------------------------
 # Sampling (host-side numpy, copied from the reference)
 # --------------------------------------------------------------------------

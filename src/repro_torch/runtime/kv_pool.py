@@ -1,7 +1,6 @@
 """Shared physical KV pool for continuous-batching decode.
 
-Port of ``repro.runtime.kv_pool`` without the draft brackets of
-speculation (a later slice). Blocks are **refcounted**: a request's block
+Port of ``repro.runtime.kv_pool``. Blocks are **refcounted**: a request's block
 table may alias blocks held by other requests or pinned by the radix
 prefix cache (``runtime.prefix_cache``), and a block returns to the free
 list only when its last holder lets go. Shared blocks are read-only; a
@@ -10,7 +9,9 @@ private copy (``adopt_prefix``'s copy-on-write of the tail block). Cached
 blocks no live request holds are reclaimable: under admission pressure the
 pool asks its attached cache (the ``evictor`` hook) to evict LRU entries.
 A memory ledger (``runtime.memledger``) attached as ``ledger`` hears every
-mutation, as in the reference.
+mutation, as in the reference. Speculative decoding brackets each verify
+cycle with ``begin_draft`` / ``end_draft``: the chain's rows land in blocks
+charged to the ``draft`` owner, and a rejected suffix gives them back.
 
 Device side: ``k``/``v`` are (n_kv_cache_layers, n_blocks * block_tokens,
 n_kv, hd) row-addressed tensors (the block is an allocator concept only),
@@ -154,6 +155,7 @@ class KVPool:
         self._tokens: dict[int, int] = {}
         self._committed: dict[int, int] = {}
         self._cached: set[int] = set()  # blocks pinned by the prefix cache
+        self._draft: dict[int, int] = {}  # rid -> blocks grown by an open draft
         # incremental aggregates, so the stats() read of every decode step
         # never rescans the block tables (validate() recounts them)
         self._users: Counter = Counter()  # block -> live request holders
@@ -323,6 +325,59 @@ class KVPool:
         for idx in range(0 if old == 0 else (old - 1) // t, (n_tokens - 1) // t + 1):
             self._count_use(held[idx], min(t, n_tokens - idx * t))
 
+    def begin_draft(self, rid: int, n_tokens: int) -> None:
+        """Grow the request's block list to cover a speculative draft
+        chain ending at row ``n_tokens``, without advancing the token
+        count. Draft rows land in the request's own (private) blocks, so a
+        rejected suffix needs no data movement to undo: ``end_draft``
+        returns the surplus blocks and the stale rows are overwritten by
+        the next chain. Blocks grown here are charged to the ``draft``
+        owner in the ledger, apart from committed request growth."""
+        held = self._held[rid]
+        before = len(held)
+        while len(held) * self.block_tokens < n_tokens:
+            if len(held) >= self._committed[rid]:
+                raise RuntimeError(
+                    f"draft for request {rid} exceeds its "
+                    f"{self._committed[rid]}-block commitment"
+                )
+            b = self._pop_free()
+            self._add_user(b)
+            held.append(b)
+        grown = len(held) - before
+        if grown:
+            self._draft[rid] = self._draft.get(rid, 0) + grown
+            if self.ledger is not None:
+                self.ledger.record("draft_grow", owner="draft", rid=rid, grown=grown)
+
+    def end_draft(self, rid: int, n_tokens: int) -> None:
+        """Settle a draft chain at its accepted length: rows through
+        ``n_tokens`` become committed coverage (``note_tokens``); draft
+        blocks past the accepted prefix go back to the free list. Exactly
+        inverts ``begin_draft`` when nothing is accepted into the drafted
+        blocks, so the ledger integrates to zero across a rejected chain."""
+        draft = self._draft.pop(rid, 0)
+        held = self._held[rid]
+        keep = max(self.blocks_for(n_tokens), len(held) - draft)
+        freed = 0
+        while len(held) > keep:
+            b = held.pop()
+            self._drop_user(b)
+            if not self.ref_count(b):
+                self._free.append(b)
+                self.freed_blocks += 1
+            freed += 1
+        self.note_tokens(rid, n_tokens)
+        if self.ledger is not None and (draft or freed):
+            self.ledger.record(
+                "draft_end", owner="draft", rid=rid, kept=draft - freed, freed=freed
+            )
+
+    def draft_rids(self) -> tuple[int, ...]:
+        """Requests holding draft-class blocks (empty outside a
+        ``begin_draft`` / ``end_draft`` bracket)."""
+        return tuple(self._draft)
+
     def adopt_prefix(
         self,
         rid: int,
@@ -392,6 +447,7 @@ class KVPool:
                 self._free.append(b)
                 self.freed_blocks += 1
         del self._tokens[rid], self._committed[rid]
+        self._draft.pop(rid, None)
         if self.ledger is not None:
             self.ledger.record("release", owner="request", rid=rid)
 
@@ -491,8 +547,9 @@ class KVPool:
 
     def validate(self) -> None:
         """Allocator invariants: no free+referenced overlap, free-list
-        uniqueness, full accounting, the incremental aggregates equal to a
-        recount, block conservation."""
+        uniqueness, full accounting, every open draft bracket within its
+        request's blocks, the incremental aggregates equal to a recount,
+        block conservation."""
         if len(self._free) != len(set(self._free)):
             raise AssertionError("free list holds duplicate blocks")
         holders: Counter = Counter()
@@ -510,12 +567,15 @@ class KVPool:
                 raise AssertionError(f"request {rid} holds a block twice")
             if self._tokens[rid] > len(bs) * self.block_tokens:
                 raise AssertionError(f"request {rid} overflows its blocks")
+        for rid, n in self._draft.items():
+            if rid not in self._held or n > len(self._held[rid]):
+                raise AssertionError(f"draft bracket for request {rid} out of sync")
         used: dict[int, int] = {}
         t = self.block_tokens
         for rid, bs in self._held.items():
             for i, b in enumerate(bs):
                 r = min(t, max(0, self._tokens[rid] - i * t))
-                if r:
+                if r:  # draft-grown blocks carry no committed rows yet
                     used[b] = max(used.get(b, 0), r)
         if holders != self._users:
             raise AssertionError("per-block holder counts drifted")

@@ -9,8 +9,8 @@ prefix cache's ``evict`` — emits a ``kind="mem"`` delta record through
 the tracker backends, interleaved with round metrics and spans on one
 JSONL stream. Static owners (the residency plan's resident FFN tiles and
 its stream ring) emit ``op="reserve"`` records, so the byte attribution
-covers more than the KV pool. The draft brackets of speculation come
-with that feature.
+covers more than the KV pool. Speculative decoding's draft brackets emit
+``draft_grow`` / ``draft_end`` records under ``owner="draft"``.
 
 Record schema (``kind="mem"``)::
 

@@ -37,13 +37,21 @@ program per bucket shape), all in one memory pool. ``compiled=False`` runs
 every step eagerly on the card; the CPU has no graphs, so a CPU pool runs
 eagerly and ``compiled=True`` on it raises.
 
+``speculative`` (a ``runtime.speculative.Speculator``) replaces each
+decode step with a speculate-and-verify cycle: the drafter proposes a
+chain per decode lane and one batched verify step scores them all
+(``_spec_step``). On a CUDA pool the verify step is one graph per chain
+length seen (tokens, write rows, starts and the row table are its device
+inputs), and a model drafter's decode and prompt prefill steps are graphs
+in the same memory pool.
+
 Observability, as in the reference: ``tracker`` gets one record a round
 (``runtime.tracker``), ``spans`` a ``SpanRecorder`` (``runtime.spans``),
 ``ledger`` a ``MemLedger`` attached to the pool (``runtime.memledger``)
 and ``mem_monitor`` a ``MemPressureMonitor`` fed once a round.
 
-Not ported yet: ``speculative``, ``handoff`` and the fleet's ``on_round``
-and ``charge`` hooks; their counters stay 0.
+Not ported yet: ``handoff`` and the fleet's ``on_round`` and ``charge``
+hooks; their counters stay 0.
 """
 
 from __future__ import annotations
@@ -67,12 +75,14 @@ from repro_torch.models.lm import LMParams, SamplingParams, sample_logits
 from repro_torch.runtime.tracker import DELTA_KEYS
 from repro_torch.runtime.kv_pool import KVPool
 from repro_torch.runtime.residency.plan import RuntimeResidencyPlan
+from repro_torch.runtime.speculative import SPEC_FAMILIES, LaneDraft
 from repro_torch.runtime.steps import (
     CapturedStep,
     make_budgeted_paged_serve_step,
     make_chunk_prefill_step,
     make_paged_serve_step,
     make_pool_prefill_step,
+    make_verify_step,
 )
 
 class RequestState(enum.Enum):
@@ -114,10 +124,12 @@ class SchedulerStats:
     prefix_hit_tokens: int = 0  # prompt tokens served from cached blocks
     decode_steps: int = 0
     # the reference's counters of features the port has not ported yet
-    # (prefill/decode handoff, MoE, speculation): 0, as the reference
-    # reports them on a run without those features
+    # (prefill/decode handoff, MoE): 0, as the reference reports them on a
+    # run without those features
     handoffs: int = 0
     expert_tokens: int = 0
+    # speculative decode: tokens emitted by verify steps (1..k each),
+    # drafter proposals offered, and batched verify calls run
     accepted_tokens: int = 0
     draft_tokens: int = 0
     verify_steps: int = 0
@@ -131,6 +143,14 @@ class SchedulerStats:
     @property
     def mean_ttft(self) -> float:
         return sum(self.ttfts) / len(self.ttfts) if self.ttfts else 0.0
+
+    @property
+    def accepted_per_step(self) -> float:
+        """Mean tokens emitted per verify step (1.0: no draft ever
+        accepted); speculative decode's whole win is this number."""
+        if not self.verify_steps:
+            return 0.0
+        return self.accepted_tokens / self.verify_steps
 
     @property
     def prefix_hit_rate(self) -> float:
@@ -169,6 +189,7 @@ class Scheduler:
         residency: RuntimeResidencyPlan | None = None,
         compiled: bool | None = None,
         prefix_cache=None,
+        speculative=None,
         tracker=None,
         spans=None,
         ledger=None,
@@ -194,6 +215,7 @@ class Scheduler:
         self._decode_graph: CapturedStep | None = None
         self._chunk_graph: CapturedStep | None = None
         self._prefill_graphs: dict[int, CapturedStep] = {}  # by bucket
+        self._verify_graphs: dict[int, CapturedStep] = {}  # by chain length
         if prefix_cache is not None:
             if cfg.family not in PREFIX_CACHE_FAMILIES:
                 raise ValueError(
@@ -203,6 +225,24 @@ class Scheduler:
             if prefix_cache.pool is not pool:
                 raise ValueError("prefix cache must index this pool")
         self.prefix_cache = prefix_cache
+        # speculative decode (runtime.speculative.Speculator): a drafter
+        # proposes depth-k chains per decode lane; one batched verify step
+        # scores them all and the longest sampled-equal prefix is accepted
+        if speculative is not None and cfg.family not in SPEC_FAMILIES:
+            raise ValueError(
+                f"speculative decoding covers {SPEC_FAMILIES}; family "
+                f"{cfg.family!r} has no draft-chain rollback path"
+            )
+        self.speculative = speculative
+        self._verify = make_verify_step(cfg) if speculative is not None else None
+        # host seconds of the verify steps, each from its inputs to its
+        # logits on the host, and of the drafter's proposals; verify steps
+        # by chain length (the batch's rows are slots x length)
+        self.verify_s = 0.0
+        self.propose_s = 0.0
+        self.verify_lengths: dict[int, int] = {}
+        if speculative is not None and compiled:
+            speculative.use_graphs(self._graph_pool)
         self.slots = slots
         self.max_len = max_len
         self.s_max = pool.max_rows(max_len)
@@ -285,6 +325,9 @@ class Scheduler:
                 "prefix_cache": prefix_cache is not None,
                 "compiled": self.compiled,
             }
+            if speculative is not None:
+                hp["speculate"] = speculative.name
+                hp["spec_depth"] = speculative.depth
             if residency is not None:
                 hp["residency"] = residency.summary()
             tracker.log_hyperparameters(hp)
@@ -305,10 +348,18 @@ class Scheduler:
 
     @property
     def graphs(self) -> list[CapturedStep]:
-        """The captured steps so far: the decode step's, the chunk's, then
-        each prefill bucket's."""
+        """The captured steps so far: the decode step's, the chunk's, each
+        prefill bucket's, each chain length's verify step, then the model
+        drafter's."""
         one = [g for g in (self._decode_graph, self._chunk_graph) if g is not None]
-        return one + list(self._prefill_graphs.values())
+        spec = self.speculative.graphs if self.speculative is not None else []
+        return (one + list(self._prefill_graphs.values())
+                + list(self._verify_graphs.values()) + spec)
+
+    @property
+    def verify_graphs(self) -> dict[int, CapturedStep]:
+        """The captured verify steps, by chain length."""
+        return dict(self._verify_graphs)
 
     @property
     def prefill_buckets(self) -> list[int]:
@@ -420,8 +471,25 @@ class Scheduler:
         self._lengths[slot] = len(req.prompt)
         self._row_table[slot] = self.pool.rows_of(req.rid, pad_to=self.s_max)
         self._table_dirty = True
+        t_done = t_first
+        if self.speculative is not None:
+            t_done = self._start_drafter(slot, req, t_first)
         if len(req.output) >= req.max_new_tokens:
-            self._complete(slot, t_first)
+            self._complete(slot, t_done)
+
+    def _start_drafter(self, slot: int, req: Request, t_first: float) -> float:
+        """Warm the drafter's lane for a request entering decode. A model
+        drafter prefills the prompt through its own weights (the target's
+        prefix-cache hits do not transfer), attributed to a ``draft`` span.
+        Returns the end of the request's last span: the draft span's, else
+        ``t_first``."""
+        t0 = self.spans.now() if self.spans is not None else 0.0
+        tokens, steps = self.speculative.start_lane(slot, req.prompt)
+        if (tokens or steps) and self.spans is not None:
+            t1 = self.spans.now()
+            self.spans.mark(req.rid, "draft", t0, t1, tokens=tokens)
+            return t1
+        return t_first
 
     def _admit_one(self) -> bool:
         """Admit the head-of-queue request if resources allow.
@@ -579,6 +647,8 @@ class Scheduler:
         req = self.requests[rid]
         req._enter(RequestState.DONE)
         self._commit_generated(req)
+        if self.speculative is not None:
+            self.speculative.release_lane(slot)
         self.pool.release(rid)
         self.active[slot] = None
         self._token[slot, 0] = 0
@@ -671,21 +741,161 @@ class Scheduler:
             if len(req.output) >= req.max_new_tokens:
                 self._complete(i)
 
+    def _run_verify(self, tokens, write_rows, starts) -> torch.Tensor:
+        """One verify step over every lane (``tokens`` (slots, kmax)): the
+        captured graph of this chain length (captured on first use; the
+        tokens, write rows, starts and row table are its device inputs),
+        or the eager step."""
+        if not self.compiled:
+            if self._table_dirty:
+                self._row_table_dev = self._to_device(self._row_table)
+                self._table_dirty = False
+            return self._verify(
+                self.params, self._to_device(tokens), self.pool.k, self.pool.v,
+                self._row_table_dev, self._to_device(write_rows),
+                self._to_device(starts),
+            )[0]
+        step = self._verify_graphs.get(tokens.shape[1])
+        if step is None:
+            # the closure holds what the graph binds, never the scheduler
+            verify, params, pk, pv = self._verify, self.params, self.pool.k, self.pool.v
+
+            def chain(tok, table, rows, lane_starts):
+                return verify(params, tok, pk, pv, table, rows, lane_starts)[0]
+
+            step = CapturedStep(chain, device=self.device, mempool=self._graph_pool)
+            self._verify_graphs[tokens.shape[1]] = step
+        return step(
+            self._host_tensor(tokens), self._host_tensor(self._row_table),
+            self._host_tensor(write_rows), self._host_tensor(starts),
+        )
+
+    def _spec_step(self) -> None:
+        """One speculate-and-verify cycle over every decoding lane.
+
+        The drafter proposes up to ``depth - 1`` tokens per lane; one
+        batched ``verify_chunk_paged`` call then feeds each lane's pending
+        token plus its proposals at the lane's own offset, writing their
+        K/V rows and returning the target's logits at every chain
+        position. Sampling position ``m`` with the plain decode's rng key
+        (seed, rid, m) makes longest-accepted-prefix selection
+        deterministic, and the output token-identical to plain decode,
+        since each position's logits depend only on accepted tokens.
+        Rejected rows cost nothing: ``end_draft`` returns the surplus
+        blocks (owner="draft" in the ledger) and the stale rows are
+        overwritten by the next chain before any unmasked read.
+        """
+        lanes = [(i, rid) for i, rid in enumerate(self.active) if self._decoding(rid)]
+        if not lanes:
+            return
+        t0 = self.spans.now() if self.spans is not None else 0.0
+        views: list[LaneDraft] = []
+        k_eff: dict[int, int] = {}
+        for i, rid in lanes:
+            req = self.requests[rid]
+            # never draft past the request's commitment: the chain ends at
+            # row p + max_new - 1 at most, so begin_draft stays within the
+            # admitted block budget
+            k_eff[rid] = min(self.speculative.depth, req.max_new_tokens - len(req.output))
+            views.append(LaneDraft(
+                slot=i, rid=rid, pending=int(self._token[i, 0]),
+                out_len=len(req.output), n_rows=int(self._lengths[i]),
+                history=np.concatenate([req.prompt, np.asarray(req.output, np.int32)]),
+            ))
+        kmax = max(k_eff.values())
+        props: dict[int, np.ndarray] = {}
+        if kmax > 1:
+            h0 = time.monotonic()
+            proposed, _ = self.speculative.propose(views, kmax, self.sampling)
+            self.propose_s += time.monotonic() - h0
+            for v, row in zip(views, proposed):
+                props[v.rid] = row
+            self.stats.draft_tokens += sum(k_eff[rid] - 1 for _, rid in lanes)
+        t1 = self.spans.now() if self.spans is not None else t0
+        # room for every lane's chain rows: draft-class blocks, settled (or
+        # all returned) by end_draft after acceptance
+        for i, rid in lanes:
+            before = self.pool.blocks_held(rid)
+            self.pool.begin_draft(rid, int(self._lengths[i]) + k_eff[rid])
+            if self.pool.blocks_held(rid) != before:
+                self._row_table[i] = self.pool.rows_of(rid, pad_to=self.s_max)
+                self._table_dirty = True
+        scratch = int(self.pool.scratch_rows(1)[0])
+        tokens = np.zeros((self.slots, kmax), np.int32)
+        write_rows = np.full((self.slots, kmax), scratch, np.int32)
+        starts = np.zeros((self.slots,), np.int32)
+        for i, rid in lanes:
+            ke = k_eff[rid]
+            n = int(self._lengths[i])
+            tokens[i, 0] = self._token[i, 0]
+            if ke > 1:
+                tokens[i, 1:ke] = props[rid][: ke - 1]
+            write_rows[i, :ke] = self.pool.rows_of(rid)[n : n + ke]
+            starts[i] = n
+        h0 = time.monotonic()
+        rows = self._host(self._run_verify(tokens, write_rows, starts))
+        self.verify_s += time.monotonic() - h0
+        self.stats.verify_steps += 1
+        self.verify_lengths[kmax] = self.verify_lengths.get(kmax, 0) + 1
+        t2 = self.spans.now() if self.spans is not None else t0
+        if self.spans is not None:
+            for i, rid in lanes:
+                if kmax > 1:
+                    self.spans.mark(rid, "draft", t0, t1, tokens=k_eff[rid] - 1)
+                self.spans.mark(rid, "verify", t1, t2, depth=k_eff[rid])
+        done_slots: list[int] = []
+        for i, rid in lanes:
+            req = self.requests[rid]
+            ke = k_eff[rid]
+            n0 = int(self._lengths[i])
+            accepted = 0
+            for j in range(ke):
+                nxt = self._sample_one(req, rows[i, j])
+                req.output.append(nxt)
+                accepted += 1
+                self._token[i, 0] = nxt
+                if j < ke - 1 and nxt != int(props[rid][j]):
+                    break  # the correction token is accepted, the chain's tail not
+            self.stats.accepted_tokens += accepted
+            self._lengths[i] = n0 + accepted
+            before = self.pool.blocks_held(rid)
+            self.pool.end_draft(rid, n0 + accepted)
+            if self.pool.blocks_held(rid) != before:
+                self._row_table[i] = self.pool.rows_of(rid, pad_to=self.s_max)
+                self._table_dirty = True
+            self.speculative.accept(i, n0 + accepted)
+            if len(req.output) >= req.max_new_tokens:
+                done_slots.append(i)
+        # sample pool pressure with every accept settled but finished
+        # requests still resident (the decode step's counterpart)
+        pool_st = self.pool.stats()
+        self.stats.shared_blocks_peak = max(
+            self.stats.shared_blocks_peak, pool_st.shared_blocks
+        )
+        self.stats.util_samples_any.append(pool_st.utilization)
+        if all(r is not None for r in self.active):
+            self.stats.util_samples.append(pool_st.utilization)
+        for i in done_slots:
+            # completion lands exactly on the verify span's end
+            self._complete(i, t2 if self.spans is not None else None)
+
     # ---------------- main loop ----------------
 
     def round(self) -> None:
         """One scheduler round: drain admissions, advance one chunk of any
-        mid-prefill long prompt, then R_F decode steps."""
+        mid-prefill long prompt, then R_F decode steps (speculate-and-verify
+        cycles when a drafter is installed)."""
         while self._admit_one():
             pass
         for i, rid in enumerate(self.active):
             if rid is not None and rid in self._chunk_cursor:
                 self._prefill_one_chunk(i)
+        step = self._spec_step if self.speculative is not None else self._decode_step
         t0 = time.monotonic()
         for _ in range(self.decode_per_round):
             if not any(self._decoding(r) for r in self.active):
                 break
-            self._decode_step()
+            step()
         self.stats.decode_time += time.monotonic() - t0
         if self.spans is not None and self._decode_open:
             # close still-running lanes' slices at the round's decode end

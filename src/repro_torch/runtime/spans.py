@@ -22,8 +22,8 @@ inside the scheduler and emits one span per lifecycle phase —
 
 — through ``Tracker.log_spans`` as ``kind="span"`` records, interleaved
 with the round records in the same JSONL file. The port's scheduler emits
-queue, prefill, decode and wait; the other phases belong to features it
-does not have yet.
+queue, prefix_lookup, prefill, decode, wait, and draft and verify when it
+speculates; handoff and requeue belong to features it does not have yet.
 
 The decomposition contract (checked by ``validate_trace``, the span
 analogue of ``tracker.replay_summary``): for every completed request,

@@ -7,8 +7,10 @@ function closed over the config; there is no buffer donation: the train
 step updates the parameters and the optimizer state in place, the pool
 steps the pool tensors. The reference jits its pool steps; the port's
 counterpart is ``CapturedStep``, which the scheduler wraps around every
-pool step on a CUDA pool: the decode step, the prefill chunk and the
-whole-prompt prefill of each bucket. The train step runs eagerly.
+pool step on a CUDA pool: the decode step, the prefill chunk, the
+whole-prompt prefill of each bucket and, when it speculates, the verify
+step of each chain length and its model drafter's decode and prefill
+steps. The train step runs eagerly.
 """
 
 from __future__ import annotations
@@ -118,6 +120,22 @@ def make_chunk_prefill_step(cfg: ModelConfig) -> Callable:
         return lm.prefill_chunk_paged(
             params, cfg, tokens, pool_k, pool_v, row_table, write_rows,
             start, last_idx,
+        )
+
+    return step
+
+
+def make_verify_step(cfg: ModelConfig) -> Callable:
+    """(params, tokens (B, C), pool_k, pool_v, row_table (B, S_max),
+    write_rows (B, C), starts (B,)) -> (logits (B, C, V), pool_k, pool_v).
+    One batched call scores every lane's pending token plus its drafter
+    proposals at per-lane offsets, writing their K/V rows in place;
+    ``runtime.speculative`` turns the distributions into a
+    longest-accepted prefix."""
+
+    def step(params, tokens, pool_k, pool_v, row_table, write_rows, starts):
+        return lm.verify_chunk_paged(
+            params, cfg, tokens, pool_k, pool_v, row_table, write_rows, starts
         )
 
     return step

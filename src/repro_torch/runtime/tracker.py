@@ -32,9 +32,9 @@ Record schema (``kind="metrics"``, one per round):
     cache_*               the prefix cache's nodes, anchors and evicted
                           blocks (with a cache attached)
 
-The port's scheduler runs none of speculation, MoE or prefill/decode
-handoff yet, so their deltas stay 0, as the reference reports them on a
-run without those features.
+The port's scheduler runs neither MoE nor prefill/decode handoff yet, so
+their deltas stay 0, as the reference reports them on a run without those
+features.
 
 A second record kind, ``kind="span"`` (emitted via ``log_spans`` by
 ``runtime.spans.SpanRecorder``), interleaves per-request lifecycle spans
