@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--only kernels|prefill] [--src DIR] [--log FILE]
+    python3 chip_smoke.py [--only kernels|prefill|moe] [--src DIR] [--log FILE]
 
 Phases, one JSON line each; any failure exits nonzero with no result:
 
@@ -59,7 +59,14 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               and ``stream_matmul`` at M=8 and the mma path at M=256, timed,
               and its rows independent of M at one shape per arch; the
               prefill's causal attention at llama's (32/8, D 64) and phi3's
-              (40/10, D 128) heads; head dim 80 (h2o-danube's 32/8 heads) on
+              (40/10, D 128) heads; the MoE family's: ``stream_matmul`` at
+              bits 0 with f32 x on bf16 rows (a cold expert) at olmoe's
+              2048x1024 and 1024x2048, M 8 timed beside ``torch.matmul`` on
+              the f32 weight, M 1 and 16 and moonshot's 2048x1408 and
+              1408x2048 for agreement, and ``flash_fwd`` causal 512 and the
+              chunk at olmoe's 16/16 heads, D 128, timed; the twin's 640 x
+              640 prefill and the mma path at M 24 are timed too; head dim
+              80 (h2o-danube's 32/8 heads) on
               both routes: causal 512, the chunk, the 4096 window at a chunk
               past it (Sq 256 over Sk 4352 at q_offset 4096), ragged cases,
               a device q_offset bitwise the host int, and both backward
@@ -196,6 +203,56 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               launches by route: prefill on the tensor-core kernels, decode
               on the GEMV, never an f32 route or stream_matmul), and at
               --quant 0 compiled through ``serve.main`` (its own weights).
+moe        -- (run last; ``--only moe`` runs it alone after the build)
+              olmoe-1b-7b at full width and depth (64 experts top-8, the
+              dropless dispatch, every expert over every row in f32):
+              (a) a 512-token prefill at 2 of its 16 layers, layer by
+              layer, each layer fed the CPU's float32 input: the (token,
+              layer) expert sets the card (bf16 hidden state) changes only
+              at a near-tie (the CPU's k-th and (k+1)-th router
+              probabilities within MOE_FLIP_GAP), the FFN output on the
+              tokens whose set agrees within MOE_FFN_REL_TOL, each layer's
+              tally within 2k per changed set; the card's FFN on the
+              CPU's own f32 hidden state within MOE_FFN_F32_REL_TOL (TF32
+              and bf16 expert products, printed beside, must read above
+              it); the end-to-end logits printed, not gated; (b) ``init_params`` at full size
+              (seconds, host memory, device MiB); (c) the decode step, a
+              chunk (at starts 256 and 37), a 208-token bucket and a
+              verify step of 4 on 8 lanes, each captured and its replay
+              bitwise its eager step, the (L, E) tally included; the
+              compiled decode step and chunk profiled (card ms by kind: the
+              f32 GEMMs, the experts' f32 casts, the rest), and the
+              compiled verify step timed unpadded and with its products in
+              256-row calls; (d) the serve
+              cell (16 x (512 + 64), 8 lanes, --prefill-chunk 256,
+              --max-len 640, the prefix cache on) through serve's engine,
+              eager and compiled: identical tokens and launches by route,
+              flash_fwd 16 a chunk on its tensor-core route, no
+              packed_matmul, no stream_matmul, the MoE gauges; the
+              compiled run under the process's own f32 matmul settings
+              (TF32 off: PyTorch's default, and no file of the port sets
+              it); (e) the cell at half the plan's expert tile bytes:
+              stream_matmul exactly 3 x streamed experts x decode steps;
+              teacher-forced with (d)'s tokens, the logits within
+              MOE_BUDGET_LOGIT_STEPS bf16 steps and the argmax the same at
+              SPEC_MIN_ARGMAX_SHARE; run free, each stream that parts does
+              so at a near-tie; (f) phase 5 (b)'s shared-prefix traffic
+              with and without the cache: identical tokens and every
+              sampled logits row bitwise, a prompt's K rows the same bits
+              from half and all of it at every layer, and the router's and
+              the experts' f32 products (256-row calls) giving a row the
+              same bits at half the rows and padded to the chunk; a
+              16-token prompt (a 16-row bucket) and one that extends it,
+              cached and uncached bitwise, the block's K rows and a 16-row
+              call's products the longer prefill's bits; (g) the
+              n-gram drafter at --spec-depth 4 on 8 of the cell's prompts,
+              eager and compiled identical in tokens and launches, parting
+              from plain decode only at near-ties, and phase 5 (c)'s gate (a
+              verify step against 4 decode steps on a prefilled pool: 4
+              bf16 steps, 85% argmax); (h) moonshot-v1-16b-a3b at 8 of
+              its 48 layers (a full draw takes ~200 s on the host): (a)
+              at 2 layers, (f)'s 16-token prompt check, its 9216-block
+              residency plan timed, and the compiled serve cell once.
 6. cnn     -- the paper's CNV at full width (w1a2, then w2a2), random
               weights with randomised BN statistics and 256 random images
               from a seed: ``cnn_forward_streamlined`` on the card against
@@ -309,6 +366,29 @@ REMAT_MIN_COS = 0.9999  # --remat full/dots vs none on the card: atomics order o
 # the other dense archs, each served at full width and depth (phases 4-5)
 NEW_ARCHS = ("llama3p2_1b", "h2o_danube_1p8b", "phi3_medium_14b")
 WINDOW_STEPS = 16  # decode steps of h2o-danube's run past its window
+# the MoE phase: olmoe at full size, moonshot cut to MOON_LAYERS of its 48
+# layers (its full draw would take ~200 s on the host); each prefill check
+# at MOE_CHECK_LAYERS layers, so the CPU's float32 experts stay in seconds
+MOE_ARCH, MOON_ARCH, MOON_LAYERS, MOE_CHECK_LAYERS = (
+    "olmoe_1b_7b", "moonshot_v1_16b_a3b", 8, 2)
+MOE_SPEC_REQUESTS, MOE_SPEC_GEN = 8, 32  # (g): one wave of the cell's prompts
+SHORT_PREFIX_GEN = 8  # (f): tokens generated per request of the short-prefix check
+# routing on the card (bf16 hidden state) against the CPU (f32), each layer
+# fed the CPU's input: a token may take another expert set only where its
+# k-th and (k+1)-th router probabilities (CPU) lie within MOE_FLIP_GAP; on
+# the tokens whose set agrees, the FFN output within MOE_FFN_REL_TOL of the
+# largest |CPU output| (bf16 attention and hidden state against f32)
+MOE_FLIP_GAP = 2e-3  # ~3x the largest gap at a change measured on the H100 (7.0e-4)
+MOE_FFN_REL_TOL = 2e-2  # 2x the largest error measured there (9.7e-3)
+# the card's FFN on the CPU's own f32 hidden state against the CPU's: only
+# the f32 sums' order differs, so the output within MOE_FFN_F32_REL_TOL of
+# the largest |CPU output|, a limit that TF32 or bf16 expert products fail
+# (on the H100: f32 read at most 1.2e-6; TF32 5.1e-4 and up, bf16 4.2e-3 and up)
+MOE_FFN_F32_REL_TOL = 1e-5
+# budgeted (stream_matmul) against unbudgeted (cuBLAS) serving, teacher-
+# forced: the two sum the experts' f32 products in other orders, so the
+# logits may part by this many bf16 steps at the largest |logit|
+MOE_BUDGET_LOGIT_STEPS = 4  # phase 5 (c)'s SPEC_LOGIT_STEPS; measured on the H100: 1
 
 
 def fail(msg: str) -> None:
@@ -384,10 +464,11 @@ def main(argv: list[str] | None = None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
-    ap.add_argument("--only", choices=("kernels", "prefill"),
+    ap.add_argument("--only", choices=("kernels", "prefill", "moe"),
                     help="kernels: stop after phase 3 (build, and hold each kernel against "
                          "its plain version); prefill: build, then only phase 4's prefill "
-                         "check and profile. Either prints no result")
+                         "check and profile; moe: build, then only the MoE phase. Each "
+                         "prints no result")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the source tree whose repro_torch to run (default: src beside this "
                          "script); another commit's, to compare the two in one call")
@@ -407,6 +488,9 @@ def main(argv: list[str] | None = None) -> int:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
+    # the process's own f32 matmul settings, before this script sets them
+    # for its calls: the MoE phase serves under these
+    tf32_default = (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -492,9 +576,10 @@ def main(argv: list[str] | None = None) -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def profile_window(step) -> tuple[dict, dict[str, float]]:
+    def profile_window(step, window=3) -> tuple[dict, dict[str, float]]:
         """Host wall ms of ``step`` (synchronised, mean of 10 after 3 warm-up
-        runs) against the card's kernel ms in a torch.profiler window of 3;
+        runs) against the card's kernel ms in a torch.profiler window of
+        ``window`` steps;
         with each kernel's ms per step by (cut) name, and the median of 10
         CUDA-event spans around one step each (the card's start-to-end time
         of a step, idle gaps included)."""
@@ -516,16 +601,17 @@ def main(argv: list[str] | None = None) -> int:
             torch.cuda.synchronize()
             spans_ms.append(start.elapsed_time(end))
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
+            for _ in range(window):
                 step()
             torch.cuda.synchronize()
         kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         by_name: dict[str, float] = {}
         for e in kern:
-            by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 3e3
+            by_name[e.name[:60]] = (by_name.get(e.name[:60], 0.0)
+                                    + e.time_range.elapsed_us() / (window * 1e3))
         dev_ms = sum(by_name.values())
         return dict(host_step_ms=wall_ms, device_step_ms=dev_ms,
-                    device_busy_share=dev_ms / wall_ms, kernels_per_step=len(kern) / 3,
+                    device_busy_share=dev_ms / wall_ms, kernels_per_step=len(kern) / window,
                     event_step_ms=statistics.median(spans_ms)), by_name
 
     from repro_torch.runtime.steps import CapturedStep
@@ -737,6 +823,779 @@ def main(argv: list[str] | None = None) -> int:
                   **stats, top_kernels_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6]))
         del graph, pk0, pv0
         return params, cfg2
+
+    # ---- shared by phase 5, the other archs and the MoE phase ----
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+    # launches by route, main path
+    routes = {name: {} for name in ("packed_matmul", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+
+    def add_routes(by_route):
+        for name, counts in by_route.items():
+            for route, n in counts.items():
+                routes[name][route] = routes[name].get(route, 0) + n
+
+    def drive(sched, waves, gen) -> dict:
+        """Each wave submitted, then rounds until it drains, launch counters
+        reset just before and read just after; every whole-prompt prefill
+        timed to the card's finish (host ms), and of every sampled position
+        a digest of its whole logits row and its TOP_LOGITS largest logits
+        kept."""
+        prefill_s = []
+        top, digests = {}, {}
+        run_prefill = sched._run_prefill
+        sample_one = sched._sample_one
+
+        def recording_sample(req, row):
+            ids = np.argpartition(row, -TOP_LOGITS)[-TOP_LOGITS:]
+            top[req.rid, len(req.output)] = {int(i): float(row[i]) for i in ids}
+            digests[req.rid, len(req.output)] = hashlib.blake2b(
+                np.ascontiguousarray(row).tobytes(), digest_size=16).digest()
+            return sample_one(req, row)
+
+        def timed_prefill(tokens, last):
+            t0 = time.perf_counter()
+            out = run_prefill(tokens, last)
+            torch.cuda.synchronize()
+            prefill_s.append((tokens.shape[1], time.perf_counter() - t0))
+            return out
+
+        sched._run_prefill = timed_prefill
+        sched._sample_one = recording_sample
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        for wave in waves:
+            for p in wave:
+                sched.submit(p, gen)
+            while sched.queue or any(r is not None for r in sched.active):
+                sched.round()
+            sched.pool.validate()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts, by_route = ops.launch_counts(), ops.launch_routes()
+        st = sched.stats
+        bucket_graphs = sched.prefill_buckets
+        first = {}
+        for b, t in prefill_s:
+            first.setdefault(b, t)
+        replayed = [t for i, (b, t) in enumerate(prefill_s)
+                    if any(bb == b for bb, _ in prefill_s[:i])]
+        return dict(
+            counts=counts, by_route=by_route, outputs=sched.outputs(), top_logits=top,
+            digests=digests,
+            metrics=dict(
+                compiled=sched.compiled, prefix_cache=sched.prefix_cache is not None,
+                requests=len(sched.requests), completed=st.completed,
+                generated_tokens=st.generated_tokens, wall_s=wall,
+                tokens_per_s=st.generated_tokens / wall, mean_ttft_s=st.mean_ttft,
+                prefill_steps=st.prefill_steps, prefill_tokens=st.prefill_tokens,
+                prefix_hits=st.prefix_hits, prefix_hit_tokens=st.prefix_hit_tokens,
+                prefix_hit_rate=st.prefix_hit_rate, cow_copies=sched.pool.cow_copies,
+                shared_blocks_peak=st.shared_blocks_peak,
+                evicted_blocks=(sched.prefix_cache.evicted_blocks
+                                if sched.prefix_cache is not None else 0),
+                graphs=len(sched.graphs), bucket_graphs=bucket_graphs,
+                chunk_graphs=len(sched.graphs) - len(bucket_graphs)
+                - (sched.decode_graph is not None),
+                graph_capture_s=sum(g.capture_s for g in sched.graphs),
+                graph_first_call_s=sum(g.first_call_s for g in sched.graphs),
+                whole_prompt_prefills=len(prefill_s),
+                prefill_host_ms_mean=(statistics.fmean(t for _, t in prefill_s) * 1e3
+                                      if prefill_s else None),
+                prefill_host_ms_repeat_bucket_mean=(
+                    statistics.fmean(replayed) * 1e3 if replayed else None),
+                prefill_host_ms_first_of_bucket_mean=(
+                    statistics.fmean(first.values()) * 1e3 if first else None),
+            ))
+
+    def session_waves(vocab, seed=3):
+        """(b) the reference's prefix bench traffic (``_session_waves``): per
+        session a nested turn prompt (the last turn's plus TURN_TOKENS fresh
+        tokens) and a sibling sharing all but its last 3 tokens, so siblings
+        match mid-block (copy-on-write)."""
+        rng = np.random.default_rng(seed)
+        fresh = lambda n: rng.integers(0, vocab, size=(n,)).astype(np.int32)  # noqa: E731
+        prompts = [fresh(TURN_TOKENS) for _ in range(SESSIONS)]
+        waves = []
+        for t in range(TURNS):
+            if t:
+                prompts = [np.concatenate([p, fresh(TURN_TOKENS)]) for p in prompts]
+            waves.append([x for p in prompts for x in (p, np.concatenate([p[:-3], fresh(3)]))])
+        return waves
+
+    page = os.sysconf("SC_PAGE_SIZE")
+
+    def rss() -> int:
+        with open("/proc/self/statm") as fh:
+            return int(fh.read().split()[1]) * page
+
+    def timed_init(c) -> tuple:
+        """``lm.init_params(c, 0)`` on the card: the weights, and the seconds
+        it took (to the card's finish), the host's resident memory at its
+        start and at its peak (sampled every 20 ms; memory freed by earlier
+        phases and kept by the host allocator is reused, so the peak may not
+        rise) and the weights' device MiB."""
+        base, peak, done = rss(), [0], threading.Event()
+
+        def sample():
+            while not done.wait(0.02):
+                peak[0] = max(peak[0], rss())
+
+        sampler = threading.Thread(target=sample)
+        sampler.start()
+        dev0 = torch.cuda.memory_allocated()
+        t0 = time.monotonic()
+        try:
+            p = lm.init_params(c, 0, device=dev)
+            torch.cuda.synchronize()
+            init_s = time.monotonic() - t0
+        finally:
+            done.set()
+            sampler.join()
+        return p, dict(init_s=init_s, init_host_rss_mib_start=base / 2**20,
+                       init_host_rss_mib_peak=max(peak[0], rss()) / 2**20,
+                       weights_mib=(torch.cuda.memory_allocated() - dev0) / 2**20)
+
+    # ---------------- the MoE family (run last; --only moe: alone) ----------------
+    from repro_torch.models import moe as moe_lib
+
+    def moe_split(by_name) -> dict[str, float]:
+        """A profile's card ms by kind: the f32 GEMMs (the experts' and the
+        router's, with cuBLAS's split-K reduction), the unrolled elementwise
+        copies (the experts' f32 casts), flash_fwd, stream_matmul, the rest."""
+        split = dict.fromkeys(("f32_matmul", "f32_casts", "flash_fwd", "stream_matmul", "rest"),
+                              0.0)
+        for name, ms in by_name.items():
+            if "flash_fwd" in name:
+                split["flash_fwd"] += ms
+            elif "stream_kernel" in name:
+                split["stream_matmul"] += ms
+            elif any(k in name for k in ("sgemm", "splitKreduce", "gemv2N", "gemvNSP")):
+                split["f32_matmul"] += ms
+            elif "unrolled_elementwise_kernel" in name:
+                split["f32_casts"] += ms
+            else:
+                split["rest"] += ms
+        return split
+
+    def moe_profile(step) -> dict:
+        """``profile_window`` of one step (a window of three MoE chunks came
+        back with most of its kernels missing), its card ms by kind."""
+        stats, by_name = profile_window(step, window=1)
+        split = moe_split(by_name)
+        return dict(**stats, device_ms_by_kind=split,
+                    f32_matmul_share=split["f32_matmul"] / max(stats["device_step_ms"], 1e-9),
+                    top_kernels_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8]))
+
+    def bf16_resident(x2, w1e, w3e, w2e, fixed_rows=False):
+        """A resident expert with its products in bf16 (not the port's: it
+        shows what MOE_FFN_F32_REL_TOL reads at a lower precision)."""
+        xb, w1b, w3b, w2b = (t.to(torch.bfloat16) for t in (x2, w1e, w3e, w2e))
+        return ((F.silu(xb @ w1b) * (xb @ w3b)) @ w2b).float()
+
+    def moe_layers_vs_cpu(c, p) -> None:
+        """(a) A PROMPT-token prefill at ``c``'s depth, layer by layer, each
+        layer fed the CPU's input (f32, rounded to bf16 on the card): the
+        (token, layer) expert sets the card's routing changes may lie only
+        at a near-tie (the CPU's k-th and (k+1)-th router probabilities
+        within MOE_FLIP_GAP); on the tokens whose set agrees the FFN output
+        within MOE_FFN_REL_TOL of the largest |CPU output|; each layer's
+        tally off the CPU's by at most 2k per changed set. The card's FFN
+        on the CPU's f32 hidden state itself: its sets changed only at such a
+        near-tie, and its output within MOE_FFN_F32_REL_TOL (the same FFN
+        with TF32 and with bf16 expert products printed beside, each of
+        which must read above it). The card's own end-to-end prefill is
+        printed beside the CPU's, not gated: a changed set moves a token's
+        output by a gate weight."""
+        cpu_c, cpu_p = cpu_copy(c, p)
+        k = c.experts_per_token
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(0, c.vocab, size=(1, PROMPT)))
+        pos = torch.arange(PROMPT)[None]
+        x = lm.embed(tokens, cpu_p["embed"], torch.float32)
+        t0 = time.monotonic()
+        layers = []
+        for i in range(c.n_layers):
+            lc, lg_ = cpu_p.layer(i), p.layer(i)
+            xa_c, _ = lm._attn_block(lc, cpu_c, x, pos, window=c.sliding_window)
+            xa_g, _ = lm._attn_block(lg_, c, x.to(dev, torch.bfloat16), pos.to(dev),
+                                     window=c.sliding_window)
+            h_c = lm.rms_norm(xa_c, lc["ln2"], c.norm_eps)
+            h_g = lm.rms_norm(xa_g, lg_["ln2"], c.norm_eps)
+            _, probs_c, top_c = moe_lib._token_gates(h_c, lc["router"], cpu_c, True)
+            _, _, top_g = moe_lib._token_gates(h_g, lg_["router"], c, True)
+            y_c, n_c = moe_lib.moe_ffn_dropless(h_c, lc["router"], lc["w1"], lc["w3"], lc["w2"],
+                                                cpu_c, fixed_rows=True)
+            ffn = lambda h: moe_lib.moe_ffn_dropless(  # noqa: E731
+                h, lg_["router"], lg_["w1"], lg_["w3"], lg_["w2"], c, fixed_rows=True)
+            y_g, n_g = ffn(h_g)
+            # the CPU's own f32 hidden state on the card: the expert products'
+            # precision alone (and what TF32 or bf16 products would read)
+            h32 = h_c.to(dev)
+            top_f = moe_lib._token_gates(h32, lg_["router"], c, True)[2]
+            y_f = ffn(h32)[0]
+            torch.backends.cuda.matmul.allow_tf32 = True
+            y_tf32 = ffn(h32)[0]
+            torch.backends.cuda.matmul.allow_tf32 = False
+            resident = moe_lib._resident
+            moe_lib._resident = bf16_resident
+            try:
+                y_bf16 = ffn(h32)[0]
+            finally:
+                moe_lib._resident = resident
+            gap = probs_c[0].sort(-1, descending=True).values
+            gap = gap[:, k - 1] - gap[:, k]
+            set_c = torch.zeros(probs_c.shape[1:], dtype=torch.bool).scatter_(-1, top_c[0], True)
+
+            def changed(top):
+                return (set_c != torch.zeros_like(set_c).scatter_(-1, top[0].cpu(), True)).any(-1)
+
+            def rel_err(y, same):
+                yc = y_c[0][same]
+                return ((y[0].float().cpu()[same] - yc).abs().max() / yc.abs().max()).item()
+
+            flipped, flipped_f = changed(top_g), changed(top_f)
+            n_flips, same_f = int(flipped.sum()), ~flipped_f
+            layers.append(dict(
+                layer=i, sets=PROMPT, sets_changed=n_flips,
+                max_gap_at_change=gap[flipped].max().item() if n_flips else 0.0,
+                min_gap=gap.min().item(),
+                ffn_rel_err_where_sets_agree=rel_err(y_g, ~flipped),
+                tally_l1=(n_g.cpu() - n_c).abs().sum().item(),
+                f32_in_sets_changed=int(flipped_f.sum()),
+                f32_in_max_gap_at_change=gap[flipped_f].max().item() if flipped_f.any() else 0.0,
+                f32_in_ffn_rel_err=rel_err(y_f, same_f),
+                f32_in_ffn_rel_err_tf32_products=rel_err(y_tf32, same_f),
+                f32_in_ffn_rel_err_bf16_products=rel_err(y_bf16, same_f)))
+            x = xa_c + y_c
+        lg_cpu = lm._unembed(cpu_p, cpu_c, x[:, -1:])[0, 0, :c.vocab]
+        lg_card, ks, _, tally = lm.prefill_with_cache(p, c, tokens.to(dev), PROMPT - 1)
+        torch.cuda.synchronize()
+        a, b = lg_card[0, 0, :c.vocab].float().cpu(), lg_cpu.float()
+        phase("moe_prefill", arch=c.name, layers=c.n_layers, tokens=PROMPT, per_layer=layers,
+              flip_gap_bound=MOE_FLIP_GAP, ffn_rel_tol=MOE_FFN_REL_TOL,
+              ffn_f32_rel_tol=MOE_FFN_F32_REL_TOL,
+              end_to_end_cosine=F.cosine_similarity(a, b, dim=0).item(),
+              end_to_end_top1_card=int(a.argmax()), end_to_end_top1_cpu=int(b.argmax()),
+              end_to_end_max_abs_logit_err=(a - b).abs().max().item(),
+              tally_shape=list(tally.shape), tally_sum=tally.sum().item(),
+              seconds=time.monotonic() - t0)
+        for r in layers:
+            if (r["max_gap_at_change"] > MOE_FLIP_GAP
+                    or r["ffn_rel_err_where_sets_agree"] > MOE_FFN_REL_TOL
+                    or r["tally_l1"] > 2 * k * r["sets_changed"]
+                    or r["f32_in_max_gap_at_change"] > MOE_FLIP_GAP
+                    or r["f32_in_ffn_rel_err"] > MOE_FFN_F32_REL_TOL):
+                fail(f"{c.name} prefill, layer {r['layer']}, card vs CPU: {r}")
+            if min(r["f32_in_ffn_rel_err_tf32_products"],
+                   r["f32_in_ffn_rel_err_bf16_products"]) <= MOE_FFN_F32_REL_TOL:
+                fail(f"{c.name} prefill, layer {r['layer']}: MOE_FFN_F32_REL_TOL does not "
+                     f"tell f32 expert products from TF32 or bf16 ones: {r}")
+        if not (torch.isfinite(a).all() and torch.isfinite(ks).all()
+                and tally.sum().item() == c.n_layers * PROMPT * k):
+            fail(f"{c.name} prefill: non-finite logits or K rows, or a tally of "
+                 f"{tally.sum().item()} slots")
+
+    def moe_graphs(c, p) -> None:
+        """(c) The decode step, a chunk (at two starts), a whole-prompt bucket
+        and a verify step, each captured, its replay bitwise its eager step
+        in logits, pools, K/V rows and the (L, E) tally; then the compiled
+        decode step and chunk profiled, and the compiled verify step timed
+        as it runs and with its f32 products padded as a prefill's are."""
+        rows0 = (c.n_layers, LANES * MAX_LEN + 16, c.n_kv, c.hd)
+        pool_gen = torch.Generator(device=dev).manual_seed(4)
+        pk0 = torch.randn(rows0, generator=pool_gen, device=dev, dtype=torch.bfloat16)
+        pv0 = torch.randn(rows0, generator=pool_gen, device=dev, dtype=torch.bfloat16)
+        table = (16 + torch.arange(LANES * MAX_LEN)).reshape(LANES, MAX_LEN)
+        rng = np.random.default_rng(1)
+        tok = torch.from_numpy(rng.integers(0, c.vocab, (LANES, 1)))
+
+        def with_tally(out):
+            return torch.cat([out[0].flatten().float(), out[-1].flatten()])
+
+        hold_replay(f"{c.name} decode step (logits and tally)",
+                    lambda k_, v_, t_, tb, ln: with_tally(
+                        lm.decode_step_paged(p, c, t_, k_, v_, tb, ln)),
+                    (tok, table, torch.full((LANES,), PROMPT + 8)), pk0, pv0)
+        chunk = torch.from_numpy(rng.integers(0, c.vocab, size=(1, CHUNK)))
+        one = table[:1]
+
+        def chunk_in_at(start):
+            return (chunk, one, one[:, start:start + CHUNK], torch.tensor([start]),
+                    torch.tensor([CHUNK - 1]))
+
+        hold_replay(f"{c.name} prefill chunk (logits and tally)",
+                    lambda k_, v_, t_, rows, wr, st, last: with_tally(lm.prefill_chunk_paged(
+                        p, c, t_, k_, v_, rows, wr, st, last)),
+                    chunk_in_at(CHUNK), pk0, pv0, replay_in=[chunk_in_at(s) for s in (CHUNK, 37)])
+        starts = torch.from_numpy(PROMPT + 8 + np.arange(LANES))
+        wr = torch.stack([table[i, s:s + SPEC_DEPTH] for i, s in enumerate(starts.tolist())])
+        vtok = torch.from_numpy(rng.integers(0, c.vocab, (LANES, SPEC_DEPTH)))
+        hold_replay(f"{c.name} verify step, chain {SPEC_DEPTH} (logits and tally)",
+                    lambda k_, v_, t_, tb, w_, st: with_tally(lm.verify_chunk_paged(
+                        p, c, t_, k_, v_, tb, w_, st)),
+                    (vtok, table, wr, starts), pk0, pv0)
+        del pk0, pv0
+        p_len = BUCKET - 5
+        btok = torch.zeros((1, BUCKET), dtype=torch.long)
+        btok[0, :p_len] = torch.from_numpy(rng.integers(0, c.vocab, size=p_len))
+        b_in = (btok, torch.tensor([p_len - 1]))
+        graph = CapturedStep(lambda t_, last: lm.prefill_with_cache(p, c, t_, last), device=dev,
+                             mempool=torch.cuda.graph_pool_handle())
+        graph(*b_in)
+        got = graph(*b_in)
+        want = lm.prefill_with_cache(p, c, *(t.to(dev) for t in b_in))
+        torch.cuda.synchronize()
+        out = dict(case=f"{c.name} prefill bucket {BUCKET} ({p_len} tokens)", replays=graph.replays,
+                   capture_s=graph.capture_s, pool_mib=graph.pool_bytes / 2**20,
+                   **{f"{name}_bitwise": same_bits(a, b) for name, a, b in zip(
+                       ("logits", "ks", "vs", "tally"), got, want)})
+        phase("graph_vs_eager", **out)
+        if graph.replays != 1 or not all(v for key, v in out.items() if key.endswith("bitwise")):
+            fail(f"{c.name} prefill bucket: the replay is not the eager step: {out}")
+        del graph, got, want
+        # where a compiled decode step's and chunk's card time goes
+        pk1 = torch.zeros(rows0, dtype=torch.bfloat16, device=dev)
+        pv1 = torch.zeros_like(pk1)
+        graph = CapturedStep(lambda t_, tb, ln: lm.decode_step_paged(p, c, t_, pk1, pv1, tb, ln)[0],
+                             device=dev, mempool=torch.cuda.graph_pool_handle())
+        d_in = (tok, table, torch.full((LANES,), PROMPT + 8))
+        graph(*d_in)
+        phase("decode_profile", arch=c.name, compiled=True, capture_s=graph.capture_s,
+              first_call_s=graph.first_call_s, graph_pool_mib=graph.pool_bytes / 2**20,
+              **moe_profile(lambda: graph(*d_in)))
+        graph = CapturedStep(lambda t_, rows, w_, st, last: lm.prefill_chunk_paged(
+            p, c, t_, pk1, pv1, rows, w_, st, last)[0], device=dev,
+            mempool=torch.cuda.graph_pool_handle())
+        graph(*chunk_in_at(CHUNK))
+        phase("prefill_profile", arch=c.name, compiled=True, chunk=CHUNK, start=CHUNK,
+              capture_s=graph.capture_s, first_call_s=graph.first_call_s,
+              graph_pool_mib=graph.pool_bytes / 2**20,
+              **moe_profile(lambda: graph(*chunk_in_at(CHUNK))))
+        # a compiled verify step's card ms as it runs (its f32 products
+        # unpadded) and with them in 256-row calls, as a prefill runs them
+        v_in, dropless, verify_ms = (vtok, table, wr, starts), moe_lib.moe_ffn_dropless, {}
+        for fixed in (False, True):
+            if fixed:
+                moe_lib.moe_ffn_dropless = lambda *a, **kw: dropless(*a, **{**kw,
+                                                                            "fixed_rows": True})
+            try:
+                graph = CapturedStep(lambda t_, tb, w_, st: lm.verify_chunk_paged(
+                    p, c, t_, pk1, pv1, tb, w_, st)[0], device=dev,
+                    mempool=torch.cuda.graph_pool_handle())
+                graph(*v_in)
+            finally:
+                moe_lib.moe_ffn_dropless = dropless
+            verify_ms["ms_products_in_256_row_calls" if fixed else "ms"] = median_ms(
+                lambda: graph(*v_in))
+        phase("verify_step_ms", arch=c.name, compiled=True, lanes=LANES, depth=SPEC_DEPTH,
+              **verify_ms)
+        del graph, pk1, pv1
+        torch.cuda.empty_cache()
+
+    def moe_cell(c, p, compiled, *, residency=None, extra=(), force=None,
+                 requests=16, gen=64) -> dict:
+        """The serve cell (``requests`` x (PROMPT + ``gen``), 8 lanes,
+        --prefill-chunk CHUNK, --max-len MAX_LEN, the prefix cache on)
+        through serve's engine (``build_pool_engine``) on ``p``, driven by
+        ``drive``; ``force`` (rid -> tokens) feeds those tokens in place of
+        each sample (teacher forcing), the logits still recorded."""
+        args = serve.build_parser().parse_args(
+            ["--arch", c.name, "--requests", str(requests), "--batch", str(LANES),
+             "--prompt-len", str(PROMPT), "--gen-len", str(gen), "--max-len", str(MAX_LEN),
+             "--prefill-chunk", str(CHUNK), *extra])
+        sched = serve.build_pool_engine(c, p, args, dev, residency, compiled=compiled)
+        if force is not None:
+            sched._sample_one = lambda req, row: force[req.rid][len(req.output)]
+        r = drive(sched, [serve.make_requests(args, c.vocab)], gen)
+        st = sched.stats
+        r["metrics"].update(
+            decode_steps=st.decode_steps, verify_steps=st.verify_steps,
+            accepted_tokens=st.accepted_tokens, draft_tokens=st.draft_tokens,
+            decode_step_ms=st.decode_time / max(1, st.decode_steps) * 1e3,
+            decode_step_ms_replay=serve._replay_step_ms(sched, st),
+            graph_pool_mib=sum(g.pool_bytes for g in sched.graphs) / 2**20,
+            expert_tokens=st.expert_tokens, **sched.moe_gauges())
+        r["requests"], r["gen"] = requests, gen
+        del sched
+        return r
+
+    def check_moe_cell(label, c, r, compiled, streamed=0) -> None:
+        """Every request done; prefill on flash_fwd's tensor-core route,
+        n_layers launches a chunk or bucket; no packed_matmul (experts never
+        pack, attention is plain matmuls), ``stream_matmul`` exactly 3 x
+        ``streamed`` experts x decode steps; no backward kernel; the tally
+        top_k x n_layers a token; compiled: every step but each graph's
+        first a replay."""
+        m, counts, by_route = r["metrics"], r["counts"], r["by_route"]
+        if m["completed"] != r["requests"] or m["generated_tokens"] != r["requests"] * r["gen"]:
+            fail(f"{label}: {m['completed']} completed, {m['generated_tokens']} tokens")
+        want_stream = 3 * streamed * m["decode_steps"]
+        if (counts["packed_matmul"] or counts["stream_matmul"] != want_stream
+                or counts["flash_fwd"] != c.n_layers * m["prefill_steps"]
+                or by_route.get("flash_fwd", {}).keys() != {"mma"}
+                or counts["flash_bwd_dq"] or counts["flash_bwd_dkv"]):
+            fail(f"{label}: launches {counts} by route {by_route}; want stream_matmul "
+                 f"3 x {streamed} x {m['decode_steps']} = {want_stream}, flash_fwd "
+                 f"{c.n_layers} x {m['prefill_steps']} prefill steps, no packed_matmul")
+        if m["expert_tokens"] % (c.experts_per_token * c.n_layers) or not m["expert_tokens"]:
+            fail(f"{label}: {m['expert_tokens']} routed slots")
+        if compiled and not (m["compiled"] and m["graphs"] >= 2):
+            fail(f"{label}: compiled {m['compiled']}, {m['graphs']} graphs")
+
+    def count_main_path(r) -> None:
+        for name, n in r["counts"].items():
+            launches[name] += n
+        add_routes(r["by_route"])
+
+    def top_gap(top: dict) -> float:
+        a, b = sorted(top.values(), reverse=True)[:2]
+        return a - b
+
+    def forced_vs(forced, plain) -> dict:
+        """Teacher-forced logits (``forced``'s TOP_LOGITS per position)
+        against ``plain``'s at every sampled position: the largest |logit
+        difference| over the ids both keep, the largest shift of plain's
+        top-1 / top-2 gap, the positions whose argmax agrees, and plain's
+        largest |logit|."""
+        diff = shift = scale = 0.0
+        agree = n = 0
+        for key, want in plain["top_logits"].items():
+            got = forced["top_logits"][key]
+            diff = max(diff, max((abs(got[i] - want[i]) for i in want if i in got), default=0.0))
+            t1, t2 = sorted(want, key=want.get, reverse=True)[:2]
+            if t2 in got and t1 in got:
+                shift = max(shift, abs((got[t1] - got[t2]) - (want[t1] - want[t2])))
+            agree += max(got, key=got.get) == t1
+            n += 1
+            scale = max(scale, max(abs(v) for v in want.values()))
+        return dict(max_abs_logit_diff=diff, max_top1_top2_gap_shift=shift, argmax_agree=agree,
+                    positions=n, max_abs_logit=scale)
+
+    def partings(run, plain) -> list[dict]:
+        """The streams of ``run`` that part from ``plain``'s: where, and
+        plain's top-1 / top-2 gap there."""
+        out = []
+        for rid, toks in run["outputs"].items():
+            want = plain["outputs"][rid]
+            j = next((i for i, (x, y) in enumerate(zip(toks, want)) if x != y), None)
+            if j is not None:
+                out.append(dict(rid=rid, position=j,
+                                plain_gap=top_gap(plain["top_logits"][rid, j])))
+        return out
+
+    def moe_budget(c, p, plain) -> None:
+        """(e) The serve cell compiled at half the plan's expert tile bytes:
+        its cold experts stream through stream_matmul, exactly 3 x streamed
+        experts x decode steps launches; teacher-forced with the unbudgeted
+        (d) run's tokens, the logits within MOE_BUDGET_LOGIT_STEPS bf16 steps
+        and the argmax the same at SPEC_MIN_ARGMAX_SHARE of the positions;
+        run free, every stream that parts does so where the unbudgeted top-1
+        / top-2 gap lies within the forced run's largest shift of it."""
+        from repro_torch.runtime.residency import compile_residency_plan
+
+        full = compile_residency_plan(c, vmem_budget_bytes=0)
+        total = sum(full.bin_tiles) * full.chip.tile_bytes
+        plan = compile_residency_plan(c, vmem_budget_bytes=total // 2)
+        mask = np.asarray(plan.expert_stream_mask(c), bool)
+        if not (mask.any() and not mask.all()) or plan.stream_mask(c) != plan.expert_stream_mask(c):
+            fail(f"{c.name}: the half-budget plan does not split the experts "
+                 f"({int(mask.sum())} of {mask.size} streamed)")
+        streamed = int(mask.sum())
+        t0 = time.monotonic()
+        compile_residency_plan(c, vmem_budget_bytes=total // 2)
+        plan_s = time.monotonic() - t0
+        free = moe_cell(c, p, True, residency=plan)
+        check_moe_cell(f"{c.name} budgeted", c, free, True, streamed)
+        count_main_path(free)
+        forced = moe_cell(c, p, True, residency=plan, force=plain["outputs"])
+        check_moe_cell(f"{c.name} budgeted, teacher-forced", c, forced, True, streamed)
+        fv = forced_vs(forced, plain)
+        step = 2.0 ** (math.floor(math.log2(fv["max_abs_logit"])) - 7)
+        parted = partings(free, plain)
+        phase("moe_budgeted", arch=c.name, plan=plan.summary(), plan_blocks=len(plan.blocks),
+              compile_plan_s=plan_s, streamed_experts=streamed, experts=mask.size,
+              stream_ahead=plan.stream_ahead, forced=fv, bf16_step=step,
+              bound=MOE_BUDGET_LOGIT_STEPS * step, streams_parted=len(parted),
+              partings=parted[:8], launches_counted=free["counts"], **free["metrics"])
+        if not (fv["max_abs_logit_diff"] <= MOE_BUDGET_LOGIT_STEPS * step
+                and fv["argmax_agree"] >= SPEC_MIN_ARGMAX_SHARE * fv["positions"]):
+            fail(f"{c.name} budgeted vs unbudgeted, teacher-forced: {fv}")
+        if any(x["plain_gap"] > fv["max_top1_top2_gap_shift"] for x in parted):
+            fail(f"{c.name} budgeted: a stream parts away from a near-tie: {parted[:4]}")
+
+    def products_whose_rows_follow_m(c, p, s_len, row_counts) -> list[str]:
+        """The router's and four experts' f32 products as a prefill runs them
+        (``fixed_rows``) on ``s_len`` random rows: those whose first m rows
+        come out other bits from an m-row call (each of ``row_counts``) or
+        from the rows padded to CHUNK."""
+        lp0 = p.layer(0)
+        xh = torch.randn((s_len, c.d_model), generator=torch.Generator(device=dev).manual_seed(9),
+                         device=dev)
+        padded = torch.cat([xh, xh.new_zeros((CHUNK - s_len, c.d_model))])
+        fns = {f"expert {e}": lambda t, w=(lp0["w1"][e], lp0["w3"][e], lp0["w2"][e]):
+               moe_lib._resident(t, *w, fixed_rows=True) for e in range(4)}
+        fns["router"] = lambda t: moe_lib._token_gates(t[None], lp0["router"], c, True)[1][0]
+        off = []
+        for name, fn in fns.items():
+            y = fn(xh)
+            if not (all(same_bits(fn(xh[:m]), y[:m]) for m in row_counts)
+                    and same_bits(fn(padded)[:s_len], y)):
+                off.append(name)
+        return off
+
+    def moe_shared_prefix(c, p) -> None:
+        """(f) Phase 5 (b)'s shared-prefix traffic with the cache and
+        without: identical tokens and every sampled position's logits row
+        bitwise equal; a prompt's K rows the same bits from a prefill of its
+        first half and of all of it; the router's and an expert's f32
+        products give a row the same bits at half the rows and padded to
+        CHUNK (a prefill runs each in 256-row calls)."""
+        from repro_torch.runtime.kv_pool import KVPool
+        from repro_torch.runtime.prefix_cache import PrefixCache
+        from repro_torch.runtime.scheduler import Scheduler
+
+        waves = session_waves(c.vocab)
+        runs = {}
+        for cached in (False, True):
+            pool = KVPool.for_slots(c, slots=LANES, max_len=SESSION_MAX_LEN, block_tokens=16,
+                                    device=dev)
+            sched = Scheduler(c, p, pool, slots=LANES, max_len=SESSION_MAX_LEN,
+                              prefill_chunk=CHUNK,
+                              prefix_cache=PrefixCache(pool) if cached else None)
+            r = drive(sched, waves, SESSION_GEN)
+            r["metrics"]["expert_tokens"] = sched.stats.expert_tokens
+            del sched, pool
+            phase("serve_shared_prefix", arch=c.name, cached=cached, launches_counted=r["counts"],
+                  launches_by_route=r["by_route"], **r["metrics"])
+            count_main_path(r)
+            runs[cached] = r
+        warm, cold = runs[True], runs[False]
+        rows_off = sorted(key for key in cold["digests"]
+                          if warm["digests"].get(key) != cold["digests"][key])
+        cut = 1.0 - warm["metrics"]["prefill_tokens"] / max(1, cold["metrics"]["prefill_tokens"])
+        prompt = torch.from_numpy(waves[1][0][None]).to(dev)
+        _, k_half, _, _ = lm.prefill_with_cache(p, c, prompt[:, :TURN_TOKENS], TURN_TOKENS - 1)
+        _, k_all, _, _ = lm.prefill_with_cache(p, c, prompt, prompt.shape[1] - 1)
+        k_off = [i for i in range(c.n_layers)
+                 if not same_bits(k_half[i], k_all[i][:, :TURN_TOKENS])]
+        s_len = prompt.shape[1]
+        products_off = products_whose_rows_follow_m(c, p, s_len, (s_len // 2,))
+        phase("serve_shared_prefix_cache_vs_none", arch=c.name,
+              token_streams_identical=warm["outputs"] == cold["outputs"],
+              positions=len(cold["digests"]), positions_whose_logits_differ=len(rows_off),
+              layers_whose_k_rows_differ=k_off, f32_products_whose_rows_follow_m=products_off,
+              prefill_token_cut=cut, **{f"{key}_{side}": r["metrics"][key] for key in (
+                  "prefill_tokens", "mean_ttft_s", "tokens_per_s", "prefix_hit_rate",
+                  "cow_copies", "shared_blocks_peak", "graphs", "expert_tokens")
+                  for side, r in (("cache", warm), ("no_cache", cold))})
+        if (warm["outputs"] != cold["outputs"] or rows_off or k_off or products_off
+                or cut < PREFIX_MIN_CUT or not warm["metrics"]["shared_blocks_peak"]):
+            fail(f"{c.name} shared prefix: cached and uncached differ: {len(rows_off)} logits "
+                 f"rows, K rows at layers {k_off}, products {products_off}, cut {cut}")
+
+    def moe_short_prefix(c, p) -> None:
+        """(f) A prompt of one 16-token block (a 16-row bucket prefill),
+        then a prompt that extends it by TURN_TOKENS, served compiled with
+        the cache and without: the second adopts the first's block, and
+        the streams and every sampled position's logits row are bitwise
+        equal; the block's K rows the same bits from the 16-token prefill
+        and from the longer one's; the router's and four experts' f32
+        products give a 16-row call's rows the bits of the longer call's."""
+        from repro_torch.runtime.kv_pool import KVPool
+        from repro_torch.runtime.prefix_cache import PrefixCache
+        from repro_torch.runtime.scheduler import Scheduler
+
+        long = np.random.default_rng(8).integers(0, c.vocab, 16 + TURN_TOKENS).astype(np.int32)
+        waves = [[long[:16]], [long]]
+        runs = {}
+        for cached in (False, True):
+            pool = KVPool.for_slots(c, slots=LANES, max_len=SESSION_MAX_LEN, block_tokens=16,
+                                    device=dev)
+            sched = Scheduler(c, p, pool, slots=LANES, max_len=SESSION_MAX_LEN,
+                              prefill_chunk=CHUNK,
+                              prefix_cache=PrefixCache(pool) if cached else None)
+            runs[cached] = drive(sched, waves, SHORT_PREFIX_GEN)
+            del sched, pool
+        warm, cold = runs[True], runs[False]
+        rows_off = sorted(key for key in cold["digests"]
+                          if warm["digests"].get(key) != cold["digests"][key])
+        prompt = torch.from_numpy(long[None]).to(dev)
+        _, k16, _, _ = lm.prefill_with_cache(p, c, prompt[:, :16], 15)
+        _, k_all, _, _ = lm.prefill_with_cache(p, c, prompt, prompt.shape[1] - 1)
+        k_off = [i for i in range(c.n_layers) if not same_bits(k16[i], k_all[i][:, :16])]
+        products_off = products_whose_rows_follow_m(c, p, prompt.shape[1], (16,))
+        hit = warm["metrics"]["prefix_hit_tokens"]
+        phase("serve_short_prefix_cache_vs_none", arch=c.name, layers=c.n_layers,
+              prompts=[16, len(long)], gen=SHORT_PREFIX_GEN,
+              token_streams_identical=warm["outputs"] == cold["outputs"],
+              positions=len(cold["digests"]), positions_whose_logits_differ=len(rows_off),
+              prefix_hit_tokens=hit, layers_whose_k_rows_differ=k_off,
+              f32_products_whose_rows_follow_m=products_off)
+        if warm["outputs"] != cold["outputs"] or rows_off or k_off or products_off or hit < 16:
+            fail(f"{c.name} short prefix: cached and uncached differ: {len(rows_off)} logits "
+                 f"rows, K rows at layers {k_off}, products {products_off}, {hit} hit tokens")
+
+    def moe_spec(c, p, plain) -> None:
+        """(g) The n-gram drafter at --spec-depth SPEC_DEPTH on the cell's
+        first MOE_SPEC_REQUESTS prompts, eager and compiled: identical
+        tokens and launches; every stream that parts from plain compiled
+        decode does so at a near-tie (plain's top-1 / top-2 gap within the
+        gate's largest shift of it). The gate, phase 5 (c)'s: on a pool prefilled
+        with 8 random (PROMPT + 8)-token prompts, one verify step of
+        SPEC_DEPTH tokens on 8 lanes against the same tokens through
+        SPEC_DEPTH decode steps, the logits within SPEC_LOGIT_STEPS bf16
+        steps and the argmax the same at SPEC_MIN_ARGMAX_SHARE."""
+        depth0 = PROMPT + 8
+        rows0 = (c.n_layers, LANES * MAX_LEN + 16, c.n_kv, c.hd)
+        pk0 = torch.zeros(rows0, dtype=torch.bfloat16, device=dev)
+        pv0 = torch.zeros_like(pk0)
+        table = (16 + torch.arange(LANES * MAX_LEN, device=dev)).reshape(LANES, MAX_LEN)
+        prompts = torch.from_numpy(np.random.default_rng(5).integers(
+            0, c.vocab, (LANES, depth0 + LANES))).to(dev)
+        _, ks, vs, _ = lm.prefill_with_cache(p, c, prompts, depth0 - 1)
+        rows = table[:, :depth0 + LANES].reshape(-1)
+        pk0.index_copy_(1, rows, ks.flatten(1, 2))
+        pv0.index_copy_(1, rows, vs.flatten(1, 2))
+        del ks, vs
+        starts = depth0 + torch.arange(LANES, device=dev)
+        toks = torch.from_numpy(np.random.default_rng(6).integers(
+            0, c.vocab, (LANES, SPEC_DEPTH))).to(dev)
+        wr = torch.stack([table[i, s:s + SPEC_DEPTH] for i, s in enumerate(starts.tolist())])
+        lg_v = lm.verify_chunk_paged(p, c, toks, pk0.clone(), pv0.clone(), table, wr,
+                                     starts)[0][..., :c.vocab].float()
+        kd, vd = pk0.clone(), pv0.clone()
+        lg_d = torch.stack([lm.decode_step_paged(p, c, toks[:, j:j + 1], kd, vd, table,
+                                                 starts + j)[0][:, 0, :c.vocab].float()
+                            for j in range(SPEC_DEPTH)], 1)
+        del pk0, pv0, kd, vd
+        got, want = lg_v.flatten(0, 1), lg_d.flatten(0, 1)
+        top2 = torch.topk(want, 2, dim=-1).indices
+        gg, ww = got.gather(1, top2), want.gather(1, top2)
+        shift = ((gg[:, 0] - gg[:, 1]) - (ww[:, 0] - ww[:, 1])).abs().max().item()
+        diff = (got - want).abs().max().item()
+        agree = int((got.argmax(-1) == want.argmax(-1)).sum())
+        scale = want.abs().max().item()
+        step = 2.0 ** (math.floor(math.log2(scale)) - 7)
+        n = LANES * SPEC_DEPTH
+        gate = dict(max_abs_logit=scale, bf16_step=step, max_abs_logit_diff=diff,
+                    max_top1_top2_gap_shift=shift, max_abs_logit_diff_steps=diff / step,
+                    argmax_agree=agree, positions=n,
+                    within_gate=(diff <= SPEC_LOGIT_STEPS * step
+                                 and shift <= SPEC_LOGIT_STEPS * step
+                                 and agree >= SPEC_MIN_ARGMAX_SHARE * n))
+        extra = ("--speculate", "ngram", "--spec-depth", str(SPEC_DEPTH))
+        spec = {compiled: moe_cell(c, p, compiled, extra=extra, requests=MOE_SPEC_REQUESTS,
+                                   gen=MOE_SPEC_GEN) for compiled in (False, True)}
+        for compiled, r in spec.items():
+            check_moe_cell(f"{c.name} n-gram ({'compiled' if compiled else 'eager'})", c, r,
+                           compiled)
+        count_main_path(spec[True])
+        same_tokens = spec[True]["outputs"] == spec[False]["outputs"]
+        same_launches = ((spec[True]["counts"], spec[True]["by_route"])
+                         == (spec[False]["counts"], spec[False]["by_route"]))
+        plain_part = {"outputs": {rid: t[:MOE_SPEC_GEN] for rid, t in plain["outputs"].items()
+                                  if rid < MOE_SPEC_REQUESTS},
+                      "top_logits": plain["top_logits"]}
+        parted = partings(spec[True], plain_part)
+        phase("moe_spec", arch=c.name, drafter="ngram", depth=SPEC_DEPTH, gate=gate,
+              token_streams_identical=same_tokens, launch_counts_identical=same_launches,
+              streams_equal_to_plain=MOE_SPEC_REQUESTS - len(parted), partings=parted[:8],
+              launches_counted=spec[True]["counts"],
+              **{f"{key}_{'compiled' if cc else 'eager'}": spec[cc]["metrics"][key]
+                 for key in ("tokens_per_s", "mean_ttft_s", "verify_steps", "accepted_tokens",
+                             "graphs", "wall_s") for cc in (False, True)})
+        if not gate["within_gate"]:
+            fail(f"{c.name} verify vs decode outside the gate: {gate}")
+        if not (same_tokens and same_launches):
+            fail(f"{c.name} n-gram: compiled and eager differ (tokens {same_tokens}, launches "
+                 f"{same_launches})")
+        if any(x["plain_gap"] > shift for x in parted):
+            fail(f"{c.name} n-gram: a stream parts from plain decode away from a near-tie: "
+                 f"{parted[:4]}")
+
+    def moe_tf32_scan() -> list[str]:
+        """The port's files that set TF32 or the f32 matmul precision."""
+        return sorted(str(f.relative_to(opts.src)) for f in (opts.src / "repro_torch").rglob("*.py")
+                      if re.search(r"allow_tf32\s*=|set_float32_matmul_precision\(",
+                                   f.read_text()))
+
+    def first_layers(c, p, n):
+        """``c`` and ``p`` cut to their first ``n`` layers (views)."""
+        tree = p.tree()
+        tree["layers"] = {name: leaf[:n] for name, leaf in tree["layers"].items()}
+        return dataclasses.replace(c, n_layers=n), lm.LMParams(tree)
+
+    def moe_phase() -> None:
+        """The MoE phase (the module docstring says what it holds)."""
+        t_phase = time.monotonic()
+        full = get_config(MOE_ARCH)
+        params, init = timed_init(full)
+        phase("init", arch=MOE_ARCH, layers=full.n_layers, **init)
+        moe_layers_vs_cpu(*first_layers(full, params, MOE_CHECK_LAYERS))
+        moe_graphs(full, params)
+        # (d) the serve cell, eager then compiled; the compiled run under the
+        # process's own f32 matmul settings, which the port must not change
+        eager = moe_cell(full, params, False)
+        check_moe_cell(f"{MOE_ARCH} eager", full, eager, False)
+        torch.backends.cuda.matmul.allow_tf32 = tf32_default[0]
+        torch.set_float32_matmul_precision(tf32_default[1])
+        compiled = moe_cell(full, params, True)
+        tf32_after = (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision())
+        torch.backends.cuda.matmul.allow_tf32 = False
+        check_moe_cell(f"{MOE_ARCH} compiled", full, compiled, True)
+        count_main_path(compiled)
+        tf32_files = moe_tf32_scan()
+        same_tokens = compiled["outputs"] == eager["outputs"]
+        same_launches = ((compiled["counts"], compiled["by_route"])
+                         == (eager["counts"], eager["by_route"]))
+        for mode, r in (("eager", eager), ("compiled", compiled)):
+            phase("serve", arch=MOE_ARCH, mode=mode, init_s=init["init_s"],
+                  launches_counted=r["counts"], launches_by_route=r["by_route"], **r["metrics"])
+        phase("serve_compiled_vs_eager", arch=MOE_ARCH, token_streams_identical=same_tokens,
+              launch_counts_identical=same_launches, tf32_process_default=tf32_default,
+              tf32_after_serve=tf32_after, port_files_setting_tf32=tf32_files)
+        if not (same_tokens and same_launches):
+            fail(f"{MOE_ARCH}: compiled and eager serving differ (tokens {same_tokens}, "
+                 f"launches {same_launches})")
+        if tf32_default != (False, "highest") or tf32_after != tf32_default or tf32_files:
+            fail(f"{MOE_ARCH}: f32 matmuls not in full f32: default {tf32_default}, after "
+                 f"serving {tf32_after}, set in {tf32_files}")
+        moe_budget(full, params, compiled)
+        moe_shared_prefix(full, params)
+        moe_short_prefix(full, params)
+        moe_spec(full, params, compiled)
+        del params
+        torch.cuda.empty_cache()
+        phase_seconds(f"moe {MOE_ARCH}")
+        # (h) moonshot: the prefill check at MOE_CHECK_LAYERS layers, then the
+        # compiled serve cell at MOON_LAYERS of its 48
+        moon = get_config(MOON_ARCH)
+        m8 = dataclasses.replace(moon, n_layers=MOON_LAYERS)
+        p8, init8 = timed_init(m8)
+        phase("init", arch=MOON_ARCH, layers=MOON_LAYERS, depth_cut=f"{MOON_LAYERS} of "
+              f"{moon.n_layers} layers: a full draw takes ~200 s on the host", **init8)
+        moe_layers_vs_cpu(*first_layers(m8, p8, MOE_CHECK_LAYERS))
+        moe_short_prefix(m8, p8)
+        from repro_torch.runtime.residency import compile_residency_plan
+
+        t0 = time.monotonic()
+        moon_plan = compile_residency_plan(moon, vmem_budget_bytes=0)
+        phase("residency_plan", arch=MOON_ARCH, layers=moon.n_layers,
+              blocks=len(moon_plan.blocks), compile_s=time.monotonic() - t0)
+        r = moe_cell(m8, p8, True)
+        check_moe_cell(f"{MOON_ARCH} compiled", m8, r, True)
+        count_main_path(r)
+        phase("serve", arch=MOON_ARCH, layers=MOON_LAYERS, mode="compiled",
+              init_s=init8["init_s"], launches_counted=r["counts"],
+              launches_by_route=r["by_route"], **r["metrics"])
+        del p8
+        torch.cuda.empty_cache()
+        phase_seconds(f"moe {MOON_ARCH} at depth {MOON_LAYERS}")
+        phase("moe_phase", seconds=time.monotonic() - t_phase)
+
+    if opts.only == "moe":
+        moe_phase()
+        print("[chip_smoke] --only moe: stopped after the MoE phase", file=sys.stderr)
+        return 0
 
     if opts.only == "prefill":
         prefill_phase()
@@ -994,9 +1853,8 @@ def main(argv: list[str] | None = None) -> int:
     for bits in (1, 2):
         for k, n in ((d, ff), (ff, d)):
             for m in (LANES * (SPEC_DEPTH - 1), LANES * SPEC_DEPTH, MAX_LEN):
-                packed_case(bits, m, k, n, bf16, timed=bits == 2 and m != LANES * (SPEC_DEPTH - 1),
-                            g=spec_gen)
-    flash_case("drafter_prefill", hq, hkv, MAX_LEN, MAX_LEN, hd, True, 0, 0, bf16, False,
+                packed_case(bits, m, k, n, bf16, timed=bits == 2, g=spec_gen)
+    flash_case("drafter_prefill", hq, hkv, MAX_LEN, MAX_LEN, hd, True, 0, 0, bf16, True,
                g=spec_gen)
 
     def visible_pairs(sq, sk, causal, window, q_off) -> int:
@@ -1159,7 +2017,8 @@ def main(argv: list[str] | None = None) -> int:
                 ms=median_ms(lambda: ws.stream_matmul(x, w, scale, bits, k, depth)),
                 host_us=host_us(lambda: ws.stream_matmul(x, w, scale, bits, k, depth)),
                 plain_ms=median_ms(lambda: ref.stream_matmul_ref(x, w, scale, bits, k)),
-                library_ms=median_ms(lambda: torch.matmul(x, w_dec) * sc),
+                library_ms=median_ms((lambda: torch.matmul(x, w_dec) * sc) if scale is not None
+                                     else (lambda: torch.matmul(x, w_dec))),
                 gemv_ms=(median_ms(lambda: pm.packed_matmul(x, w, scale, bits, k))
                          if bits and k % (8 // bits) == 0 else None),
                 bound_ms=b_ms, bound_by=b_by,
@@ -1452,6 +2311,29 @@ def main(argv: list[str] | None = None) -> int:
         flash_bwd_case("d80_window_q_offset", 1, 4, 2, 130, 200, 80, dt, False, True, 17, 70,
                        g=arch_gen)
 
+    # ---- the MoE family's shapes, from a generator of their own ----
+    # olmoe's experts (2048x1024, 1024x2048): a cold expert streams its bf16
+    # rows against f32 x (the f32 FMA route) at decode's 8 lanes, timed
+    # beside torch.matmul on the f32 weight, M 1 and 16 for agreement;
+    # moonshot's (2048x1408, 1408x2048) for agreement; and the prefill's
+    # attention at olmoe's 16/16 heads (G=1), D 128, and its chunk
+    moe_gen = torch.Generator(device="cpu").manual_seed(12)
+    olmoe = get_config("olmoe_1b_7b")
+    moe_depth = stream_ahead_depth(olmoe)
+    for k, n in ((olmoe.d_model, olmoe.d_ff), (olmoe.d_ff, olmoe.d_model)):
+        stream_cases.append(stream_case(LANES, k, n, 0, moe_depth, timed=True,
+                                        x_dtype=torch.float32, g=moe_gen))
+        for m in (1, 16):
+            stream_case(m, k, n, 0, moe_depth, timed=False, x_dtype=torch.float32, g=moe_gen)
+    moon = get_config("moonshot_v1_16b_a3b")
+    for k, n in ((moon.d_model, moon.d_ff), (moon.d_ff, moon.d_model)):
+        for m in (1, LANES, 16):
+            stream_case(m, k, n, 0, moe_depth, timed=False, x_dtype=torch.float32, g=moe_gen)
+    flash_case("olmoe_prefill_causal", olmoe.n_heads, olmoe.n_kv, PROMPT, PROMPT, olmoe.hd,
+               True, 0, 0, bf16, True, g=moe_gen)
+    flash_case("olmoe_chunk_q_offset", olmoe.n_heads, olmoe.n_kv, CHUNK, MAX_LEN, olmoe.hd,
+               True, 0, CHUNK, bf16, True, g=moe_gen)
+
     phase_seconds("3 kernels")
     if opts.only == "kernels":
         print("[chip_smoke] --only kernels: stopped after phase 3", file=sys.stderr)
@@ -1566,16 +2448,8 @@ def main(argv: list[str] | None = None) -> int:
     from repro_torch.perf.trace_export import to_trace_events, validate_trace_events
 
     runs = {}
-    launches = dict.fromkeys(ops.launch_counts(), 0)
-    # launches by route, main path
-    routes = {name: {} for name in ("packed_matmul", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
     trace_dir = ROOT / "build" / "chip_smoke"
     trace_dir.mkdir(parents=True, exist_ok=True)
-
-    def add_routes(by_route):
-        for name, counts in by_route.items():
-            for route, n in counts.items():
-                routes[name][route] = routes[name].get(route, 0) + n
 
     def check_trace(path, metrics, label,
                     phases=("queue", "prefill", "decode", "wait")) -> dict:
@@ -1814,7 +2688,7 @@ def main(argv: list[str] | None = None) -> int:
                 for i, inputs in enumerate(cases):
                     pool.k.copy_(pk0)
                     pool.v.copy_(pv0)
-                    lg_r = sched._run_verify(*inputs)
+                    lg_r = sched._run_verify(*inputs)[0]
                     ke, ve = pk0.clone(), pv0.clone()
                     lg_e = eager(ke, ve, *inputs)
                     replay_matches(f"{label} served verify graph, chain {k}", i,
@@ -2235,79 +3109,6 @@ def main(argv: list[str] | None = None) -> int:
         fail(f"{cfg.name} w_bits 2: the card's init differs: {across}")
     torch.cuda.empty_cache()
 
-    def drive(sched, waves, gen) -> dict:
-        """Each wave submitted, then rounds until it drains, launch counters
-        reset just before and read just after; every whole-prompt prefill
-        timed to the card's finish (host ms), and of every sampled position
-        a digest of its whole logits row and its TOP_LOGITS largest logits
-        kept."""
-        prefill_s = []
-        top, digests = {}, {}
-        run_prefill = sched._run_prefill
-        sample_one = sched._sample_one
-
-        def recording_sample(req, row):
-            ids = np.argpartition(row, -TOP_LOGITS)[-TOP_LOGITS:]
-            top[req.rid, len(req.output)] = {int(i): float(row[i]) for i in ids}
-            digests[req.rid, len(req.output)] = hashlib.blake2b(
-                np.ascontiguousarray(row).tobytes(), digest_size=16).digest()
-            return sample_one(req, row)
-
-        def timed_prefill(tokens, last):
-            t0 = time.perf_counter()
-            out = run_prefill(tokens, last)
-            torch.cuda.synchronize()
-            prefill_s.append((tokens.shape[1], time.perf_counter() - t0))
-            return out
-
-        sched._run_prefill = timed_prefill
-        sched._sample_one = recording_sample
-        ops.reset_launch_counts()
-        t0 = time.monotonic()
-        for wave in waves:
-            for p in wave:
-                sched.submit(p, gen)
-            while sched.queue or any(r is not None for r in sched.active):
-                sched.round()
-            sched.pool.validate()
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-        counts, by_route = ops.launch_counts(), ops.launch_routes()
-        st = sched.stats
-        bucket_graphs = sched.prefill_buckets
-        first = {}
-        for b, t in prefill_s:
-            first.setdefault(b, t)
-        replayed = [t for i, (b, t) in enumerate(prefill_s)
-                    if any(bb == b for bb, _ in prefill_s[:i])]
-        return dict(
-            counts=counts, by_route=by_route, outputs=sched.outputs(), top_logits=top,
-            digests=digests,
-            metrics=dict(
-                compiled=sched.compiled, prefix_cache=sched.prefix_cache is not None,
-                requests=len(sched.requests), completed=st.completed,
-                generated_tokens=st.generated_tokens, wall_s=wall,
-                tokens_per_s=st.generated_tokens / wall, mean_ttft_s=st.mean_ttft,
-                prefill_steps=st.prefill_steps, prefill_tokens=st.prefill_tokens,
-                prefix_hits=st.prefix_hits, prefix_hit_tokens=st.prefix_hit_tokens,
-                prefix_hit_rate=st.prefix_hit_rate, cow_copies=sched.pool.cow_copies,
-                shared_blocks_peak=st.shared_blocks_peak,
-                evicted_blocks=(sched.prefix_cache.evicted_blocks
-                                if sched.prefix_cache is not None else 0),
-                graphs=len(sched.graphs), bucket_graphs=bucket_graphs,
-                chunk_graphs=len(sched.graphs) - len(bucket_graphs)
-                - (sched.decode_graph is not None),
-                graph_capture_s=sum(g.capture_s for g in sched.graphs),
-                graph_first_call_s=sum(g.first_call_s for g in sched.graphs),
-                whole_prompt_prefills=len(prefill_s),
-                prefill_host_ms_mean=(statistics.fmean(t for _, t in prefill_s) * 1e3
-                                      if prefill_s else None),
-                prefill_host_ms_repeat_bucket_mean=(
-                    statistics.fmean(replayed) * 1e3 if replayed else None),
-                prefill_host_ms_first_of_bucket_mean=(
-                    statistics.fmean(first.values()) * 1e3 if first else None),
-            ))
-
     def short_prompt_run(compiled) -> dict:
         """(a) 16 requests of 48-240 tokens over four 16-token buckets, 32
         generated each, 8 lanes, --quant 2, through serve's engine (its
@@ -2355,21 +3156,6 @@ def main(argv: list[str] | None = None) -> int:
     if not (same_tokens and same_launches):
         fail(f"short prompts: compiled and eager differ (tokens {same_tokens}, launches "
              f"{same_launches})")
-
-    def session_waves(vocab, seed=3):
-        """(b) the reference's prefix bench traffic (``_session_waves``): per
-        session a nested turn prompt (the last turn's plus TURN_TOKENS fresh
-        tokens) and a sibling sharing all but its last 3 tokens, so siblings
-        match mid-block (copy-on-write)."""
-        rng = np.random.default_rng(seed)
-        fresh = lambda n: rng.integers(0, vocab, size=(n,)).astype(np.int32)  # noqa: E731
-        prompts = [fresh(TURN_TOKENS) for _ in range(SESSIONS)]
-        waves = []
-        for t in range(TURNS):
-            if t:
-                prompts = [np.concatenate([p, fresh(TURN_TOKENS)]) for p in prompts]
-            waves.append([x for p in prompts for x in (p, np.concatenate([p[:-3], fresh(3)]))])
-        return waves
 
     waves = session_waves(cfg.vocab)
 
@@ -2535,39 +3321,6 @@ def main(argv: list[str] | None = None) -> int:
     del params_q2
 
     # ------- 4-5 for the other dense archs, at full width (and depth) -------
-    page = os.sysconf("SC_PAGE_SIZE")
-
-    def rss() -> int:
-        with open("/proc/self/statm") as fh:
-            return int(fh.read().split()[1]) * page
-
-    def timed_init(c) -> tuple:
-        """``lm.init_params(c, 0)`` on the card: the weights, and the seconds
-        it took (to the card's finish), the host's resident memory at its
-        start and at its peak (sampled every 20 ms; memory freed by earlier
-        phases and kept by the host allocator is reused, so the peak may not
-        rise) and the weights' device MiB."""
-        base, peak, done = rss(), [0], threading.Event()
-
-        def sample():
-            while not done.wait(0.02):
-                peak[0] = max(peak[0], rss())
-
-        sampler = threading.Thread(target=sample)
-        sampler.start()
-        dev0 = torch.cuda.memory_allocated()
-        t0 = time.monotonic()
-        try:
-            p = lm.init_params(c, 0, device=dev)
-            torch.cuda.synchronize()
-            init_s = time.monotonic() - t0
-        finally:
-            done.set()
-            sampler.join()
-        return p, dict(init_s=init_s, init_host_rss_mib_start=base / 2**20,
-                       init_host_rss_mib_peak=max(peak[0], rss()) / 2**20,
-                       weights_mib=(torch.cuda.memory_allocated() - dev0) / 2**20)
-
     def window_vs_cpu(c, params) -> None:
         """Past the sliding window: a (window + CHUNK)-token prompt in
         CHUNK-token chunks, then WINDOW_STEPS greedy decode steps (the
@@ -3107,6 +3860,9 @@ def main(argv: list[str] | None = None) -> int:
     for arch in NEW_ARCHS:
         serve_arch(arch)
         phase_seconds(f"4-5 {arch}")
+
+    # ---------------- the MoE family (last) ----------------
+    moe_phase()
 
     # ---------------- result ----------------
     head_pm = next(c for c in packed_cases if (c["bits"], c["m"], c["k"]) == (2, LANES, d))

@@ -15,8 +15,15 @@ import importlib
 
 from repro_torch.models.config import ModelConfig, reduced
 
-# the reference's dense archs, in its order
-ARCH_IDS = ["h2o_danube_1p8b", "llama3p2_1b", "phi3_medium_14b", "smollm_360m"]
+# the reference's dense and MoE archs, in its order
+ARCH_IDS = [
+    "h2o_danube_1p8b",
+    "llama3p2_1b",
+    "phi3_medium_14b",
+    "smollm_360m",
+    "olmoe_1b_7b",
+    "moonshot_v1_16b_a3b",
+]
 
 # assignment ids (dashes/dots) -> module names
 ALIASES = {
@@ -24,6 +31,8 @@ ALIASES = {
     "llama3.2-1b": "llama3p2_1b",
     "phi3-medium-14b": "phi3_medium_14b",
     "smollm-360m": "smollm_360m",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
 }
 
 

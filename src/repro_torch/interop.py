@@ -20,8 +20,9 @@ import torch
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import LMParams
 
-# leaves that stay f32 whatever the model dtype (norm gains, packed scales)
-F32_LEAVES = ("ln1", "ln2", "final_norm", "scale")
+# leaves that stay f32 whatever the model dtype (norm gains, packed scales,
+# the MoE router, which the reference keeps in f32)
+F32_LEAVES = ("ln1", "ln2", "final_norm", "scale", "router")
 
 
 def _tensor(a) -> torch.Tensor:
@@ -60,12 +61,14 @@ def params_from_reference(
     float leaves require gradients."""
     if "layers" not in tree or not isinstance(tree["layers"], dict):
         raise ValueError("expected the reference's tree with stacked 'layers'")
+    # MoE experts are dense at any w_bits (the reference never packs them)
+    want_packed = cfg.w_bits in (1, 2) and cfg.family != "moe"
     for name in ("w1", "w3", "w2"):
         packed = isinstance(tree["layers"].get(name), dict)
-        if packed != (cfg.w_bits in (1, 2)):
+        if packed != want_packed:
             raise ValueError(
                 f"layers/{name} is {'packed' if packed else 'dense'} but "
-                f"cfg.w_bits is {cfg.w_bits}"
+                f"cfg.w_bits is {cfg.w_bits} (family {cfg.family!r})"
             )
     return LMParams(_convert(tree, device, dtype), trainable)
 

@@ -12,7 +12,12 @@ prefill chunk and the whole-prompt prefill of each bucket; on the CPU
 every step runs eagerly.
 
 ``--arch`` takes every ported arch: smollm-360m (the default),
-llama3.2-1b, h2o-danube-1.8b and phi3-medium-14b (or their module ids).
+llama3.2-1b, h2o-danube-1.8b and phi3-medium-14b, and the MoE archs
+olmoe-1b-7b and moonshot-v1-16b-a3b (or their module ids). An MoE arch
+serves through the dropless expert dispatch and prints a ``[serve/moe]``
+line (routed tokens, load entropy, the share routed to resident experts);
+``--quant`` leaves its experts dense, with the reference's note, and
+``--vmem-budget`` streams its cold experts.
 
 ``--speculate`` serves with speculative decoding (``runtime.speculative``):
 ``ngram`` (the self-drafting suffix match) or an arch whose packed twin,
@@ -30,6 +35,7 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --speculate ngram
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --speculate smollm_360m --spec-quant 2
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --vmem-budget 0.25
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b --smoke --device cpu --vmem-budget 0.5
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --trace-out t.jsonl
     PYTHONPATH=src python -m repro_torch.perf.trace_export t.jsonl --check
 
@@ -255,6 +261,8 @@ def run_pool_engine(
         "cached_blocks": sched.pool.cached_blocks,
         "prefill_tokens": stats.prefill_tokens,
         **_spec_metrics(sched, stats),
+        "expert_tokens": stats.expert_tokens,
+        "moe": sched.moe_gauges() if cfg.family == "moe" else None,
         "residency": residency.summary() if residency is not None else None,
         "graphs": len(sched.graphs),
         "graph_replays": sum(g.replays for g in sched.graphs),
@@ -345,8 +353,12 @@ def main(argv=None) -> int:
     if cfg.family not in PORTED_FAMILIES:
         print(f"[serve] family {cfg.family!r} is not ported yet")
         return 2
-    if args.quant and cfg.family in PACKING_FAMILIES:
-        cfg = dataclasses.replace(cfg, w_bits=args.quant)
+    if args.quant:
+        if cfg.family not in PACKING_FAMILIES:
+            print(f"[serve] note: --quant has no effect on family "
+                  f"{cfg.family!r} (no dense FFN to pack)")
+        else:
+            cfg = dataclasses.replace(cfg, w_bits=args.quant)
     try:
         residency = build_residency_plan(cfg, args)
         spec = spec_config(args)
@@ -398,9 +410,14 @@ def main(argv=None) -> int:
         )
     if m["residency"]:
         r = m["residency"]
+        streamed = ""
+        if cfg.family == "moe":
+            mask = residency.expert_stream_mask(cfg)
+            streamed = (f"; {sum(map(sum, mask))} of {cfg.n_layers * cfg.n_experts} "
+                        f"experts streamed")
         print(
             f"[serve/residency] {r['resident_blocks']}/{r['n_blocks']} "
-            f"weight blocks resident, stream-ahead depth {r['stream_ahead']} "
+            f"weight blocks resident{streamed}, stream-ahead depth {r['stream_ahead']} "
             f"(R_F); plan arithmetic, not measured: {r['resident_mib']:.2f} "
             f"of {r['vmem_budget_mib']:.2f} MiB budget in tiles, "
             f"{r['planned_stream_fraction']*100:.0f}% of the FFN weight bytes "
@@ -408,6 +425,16 @@ def main(argv=None) -> int:
             f"stream_matmul; the HBM traffic on the card is the same, since "
             f"resident layers also read their weights every step"
         )
+    if m["moe"] is not None:
+        g = m["moe"]
+        line = (f"[serve/moe] {m['expert_tokens']} routed (token, expert) slots, "
+                f"load entropy {g.get('moe_expert_entropy', 0.0):.4f}, "
+                f"{g.get('moe_hot_expert_fraction', 0.0)*100:.1f}% routed to "
+                f"resident experts")
+        if "moe_streamed_experts" in g:
+            line += (f", {g['moe_streamed_experts']} streamed experts, "
+                     f"{g['moe_stream_mask_occupancy']*100:.1f}% of them routed to")
+        print(line)
     if m["compiled"]:
         print(
             f"[serve/graphs] serve steps compiled: "

@@ -28,7 +28,10 @@ PREFIX_CACHE_FAMILIES = ("dense", "vlm", "moe", "hybrid")
 # Families whose dense FFN stores 1/2-bit weights as packed uint8 carriers.
 PACKING_FAMILIES = ("dense", "vlm", "encdec", "hybrid")
 # Families the port serves so far (the rest raise ValueError).
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "moe")
+# Families the port trains so far (MoE's capacity dispatch and its aux
+# loss are not ported: its training entry points raise ValueError).
+TRAIN_FAMILIES = ("dense",)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,12 @@
-"""Dense LM family: packed FFN weights, the training forward and loss, the
-pool serving forward, sampling.
+"""Dense and MoE LM families: packed FFN weights, the training forward and
+loss, the pool serving forward, sampling.
 
-Port of ``repro.models.lm`` for ``family == "dense"`` (any other family
-raises ``ValueError``). The reference's parameter pytree becomes
+Port of ``repro.models.lm`` for ``family`` "dense" and "moe" (any other
+family raises ``ValueError``). The MoE family is served only: its FFN is
+``models.moe.moe_ffn_dropless`` and every serve entry point appends the
+(L, E) expert-load tally to its outputs, as the reference's do; its
+training path (capacity dispatch, aux loss) is not ported, so ``trunk``,
+``forward`` and ``loss_fn`` refuse it. The reference's parameter pytree becomes
 ``LMParams``, an ``nn.Module`` that keeps the same stacked ``(L, ...)``
 per-layer leaves: float weights are parameters (frozen unless built with
 ``trainable=True``), the FCMP-packed FFN leaves are ``{"packed",
@@ -11,11 +15,13 @@ reference's ``lax.scan`` over layers is a Python loop over views of the
 stacked leaves, so each layer's gradient lands in its slice of the
 stacked leaf.
 
-With ``cfg.w_bits`` in {1, 2} every FFN matmul goes through
+With ``cfg.w_bits`` in {1, 2} every dense-family FFN matmul goes through
 ``kernels.ops.packed_matmul``: on the card the carrier is decoded in
 registers by the CUDA kernel and never expanded in device memory. Under
 a residency plan, the decode FFN of each streamed layer goes through
-``kernels.ops.stream_matmul`` instead (dense or packed).
+``kernels.ops.stream_matmul`` instead (dense or packed); for MoE the plan
+streams single experts. MoE experts are never packed, whatever
+``w_bits`` is, as in the reference.
 """
 
 from __future__ import annotations
@@ -37,7 +43,13 @@ from torch.utils.checkpoint import (
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
-from repro_torch.models.config import PORTED_FAMILIES, ModelConfig, torch_dtype
+from repro_torch.models import moe as moe_lib
+from repro_torch.models.config import (
+    PORTED_FAMILIES,
+    TRAIN_FAMILIES,
+    ModelConfig,
+    torch_dtype,
+)
 from repro_torch.models.layers import (
     apply_rope,
     chunked_softmax_xent,
@@ -51,11 +63,13 @@ from repro_torch.models.layers import (
 from repro_torch.quant.quantizers import pack_bits
 
 
-def _require_ported(cfg: ModelConfig, what: str) -> None:
-    if cfg.family not in PORTED_FAMILIES:
+def _require_ported(
+    cfg: ModelConfig, what: str, families: tuple[str, ...] = PORTED_FAMILIES
+) -> None:
+    if cfg.family not in families:
         raise ValueError(
             f"{what}: family {cfg.family!r} is not ported yet "
-            f"(ported: {', '.join(PORTED_FAMILIES)})"
+            f"(ported: {', '.join(families)})"
         )
 
 
@@ -241,9 +255,14 @@ def init_params(
 
     Each leaf is drawn in slices (a layer, or ``EMBED_ROWS`` embedding
     rows) in f32, scaled, rounded to the model dtype and written into its
-    place on ``device``; with ``cfg.w_bits`` 1/2 the FFN leaves are then
-    packed (``pack_ffn``). So the host holds one slice at a time (367 MB
-    of f32 at phi3-medium's widest, not the 14.7 GB of its stacked ``w1``).
+    place on ``device``; with ``cfg.w_bits`` 1/2 the dense family's FFN
+    leaves are then packed (``pack_ffn``). So the host holds one slice at a
+    time (367 MB of f32 at phi3-medium's widest, not the 14.7 GB of its
+    stacked ``w1``; one layer's 64 experts, 537 MB at olmoe).
+
+    The MoE family (the reference's lm.py:223) adds a ``router`` leaf (L,
+    d, E) kept in f32 and stacks its expert FFNs as (L, E, d, ff) and (L, E,
+    ff, d), dense at any ``w_bits``.
     A slice of a multiple of 16 values takes the same draws from the
     generator as the whole leaf would, so the numbers are those of one
     draw per leaf.
@@ -255,19 +274,22 @@ def init_params(
     d, ff, l, pv = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.padded_vocab
     hd, hq, hkv = cfg.hd, cfg.n_heads, cfg.n_kv
 
-    def draw(shape, std) -> torch.Tensor:
+    def draw(shape, std, dtype) -> torch.Tensor:
         host = torch.randn(shape, generator=gen, dtype=torch.float32).mul_(std)
-        return host.to(device=device, dtype=dt)
+        return host.to(device=device, dtype=dtype)
 
-    def normal(shape, std, step=1) -> torch.Tensor:
-        out = torch.empty(shape, dtype=dt, device=device)
+    def normal(shape, std, step=1, dtype=dt) -> torch.Tensor:
+        out = torch.empty(shape, dtype=dtype, device=device)
         for i in range(0, shape[0], step):
-            out[i:i + step] = draw((min(step, shape[0] - i),) + shape[1:], std)
+            out[i:i + step] = draw((min(step, shape[0] - i),) + shape[1:], std, dtype)
         return out
 
+    moe = cfg.family == "moe"
+    lead = (cfg.n_experts,) if moe else ()
+
     def ffn(k, n, std):
-        w = normal((l, k, n), std)
-        return pack_ffn(w, cfg.w_bits) if cfg.w_bits in (1, 2) else w
+        w = normal((l,) + lead + (k, n), std)
+        return pack_ffn(w, cfg.w_bits) if cfg.w_bits in (1, 2) and not moe else w
 
     s = d ** -0.5
     tree: dict[str, Any] = {
@@ -283,6 +305,8 @@ def init_params(
         "wk": normal((l, d, hkv * hd), s),
         "wv": normal((l, d, hkv * hd), s),
         "wo": normal((l, hq * hd, d), s),
+        **({"router": normal((l, d, cfg.n_experts), 0.02, dtype=torch.float32)}
+           if moe else {}),
         "w1": ffn(d, ff, s),
         "w3": ffn(d, ff, s),
         "w2": ffn(ff, d, s * 0.5),
@@ -335,6 +359,31 @@ def _ffn_block_streamed(lp, cfg: ModelConfig, x, depth: int):
     return x + streamed_swiglu(h, lp["w1"], lp["w3"], lp["w2"], cfg.w_bits, depth)
 
 
+def _serve_ffn(lp, cfg: ModelConfig, x, tallies: list, *, expert_mask=None,
+               stream_depth=2, fixed_rows=False):
+    """The FFN residual of a serve entry point: the dense block, or for
+    MoE the reference's ``_ffn_block(dropless=True)``: pre-norm, then the
+    dropless dispatch (``expert_mask``, (E,) host bools, streams the
+    flagged experts; ``fixed_rows``, set by the two prefill entry points,
+    gives a row the same bits whatever the call's row count), whose (E,)
+    tally is appended to ``tallies``."""
+    if cfg.family != "moe":
+        return _ffn_block(lp, cfg, x)
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    y, counts = moe_lib.moe_ffn_dropless(
+        h, lp["router"], lp["w1"], lp["w3"], lp["w2"], cfg,
+        stream_mask=expert_mask, stream_depth=stream_depth, fixed_rows=fixed_rows,
+    )
+    tallies.append(counts)
+    return x + y
+
+
+def _with_tally(cfg: ModelConfig, out: tuple, tallies: list) -> tuple:
+    """A serve entry point's outputs, with the (L, E) tally appended for
+    the MoE family."""
+    return out + (torch.stack(tallies),) if cfg.family == "moe" else out
+
+
 def _unembed(params: LMParams, cfg: ModelConfig, x):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
@@ -378,10 +427,11 @@ def trunk(
     """All layers + final norm, without the unembedding.
 
     tokens: (B, S). Returns (hidden states (B, S, d), aux loss: 0 for the
-    dense family). ``remat`` "full" recomputes each layer in the backward
+    dense family; the MoE family is not trainable in the port yet and
+    raises). ``remat`` "full" recomputes each layer in the backward
     (``torch.utils.checkpoint``, non-reentrant), "dots" recomputes all but
     the 2-D matmul outputs, "none" keeps every activation."""
-    _require_ported(cfg, "trunk")
+    _require_ported(cfg, "trunk", TRAIN_FAMILIES)
     if remat not in REMAT_MODES:
         raise ValueError(f"remat must be one of {REMAT_MODES}, got {remat!r}")
     x = embed(tokens, params["embed"], torch_dtype(cfg))
@@ -449,23 +499,24 @@ def prefill_with_cache(
     device either way, so one captured prefill serves every prompt length
     of its bucket. Returns
     (next-token logits (B, 1, V) f32, ks, vs stacked (L, B, S, n_kv, hd),
-    already RoPE'd: exactly the rows the pool stores).
+    already RoPE'd: exactly the rows the pool stores); the MoE family
+    appends the (L, E) expert-load tally (padded rows route and count).
     """
     _require_ported(cfg, "prefill_with_cache")
     x = embed(tokens, params["embed"], torch_dtype(cfg))
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    ks, vs = [], []
+    ks, vs, tallies = [], [], []
     for i in range(cfg.n_layers):
         lp = params.layer(i)
         x, (k, v) = _attn_block(
             lp, cfg, x, positions, causal=True, window=cfg.sliding_window
         )
-        x = _ffn_block(lp, cfg, x)
+        x = _serve_ffn(lp, cfg, x, tallies, fixed_rows=True)
         ks.append(k)
         vs.append(v)
     idx = torch.as_tensor(last_idx, device=x.device).reshape(1).long()
     lg = _unembed(params, cfg, x.index_select(1, idx))
-    return lg, torch.stack(ks), torch.stack(vs)
+    return _with_tally(cfg, (lg, torch.stack(ks), torch.stack(vs)), tallies)
 
 
 @torch.no_grad()
@@ -490,20 +541,26 @@ def decode_step_paged(
     indexed write into the pool (the reference rebuilds the arrays), then
     each lane attends over its gathered rows at its own depth.
 
-    ``stream_mask`` ((L,) bools, from a ``runtime.residency`` plan) turns
-    on budgeted decode: a layer flagged True runs its FFN through
-    ``stream_matmul`` with a ``stream_depth``-stage ring, the others the
-    resident path. The reference's ``lax.cond`` per scanned layer is an
-    ``if`` per layer here.
+    ``stream_mask`` (from a ``runtime.residency`` plan) turns on budgeted
+    decode. For the dense family it is (L,) bools: a layer flagged True
+    runs its FFN through ``stream_matmul`` with a ``stream_depth``-stage
+    ring, the others the resident path. For MoE it is (L, E) bools: the
+    flagged experts of each layer stream, the others stay resident. The
+    reference's ``lax.cond`` per scanned layer is an ``if`` here.
 
     Returns (logits (B, 1, V) f32, pool_k, pool_v), the pools being the
-    same tensors, updated in place.
+    same tensors, updated in place; the MoE family appends the (L, E)
+    expert-load tally (idle lanes route and count).
     """
     _require_ported(cfg, "decode_step_paged")
-    if stream_mask is not None and len(stream_mask) != cfg.n_layers:
-        raise ValueError(
-            f"stream_mask has {len(stream_mask)} flags for {cfg.n_layers} layers"
-        )
+    moe = cfg.family == "moe"
+    if stream_mask is not None and (
+        len(stream_mask) != cfg.n_layers
+        or (moe and any(not isinstance(row, (tuple, list)) or len(row) != cfg.n_experts
+                        for row in stream_mask))
+    ):
+        want = f"({cfg.n_layers}, {cfg.n_experts})" if moe else f"({cfg.n_layers},)"
+        raise ValueError(f"stream_mask must have shape {want} flags for {cfg.name}")
     x = embed(token, params["embed"], torch_dtype(cfg))
     b = x.shape[0]
     s_max = row_table.shape[1]
@@ -513,6 +570,7 @@ def decode_step_paged(
     write_rows = torch.gather(
         row_table, 1, torch.clamp(lengths, 0, s_max - 1)[:, None]
     )[:, 0]
+    tallies = []
     for i in range(cfg.n_layers):
         lp = params.layer(i)
         pk, pv = pool_k[i], pool_v[i]
@@ -524,11 +582,16 @@ def decode_step_paged(
             window=cfg.sliding_window,
         )
         x = x + dense(o.reshape(b, 1, -1), lp["wo"])
-        if stream_mask is not None and stream_mask[i]:
+        if moe:
+            x = _serve_ffn(
+                lp, cfg, x, tallies, stream_depth=stream_depth,
+                expert_mask=None if stream_mask is None else tuple(stream_mask[i]),
+            )
+        elif stream_mask is not None and stream_mask[i]:
             x = _ffn_block_streamed(lp, cfg, x, stream_depth)
         else:
             x = _ffn_block(lp, cfg, x)
-    return _unembed(params, cfg, x), pool_k, pool_v
+    return _with_tally(cfg, (_unembed(params, cfg, x), pool_k, pool_v), tallies)
 
 
 @torch.no_grad()
@@ -561,7 +624,9 @@ def prefill_chunk_paged(
     computes.
 
     Returns (logits at last_idx (B, 1, V) f32, pool_k, pool_v), the
-    pools updated in place.
+    pools updated in place; the MoE family appends the (L, E) expert-load
+    tally (the dropless dispatch makes a chunk boundary invisible to
+    routing, so chunked equals single-shot prefill).
     """
     _require_ported(cfg, "prefill_chunk_paged")
     x = embed(tokens, params["embed"], torch_dtype(cfg))
@@ -570,6 +635,7 @@ def prefill_chunk_paged(
     positions = q_offset.long() + torch.arange(c, device=x.device)[None, :]
     row_table = row_table.long()
     write_rows = write_rows.long()
+    tallies = []
     for i in range(cfg.n_layers):
         lp = params.layer(i)
         pk, pv = pool_k[i], pool_v[i]
@@ -581,10 +647,10 @@ def prefill_chunk_paged(
             window=cfg.sliding_window, q_offset=q_offset,
         )
         x = x + dense(o.reshape(b, c, -1), lp["wo"])
-        x = _ffn_block(lp, cfg, x)
+        x = _serve_ffn(lp, cfg, x, tallies, fixed_rows=True)
     idx = torch.as_tensor(last_idx, device=x.device).reshape(1).long()
     x_last = x.index_select(1, idx)
-    return _unembed(params, cfg, x_last), pool_k, pool_v
+    return _with_tally(cfg, (_unembed(params, cfg, x_last), pool_k, pool_v), tallies)
 
 
 @torch.no_grad()
@@ -616,11 +682,10 @@ def verify_chunk_paged(
     (B, S_max); starts: (B,) position of each lane's first fed token. The
     chain attends through the plain ``chunk_attention`` with per-lane
     query positions, as the reference's does (``flash_fwd`` takes one
-    ``q_offset`` for the batch). Dense family only (the reference's moe
-    branch waits for the MoE port).
+    ``q_offset`` for the batch).
 
     Returns (logits (B, C, V) f32, pool_k, pool_v), the pools updated in
-    place.
+    place; the MoE family appends the (L, E) expert-load tally.
     """
     _require_ported(cfg, "verify_chunk_paged")
     x = embed(tokens, params["embed"], torch_dtype(cfg))
@@ -628,6 +693,7 @@ def verify_chunk_paged(
     positions = starts.long()[:, None] + torch.arange(c, device=x.device)[None, :]
     row_table = row_table.long()
     write_rows = write_rows.long()
+    tallies = []
     for i in range(cfg.n_layers):
         lp = params.layer(i)
         pk, pv = pool_k[i], pool_v[i]
@@ -638,8 +704,8 @@ def verify_chunk_paged(
             q, pk[row_table], pv[row_table], positions, window=cfg.sliding_window
         )
         x = x + dense(o.reshape(b, c, -1), lp["wo"])
-        x = _ffn_block(lp, cfg, x)
-    return _unembed(params, cfg, x), pool_k, pool_v
+        x = _serve_ffn(lp, cfg, x, tallies)
+    return _with_tally(cfg, (_unembed(params, cfg, x), pool_k, pool_v), tallies)
 
 
 # --------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Radix-tree prefix index over committed token-id sequences.
 
 Port of ``repro.runtime.prefix_cache`` (numpy only, copied; it indexes
-the port's ``KVPool``). The port serves the dense family with it; the
+the port's ``KVPool``). The port serves the dense and MoE families with it; the
 hybrid anchors below are copied as they stand and wait for the hybrid
 steps.
 

@@ -3,8 +3,8 @@
 ``plan`` compiles a :class:`RuntimeResidencyPlan` from (model config x
 budget) with the ``core.packing`` solvers running over
 ``core.vmem_plan.WeightBlock`` carriers; ``Scheduler(residency=plan)``
-threads the plan into the paged serve step, so resident layers run the
-ordinary FFN path and streamed layers run
+threads the plan into the paged serve step, so resident layers (MoE:
+experts) run the ordinary FFN path and streamed ones run
 ``kernels.weight_stream.stream_matmul``.
 """
 
@@ -14,6 +14,7 @@ from repro_torch.runtime.residency.plan import (
     TrafficProfile,
     compile_residency_plan,
     fixed_hbm_bytes,
+    read_weight,
     stream_ahead_depth,
     weight_blocks,
 )
@@ -23,6 +24,7 @@ __all__ = [
     "TrafficProfile",
     "compile_residency_plan",
     "fixed_hbm_bytes",
+    "read_weight",
     "stream_ahead_depth",
     "supports_budgeted_decode",
     "weight_blocks",

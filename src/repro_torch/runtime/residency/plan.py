@@ -4,13 +4,15 @@ Port of ``repro.runtime.residency.plan`` over the H100 record
 (``core.resource_model.H100_SXM``):
 
   * the *streamable set* is the FFN weight blocks, the weight memories
-    FCMP packs on the FPGA; attention projections, norms and the
-    embedding stay outside the plan,
+    FCMP packs on the FPGA (for MoE, each expert's three mats);
+    attention projections, norms, the router and the embedding stay
+    outside the plan,
   * ``core.vmem_plan.pack_blocks`` runs the paper's bin-packing solvers
     over the blocks' uint8 carriers so oddly shaped blocks share tiles,
-  * a greedy knapsack marks whole *regions* (one layer each) as
-    resident, densest traffic first, until the budget is spent; every
-    other layer streams its weights each decode step through
+  * a greedy knapsack marks whole *regions* (one layer each; one expert
+    for MoE) as resident, densest traffic first (an expert block is read
+    with probability top_k / E a step), until the budget is spent; every
+    other layer (expert) streams its weights each decode step through
     ``kernels.weight_stream.stream_matmul``,
   * the paper's ``R_F`` becomes the depth of that kernel's shared-memory
     ring (``stream_ahead_depth``): bit-packing leaves a memory-bandwidth
@@ -72,17 +74,26 @@ def _block_bits(cfg: ModelConfig) -> int:
 def weight_blocks(cfg: ModelConfig) -> tuple[WeightBlock, ...]:
     """The streamable weight-block set of one model replica: one block per
     FFN matmul per layer, named ``L{l}.{mat}``, with ``bits_per_weight``
-    the packed precision or the dense dtype width. Every block is read
-    once per decode step. The reference's MoE expert and hybrid shared
-    blocks (and their per-step read weights) come with those families."""
+    the packed precision or the dense dtype width; for MoE one block per
+    expert mat, ``L{l}.e{e}.{mat}``, always at the dense dtype's width
+    (experts are never packed). The reference's hybrid shared blocks come
+    with that family."""
     if cfg.family not in PORTED_FAMILIES:
         raise ValueError(
             f"the residency plan covers the ported families "
             f"{', '.join(PORTED_FAMILIES)}; got {cfg.family!r}"
         )
-    bits = _block_bits(cfg)
     d, ff = cfg.d_model, cfg.d_ff
     mats = {"w1": (d, ff), "w3": (d, ff), "w2": (ff, d)}
+    if cfg.family == "moe":
+        ebits = _dtype_bytes(cfg) * 8
+        return tuple(
+            WeightBlock(f"L{l:03d}.e{e}.{mat}", r, c, ebits)
+            for l in range(cfg.n_layers)
+            for e in range(cfg.n_experts)
+            for mat, (r, c) in mats.items()
+        )
+    bits = _block_bits(cfg)
     return tuple(
         WeightBlock(f"L{l:03d}.{mat}", r, c, bits)
         for l in range(cfg.n_layers)
@@ -91,10 +102,19 @@ def weight_blocks(cfg: ModelConfig) -> tuple[WeightBlock, ...]:
 
 
 def _region_of(name: str) -> str:
-    """The executor granularity a block belongs to: its layer (``L000``).
-    Bins never mix regions and the knapsack marks whole regions, so every
-    resident byte is one the layer-granular executor can use."""
+    """The executor granularity a block belongs to: its layer (``L000``),
+    or its expert for MoE (``L000.e3``). Bins never mix regions and the
+    knapsack marks whole regions, so every resident byte is one the
+    executor can use."""
     return name.rsplit(".", 1)[0]
+
+
+def read_weight(name: str, cfg: ModelConfig) -> float:
+    """Expected reads of a block per decode step (the Eq. 2 traffic
+    term): top_k / E for an MoE expert block, 1 otherwise."""
+    if cfg.family == "moe" and ".e" in name:
+        return cfg.experts_per_token / max(1, cfg.n_experts)
+    return 1.0
 
 
 def fixed_hbm_bytes(cfg: ModelConfig, traffic: TrafficProfile) -> int:
@@ -133,6 +153,7 @@ class RuntimeResidencyPlan:
     resident: tuple[bool, ...]  # per *bin*
     vmem_budget_bytes: int
     stream_ahead: int
+    read_weights: tuple[float, ...]  # per block: expected reads a decode step
 
     @property
     def resident_bytes(self) -> int:
@@ -156,18 +177,26 @@ class RuntimeResidencyPlan:
         return self.resident_block_count / max(1, len(self.blocks))
 
     @property
-    def streamable_bytes_per_step(self) -> int:
-        """Padded weight bytes per decode step of the whole streamable
-        set, resident or not (plan arithmetic)."""
-        return sum(b.padded_bytes(self.chip) for b in self.blocks)
+    def streamable_bytes_per_step(self) -> float:
+        """Expected padded weight bytes per decode step of the whole
+        streamable set, resident or not, each block weighted by its reads
+        a step (plan arithmetic)."""
+        return sum(
+            w * b.padded_bytes(self.chip) for b, w in zip(self.blocks, self.read_weights)
+        )
 
     @property
-    def streamed_bytes_per_step(self) -> int:
-        """Padded weight bytes per decode step that the plan sends through
-        ``stream_matmul`` (plan arithmetic: on the H100 the resident path
-        reads its weights from HBM every step too)."""
+    def streamed_bytes_per_step(self) -> float:
+        """Expected padded weight bytes per decode step that the plan sends
+        through ``stream_matmul`` (plan arithmetic: on the H100 the resident
+        path reads its weights from HBM every step too, and the port's
+        dropless dispatch runs every expert every step)."""
         res = self.block_resident()
-        return sum(b.padded_bytes(self.chip) for b in self.blocks if not res[b.name])
+        return sum(
+            w * b.padded_bytes(self.chip)
+            for b, w in zip(self.blocks, self.read_weights)
+            if not res[b.name]
+        )
 
     @property
     def hbm_traffic_reduction(self) -> float:
@@ -207,6 +236,30 @@ class RuntimeResidencyPlan:
             mask.append(not (mine and all(mine)))
         return tuple(mask)
 
+    def expert_stream_mask(self, cfg: ModelConfig) -> tuple[tuple[bool, ...], ...]:
+        """Per-(layer, expert) 'FFN is streamed' flags for the MoE
+        executor, (n_layers, n_experts): an expert runs resident only if
+        all three of its mats are resident (the knapsack marks whole
+        ``L{l}.e{e}`` regions, so it is all or nothing per expert)."""
+        res = self.block_resident()
+        by_region: dict[str, list[bool]] = {}
+        for name, r in res.items():
+            by_region.setdefault(_region_of(name), []).append(r)
+        return tuple(
+            tuple(
+                not all(by_region.get(f"L{l:03d}.e{e}", [False]))
+                for e in range(cfg.n_experts)
+            )
+            for l in range(cfg.n_layers)
+        )
+
+    def stream_mask(self, cfg: ModelConfig):
+        """The decode step's mask: ``expert_stream_mask`` for MoE,
+        ``layer_stream_mask`` for the dense family."""
+        if cfg.family == "moe":
+            return self.expert_stream_mask(cfg)
+        return self.layer_stream_mask(cfg)
+
     def summary(self) -> dict:
         return {
             "model": self.model,
@@ -230,11 +283,13 @@ def compile_residency_plan(
 ) -> RuntimeResidencyPlan:
     """Pack carriers into tile bins (FFD, bins of ``MAX_HEIGHT``, on
     ``CHIP``), then knapsack *regions* into the budget, ranked by traffic
-    value density: weight bytes avoided per step per budget byte. The
-    reference also takes a traffic profile, which the dense plan does not
-    depend on, and a solver, bin height and chip, which the port fixes to
-    the reference's defaults on the H100."""
+    value density: expected weight bytes avoided per step (a block's bytes
+    times its ``read_weight``) per budget byte. The reference also takes a
+    traffic profile, which the plan does not depend on, and a solver, bin
+    height and chip, which the port fixes to the reference's defaults on
+    the H100."""
     blocks = weight_blocks(cfg)
+    weights = tuple(read_weight(b.name, cfg) for b in blocks)
     regions = tuple(_region_of(b.name) for b in blocks)
     packing: Packing = pack_blocks(
         blocks, chip=CHIP, max_height=MAX_HEIGHT, regions=regions
@@ -250,7 +305,7 @@ def compile_residency_plan(
         return sum(bin_tiles[j] for j in js) * CHIP.tile_bytes
 
     def density(js: list[int]) -> float:
-        avoided = sum(blocks[i].padded_bytes(CHIP) for j in js for i in bins[j])
+        avoided = sum(weights[i] * blocks[i].padded_bytes(CHIP) for j in js for i in bins[j])
         return avoided / max(1, group_cost(js))
 
     order = sorted(groups.values(), key=density, reverse=True)
@@ -271,4 +326,5 @@ def compile_residency_plan(
         resident=tuple(resident),
         vmem_budget_bytes=vmem_budget_bytes,
         stream_ahead=stream_ahead_depth(cfg),
+        read_weights=weights,
     )

@@ -1,6 +1,6 @@
 """Continuous-batching request scheduler over a shared KV pool.
 
-Port of ``repro.runtime.scheduler`` for the dense family. Request
+Port of ``repro.runtime.scheduler`` for the dense and MoE families. Request
 lifecycle: QUEUED -> PREFILL -> DECODE -> DONE. Admission is token-budget
 bound (committed prompt+generation tokens across in-flight requests never
 exceed ``token_budget``) and pool-bound (the ``KVPool`` must hold the
@@ -14,8 +14,14 @@ round; the default is ``ceil(required_rf(slots))``, the paper's Eq. 2
 with H_B = slots co-resident requests over a dual-port memory.
 
 ``residency`` (a ``runtime.residency`` plan) runs decode through the
-budgeted step: the plan's streamed layers run their FFN through
-``stream_matmul``, the rest the resident path; prefill stays resident.
+budgeted step: the plan's streamed layers (MoE: experts) run their FFN
+through ``stream_matmul``, the rest the resident path; prefill stays
+resident.
+
+MoE: every step's (L, E) routed-token tally is folded into a cumulative
+tally (``_note_expert_counts``; padded prompt rows and idle decode lanes
+route and count, as in the reference), from which each round record
+derives the expert-load gauges.
 
 ``prefix_cache`` (a ``runtime.prefix_cache.PrefixCache`` over this pool)
 makes a new request adopt its longest cached prefix's blocks and prefill
@@ -114,6 +120,12 @@ class Request:
         self.state = state
 
 
+def _split(out: tuple, moe: bool) -> tuple[tuple, torch.Tensor | None]:
+    """A pool step's outputs: its first three, and its (L, E) expert tally
+    (the MoE family's fourth output) or None."""
+    return out[:3], (out[3] if moe else None)
+
+
 @dataclasses.dataclass
 class SchedulerStats:
     completed: int = 0
@@ -123,11 +135,11 @@ class SchedulerStats:
     prefix_hits: int = 0
     prefix_hit_tokens: int = 0  # prompt tokens served from cached blocks
     decode_steps: int = 0
-    # the reference's counters of features the port has not ported yet
-    # (prefill/decode handoff, MoE): 0, as the reference reports them on a
-    # run without those features
+    # the reference's counter of a feature the port has not ported yet
+    # (prefill/decode handoff): 0, as the reference reports it on a run
+    # without that feature
     handoffs: int = 0
-    expert_tokens: int = 0
+    expert_tokens: int = 0  # moe: routed (token, expert) slots, all layers
     # speculative decode: tokens emitted by verify steps (1..k each),
     # drafter proposals offered, and batched verify calls run
     accepted_tokens: int = 0
@@ -262,11 +274,21 @@ class Scheduler:
         self.residency = residency
         self._decode = (
             make_budgeted_paged_serve_step(
-                cfg, residency.layer_stream_mask(cfg), residency.stream_ahead
+                cfg, residency.stream_mask(cfg), residency.stream_ahead
             )
             if residency is not None
             else make_paged_serve_step(cfg)
         )
+        # moe expert-load observability: the cumulative (L, E) routed-token
+        # tally of every step, and the plan's resident (L, E) set (every
+        # expert without a plan); the round record's gauges read both
+        self._moe = cfg.family == "moe"
+        self._expert_counts = (
+            np.zeros((cfg.n_layers, cfg.n_experts), np.float64) if self._moe else None
+        )
+        self._expert_resident = None
+        if self._moe and residency is not None:
+            self._expert_resident = ~np.asarray(residency.expert_stream_mask(cfg), bool)
         self._chunk_cursor: dict[int, int] = {}
         self.queue: deque[Request] = deque()
         self.requests: dict[int, Request] = {}
@@ -434,6 +456,17 @@ class Scheduler:
     def _host(logits: torch.Tensor) -> np.ndarray:
         return logits.to(torch.float32).cpu().numpy()
 
+    def _note_expert_counts(self, counts: torch.Tensor | None) -> None:
+        """Fold one step's (L, E) routed-token tally into the run's totals
+        (nothing for the dense family, whose steps return none). Padded
+        prompt rows and idle decode lanes route too: the gauges are a load
+        signal, not an exact busy-token count."""
+        if counts is None:
+            return
+        c = counts.to(torch.float64).cpu().numpy()
+        self._expert_counts += c
+        self.stats.expert_tokens += int(c.sum())
+
     # ---------------- admission / prefill ----------------
 
     def _commit_prefix(self, req: Request) -> None:
@@ -549,7 +582,8 @@ class Scheduler:
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :p] = req.prompt
         t0 = self.spans.now() if self.spans is not None else 0.0
-        logits, ks, vs = self._run_prefill(padded, p - 1)
+        logits, ks, vs, counts = self._run_prefill(padded, p - 1)
+        self._note_expert_counts(counts)
         self.pool.write_prefill(req.rid, ks[:, 0], vs[:, 0], n_tokens=p)
         self.stats.prefill_steps += 1
         self.stats.prefill_tokens += p
@@ -565,20 +599,22 @@ class Scheduler:
     def _run_prefill(self, tokens: np.ndarray, last: int):
         """The whole-prompt prefill of one bucket (``tokens`` (1, bucket)):
         the bucket's captured graph (captured on first use), or the eager
-        step. Returns (logits, ks, vs); a graph's are its static outputs,
-        which its next replay overwrites."""
+        step. Returns (logits, ks, vs, the MoE tally or None); a graph's are
+        its static outputs, which its next replay overwrites."""
         if not self.compiled:
-            return self._prefill(
+            out, tally = _split(self._prefill(
                 self.params, self._to_device(tokens), self._to_device([last])
-            )
+            ), self._moe)
+            return out + (tally,)
         step = self._prefill_graphs.get(tokens.shape[1])
         if step is None:
             # the closure holds what the graph binds, not the scheduler: a
             # scheduler and its graphs are freed when the last reference goes
-            prefill, params = self._prefill, self.params
+            prefill, params, moe = self._prefill, self.params, self._moe
 
             def whole(tok, last_idx):
-                return prefill(params, tok, last_idx)
+                out, tally = _split(prefill(params, tok, last_idx), moe)
+                return out + (tally,)
 
             step = CapturedStep(whole, device=self.device, mempool=self._graph_pool)
             self._prefill_graphs[tokens.shape[1]] = step
@@ -587,20 +623,25 @@ class Scheduler:
     def _run_chunk(self, tokens, row_table, write_rows, start: int, last: int):
         """One prefill chunk: the captured chunk graph (captured on first
         use; ``start`` and ``last`` are its device inputs, so it serves
-        every chunk), or the eager step, given the same device tensors."""
+        every chunk), or the eager step, given the same device tensors.
+        Returns (logits, the MoE tally or None)."""
         if not self.compiled:
-            return self._chunk_prefill(
+            out, tally = _split(self._chunk_prefill(
                 self.params, self._to_device(tokens), self.pool.k, self.pool.v,
                 self._to_device(row_table), self._to_device(write_rows),
                 self._to_device([start]), self._to_device([last]),
-            )[0]
+            ), self._moe)
+            return out[0], tally
         if self._chunk_graph is None:
-            prefill, params, pk, pv = (
-                self._chunk_prefill, self.params, self.pool.k, self.pool.v
+            prefill, params, pk, pv, moe = (
+                self._chunk_prefill, self.params, self.pool.k, self.pool.v, self._moe
             )
 
             def chunk(tok, table, rows, start_idx, last_idx):
-                return prefill(params, tok, pk, pv, table, rows, start_idx, last_idx)[0]
+                out, tally = _split(
+                    prefill(params, tok, pk, pv, table, rows, start_idx, last_idx), moe
+                )
+                return out[0], tally
 
             self._chunk_graph = CapturedStep(
                 chunk, device=self.device, mempool=self._graph_pool
@@ -629,7 +670,8 @@ class Scheduler:
         write_rows[0, :n] = rows
         tokens = np.zeros((1, c), np.int32)
         tokens[0, :n] = req.prompt[c0 : c0 + n]
-        logits = self._run_chunk(tokens, row_table, write_rows, c0, n - 1)
+        logits, counts = self._run_chunk(tokens, row_table, write_rows, c0, n - 1)
+        self._note_expert_counts(counts)
         self.stats.prefill_steps += 1
         self.stats.prefill_tokens += n
         t1 = 0.0
@@ -669,26 +711,31 @@ class Scheduler:
     def _decoding(self, rid: int | None) -> bool:
         return rid is not None and self.requests[rid].state is RequestState.DECODE
 
-    def _run_decode(self) -> torch.Tensor:
+    def _run_decode(self):
         """One decode step over every lane: the captured graph (captured
-        on first use), or the eager step."""
+        on first use), or the eager step. Returns (logits, the MoE tally or
+        None)."""
         if not self.compiled:
             if self._table_dirty:
                 self._row_table_dev = self._to_device(self._row_table)
                 self._table_dirty = False
-            return self._decode(
+            out, tally = _split(self._decode(
                 self.params,
                 self._to_device(self._token),
                 self.pool.k,
                 self.pool.v,
                 self._row_table_dev,
                 self._to_device(self._lengths),
-            )[0]
+            ), self._moe)
+            return out[0], tally
         if self._decode_graph is None:
-            step, params, pk, pv = self._decode, self.params, self.pool.k, self.pool.v
+            step, params, pk, pv, moe = (
+                self._decode, self.params, self.pool.k, self.pool.v, self._moe
+            )
 
             def decode(token, table, lengths):
-                return step(params, token, pk, pv, table, lengths)[0]
+                out, tally = _split(step(params, token, pk, pv, table, lengths), moe)
+                return out[0], tally
 
             self._decode_graph = CapturedStep(
                 decode, device=self.device, mempool=self._graph_pool
@@ -709,7 +756,8 @@ class Scheduler:
             if self.pool.blocks_held(rid) != before:
                 self._row_table[i] = self.pool.rows_of(rid, pad_to=self.s_max)
                 self._table_dirty = True
-        logits = self._run_decode()
+        logits, counts = self._run_decode()
+        self._note_expert_counts(counts)
         self.stats.decode_steps += 1
         if self.spans is not None:
             # extend (or open) each participating lane's decode slice; a
@@ -745,23 +793,27 @@ class Scheduler:
         """One verify step over every lane (``tokens`` (slots, kmax)): the
         captured graph of this chain length (captured on first use; the
         tokens, write rows, starts and row table are its device inputs),
-        or the eager step."""
+        or the eager step. Returns (logits, the MoE tally or None)."""
         if not self.compiled:
             if self._table_dirty:
                 self._row_table_dev = self._to_device(self._row_table)
                 self._table_dirty = False
-            return self._verify(
+            out, tally = _split(self._verify(
                 self.params, self._to_device(tokens), self.pool.k, self.pool.v,
                 self._row_table_dev, self._to_device(write_rows),
                 self._to_device(starts),
-            )[0]
+            ), self._moe)
+            return out[0], tally
         step = self._verify_graphs.get(tokens.shape[1])
         if step is None:
             # the closure holds what the graph binds, never the scheduler
-            verify, params, pk, pv = self._verify, self.params, self.pool.k, self.pool.v
+            verify, params, pk, pv, moe = (
+                self._verify, self.params, self.pool.k, self.pool.v, self._moe
+            )
 
             def chain(tok, table, rows, lane_starts):
-                return verify(params, tok, pk, pv, table, rows, lane_starts)[0]
+                out, tally = _split(verify(params, tok, pk, pv, table, rows, lane_starts), moe)
+                return out[0], tally
 
             step = CapturedStep(chain, device=self.device, mempool=self._graph_pool)
             self._verify_graphs[tokens.shape[1]] = step
@@ -833,7 +885,9 @@ class Scheduler:
             write_rows[i, :ke] = self.pool.rows_of(rid)[n : n + ke]
             starts[i] = n
         h0 = time.monotonic()
-        rows = self._host(self._run_verify(tokens, write_rows, starts))
+        logits, counts = self._run_verify(tokens, write_rows, starts)
+        rows = self._host(logits)
+        self._note_expert_counts(counts)
         self.verify_s += time.monotonic() - h0
         self.stats.verify_steps += 1
         self.verify_lengths[kmax] = self.verify_lengths.get(kmax, 0) + 1
@@ -982,7 +1036,34 @@ class Scheduler:
                 cache_anchors=c["anchors"],
                 cache_evicted_blocks=c["evicted_blocks"],
             )
+        if self._expert_counts is not None:
+            rec.update(self.moe_gauges())
         self.tracker.log_metrics(rec, step=s.rounds)
+
+    def moe_gauges(self) -> dict:
+        """The round record's MoE gauges over the cumulative (L, E) tally,
+        as the reference computes them: the normalised load entropy (1.0 =
+        balanced) and the share of routed tokens that hit a resident expert
+        (1.0 without a plan); under a plan, the streamed experts and the
+        share of them the routing has touched so far."""
+        out = {}
+        counts = self._expert_counts
+        tot = float(counts.sum())
+        if tot > 0:
+            pe = counts.sum(axis=0) / tot
+            ent = float(-(pe * np.log(np.maximum(pe, 1e-12))).sum())
+            out["moe_expert_entropy"] = round(ent / math.log(max(2, self.cfg.n_experts)), 4)
+            hot = (self._expert_resident if self._expert_resident is not None
+                   else np.ones(counts.shape, bool))
+            out["moe_hot_expert_fraction"] = round(float(counts[hot].sum()) / tot, 4)
+        if self._expert_resident is not None:
+            streamed = ~self._expert_resident
+            n_streamed = int(streamed.sum())
+            out["moe_streamed_experts"] = n_streamed
+            out["moe_stream_mask_occupancy"] = round(
+                float((counts[streamed] > 0).sum()) / max(1, n_streamed), 4
+            )
+        return out
 
     def run(self, max_rounds: int | None = None) -> SchedulerStats:
         """Drain the queue to empty and finish every in-flight request."""

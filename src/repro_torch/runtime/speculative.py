@@ -1,6 +1,6 @@
 """Speculative decoding over the paged KV pool: drafters and resolution.
 
-Port of ``repro.runtime.speculative`` for the dense family. Decode re-reads
+Port of ``repro.runtime.speculative`` for dense and MoE targets. Decode re-reads
 the whole weight set to emit one token per lane. Speculate-and-verify buys
 some of that back: a cheap drafter proposes a depth-``k`` chain per decode
 lane, and the target scores every chain position in one batched call
@@ -18,10 +18,12 @@ decode uses, and a position's logits depend only on accepted (identical)
 earlier tokens. The drafter moves the acceptance rate, never the output.
 
 Drafter eligibility, cut to the ported families (the reference also
-verifies vlm and moe targets, and drafts with vlm twins)::
+verifies vlm targets, and drafts with vlm twins)::
 
     target family   model drafter (packed twin)   ngram drafter
     dense           yes                           yes
+    moe             foreign dense arch only       yes
+                    (experts never pack: no twin)
 
 Compiled steps: on a CUDA scheduler the model drafter's decode step (one
 graph over its static row table) and its prompt prefill (one graph at
@@ -47,7 +49,7 @@ from repro_torch.runtime.steps import (
 )
 
 # families verify_chunk_paged serves (the reference's, cut to the ported)
-SPEC_FAMILIES = ("dense",)
+SPEC_FAMILIES = ("dense", "moe")
 # families whose FFN leaves pack into FCMP carriers -> model drafters
 MODEL_DRAFT_FAMILIES = ("dense",)
 

@@ -2,8 +2,11 @@
 continuous-batching scheduler, and ``CapturedStep``, which compiles a pool
 step into a CUDA graph.
 
-Port of ``repro.runtime.steps`` for the dense family. A step is the model
-function closed over the config; there is no buffer donation: the train
+Port of ``repro.runtime.steps`` for the dense and MoE families (the train
+step: dense only). A step is the model function closed over the config;
+the MoE family's pool steps return the (L, E) expert-load tally as one
+more output, which a ``CapturedStep`` binds like the others. There is no
+buffer donation: the train
 step updates the parameters and the optimizer state in place, the pool
 steps the pool tensors. The reference jits its pool steps; the port's
 counterpart is ``CapturedStep``, which the scheduler wraps around every
@@ -85,9 +88,9 @@ def make_train_step(
 
 def make_paged_serve_step(cfg: ModelConfig) -> Callable:
     """(params, token (B,1), pool_k, pool_v, row_table (B,S_max), lengths
-    (B,)) -> (logits (B,1,V), pool_k, pool_v). Each decode lane gathers its
-    KV rows from the shared pool through ``row_table`` and writes the new
-    token's row back in place."""
+    (B,)) -> (logits (B,1,V), pool_k, pool_v[, tally (L, E) for MoE]).
+    Each decode lane gathers its KV rows from the shared pool through
+    ``row_table`` and writes the new token's row back in place."""
 
     def step(params, token, pool_k, pool_v, row_table, lengths):
         return lm.decode_step_paged(
@@ -145,11 +148,14 @@ def make_budgeted_paged_serve_step(
     cfg: ModelConfig, stream_mask: tuple[bool, ...], stream_depth: int
 ) -> Callable:
     """The paged serve step under a ``runtime.residency`` plan: layers
-    flagged in ``stream_mask`` ((L,) bools) stream their FFN weights
-    through ``stream_matmul``'s ring (depth = the plan's R_F analogue),
-    the others run the resident path. Same signature as
+    flagged in ``stream_mask`` ((L,) bools; for MoE (L, E): experts) stream
+    their FFN weights through ``stream_matmul``'s ring (depth = the plan's
+    R_F analogue), the others run the resident path. Same signature as
     ``make_paged_serve_step``."""
-    mask = tuple(bool(f) for f in stream_mask)
+    if cfg.family == "moe":
+        mask = tuple(tuple(bool(f) for f in row) for row in stream_mask)
+    else:
+        mask = tuple(bool(f) for f in stream_mask)
 
     def step(params, token, pool_k, pool_v, row_table, lengths):
         return lm.decode_step_paged(

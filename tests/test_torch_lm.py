@@ -26,6 +26,7 @@ from repro_torch.models import lm as tlm  # noqa: E402
 
 RTOL, ATOL = 1e-4, 1e-5
 ARCHS = ("smollm_360m", "llama3p2_1b", "h2o_danube_1p8b", "phi3_medium_14b")
+MOE_ARCHS = ("olmoe_1b_7b", "moonshot_v1_16b_a3b")  # held in test_torch_moe.py
 # the serving parity cases: every ported arch's smoke config, and
 # h2o-danube's full config reduced with its own head dim of 80 (D 80 through
 # RoPE and the plain attention)
@@ -102,20 +103,22 @@ def test_port_configs_match_reference(arch):
 
 
 def test_registry_is_the_reference_s_over_the_ported_archs():
-    """``ARCH_IDS`` are the reference's dense archs in its order, the
-    aliases its aliases, and ``all_configs`` its configs over them; an arch
-    not ported yet raises, naming the ported ones."""
-    assert tconf.ARCH_IDS == [a for a in jconf.ARCH_IDS if a in ARCHS]
-    assert tconf.ALIASES == {k: v for k, v in jconf.ALIASES.items() if v in ARCHS}
+    """``ARCH_IDS`` are the reference's dense and MoE archs in its order,
+    the aliases its aliases, and ``all_configs`` its configs over them; an
+    arch not ported yet raises, naming the ported ones."""
+    ported = ARCHS + MOE_ARCHS
+    assert tconf.ARCH_IDS == [a for a in jconf.ARCH_IDS if a in ported]
+    assert tconf.ALIASES == {k: v for k, v in jconf.ALIASES.items() if v in ported}
     want = jconf.all_configs()
     got = tconf.all_configs()
     assert list(got) == tconf.ARCH_IDS
     for arch, cfg in got.items():
         assert dataclasses.asdict(cfg) == dataclasses.asdict(want[arch])
-    for name in ("olmoe_1b_7b", "mamba2-1.3b", "whisper_tiny"):
+    for name in ("zamba2-2.7b", "mamba2-1.3b", "whisper_tiny"):
         jconf.canonical(name)  # the reference has it
         with pytest.raises(ValueError, match="ported archs: h2o_danube_1p8b, llama3p2_1b, "
-                                             "phi3_medium_14b, smollm_360m"):
+                                             "phi3_medium_14b, smollm_360m, olmoe_1b_7b, "
+                                             "moonshot_v1_16b_a3b"):
             tconf.get_config(name)
 
 
@@ -419,7 +422,12 @@ def test_tensor_q_offset_is_forward_only():
 def test_unported_family_raises():
     _, tc = _configs(0)
     with pytest.raises(ValueError, match="not ported"):
-        tlm.init_params(dataclasses.replace(tc, family="moe"), device="cpu")
+        tlm.init_params(dataclasses.replace(tc, family="hybrid"), device="cpu")
+    # the MoE family is served, not trained: its training forward raises
+    moe = t_smoke("olmoe_1b_7b")
+    params = tlm.init_params(moe, device="cpu")
+    with pytest.raises(ValueError, match="trunk: family 'moe' is not ported"):
+        tlm.forward(params, moe, torch.zeros((1, 4), dtype=torch.long))
 
 
 def test_sample_logits_matches_reference():

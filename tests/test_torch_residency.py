@@ -349,11 +349,11 @@ def test_budgeted_serving_is_token_identical(w_bits, sampling):
     assert budgeted == unbudgeted == reference
 
 
-@pytest.mark.parametrize("family", ["moe", "hybrid"])
+@pytest.mark.parametrize("family", ["ssm", "hybrid"])
 def test_residency_plan_covers_the_ported_family_only(family):
-    """MoE expert and hybrid shared blocks are not in the port's weight set
-    yet: planning for those families raises instead of planning the
-    dense layer blocks."""
+    """Hybrid shared blocks are not in the port's weight set yet, and SSM
+    has none: planning for those families raises instead of planning the
+    dense layer blocks (MoE's expert blocks: tests/test_torch_moe.py)."""
     _, tc = _cfgs("smoke", 2)
     assert texec.supports_budgeted_decode(tc)
     other = dataclasses.replace(tc, family=family)

@@ -201,7 +201,7 @@ def test_verify_chunk_paged_refuses_unported_families():
     _, tc, _, params = _ctx()
     z = torch.zeros((1, 1), dtype=torch.int64)
     with pytest.raises(ValueError, match="not ported"):
-        tlm.verify_chunk_paged(params, dataclasses.replace(tc, family="moe"), z, None, None,
+        tlm.verify_chunk_paged(params, dataclasses.replace(tc, family="hybrid"), z, None, None,
                                z, z, torch.zeros(1))
 
 
@@ -571,23 +571,18 @@ def test_resolve_rejects_unknown_drafter_listing_options():
     want, got = _resolve_error((jc, tc), "no_such_arch")
     assert got == want and "ngram" in got
     # an arch the port has not ported is unknown to it, with the options
-    with pytest.raises(ValueError, match="unknown drafter arch 'olmoe_1b_7b'.*ngram"):
-        tspec.resolve(tc, tspec.SpecConfig(drafter="olmoe_1b_7b"), smoke=True)
+    with pytest.raises(ValueError, match="unknown drafter arch 'zamba2_2p7b'.*ngram"):
+        tspec.resolve(tc, tspec.SpecConfig(drafter="zamba2_2p7b"), smoke=True)
 
 
-def test_resolve_rejects_unpackable_drafter_family(monkeypatch):
+def test_resolve_rejects_unpackable_drafter_family():
     """The reference's olmoe case: a drafter of a family without a packed
-    twin. No ported arch is one, so the port's registry lends one (a moe
-    family under smollm's name); the message is the reference's."""
+    twin (MoE experts never pack); the message is the reference's."""
     jc, tc, _, _ = _ctx()
     with pytest.raises(ValueError, match="packed twin") as want:
         jspec.resolve(jc, jspec.SpecConfig(drafter="olmoe_1b_7b"), smoke=True)
-    moe = dataclasses.replace(t_smoke("llama3p2_1b"), family="moe")
-    monkeypatch.setattr(tconf, "get_smoke_config",
-                        lambda name: moe if tconf.canonical(name) == "llama3p2_1b"
-                        else t_smoke(name))
     with pytest.raises(ValueError, match="packed twin") as got:
-        tspec.resolve(tc, tspec.SpecConfig(drafter="llama3p2_1b"), smoke=True)
+        tspec.resolve(tc, tspec.SpecConfig(drafter="olmoe_1b_7b"), smoke=True)
     # the reference's message past the drafter's name, its families and
     # options cut to the port's
     ref_opts = ", ".join(jspec.compatible_drafters(jc, smoke=True))
@@ -613,7 +608,7 @@ def test_resolve_rejects_hybrid_target():
     with pytest.raises(ValueError, match="roll back") as got:
         tspec.resolve(dataclasses.replace(tc, family="hybrid"),
                       tspec.SpecConfig(drafter="ngram"), smoke=True)
-    assert str(got.value).split(";")[0].replace("('dense',)", "") == str(
+    assert str(got.value).split(";")[0].replace("('dense', 'moe')", "") == str(
         want.value).split(";")[0].replace("('dense', 'vlm', 'moe')", "")
 
 
@@ -654,7 +649,8 @@ def test_compatible_drafters_cover_packable_families():
     # the reference's list, over the ported archs
     assert opts == [a for a in jspec.compatible_drafters(jc, smoke=True)
                     if a == "ngram" or a in tconf.ARCH_IDS]
-    assert tspec.SPEC_FAMILIES == tuple(f for f in jspec.SPEC_FAMILIES if f == "dense")
+    assert tspec.SPEC_FAMILIES == tuple(f for f in jspec.SPEC_FAMILIES
+                                        if f in ("dense", "moe"))
     assert tspec.MODEL_DRAFT_FAMILIES == tuple(
         f for f in jspec.MODEL_DRAFT_FAMILIES if f == "dense")
 
