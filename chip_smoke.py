@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--only kernels|prefill|moe] [--src DIR] [--log FILE]
+    python3 chip_smoke.py [--only kernels|prefill|moe|hybrid] [--src DIR] [--log FILE]
 
 Phases, one JSON line each; any failure exits nonzero with no result:
 
@@ -194,7 +194,8 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               256-token chunks, then 16 greedy decode steps), every chunk's
               and step's logits against the CPU's, and the CPU without the
               window beside it; ``init_params`` at full width and depth
-              (seconds, host memory, device MiB); its decode step and
+              (phi3: 32 of its 40 layers, SERVED_LAYERS, to fit the run's
+              time limit) (seconds, host memory, device MiB); its decode step and
               prefill chunk captured, each replay bitwise its eager step;
               a compiled decode step and prefill chunk profiled (card ms);
               the serve cell (16 x (512 + 64), 8 lanes, --prefill-chunk 256,
@@ -203,7 +204,7 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               launches by route: prefill on the tensor-core kernels, decode
               on the GEMV, never an f32 route or stream_matmul), and at
               --quant 0 compiled through ``serve.main`` (its own weights).
-moe        -- (run last; ``--only moe`` runs it alone after the build)
+moe        -- (after 4-5; ``--only moe`` runs it alone after the build)
               olmoe-1b-7b at full width and depth (64 experts top-8, the
               dropless dispatch, every expert over every row in f32):
               (a) a 512-token prefill at 2 of its 16 layers, layer by
@@ -249,10 +250,59 @@ moe        -- (run last; ``--only moe`` runs it alone after the build)
               eager and compiled identical in tokens and launches, parting
               from plain decode only at near-ties, and phase 5 (c)'s gate (a
               verify step against 4 decode steps on a prefilled pool: 4
-              bf16 steps, 85% argmax); (h) moonshot-v1-16b-a3b at 8 of
-              its 48 layers (a full draw takes ~200 s on the host): (a)
+              bf16 steps, 85% argmax); (h) moonshot-v1-16b-a3b at 4 of
+              its 48 layers (a full draw takes ~200 s on the host; 8 until
+              the hybrid phase needed the time): (a)
               at 2 layers, (f)'s 16-token prompt check, its 9216-block
               residency plan timed, and the compiled serve cell once.
+hybrid     -- (after the MoE phase; ``--only hybrid`` runs it alone after the
+              build) zamba2-2.7b at full width and depth (54 Mamba2 layers,
+              one shared attention + FFN block after every 6): (a)
+              ``init_params`` once, dense (seconds, host memory, device
+              MiB), the 2-bit copy packing its shared FFN from that draw
+              (``pack_ffn_params``); (b) one super-block (6 SSM layers and
+              the shared block) at full width in bf16 on the card against
+              float32 on the CPU, same weights: a 256-token whole-prompt
+              prefill, the next 256 tokens as a suffix resumed from the
+              carried lane state at a device start, then 4 greedy decode
+              steps; the logits (``logits_vs_cpu``), the K/V rows (within
+              HYB_KV_REL_TOL) and the lane state leaf by leaf after each
+              stage (within HYB_LANE_REL_TOL, cosine >= HYB_LANE_MIN_COS);
+              (c) ``packed_matmul`` at 2 and 1 bits at 2560x10240 and
+              10240x2560 (the GEMV at M 8, the mma path at M 256 and 93)
+              and ``flash_fwd`` at 32/32 heads, D 80 (causal 512, the chunk
+              256 over 512 at 256, a ragged 93-token prompt; a device
+              q_offset bitwise the host int), each against its plain
+              version and timed beside the library call and the bound;
+              (d) the decode step (8 lanes) and the full-width suffix
+              chunk captured, each replay bitwise its eager step in
+              logits, pools and every lane-state leaf (the chunk at starts
+              256 and 37), each profiled (card ms, busy share, kernels)
+              with the Mamba2 blocks' share (a graph of them alone against
+              the step's), and a prime 257-token prompt (SSD chunks of one
+              token) timed beside a 256-token one; (e) the serve cell
+              (16 x (512 + 64), 8 lanes, --prefill-chunk 256, --max-len
+              640, the prefix cache on) compiled at --quant 2 and 0, and at
+              --quant 2 eager and compiled at 8 of its 16 requests (a cut
+              of the eager run, to fit the time limit): identical tokens
+              and launches by route (flash_fwd 9 a chunk on its
+              tensor-core route, packed_matmul 27 a step, chunks on the
+              mma path and decode on the GEMV; the decode and chunk
+              graphs, every other step a replay); (f) phase 5 (b)'s
+              shared-prefix traffic at --quant 2, compiled: without the
+              cache, with it teacher-forced by the uncached run's tokens,
+              without it over the cached run's partition (--prefill-chunk
+              96, forced the same), and for two turns with every anchor's
+              lane state zeroed (a planted control); prefill tokens, hit
+              rate, TTFT, the anchors' host copies (ms, MB) and host
+              memory; the gate: the cached logits within
+              HYB_WARM_LOGIT_STEPS bf16 steps of the uncached run's, the
+              argmax the same at HYB_WARM_MIN_ARGMAX of the positions (an
+              anchor's state was summed over another chunk partition), and
+              bitwise those of the uncached run over the cached run's own
+              partition; the planted control failing that gate, every
+              position of a request that hit no anchor bitwise, and the
+              prefill tokens cut by at least PREFIX_MIN_CUT.
 6. cnn     -- the paper's CNV at full width (w1a2, then w2a2), random
               weights with randomised BN statistics and 256 random images
               from a seed: ``cnn_forward_streamlined`` on the card against
@@ -365,12 +415,18 @@ GRAD_MIN_COS = 0.99  # the same, per gradient leaf
 REMAT_MIN_COS = 0.9999  # --remat full/dots vs none on the card: atomics order only
 # the other dense archs, each served at full width and depth (phases 4-5)
 NEW_ARCHS = ("llama3p2_1b", "h2o_danube_1p8b", "phi3_medium_14b")
+# ... but phi3, served at 32 of its 40 layers since the hybrid phase came:
+# with all 40 the whole run ended 63.3 s short of its limit on the H100
+# (its draw and packing, ~210 s at 40 layers, are the run's longest host work)
+SERVED_LAYERS = {"phi3_medium_14b": 32}
 WINDOW_STEPS = 16  # decode steps of h2o-danube's run past its window
 # the MoE phase: olmoe at full size, moonshot cut to MOON_LAYERS of its 48
-# layers (its full draw would take ~200 s on the host); each prefill check
-# at MOE_CHECK_LAYERS layers, so the CPU's float32 experts stay in seconds
+# layers (its full draw would take ~200 s on the host; 4, not 8 as before,
+# makes room for the hybrid phase within the run's time limit); each
+# prefill check at MOE_CHECK_LAYERS layers, so the CPU's float32 experts
+# stay in seconds
 MOE_ARCH, MOON_ARCH, MOON_LAYERS, MOE_CHECK_LAYERS = (
-    "olmoe_1b_7b", "moonshot_v1_16b_a3b", 8, 2)
+    "olmoe_1b_7b", "moonshot_v1_16b_a3b", 4, 2)
 MOE_SPEC_REQUESTS, MOE_SPEC_GEN = 8, 32  # (g): one wave of the cell's prompts
 SHORT_PREFIX_GEN = 8  # (f): tokens generated per request of the short-prefix check
 # routing on the card (bf16 hidden state) against the CPU (f32), each layer
@@ -389,6 +445,31 @@ MOE_FFN_F32_REL_TOL = 1e-5
 # forced: the two sum the experts' f32 products in other orders, so the
 # logits may part by this many bf16 steps at the largest |logit|
 MOE_BUDGET_LOGIT_STEPS = 4  # phase 5 (c)'s SPEC_LOGIT_STEPS; measured on the H100: 1
+# the hybrid phase: zamba2-2.7b at full width and depth; its card-vs-CPU
+# check at one super-block (hybrid_attn_every SSM layers and the shared block)
+HYB_ARCH = "zamba2_2p7b"
+HYB_DECODE_STEPS = 4  # (b): greedy decode steps after the 512-token prompt
+HYB_RAGGED_M = 93  # (c): a ragged M and prompt (a sibling's 93-token suffix)
+HYB_PRIME = 257  # (d): a prime prompt past ssm_chunk: SSD chunks of one token
+# (b) bf16 on the card against float32 on the CPU, one super-block: the lane
+# state leaf by leaf over its layers, and the shared block's K/V rows
+# (read on the H100: the SSD state 0.031-0.034 along the 516 positions, the
+# conv buffers 0.017-0.023, cosines >= 0.9994; the K/V rows 0.025)
+HYB_LANE_REL_TOL = 0.1
+HYB_LANE_MIN_COS = 0.99
+HYB_KV_REL_TOL = 0.05
+HYB_EAGER_REQUESTS = 8  # (e): the eager run (and its compiled twin) at 8 of the cell's 16
+# (f) cached against uncached serving, teacher-forced. A cached request
+# resumes from an anchor taken where its last turn's prompt ended, so its
+# prompt is summed in 96-token pieces (chunk by chunk through the SSD), a
+# cold prefill in 256-token chunks: another order of bf16 sums through 54
+# layers. Read on the H100 (random weights: near-flat logits, max |logit|
+# 5.5): 14 bf16 steps at most, the argmax the same at 82.5% of 1024
+# positions. Bound: HYB_WARM_LOGIT_STEPS steps and HYB_WARM_MIN_ARGMAX; the
+# cached run must also equal, bitwise, uncached serving over its own
+# partition (--prefill-chunk TURN_TOKENS), which a zeroed anchor lane fails
+HYB_WARM_LOGIT_STEPS = 24
+HYB_WARM_MIN_ARGMAX = 0.75
 
 
 def fail(msg: str) -> None:
@@ -464,11 +545,11 @@ def main(argv: list[str] | None = None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
-    ap.add_argument("--only", choices=("kernels", "prefill", "moe"),
+    ap.add_argument("--only", choices=("kernels", "prefill", "moe", "hybrid"),
                     help="kernels: stop after phase 3 (build, and hold each kernel against "
                          "its plain version); prefill: build, then only phase 4's prefill "
-                         "check and profile; moe: build, then only the MoE phase. Each "
-                         "prints no result")
+                         "check and profile; moe: build, then only the MoE phase; hybrid: "
+                         "build, then only the hybrid phase. Each prints no result")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the source tree whose repro_torch to run (default: src beside this "
                          "script); another commit's, to compare the two in one call")
@@ -955,6 +1036,122 @@ def main(argv: list[str] | None = None) -> int:
                        init_host_rss_mib_peak=max(peak[0], rss()) / 2**20,
                        weights_mib=(torch.cuda.memory_allocated() - dev0) / 2**20)
 
+    # ---- the kernel cases of phase 3, and of the hybrid phase's (c) ----
+    packed_cases = []
+    packed_checks = []
+
+    def packed_case(bits, m, k, n, dt, timed, g=gen):
+        """``packed_matmul`` on the card against its plain version on the
+        same inputs (rel err within PACKED_REL_TOL); timed cases beside the
+        plain version, the library's matmul on the pre-decoded weight and
+        the bound. A second run must give the same bits (the tensor-core
+        path, bf16 x with M > 16, sums its K split in a fixed order)."""
+        w = lm.make_packed(torch.randn((k, n), generator=g).to(dev), bits)
+        x = torch.randn((m, k), generator=g).to(dev, dt)
+        got = pm.packed_matmul(x, w["packed"], w["scale"], bits, k)
+        want = ref.packed_matmul_ref(x, w["packed"], w["scale"], bits, k)
+        again = pm.packed_matmul(x, w["packed"], w["scale"], bits, k)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        rel = err / max(want.abs().max().item(), 1e-30)
+        path = ("gemv" if m <= pm.GEMV_MAX_M else "mma" if dt == torch.bfloat16 else "tiled_f32")
+        label = f"packed_matmul {path} bits={bits} M={m} K={k} N={n} x={dt}"
+        if not math.isfinite(err) or rel > PACKED_REL_TOL:
+            fail(f"{label}: rel err {rel}")
+        if not same_bits(got, again):
+            fail(f"{label}: two runs differ")
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        splits, k_per_split = 1, k
+        if path == "gemv":
+            splits, cps = pm.split_plan(m, k, n, sms, bm=pm.GEMV_MAX_M, bn=pm.GEMV_BN, bk=pm.GEMV_BK)
+            k_per_split = cps * pm.GEMV_BK
+        elif path == "mma":
+            splits, cps = pm.mma_plan(k, n, sms)
+            k_per_split = cps * pm.BK
+        base = dict(bits=bits, m=m, k=k, n=n, x=str(dt).replace("torch.", ""), path=path,
+                    splits=splits, k_per_split=min(k, k_per_split), max_abs_err=err, rel_err=rel)
+        if not timed:
+            packed_checks.append(base)
+            phase("kernel", name="packed_matmul", check_only=True, **base)
+            return
+        w_dec = ref.decode_weights(w["packed"], bits, k).to(dt)
+        n_bytes = x.numel() * x.element_size() + w["packed"].numel() + n * 4 + m * n * 4
+        peak = BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS
+        b_ms, b_by = bound_ms(n_bytes, 2.0 * m * k * n, peak)
+        case = dict(
+            **base,
+            ms=median_ms(lambda: pm.packed_matmul(x, w["packed"], w["scale"], bits, k)),
+            host_us=host_us(lambda: pm.packed_matmul(x, w["packed"], w["scale"], bits, k)),
+            plain_ms=median_ms(lambda: ref.packed_matmul_ref(x, w["packed"], w["scale"], bits, k)),
+            library_ms=median_ms(lambda: torch.matmul(x, w_dec) * w["scale"]),
+            bound_ms=b_ms, bound_by=b_by,
+        )
+        packed_cases.append(case)
+        phase("kernel", name="packed_matmul", **case)
+
+    flash_cases = []
+    flash_checks = []
+
+    def flash_case(label, h, h_kv, sq, sk, dh, causal, window, q_off, dt, timed, g=gen):
+        """``flash_fwd`` on the card against its plain version on the same
+        inputs (out within FLASH_OUT_TOL, lse within FLASH_LSE_TOL); timed
+        cases beside the plain version, SDPA and the bound. Rows that see
+        no key must give out exactly 0 and lse <= -1e29."""
+        q = torch.randn((h, sq, dh), generator=g).to(dev, dt)
+        kk = torch.randn((h_kv, sk, dh), generator=g).to(dev, dt)
+        vv = torch.randn((h_kv, sk, dh), generator=g).to(dev, dt)
+        kw = dict(causal=causal, window=window, q_offset=q_off)
+        out, lse = fa.flash_fwd(q, kk, vv, **kw)
+        want_o, want_lse = ref.flash_fwd_ref(q, kk, vv, **kw)
+        torch.cuda.synchronize()
+        err = (out.float() - want_o.float()).abs().max().item()
+        lse_err = (lse - want_lse).abs().max().item()
+        if not (err <= FLASH_OUT_TOL and lse_err <= FLASH_LSE_TOL):
+            fail(f"flash_fwd {label}: out err {err}, lse err {lse_err}")
+        qp = q_off + np.arange(sq)[:, None]
+        kp = np.arange(sk)[None, :]
+        vis = np.ones((sq, sk), bool)
+        if causal:
+            vis &= qp >= kp
+        if window:
+            vis &= qp - kp < window
+        blind = torch.from_numpy(~vis.any(axis=1)).to(dev)
+        blind_rows = int(blind.sum())
+        if blind_rows and not (bool((out[:, blind] == 0).all())
+                               and lse[:, blind].max().item() <= -1e29):
+            fail(f"flash_fwd {label}: rows that see no key give out != 0 or lse > -1e29")
+        base = dict(case=label, sq=sq, sk=sk, heads=h, kv_heads=h_kv, d=dh, causal=causal,
+                    window=window, q_offset=q_off, dtype=str(dt).replace("torch.", ""),
+                    rows_without_keys=blind_rows, max_abs_err=err, lse_err=lse_err)
+        if not timed:
+            flash_checks.append(base)
+            phase("kernel", name="flash_fwd", check_only=True, **base)
+            return
+        pairs = int(vis.sum()) * h
+        e = q.element_size()
+        n_bytes = e * (2 * q.numel() + kk.numel() + vv.numel()) + lse.numel() * 4
+        peak = BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS
+        b_ms, b_by = bound_ms(n_bytes, 4.0 * dh * pairs, peak)
+        mask = torch.from_numpy(vis).to(dev)
+        q4, k4, v4 = q[None], kk[None], vv[None]
+        case = dict(
+            **base,
+            ms=median_ms(lambda: fa.flash_fwd(q, kk, vv, **kw)),
+            plain_ms=median_ms(lambda: ref.flash_fwd_ref(q, kk, vv, **kw)),
+            library_ms=median_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=mask, enable_gqa=True
+                )
+            ) if not (causal and not window and q_off == 0 and sq == sk) else median_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=True, enable_gqa=True
+                )
+            ),
+            bound_ms=b_ms, bound_by=b_by,
+        )
+        flash_cases.append(case)
+        phase("kernel", name="flash_fwd", **case)
+
     # ---------------- the MoE family (run last; --only moe: alone) ----------------
     from repro_torch.models import moe as moe_lib
 
@@ -1245,6 +1442,15 @@ def main(argv: list[str] | None = None) -> int:
         for name, n in r["counts"].items():
             launches[name] += n
         add_routes(r["by_route"])
+
+    hybrid_launches = {}  # the hybrid phase's share of ``launches``, by route
+
+    def count_hybrid(r) -> None:
+        count_main_path(r)
+        for name, by in r["by_route"].items():
+            for route, n in by.items():
+                hybrid_launches.setdefault(name, {})
+                hybrid_launches[name][route] = hybrid_launches[name].get(route, 0) + n
 
     def top_gap(top: dict) -> float:
         a, b = sorted(top.values(), reverse=True)[:2]
@@ -1592,6 +1798,466 @@ def main(argv: list[str] | None = None) -> int:
         phase_seconds(f"moe {MOON_ARCH} at depth {MOON_LAYERS}")
         phase("moe_phase", seconds=time.monotonic() - t_phase)
 
+    # ---------------- the hybrid family (--only hybrid: alone) ----------------
+    def lane_vs_cpu(a, b) -> dict:
+        """A lane state from the card against the CPU's (float32), leaf by
+        leaf over the layers: the largest relative error ||a - b|| / ||b||
+        of a layer's slice and the smallest cosine."""
+        out = {}
+        for key in lm.LANE_KEYS:
+            x = a[key].float().cpu().reshape(a[key].shape[0], -1)
+            y = b[key].float().reshape(b[key].shape[0], -1)
+            out[key] = dict(
+                max_rel_err=((x - y).norm(dim=1) / y.norm(dim=1).clamp_min(1e-30)).max().item(),
+                min_cosine=F.cosine_similarity(x, y, dim=1).min().item())
+        return out
+
+    def rows_vs_cpu(a, b) -> dict:
+        """K/V rows from the card against the CPU's: relative error and cosine."""
+        x, y = a.float().cpu().flatten(), b.float().flatten()
+        return dict(rel_err=((x - y).norm() / y.norm()).item(),
+                    cosine=F.cosine_similarity(x, y, dim=0).item())
+
+    def hybrid_vs_cpu(c, p) -> None:
+        """(b) One super-block at full width (``c``: hybrid_attn_every SSM
+        layers and the shared block) in bf16 on the card against float32 on
+        the CPU, same weights: a CHUNK-token whole-prompt prefill, the next
+        CHUNK tokens as a suffix resumed from the carried lane state at
+        start CHUNK (a device tensor), then HYB_DECODE_STEPS greedy decode
+        steps (the card's tokens fed to both sides). Logits by
+        ``logits_vs_cpu``; K/V rows by relative error and cosine (within
+        HYB_KV_REL_TOL); the lane state after each stage, leaf by leaf
+        (within HYB_LANE_REL_TOL, cosine >= HYB_LANE_MIN_COS)."""
+        cpu_c, cpu_p = cpu_copy(c, p)
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(0, c.vocab, size=(1, PROMPT)))
+        rows = PROMPT + HYB_DECODE_STEPS
+        fed = []
+        out = {}
+        for name, (sc, sp, sd) in (("card", (c, p, dev)), ("cpu", (cpu_c, cpu_p, "cpu"))):
+            t0 = time.monotonic()
+            rec = {}
+            lg, ks, vs, lane = lm.prefill_with_cache_hybrid(
+                sp, sc, tokens[:, :CHUNK].to(sd), CHUNK - 1)
+            rec["prefill"] = (lg[0, 0, :c.vocab], torch.cat([ks, vs]),
+                              {k: v.clone() for k, v in lane.items()})
+            pk = torch.zeros((sc.n_kv_cache_layers, rows + 16, sc.n_kv, sc.hd),
+                             dtype=lm.torch_dtype(sc), device=sd)
+            pv = torch.zeros_like(pk)
+            pk[:, 16:16 + CHUNK], pv[:, 16:16 + CHUNK] = ks[:, 0], vs[:, 0]
+            table = (16 + torch.arange(rows, device=sd))[None]
+            lg, _, _, lane = lm.prefill_suffix_paged_hybrid(
+                sp, sc, tokens[:, CHUNK:].to(sd), pk, pv, table, table[:, CHUNK:PROMPT],
+                torch.tensor([CHUNK], device=sd), CHUNK - 1, lane)
+            rec["suffix"] = (lg[0, 0, :c.vocab],
+                             torch.cat([pk[:, 16 + CHUNK:16 + PROMPT], pv[:, 16 + CHUNK:16 + PROMPT]]),
+                             {k: v.clone() for k, v in lane.items()})
+            steps = []
+            for i in range(HYB_DECODE_STEPS):
+                if name == "card":
+                    fed.append(int((steps[-1] if steps else rec["suffix"][0]).argmax()))
+                tok = torch.tensor([[fed[i]]], device=sd)
+                lg, _, _, lane = lm.decode_step_paged_hybrid(
+                    sp, sc, tok, pk, pv, table, torch.tensor([PROMPT + i], device=sd), lane)
+                steps.append(lg[0, 0, :c.vocab])
+            rec["decode"] = (steps, {k: v.clone() for k, v in lane.items()})
+            if name == "card":
+                torch.cuda.synchronize()
+            rec["s"] = time.monotonic() - t0
+            out[name] = rec
+        card, cpu = out["card"], out["cpu"]
+        held = {stage: dict(logits=logits_vs_cpu(card[stage][0], cpu[stage][0],
+                                                 f"{c.name} {stage}"),
+                            kv_rows=rows_vs_cpu(card[stage][1], cpu[stage][1]),
+                            lane=lane_vs_cpu(card[stage][2], cpu[stage][2]))
+                for stage in ("prefill", "suffix")}
+        held["decode"] = dict(
+            logits=[logits_vs_cpu(a, b, f"{c.name} decode step {i}", step=i)
+                    for i, (a, b) in enumerate(zip(card["decode"][0], cpu["decode"][0]))],
+            lane=lane_vs_cpu(card["decode"][1], cpu["decode"][1]))
+        phase("hybrid_vs_cpu", arch=c.name, layers=c.n_layers, depth_cut=(
+            f"{c.n_layers} of {get_config(HYB_ARCH).n_layers} layers (one super-block): the "
+            "CPU's float32 side stays in seconds"), prompt=PROMPT, chunk=CHUNK,
+            decode_steps=HYB_DECODE_STEPS, card_s=card["s"], cpu_s=cpu["s"], **held)
+        lanes = [held[s]["lane"] for s in ("prefill", "suffix")] + [held["decode"]["lane"]]
+        bad = [(s, k, v) for s, lane in zip(("prefill", "suffix", "decode"), lanes)
+               for k, v in lane.items()
+               if not (v["max_rel_err"] <= HYB_LANE_REL_TOL and v["min_cosine"] >= HYB_LANE_MIN_COS)]
+        bad += [(s, "kv_rows", held[s]["kv_rows"]) for s in ("prefill", "suffix")
+                if not held[s]["kv_rows"]["rel_err"] <= HYB_KV_REL_TOL]
+        if bad:
+            fail(f"{c.name} card vs CPU: {bad[:4]}")
+
+    def hold_lane_replay(label, step_fn, host_in, pk0, pv0, lane0, replay_in=None) -> None:
+        """``hold_replay`` for a hybrid step ``step_fn(pool_k, pool_v, lane,
+        *inputs) -> logits``: its first call and capture on copies of the
+        pools and of the lane state ``lane0``, then each replay from the
+        same state against the eager step on other copies; the logits, both
+        pools and every lane-state leaf bitwise equal."""
+        kg, vg = pk0.clone(), pv0.clone()
+        lane_g = {k: v.clone() for k, v in lane0.items()}
+        graph = CapturedStep(lambda *xs: step_fn(kg, vg, lane_g, *xs), device=dev,
+                             mempool=torch.cuda.graph_pool_handle())
+        graph(*host_in)
+        for i, inputs in enumerate(replay_in or (host_in,)):
+            ke, ve = pk0.clone(), pv0.clone()
+            lane_e = {k: v.clone() for k, v in lane0.items()}
+            lg_e = step_fn(ke, ve, lane_e, *(t.to(dev) for t in inputs))
+            kg.copy_(pk0)
+            vg.copy_(pv0)
+            for k, v in lane0.items():
+                lane_g[k].copy_(v)
+            lg_r = graph(*inputs)
+            replay_matches(label, i, graph.replays, i + 1, {
+                "logits": (lg_r, lg_e), "pool_k": (kg, ke), "pool_v": (vg, ve),
+                **{f"lane_{k}": (lane_g[k], lane_e[k]) for k in lm.LANE_KEYS}})
+            del ke, ve, lane_e
+        del graph, kg, vg, lane_g
+
+    def ssm_blocks(p, c, x, lane):
+        """The Mamba2 blocks of a hybrid step alone, on its lane state."""
+        for i in range(c.n_layers):
+            state, bufs = lm._lane_views(lane, i)
+            x, state, bufs = lm._ssm_block(p.layer(i), c, x, state=state, conv_bufs=bufs)
+            lm._store_lane(lane, i, state, bufs)
+        return x
+
+    def hybrid_profile(label, p, c, step_fn, host_in, lane, pk, pv) -> dict:
+        """A compiled hybrid step (``step_fn(pool_k, pool_v, lane, *inputs)``)
+        profiled (``profile_window``, one step a window: ~4k kernels), and
+        the SSM blocks' share of its card time: a graph of the step's
+        Mamba2 blocks alone (``ssm_blocks`` on the step's embedded tokens)
+        against the step's graph, both by CUDA events (median of REPS)."""
+        graph = CapturedStep(lambda *xs: step_fn(pk, pv, lane, *xs), device=dev,
+                             mempool=torch.cuda.graph_pool_handle())
+        ssm = CapturedStep(
+            lambda t_, *_: ssm_blocks(p, c, lm.embed(t_, p["embed"], lm.torch_dtype(c)), lane),
+            device=dev, mempool=torch.cuda.graph_pool_handle())
+        graph(*host_in)
+        ssm(*host_in)
+        stats, by_name = profile_window(lambda: graph(*host_in), window=1)
+        step_ms = median_ms(lambda: graph(*host_in))
+        ssm_ms = median_ms(lambda: ssm(*host_in))
+        out = dict(case=label, compiled=True, **stats, event_median_ms=step_ms,
+                   ssm_blocks_ms=ssm_ms, ssm_share=ssm_ms / step_ms,
+                   capture_s=graph.capture_s, graph_pool_mib=graph.pool_bytes / 2**20,
+                   device_ms_by_kernel=dict(
+                       flash_fwd=sum(v for k, v in by_name.items() if "flash_fwd" in k),
+                       packed_matmul=sum(v for k, v in by_name.items() if any(
+                           n in k for n in ("mma_kernel<", "tiled_kernel<", "gemv_kernel<")))),
+                   top_kernels_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8]))
+        del graph, ssm
+        return out
+
+    def hybrid_graphs(c, p) -> None:
+        """(d) The decode step (8 lanes at depth PROMPT + 8) and the full-width
+        suffix chunk (CHUNK tokens at start CHUNK over MAX_LEN rows, lane state
+        carried) as ``CapturedStep``s at full size, each replay bitwise its
+        eager step, lane state included (the chunk graph also at start 37:
+        its start is a device input); then each profiled."""
+        rows = LANES * MAX_LEN + 16
+        g = torch.Generator(device=dev).manual_seed(4)
+        pk0 = torch.randn((c.n_kv_cache_layers, rows, c.n_kv, c.hd), generator=g, device=dev,
+                          dtype=torch.bfloat16)
+        pv0 = torch.randn(pk0.shape, generator=g, device=dev, dtype=torch.bfloat16)
+        lane0 = {k: (0.5 * torch.randn(v.shape, generator=g, device=dev)).to(v.dtype)
+                 for k, v in lm.init_ssm_lane_state(c, LANES, dev).items()}
+        table = (16 + torch.arange(LANES * MAX_LEN)).reshape(LANES, MAX_LEN)
+        tok = torch.from_numpy(np.random.default_rng(1).integers(0, c.vocab, (LANES, 1)))
+        decode_in = (tok, table, torch.full((LANES,), PROMPT + 8))
+
+        def decode_fn(k_, v_, lane_, t_, tb, ln):
+            return lm.decode_step_paged_hybrid(p, c, t_, k_, v_, tb, ln, lane_)[0]
+
+        hold_lane_replay(f"{c.name} decode step, --quant {c.w_bits}", decode_fn, decode_in,
+                         pk0, pv0, lane0)
+        chunk = torch.from_numpy(np.random.default_rng(2).integers(0, c.vocab, size=(1, CHUNK)))
+        one = table[:1]
+        lane1 = {k: v[:, :1].contiguous() for k, v in lane0.items()}
+
+        def chunk_in_at(start):
+            return (chunk, one, one[:, start:start + CHUNK], torch.tensor([start]),
+                    torch.tensor([CHUNK - 1]))
+
+        def chunk_fn(k_, v_, lane_, t_, rt, wr, st, last):
+            return lm.prefill_suffix_paged_hybrid(p, c, t_, k_, v_, rt, wr, st, last, lane_)[0]
+
+        hold_lane_replay(f"{c.name} suffix chunk, --quant {c.w_bits}", chunk_fn,
+                         chunk_in_at(CHUNK), pk0, pv0, lane1,
+                         replay_in=[chunk_in_at(s) for s in (CHUNK, 37)])
+        phase("decode_profile", arch=c.name, lanes=LANES, depth=PROMPT + 8, **hybrid_profile(
+            "decode step", p, c, decode_fn, decode_in, lane0, pk0, pv0))
+        phase("prefill_profile", arch=c.name, chunk=CHUNK, start=CHUNK, pool_rows=MAX_LEN,
+              **hybrid_profile("suffix chunk", p, c, chunk_fn, chunk_in_at(CHUNK), lane1,
+                               pk0, pv0))
+        # a prompt of prime length past ssm_chunk: the reference's chunk rule
+        # gives chunks of one token (a host loop of S steps a layer), beside a
+        # CHUNK-token prompt, whole-prompt prefills at full depth
+        times = {}
+        for s_len in (CHUNK, HYB_PRIME):
+            tok_s = torch.from_numpy(np.random.default_rng(s_len).integers(0, c.vocab, (1, s_len)))
+            fn = lambda: lm.prefill_with_cache_hybrid(p, c, tok_s.to(dev), s_len - 1)  # noqa: E731
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            fn()
+            torch.cuda.synchronize()
+            times[s_len] = (time.monotonic() - t0) * 1e3
+        from repro_torch.models import ssm as ssm_lib
+
+        phase("hybrid_prime_prompt", arch=c.name, prompts=list(times),
+              ssd_chunk={s: ssm_lib.chunk_len(s, c.ssm_chunk) for s in times},
+              host_ms_to_card_finish={str(s): t for s, t in times.items()})
+        del pk0, pv0, lane0, lane1
+        torch.cuda.empty_cache()
+
+    def hybrid_cell(c, p, compiled, requests=16) -> dict:
+        """(e) The serve cell (``requests`` x (PROMPT + 64), 8 lanes,
+        --prefill-chunk CHUNK, --max-len MAX_LEN, the prefix cache on)
+        through serve's engine on ``p``, driven by ``drive``."""
+        args = serve.build_parser().parse_args(
+            ["--arch", c.name, "--requests", str(requests), "--batch", str(LANES),
+             "--prompt-len", str(PROMPT), "--gen-len", "64", "--max-len", str(MAX_LEN),
+             "--prefill-chunk", str(CHUNK)])
+        sched = serve.build_pool_engine(c, p, args, dev, compiled=compiled)
+        r = drive(sched, [serve.make_requests(args, c.vocab)], 64)
+        st = sched.stats
+        r["metrics"].update(
+            decode_steps=st.decode_steps,
+            decode_step_ms=st.decode_time / max(1, st.decode_steps) * 1e3,
+            decode_step_ms_replay=serve._replay_step_ms(sched, st),
+            graph_replays=sum(g.replays for g in sched.graphs),
+            graph_pool_mib=sum(g.pool_bytes for g in sched.graphs) / 2**20,
+            hybrid=serve._hybrid_metrics(sched))
+        r["requests"] = requests
+        del sched
+        return r
+
+    def check_hybrid_cell(label, c, r, compiled) -> None:
+        """Every request done; every prefill a full-width chunk (two a
+        prompt); flash_fwd n_super a chunk on its tensor-core route;
+        packed_matmul 3 n_super a step at 1/2 bits (chunks on the mma path,
+        decode on the GEMV), none at 0; no other kernel; compiled: the decode
+        and chunk graphs, every other step a replay."""
+        m, counts, by_route = r["metrics"], r["counts"], r["by_route"]
+        n_super = c.n_kv_cache_layers
+        if m["completed"] != r["requests"] or m["generated_tokens"] != 64 * r["requests"]:
+            fail(f"{label}: {m['completed']} completed, {m['generated_tokens']} tokens")
+        pf, dec = m["prefill_steps"], m["decode_steps"]
+        want_pm = ({"mma": 3 * n_super * pf, "gemv": 3 * n_super * dec} if c.w_bits else {})
+        if (pf != 2 * r["requests"] or m["whole_prompt_prefills"]
+                or counts["flash_fwd"] != n_super * pf
+                or by_route.get("flash_fwd", {}) != {"mma": n_super * pf}
+                or by_route.get("packed_matmul", {}) != want_pm
+                or counts["packed_matmul"] != sum(want_pm.values())
+                or counts["stream_matmul"] or counts["flash_bwd_dq"] or counts["flash_bwd_dkv"]):
+            fail(f"{label}: {pf} prefill steps, launches {counts} by route {by_route}; want "
+                 f"flash_fwd {n_super} x chunks, packed_matmul {want_pm}")
+        if compiled and not (m["graphs"] == 2 and m["graph_replays"] == pf + dec - 2):
+            fail(f"{label}: {m['graphs']} graphs, {m['graph_replays']} replays of {pf + dec} "
+                 "steps: want the decode and the chunk graph, every other step a replay")
+
+    def hybrid_shared_prefix(c, p) -> None:
+        """(f) Phase 5 (b)'s shared-prefix traffic at --quant 2, compiled:
+        without the cache (the main path's uncached run), with it
+        teacher-forced by the uncached run's tokens, without it over the
+        cached run's partition (--prefill-chunk TURN_TOKENS, forced the
+        same), and, for its first two turns, cached with every anchor's
+        lane state zeroed (a planted control). Each run's prefill tokens,
+        hit rate, TTFT, the anchors' host copies (ms each, MB) and the
+        host's memory. The gate: the cached run's logits at every sampled
+        position within HYB_WARM_LOGIT_STEPS bf16 steps (at the largest
+        |logit|) of the uncached run's, the argmax the same at
+        HYB_WARM_MIN_ARGMAX of them, and bitwise those of the uncached run
+        over its own partition (so the difference is the partition's, not
+        the cache's); the planted control must fail it; the prefill tokens
+        cut by at least PREFIX_MIN_CUT."""
+        from repro_torch.runtime.kv_pool import KVPool
+        from repro_torch.runtime.prefix_cache import PrefixCache
+        from repro_torch.runtime.scheduler import Scheduler
+
+        waves = session_waves(c.vocab)
+
+        def run(cached, force=None, plant=False, chunk=CHUNK, turns=TURNS) -> dict:
+            pool = KVPool.for_slots(c, slots=LANES, max_len=SESSION_MAX_LEN, block_tokens=16,
+                                    device=dev)
+            cache = PrefixCache(pool) if cached else None
+            sched = Scheduler(c, p, pool, slots=LANES, max_len=SESSION_MAX_LEN,
+                              prefill_chunk=chunk, prefix_cache=cache)
+            hits = set()
+            adopt = pool.adopt_prefix
+
+            def adopting(rid, *args):
+                hits.add(rid)
+                adopt(rid, *args)
+
+            pool.adopt_prefix = adopting
+            if plant:
+                lookup = cache.lookup
+
+                def zeroed(prompt, **kw):
+                    m = lookup(prompt, **kw)
+                    if m is not None:
+                        m = dataclasses.replace(m, lane_state={
+                            k: torch.zeros_like(v) for k, v in m.lane_state.items()})
+                    return m
+
+                cache.lookup = zeroed
+            if force is not None:
+                sched._sample_one = lambda req, row: force[req.rid][len(req.output)]
+            rss0 = rss()
+            r = drive(sched, waves[:turns], SESSION_GEN)
+            anchors = ([a for n in (cache.root, *cache._nodes) for a in n.anchors]
+                       if cache is not None else [])
+            r["hits"] = hits
+            r["metrics"].update(
+                hybrid=serve._hybrid_metrics(sched), hit_requests=len(hits),
+                prefill_chunk=chunk, anchors_cached_mib=sum(
+                    v.nbytes for a in anchors for v in a.lane_state.values()) / 2**20,
+                host_rss_mib_before=rss0 / 2**20, host_rss_mib_after=rss() / 2**20)
+            del sched, pool, cache, anchors
+            return r
+
+        cold = run(False)
+        warm = run(True, force=cold["outputs"])
+        cold_own = run(False, force=cold["outputs"], chunk=TURN_TOKENS)
+        planted = run(True, force=cold["outputs"], plant=True, turns=2)
+        runs = (("no_cache", cold), ("cache_teacher_forced", warm),
+                ("no_cache_at_the_cache_s_partition", cold_own),
+                ("cache_planted_zero_lanes_two_turns", planted))
+        for name, r in runs:
+            phase("serve_shared_prefix", arch=c.name, run=name, sessions=SESSIONS,
+                  turns=len({k[0] for k in r["digests"]}) // (2 * SESSIONS),
+                  turn_tokens=TURN_TOKENS, launches_counted=r["counts"],
+                  launches_by_route=r["by_route"], **r["metrics"])
+        count_hybrid(cold)
+        count_hybrid(warm)
+
+        def gate(r) -> dict:
+            """``r`` against the uncached run (teacher-forced) and, bitwise,
+            against the uncached run over the cached run's partition, at
+            ``r``'s sampled positions."""
+            plain = {key: cold["top_logits"][key] for key in r["top_logits"]}
+            fv = forced_vs(r, dict(top_logits=plain))
+            step = 2.0 ** (math.floor(math.log2(fv["max_abs_logit"])) - 7)
+            off = [key for key in r["digests"] if r["digests"][key] != cold_own["digests"][key]]
+            within = (fv["max_abs_logit_diff"] <= HYB_WARM_LOGIT_STEPS * step
+                      and fv["argmax_agree"] >= HYB_WARM_MIN_ARGMAX * fv["positions"])
+            return dict(**fv, bf16_step=step, bound=HYB_WARM_LOGIT_STEPS * step,
+                        within_steps=within, positions_not_bitwise_own_partition=len(off),
+                        holds=within and not off)
+
+        g_warm, g_planted = gate(warm), gate(planted)
+        # the requests that hit no anchor run cold's own partition: bitwise cold
+        cold_keys = [key for key in cold["digests"] if key[0] not in warm["hits"]]
+        cold_off = [key for key in cold_keys if warm["digests"][key] != cold["digests"][key]]
+        cut = 1.0 - warm["metrics"]["prefill_tokens"] / max(1, cold["metrics"]["prefill_tokens"])
+        phase("serve_shared_prefix_cache_vs_none", arch=c.name, cache=g_warm,
+              planted_zero_lanes=g_planted, planted_fault_caught=not g_planted["holds"],
+              positions_without_a_hit=len(cold_keys),
+              positions_without_a_hit_not_bitwise=len(cold_off),
+              prefill_token_cut=cut, **{f"{key}_{side}": r["metrics"][key] for key in (
+                  "prefill_tokens", "mean_ttft_s", "tokens_per_s", "prefix_hit_rate",
+                  "hit_requests", "cow_copies", "graphs") for side, r in (
+                  ("cache", warm), ("no_cache", cold))})
+        if not g_warm["holds"]:
+            fail(f"{c.name} shared prefix, cached vs uncached (teacher-forced): {g_warm}")
+        if g_planted["holds"]:
+            fail(f"{c.name} shared prefix: zeroed anchor lanes went unseen: {g_planted}")
+        if cold_off or not cold_keys:
+            fail(f"{c.name} shared prefix: {len(cold_off)} of {len(cold_keys)} positions of "
+                 "requests without a hit differ from the uncached run")
+        if cut < PREFIX_MIN_CUT or not warm["hits"]:
+            fail(f"{c.name} shared prefix: prefill cut {cut}, {len(warm['hits'])} hits")
+
+    def hybrid_phase() -> None:
+        """The hybrid phase (the module docstring says what it holds)."""
+        t_phase = time.monotonic()
+        full = get_config(HYB_ARCH)
+        # (a) one dense draw at full size; the 2-bit copy packs its shared FFN
+        params0, init = timed_init(dataclasses.replace(full, w_bits=0))
+        phase("init", arch=HYB_ARCH, quant=0, layers=full.n_layers, **init)
+        cq0, cq2 = (dataclasses.replace(full, w_bits=b) for b in (0, 2))
+        t0 = time.monotonic()
+        params2 = lm.pack_ffn_params(params0, 2)
+        torch.cuda.synchronize()
+        pack_s = time.monotonic() - t0
+        phase("init", arch=HYB_ARCH, quant=2, layers=full.n_layers, dense_init_s=init["init_s"],
+              pack_s=pack_s, weights_mib=sum(t.nbytes for t in itertools.chain(
+                  params2.parameters(), params2.buffers())) / 2**20)
+        # (b) one super-block at full width against the CPU
+        hybrid_vs_cpu(*first_layers(cq2, params2, full.hybrid_attn_every))
+        # (c) packed_matmul and flash_fwd at zamba2's shapes
+        hg = torch.Generator(device="cpu").manual_seed(25)
+        d_, ff_ = full.d_model, full.d_ff
+        for bits in (2, 1):
+            for k, n in ((d_, ff_), (ff_, d_)):
+                for m in (LANES, CHUNK, HYB_RAGGED_M):
+                    packed_case(bits, m, k, n, torch.bfloat16, timed=True, g=hg)
+        h_, hd_ = full.n_heads, full.hd
+        flash_case("zamba2_prefill_causal", h_, full.n_kv, PROMPT, PROMPT, hd_, True, 0, 0,
+                   torch.bfloat16, True, g=hg)
+        flash_case("zamba2_chunk_q_offset", h_, full.n_kv, CHUNK, PROMPT, hd_, True, 0, CHUNK,
+                   torch.bfloat16, True, g=hg)
+        flash_case("zamba2_ragged_prompt", h_, full.n_kv, HYB_RAGGED_M, HYB_RAGGED_M, hd_, True,
+                   0, 0, torch.bfloat16, True, g=hg)
+        q, k_, v_ = (torch.randn((h_, n_, hd_), generator=hg).to(dev, torch.bfloat16)
+                     for n_ in (CHUNK, PROMPT, PROMPT))
+        on_dev = fa.flash_fwd(q, k_, v_, causal=True,
+                              q_offset=torch.tensor([CHUNK], dtype=torch.int32, device=dev))
+        host = fa.flash_fwd(q, k_, v_, causal=True, q_offset=CHUNK)
+        phase("kernel", name="flash_fwd", check_only=True, case="zamba2_device_q_offset",
+              q_offset=CHUNK, bitwise_equal_to_host_int=all(map(same_bits, on_dev, host)))
+        if not all(map(same_bits, on_dev, host)):
+            fail("flash_fwd zamba2 chunk: the device q_offset differs from the host int")
+        # (d) the decode step and the chunk as graphs at full size
+        hybrid_graphs(cq2, params2)
+        phase_seconds(f"hybrid {HYB_ARCH}: init, card vs CPU, kernels, graphs")
+        # (e) the serve cell: --quant 2 and 0 compiled; --quant 2 eager and
+        # compiled at HYB_EAGER_REQUESTS of its requests (a cut of the eager
+        # run's length, to fit the run's time limit), for identical tokens
+        # and launches
+        cells = {}
+        for mode, c_, p_, n in (
+                ("compiled", cq2, params2, 16), ("compiled_q0", cq0, params0, 16),
+                ("eager", cq2, params2, HYB_EAGER_REQUESTS),
+                ("compiled_twin", cq2, params2, HYB_EAGER_REQUESTS)):
+            r = hybrid_cell(c_, p_, mode != "eager", requests=n)
+            check_hybrid_cell(f"{HYB_ARCH} {mode}", c_, r, mode != "eager")
+            cells[mode] = r
+            phase("serve", arch=HYB_ARCH, quant=c_.w_bits, mode=mode.split("_")[0],
+                  init_s=init["init_s"], launches_counted=r["counts"],
+                  launches_by_route=r["by_route"], **r["metrics"])
+            if mode in ("compiled", "compiled_q0"):
+                count_hybrid(r)
+        eager, compiled = cells["eager"], cells["compiled_twin"]
+        same_tokens = compiled["outputs"] == eager["outputs"]
+        same_launches = ((compiled["counts"], compiled["by_route"])
+                         == (eager["counts"], eager["by_route"]))
+        phase("serve_compiled_vs_eager", arch=HYB_ARCH, quant=2, requests=HYB_EAGER_REQUESTS,
+              token_streams_identical=same_tokens, launch_counts_identical=same_launches,
+              first_streams_as_in_the_16_request_run=all(
+                  cells["compiled"]["outputs"][rid] == toks
+                  for rid, toks in compiled["outputs"].items()),
+              **{f"{key}_{mode}": cells[mode]["metrics"][key]
+                 for key in ("tokens_per_s", "decode_step_ms", "mean_ttft_s", "wall_s")
+                 for mode in cells})
+        if not (same_tokens and same_launches):
+            fail(f"{HYB_ARCH} --quant 2: compiled and eager serving differ (tokens "
+                 f"{same_tokens}, launches {same_launches})")
+        del cells, eager, compiled
+        # (f) the shared-prefix traffic, with the cache and without
+        hybrid_shared_prefix(cq2, params2)
+        del params0, params2
+        torch.cuda.empty_cache()
+        phase_seconds(f"hybrid {HYB_ARCH}: serve")
+        phase("hybrid_phase", seconds=time.monotonic() - t_phase,
+              launches_on_the_main_path_by_route=hybrid_launches)
+
+    if opts.only == "hybrid":
+        hybrid_phase()
+        print("[chip_smoke] --only hybrid: stopped after the hybrid phase", file=sys.stderr)
+        return 0
+
     if opts.only == "moe":
         moe_phase()
         print("[chip_smoke] --only moe: stopped after the MoE phase", file=sys.stderr)
@@ -1607,58 +2273,6 @@ def main(argv: list[str] | None = None) -> int:
     # ---------------- 3. kernels vs their plain versions ----------------
     cfg = get_config("smollm_360m")
     d, ff = cfg.d_model, cfg.d_ff
-    packed_cases = []
-    packed_checks = []
-
-    def packed_case(bits, m, k, n, dt, timed, g=gen):
-        """``packed_matmul`` on the card against its plain version on the
-        same inputs (rel err within PACKED_REL_TOL); timed cases beside the
-        plain version, the library's matmul on the pre-decoded weight and
-        the bound. A second run must give the same bits (the tensor-core
-        path, bf16 x with M > 16, sums its K split in a fixed order)."""
-        w = lm.make_packed(torch.randn((k, n), generator=g).to(dev), bits)
-        x = torch.randn((m, k), generator=g).to(dev, dt)
-        got = pm.packed_matmul(x, w["packed"], w["scale"], bits, k)
-        want = ref.packed_matmul_ref(x, w["packed"], w["scale"], bits, k)
-        again = pm.packed_matmul(x, w["packed"], w["scale"], bits, k)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        rel = err / max(want.abs().max().item(), 1e-30)
-        path = ("gemv" if m <= pm.GEMV_MAX_M else "mma" if dt == torch.bfloat16 else "tiled_f32")
-        label = f"packed_matmul {path} bits={bits} M={m} K={k} N={n} x={dt}"
-        if not math.isfinite(err) or rel > PACKED_REL_TOL:
-            fail(f"{label}: rel err {rel}")
-        if not same_bits(got, again):
-            fail(f"{label}: two runs differ")
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        splits, k_per_split = 1, k
-        if path == "gemv":
-            splits, cps = pm.split_plan(m, k, n, sms, bm=pm.GEMV_MAX_M, bn=pm.GEMV_BN, bk=pm.GEMV_BK)
-            k_per_split = cps * pm.GEMV_BK
-        elif path == "mma":
-            splits, cps = pm.mma_plan(k, n, sms)
-            k_per_split = cps * pm.BK
-        base = dict(bits=bits, m=m, k=k, n=n, x=str(dt).replace("torch.", ""), path=path,
-                    splits=splits, k_per_split=min(k, k_per_split), max_abs_err=err, rel_err=rel)
-        if not timed:
-            packed_checks.append(base)
-            phase("kernel", name="packed_matmul", check_only=True, **base)
-            return
-        w_dec = ref.decode_weights(w["packed"], bits, k).to(dt)
-        n_bytes = x.numel() * x.element_size() + w["packed"].numel() + n * 4 + m * n * 4
-        peak = BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS
-        b_ms, b_by = bound_ms(n_bytes, 2.0 * m * k * n, peak)
-        case = dict(
-            **base,
-            ms=median_ms(lambda: pm.packed_matmul(x, w["packed"], w["scale"], bits, k)),
-            host_us=host_us(lambda: pm.packed_matmul(x, w["packed"], w["scale"], bits, k)),
-            plain_ms=median_ms(lambda: ref.packed_matmul_ref(x, w["packed"], w["scale"], bits, k)),
-            library_ms=median_ms(lambda: torch.matmul(x, w_dec) * w["scale"]),
-            bound_ms=b_ms, bound_by=b_by,
-        )
-        packed_cases.append(case)
-        phase("kernel", name="packed_matmul", **case)
-
     for bits in (1, 2):
         for k, n in ((d, ff), (ff, d)):
             for m in (LANES, CHUNK, PROMPT):
@@ -1724,69 +2338,6 @@ def main(argv: list[str] | None = None) -> int:
     phase("timing_floor", median_ms=timing_floor_ms, launch="torch.Tensor.fill_ of 1 element")
 
     hq, hkv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
-    flash_cases = []
-    flash_checks = []
-
-    def flash_case(label, h, h_kv, sq, sk, dh, causal, window, q_off, dt, timed, g=gen):
-        """``flash_fwd`` on the card against its plain version on the same
-        inputs (out within FLASH_OUT_TOL, lse within FLASH_LSE_TOL); timed
-        cases beside the plain version, SDPA and the bound. Rows that see
-        no key must give out exactly 0 and lse <= -1e29."""
-        q = torch.randn((h, sq, dh), generator=g).to(dev, dt)
-        kk = torch.randn((h_kv, sk, dh), generator=g).to(dev, dt)
-        vv = torch.randn((h_kv, sk, dh), generator=g).to(dev, dt)
-        kw = dict(causal=causal, window=window, q_offset=q_off)
-        out, lse = fa.flash_fwd(q, kk, vv, **kw)
-        want_o, want_lse = ref.flash_fwd_ref(q, kk, vv, **kw)
-        torch.cuda.synchronize()
-        err = (out.float() - want_o.float()).abs().max().item()
-        lse_err = (lse - want_lse).abs().max().item()
-        if not (err <= FLASH_OUT_TOL and lse_err <= FLASH_LSE_TOL):
-            fail(f"flash_fwd {label}: out err {err}, lse err {lse_err}")
-        qp = q_off + np.arange(sq)[:, None]
-        kp = np.arange(sk)[None, :]
-        vis = np.ones((sq, sk), bool)
-        if causal:
-            vis &= qp >= kp
-        if window:
-            vis &= qp - kp < window
-        blind = torch.from_numpy(~vis.any(axis=1)).to(dev)
-        blind_rows = int(blind.sum())
-        if blind_rows and not (bool((out[:, blind] == 0).all())
-                               and lse[:, blind].max().item() <= -1e29):
-            fail(f"flash_fwd {label}: rows that see no key give out != 0 or lse > -1e29")
-        base = dict(case=label, sq=sq, sk=sk, heads=h, kv_heads=h_kv, d=dh, causal=causal,
-                    window=window, q_offset=q_off, dtype=str(dt).replace("torch.", ""),
-                    rows_without_keys=blind_rows, max_abs_err=err, lse_err=lse_err)
-        if not timed:
-            flash_checks.append(base)
-            phase("kernel", name="flash_fwd", check_only=True, **base)
-            return
-        pairs = int(vis.sum()) * h
-        e = q.element_size()
-        n_bytes = e * (2 * q.numel() + kk.numel() + vv.numel()) + lse.numel() * 4
-        peak = BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS
-        b_ms, b_by = bound_ms(n_bytes, 4.0 * dh * pairs, peak)
-        mask = torch.from_numpy(vis).to(dev)
-        q4, k4, v4 = q[None], kk[None], vv[None]
-        case = dict(
-            **base,
-            ms=median_ms(lambda: fa.flash_fwd(q, kk, vv, **kw)),
-            plain_ms=median_ms(lambda: ref.flash_fwd_ref(q, kk, vv, **kw)),
-            library_ms=median_ms(
-                lambda: F.scaled_dot_product_attention(
-                    q4, k4, v4, attn_mask=mask, enable_gqa=True
-                )
-            ) if not (causal and not window and q_off == 0 and sq == sk) else median_ms(
-                lambda: F.scaled_dot_product_attention(
-                    q4, k4, v4, is_causal=True, enable_gqa=True
-                )
-            ),
-            bound_ms=b_ms, bound_by=b_by,
-        )
-        flash_cases.append(case)
-        phase("kernel", name="flash_fwd", **case)
-
     bf16 = torch.bfloat16
     # full-prompt prefill, a sliding window, and the chunk-prefill shape (a
     # 256-token chunk at offset 256 over the 640 gathered pool rows); then
@@ -3397,9 +3948,12 @@ def main(argv: list[str] | None = None) -> int:
         argv = ["--arch", arch, "--requests", "16", "--batch", str(LANES), "--prompt-len",
                 str(PROMPT), "--gen-len", "64", "--max-len", str(MAX_LEN), "--prefill-chunk",
                 str(CHUNK)]
-        cq0 = dataclasses.replace(full, w_bits=0)
+        cq0 = dataclasses.replace(full, w_bits=0, n_layers=SERVED_LAYERS.get(arch, full.n_layers))
         params0, init = timed_init(cq0)
-        phase("init", arch=arch, quant=0, layers=cq0.n_layers, **init)
+        cut = {} if cq0.n_layers == full.n_layers else dict(depth_cut=(
+            f"{cq0.n_layers} of {full.n_layers} layers: room for the hybrid phase within "
+            "the run's time limit"))
+        phase("init", arch=arch, quant=0, layers=cq0.n_layers, **cut, **init)
         ops.reset_launch_counts()
         metrics = serve.run_pool_engine(cq0, params0, serve.build_parser().parse_args(
             argv + ["--quant", "0"]), dev)
@@ -3412,7 +3966,7 @@ def main(argv: list[str] | None = None) -> int:
             launches[name] += n
         add_routes(by_route)
 
-        cq2 = dataclasses.replace(full, w_bits=2)
+        cq2 = dataclasses.replace(cq0, w_bits=2)
         t0 = time.monotonic()
         params = lm.pack_ffn_params(params0, cq2.w_bits)
         torch.cuda.synchronize()
@@ -3861,8 +4415,9 @@ def main(argv: list[str] | None = None) -> int:
         serve_arch(arch)
         phase_seconds(f"4-5 {arch}")
 
-    # ---------------- the MoE family (last) ----------------
+    # ---------------- the MoE family, then the hybrid family (last) ----------------
     moe_phase()
+    hybrid_phase()
 
     # ---------------- result ----------------
     head_pm = next(c for c in packed_cases if (c["bits"], c["m"], c["k"]) == (2, LANES, d))
@@ -3904,6 +4459,7 @@ def main(argv: list[str] | None = None) -> int:
              source="src/repro_torch/csrc/packed_matmul.cu",
              replaces="src/repro/kernels/packed_matmul.py:74",
              launches=launches["packed_matmul"],
+             launches_hybrid_phase=hybrid_launches.get("packed_matmul", {}),
              shape=f"bits=2 M={LANES} K={d} N={ff} bf16",
              tolerance=f"rel {PACKED_REL_TOL}",
              **{k: head_pm[k] for k in nums},
@@ -3915,6 +4471,7 @@ def main(argv: list[str] | None = None) -> int:
              source="src/repro_torch/csrc/flash_fwd.cu",
              replaces="src/repro/kernels/flash_attention.py:218",
              launches=launches["flash_fwd"],
+             launches_hybrid_phase=hybrid_launches.get("flash_fwd", {}),
              shape=f"causal Sq=Sk={PROMPT} Hq={hq} Hkv={hkv} D={hd} bf16",
              tolerance=f"out abs {FLASH_OUT_TOL}, lse abs {FLASH_LSE_TOL}",
              **{k: head_fa[k] for k in nums},

@@ -2,8 +2,9 @@
 
 ``params_from_reference`` takes the JAX package's LM parameter pytree with
 numpy leaves (the caller runs ``jax.tree.map(np.asarray, params)``) and
-returns the port's ``LMParams``: stacked ``(L, ...)`` leaves and packed
-``{"packed", "scale"}`` dicts carry over byte for byte.
+returns the port's ``LMParams``: stacked ``(L, ...)`` leaves, the
+hybrid's ``shared`` block and packed ``{"packed", "scale"}`` dicts carry
+over byte for byte.
 ``cnn_params_from_reference`` does the same for the CNN's
 ``{layer: {w, bn_*, act_scale}}`` tree. ``jax.random``
 initialisation cannot be reproduced in torch, so this is how parity tests
@@ -21,8 +22,9 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import LMParams
 
 # leaves that stay f32 whatever the model dtype (norm gains, packed scales,
-# the MoE router, which the reference keeps in f32)
-F32_LEAVES = ("ln1", "ln2", "final_norm", "scale", "router")
+# the MoE router and the Mamba2 leaves the reference keeps in f32)
+F32_LEAVES = ("ln1", "ln2", "final_norm", "scale", "router", "dt_bias", "a_log",
+              "d_skip", "gate_norm")
 
 
 def _tensor(a) -> torch.Tensor:
@@ -61,13 +63,17 @@ def params_from_reference(
     float leaves require gradients."""
     if "layers" not in tree or not isinstance(tree["layers"], dict):
         raise ValueError("expected the reference's tree with stacked 'layers'")
-    # MoE experts are dense at any w_bits (the reference never packs them)
+    # the hybrid's FFN is its shared block's; MoE experts are dense at any
+    # w_bits (the reference never packs them)
+    ffn = "shared" if cfg.family == "hybrid" else "layers"
+    if not isinstance(tree.get(ffn), dict):
+        raise ValueError(f"expected the reference's {cfg.family} tree with '{ffn}'")
     want_packed = cfg.w_bits in (1, 2) and cfg.family != "moe"
     for name in ("w1", "w3", "w2"):
-        packed = isinstance(tree["layers"].get(name), dict)
+        packed = isinstance(tree[ffn].get(name), dict)
         if packed != want_packed:
             raise ValueError(
-                f"layers/{name} is {'packed' if packed else 'dense'} but "
+                f"{ffn}/{name} is {'packed' if packed else 'dense'} but "
                 f"cfg.w_bits is {cfg.w_bits} (family {cfg.family!r})"
             )
     return LMParams(_convert(tree, device, dtype), trainable)

@@ -17,7 +17,15 @@ olmoe-1b-7b and moonshot-v1-16b-a3b (or their module ids). An MoE arch
 serves through the dropless expert dispatch and prints a ``[serve/moe]``
 line (routed tokens, load entropy, the share routed to resident experts);
 ``--quant`` leaves its experts dense, with the reference's note, and
-``--vmem-budget`` streams its cold experts.
+``--vmem-budget`` streams its cold experts. The hybrid arch zamba2-2.7b
+serves through the same pool engine with a per-lane SSM state beside the
+pool, unpadded prompts, chunks that resume from the carried state and
+prefix-cache anchors (host copies of a lane's state); ``--quant`` packs
+its one shared FFN (the Mamba2 layers have none), and ``--speculate`` and
+``--vmem-budget`` exit 2 with the reference's reasons (an SSM state cannot
+roll back a rejected chain; it is out of the residency executor's scope).
+It prints a ``[serve/hybrid]`` line: the lanes' state on the card, and the
+anchors' host copies (count, MB, ms each).
 
 ``--speculate`` serves with speculative decoding (``runtime.speculative``):
 ``ngram`` (the self-drafting suffix match) or an arch whose packed twin,
@@ -36,6 +44,8 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --speculate smollm_360m --spec-quant 2
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --vmem-budget 0.25
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b --smoke --device cpu --vmem-budget 0.5
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --quant 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --smoke --device cpu --prefill-chunk 16
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --trace-out t.jsonl
     PYTHONPATH=src python -m repro_torch.perf.trace_export t.jsonl --check
 
@@ -71,6 +81,7 @@ from repro_torch.runtime.kv_pool import KVPool, choose_block_tokens
 from repro_torch.runtime.memledger import MemLedger, MemPressureMonitor
 from repro_torch.runtime.prefix_cache import PrefixCache
 from repro_torch.runtime.residency import (
+    BUDGET_REFUSAL,
     RuntimeResidencyPlan,
     compile_residency_plan,
     supports_budgeted_decode,
@@ -94,10 +105,7 @@ def build_residency_plan(cfg, args) -> RuntimeResidencyPlan | None:
     if not args.vmem_budget:
         return None
     if not supports_budgeted_decode(cfg):
-        raise ValueError(
-            f"--vmem-budget needs a streamable-FFN family the port serves; "
-            f"{cfg.name} is {cfg.family!r}"
-        )
+        raise ValueError(BUDGET_REFUSAL.format(family=cfg.family))
     return compile_residency_plan(
         cfg, vmem_budget_bytes=int(args.vmem_budget * 2**20)
     )
@@ -214,6 +222,20 @@ def _spec_metrics(sched, stats) -> dict:
     return out
 
 
+def _hybrid_metrics(sched) -> dict:
+    """The hybrid keys of ``[serve/metrics]``: the lanes' SSM state on the
+    pool's device, and the prefix cache's anchors: the host copies taken
+    (``Scheduler._lane_snapshot``), their MB and host ms each."""
+    n = sched.snapshots
+    return {
+        "lane_state_mib": sum(v.nbytes for v in sched._lane_state.values()) / 2**20,
+        "snapshots": n,
+        "snapshot_mib": sched.snapshot_bytes / 2**20,
+        "snapshot_ms_mean": sched.snapshot_s / n * 1e3 if n else None,
+        "anchors": sched.prefix_cache.stats()["anchors"] if sched.prefix_cache else 0,
+    }
+
+
 def run_pool_engine(
     cfg, params, args, device, residency=None, *, compiled: bool | None = None
 ) -> dict:
@@ -263,6 +285,7 @@ def run_pool_engine(
         **_spec_metrics(sched, stats),
         "expert_tokens": stats.expert_tokens,
         "moe": sched.moe_gauges() if cfg.family == "moe" else None,
+        "hybrid": _hybrid_metrics(sched) if cfg.family == "hybrid" else None,
         "residency": residency.summary() if residency is not None else None,
         "graphs": len(sched.graphs),
         "graph_replays": sum(g.replays for g in sched.graphs),
@@ -435,6 +458,14 @@ def main(argv=None) -> int:
             line += (f", {g['moe_streamed_experts']} streamed experts, "
                      f"{g['moe_stream_mask_occupancy']*100:.1f}% of them routed to")
         print(line)
+    if m["hybrid"] is not None:
+        h = m["hybrid"]
+        line = (f"[serve/hybrid] lane SSM state {h['lane_state_mib']:.1f} MiB on "
+                f"{m['device']}, {h['snapshots']} anchor copies to the host "
+                f"({h['snapshot_mib']:.1f} MiB")
+        if h["snapshot_ms_mean"] is not None:
+            line += f", {h['snapshot_ms_mean']:.2f} ms each"
+        print(line + f"), {h['anchors']} anchors cached at drain")
     if m["compiled"]:
         print(
             f"[serve/graphs] serve steps compiled: "

@@ -34,7 +34,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.kernels import ops
 from repro_torch.models import lm
-from repro_torch.models.config import PACKING_FAMILIES, PORTED_FAMILIES
+from repro_torch.models.config import PACKING_FAMILIES, TRAIN_FAMILIES
 from repro_torch.optim.adamw import AdamW
 from repro_torch.runtime.steps import make_train_step
 from repro_torch.runtime.train import TrainLoop, TrainLoopConfig
@@ -66,8 +66,8 @@ def main(argv=None) -> int:
     except ValueError as e:
         print(f"[train] {e}")
         return 2
-    if cfg.family not in PORTED_FAMILIES:
-        print(f"[train] family {cfg.family!r} is not ported yet")
+    if cfg.family not in TRAIN_FAMILIES:
+        print(f"[train] family {cfg.family!r} is not ported to training yet")
         return 2
     if args.quant and cfg.family in PACKING_FAMILIES:
         # packed uint8 carriers are inference-only: no gradients, no moments

@@ -28,7 +28,12 @@ PREFIX_CACHE_FAMILIES = ("dense", "vlm", "moe", "hybrid")
 # Families whose dense FFN stores 1/2-bit weights as packed uint8 carriers.
 PACKING_FAMILIES = ("dense", "vlm", "encdec", "hybrid")
 # Families the port serves so far (the rest raise ValueError).
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "hybrid")
+# The served families whose every layer is an attention layer: the
+# attention-KV entry points (``prefill_with_cache``, ``decode_step_paged``,
+# ``prefill_chunk_paged``, ``verify_chunk_paged``) and budgeted decode
+# take these; hybrid serves through its own entry points.
+ATTN_SERVED_FAMILIES = tuple(f for f in PORTED_FAMILIES if f in ATTN_KV_FAMILIES)
 # Families the port trains so far (MoE's capacity dispatch and its aux
 # loss are not ported: its training entry points raise ValueError).
 TRAIN_FAMILIES = ("dense",)
@@ -78,6 +83,15 @@ class ModelConfig:
     @property
     def padded_vocab(self) -> int:
         return pad_to(self.vocab, self.vocab_pad)
+
+    @property
+    def d_inner(self) -> int:
+        """SSM inner width."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
 
     @property
     def n_kv_cache_layers(self) -> int:

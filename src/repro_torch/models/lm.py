@@ -1,27 +1,33 @@
-"""Dense and MoE LM families: packed FFN weights, the training forward and
-loss, the pool serving forward, sampling.
+"""Dense, MoE and hybrid LM families: packed FFN weights, the training
+forward and loss, the pool serving forward, sampling.
 
-Port of ``repro.models.lm`` for ``family`` "dense" and "moe" (any other
-family raises ``ValueError``). The MoE family is served only: its FFN is
-``models.moe.moe_ffn_dropless`` and every serve entry point appends the
-(L, E) expert-load tally to its outputs, as the reference's do; its
-training path (capacity dispatch, aux loss) is not ported, so ``trunk``,
-``forward`` and ``loss_fn`` refuse it. The reference's parameter pytree becomes
-``LMParams``, an ``nn.Module`` that keeps the same stacked ``(L, ...)``
-per-layer leaves: float weights are parameters (frozen unless built with
-``trainable=True``), the FCMP-packed FFN leaves are ``{"packed",
+Port of ``repro.models.lm`` for ``family`` "dense", "moe" and "hybrid"
+(any other family raises ``ValueError``). The MoE family is served only:
+its FFN is ``models.moe.moe_ffn_dropless`` and every serve entry point
+appends the (L, E) expert-load tally to its outputs, as the reference's
+do; its training path (capacity dispatch, aux loss) is not ported, so
+``trunk``, ``forward`` and ``loss_fn`` refuse it. The hybrid family
+(Zamba2: Mamba2 layers, one shared attention + FFN block after every
+``hybrid_attn_every`` of them) is served only, through its own entry
+points (``prefill_with_cache_hybrid``, ``decode_step_paged_hybrid``,
+``prefill_suffix_paged_hybrid``), which carry a per-lane SSM state beside
+the pool; the attention-family entry points refuse it. The reference's
+parameter pytree becomes ``LMParams``, an ``nn.Module`` that keeps the
+same stacked ``(L, ...)`` per-layer leaves (and the hybrid's unstacked
+``shared`` subtree): float weights are parameters (frozen unless built
+with ``trainable=True``), the FCMP-packed FFN leaves are ``{"packed",
 "scale"}`` pairs of buffers (uint8 carrier, f32 per-channel scale). The
 reference's ``lax.scan`` over layers is a Python loop over views of the
 stacked leaves, so each layer's gradient lands in its slice of the
 stacked leaf.
 
-With ``cfg.w_bits`` in {1, 2} every dense-family FFN matmul goes through
-``kernels.ops.packed_matmul``: on the card the carrier is decoded in
-registers by the CUDA kernel and never expanded in device memory. Under
-a residency plan, the decode FFN of each streamed layer goes through
-``kernels.ops.stream_matmul`` instead (dense or packed); for MoE the plan
-streams single experts. MoE experts are never packed, whatever
-``w_bits`` is, as in the reference.
+With ``cfg.w_bits`` in {1, 2} every dense-family FFN matmul (and the
+hybrid's shared FFN) goes through ``kernels.ops.packed_matmul``: on the
+card the carrier is decoded in registers by the CUDA kernel and never
+expanded in device memory. Under a residency plan, the decode FFN of each
+streamed layer goes through ``kernels.ops.stream_matmul`` instead (dense
+or packed); for MoE the plan streams single experts. MoE experts are
+never packed, whatever ``w_bits`` is, as in the reference.
 """
 
 from __future__ import annotations
@@ -44,7 +50,9 @@ from repro_torch import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import (
+    ATTN_SERVED_FAMILIES,
     PORTED_FAMILIES,
     TRAIN_FAMILIES,
     ModelConfig,
@@ -68,7 +76,7 @@ def _require_ported(
 ) -> None:
     if cfg.family not in families:
         raise ValueError(
-            f"{what}: family {cfg.family!r} is not ported yet "
+            f"{what}: family {cfg.family!r} is not ported to it "
             f"(ported: {', '.join(families)})"
         )
 
@@ -184,14 +192,19 @@ class _Leaves(nn.Module):
 class LMParams(nn.Module):
     """The parameter tree of ``init_params`` as a module: top-level leaves
     (``embed``, ``final_norm``, ``unembed`` when untied) plus ``layers``,
-    whose leaves are stacked over the layer axis. ``trainable`` makes the
-    float leaves require gradients (training); serving keeps them frozen,
-    so it builds no autograd graph."""
+    whose leaves are stacked over the layer axis, and for the hybrid
+    family ``shared``, the one attention + FFN block every super-block
+    applies (unstacked leaves). ``trainable`` makes the float leaves
+    require gradients (training); serving keeps them frozen, so it builds
+    no autograd graph."""
 
     def __init__(self, tree: dict[str, Any], trainable: bool = False):
         super().__init__()
-        self.top = _Leaves({k: v for k, v in tree.items() if k != "layers"}, trainable)
+        self.top = _Leaves(
+            {k: v for k, v in tree.items() if k not in ("layers", "shared")}, trainable
+        )
         self.layers = _Leaves(tree["layers"], trainable)
+        self.shared = _Leaves(tree["shared"], trainable) if "shared" in tree else None
 
     def __getitem__(self, name: str):
         return self.top.leaf(name)
@@ -207,8 +220,15 @@ class LMParams(nn.Module):
             )
         return out
 
+    def shared_block(self) -> dict[str, Any]:
+        """The hybrid's shared attention + FFN block's leaves."""
+        return self.shared.tree()
+
     def tree(self) -> dict[str, Any]:
-        return {**self.top.tree(), "layers": self.layers.tree()}
+        out = {**self.top.tree(), "layers": self.layers.tree()}
+        if self.shared is not None:
+            out["shared"] = self.shared.tree()
+        return out
 
 
 EMBED_ROWS = 8192  # embedding rows drawn at a time by init_params
@@ -234,12 +254,18 @@ def pack_ffn(w: torch.Tensor, bits: int) -> dict[str, torch.Tensor]:
 
 
 def pack_ffn_params(params: LMParams, bits: int) -> LMParams:
-    """Dense ``params`` with their FFN leaves packed (``pack_ffn``), the
-    other leaves shared: bitwise ``init_params`` at ``w_bits=bits`` when
-    ``params`` is its dense (``w_bits=0``) draw of the same seed."""
+    """Dense ``params`` with their FFN leaves packed (``pack_ffn``; the
+    hybrid's shared FFN a (1, K, N) stack of one), the other leaves
+    shared: bitwise ``init_params`` at ``w_bits=bits`` when ``params`` is
+    its dense (``w_bits=0``) draw of the same seed."""
     tree = params.tree()
     tree["layers"] = {name: pack_ffn(leaf, bits) if name in FFN_LEAVES else leaf
                       for name, leaf in tree["layers"].items()}
+    if "shared" in tree:
+        tree["shared"] = {
+            name: ({k: v[0] for k, v in pack_ffn(leaf[None], bits).items()}
+                   if name in FFN_LEAVES else leaf)
+            for name, leaf in tree["shared"].items()}
     return LMParams(tree)
 
 
@@ -262,7 +288,11 @@ def init_params(
 
     The MoE family (the reference's lm.py:223) adds a ``router`` leaf (L,
     d, E) kept in f32 and stacks its expert FFNs as (L, E, d, ff) and (L, E,
-    ff, d), dense at any ``w_bits``.
+    ff, d), dense at any ``w_bits``. The hybrid family (lm.py:239) stacks
+    Mamba2 leaves (the reference's ``_init_ssm``; ``dt_bias``, ``a_log``,
+    ``d_skip`` and ``gate_norm`` in f32) and draws one ``shared`` block:
+    its norms, attention projections and a 2-D FFN, packed at ``w_bits``
+    1/2.
     A slice of a multiple of 16 values takes the same draws from the
     generator as the whole leaf would, so the numbers are those of one
     draw per leaf.
@@ -298,6 +328,46 @@ def init_params(
     }
     if not cfg.tie_embeddings:
         tree["unembed"] = normal((pv, d), 0.02, EMBED_ROWS)
+    if cfg.family == "hybrid":
+        if l % cfg.hybrid_attn_every:
+            raise ValueError(f"{cfg.name}: {l} layers are no whole number of "
+                             f"super-blocks of {cfg.hybrid_attn_every}")
+        di, st, nh, k = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.conv_kernel
+
+        def const(shape, value):
+            return torch.full(shape, value, dtype=torch.float32, device=device)
+
+        tree["layers"] = {
+            "ln1": const((l, d), 1.0),
+            "in_z": normal((l, d, di), s),
+            "in_x": normal((l, d, di), s),
+            "in_b": normal((l, d, st), s),
+            "in_c": normal((l, d, st), s),
+            "in_dt": normal((l, d, nh), s),
+            "dt_bias": const((l, nh), 0.0),
+            "conv_x": normal((l, k, di), 0.3),
+            "conv_b": normal((l, k, st), 0.3),
+            "conv_c": normal((l, k, st), 0.3),
+            "a_log": const((l, nh), 0.0),  # A = -1
+            "d_skip": const((l, nh), 1.0),
+            "gate_norm": const((l, di), 1.0),
+            "out": normal((l, di, d), di ** -0.5),
+        }
+        w1, w3, w2 = (normal((1, a, b), std) for a, b, std in (
+            (d, ff, s), (d, ff, s), (ff, d, s * 0.5)))
+        if cfg.w_bits in (1, 2):
+            w1, w3, w2 = (pack_ffn(w, cfg.w_bits) for w in (w1, w3, w2))
+        tree["shared"] = {
+            "ln1": const((d,), 1.0),
+            "ln2": const((d,), 1.0),
+            "wq": normal((1, d, hq * hd), s)[0],
+            "wk": normal((1, d, hkv * hd), s)[0],
+            "wv": normal((1, d, hkv * hd), s)[0],
+            "wo": normal((1, hq * hd, d), s)[0],
+            **{name: ({key: v[0] for key, v in w.items()} if isinstance(w, dict) else w[0])
+               for name, w in (("w1", w1), ("w3", w3), ("w2", w2))},
+        }
+        return LMParams(tree, trainable)
     tree["layers"] = {
         "ln1": torch.ones((l, d), dtype=torch.float32, device=device),
         "ln2": torch.ones((l, d), dtype=torch.float32, device=device),
@@ -388,6 +458,73 @@ def _unembed(params: LMParams, cfg: ModelConfig, x):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
     return unembed_logits(x, table, cfg.vocab)
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log(1 + exp(x)) as ``logaddexp(x, 0)``."""
+    return torch.logaddexp(x, x.new_zeros(()))
+
+
+def _conv_tail(u: torch.Tensor, k: int, prev: torch.Tensor | None = None) -> torch.Tensor:
+    """Last ``k-1`` pre-conv inputs of a (B, S, C) sequence, left-padded
+    with zeros when the sequence is shorter: the decode-time
+    ``conv_decode_step`` buffer after the sequence has been consumed.
+    ``prev`` (B, K-1, C) is the buffer carried in from an earlier chunk
+    of the same sequence (suffix prefill)."""
+    if prev is not None:
+        u = torch.cat([prev.to(u.dtype), u], dim=1)
+    b, s, c = u.shape
+    tail = u[:, max(0, s - (k - 1)):]
+    pad = (k - 1) - tail.shape[1]
+    if pad > 0:
+        tail = torch.cat([u.new_zeros((b, pad, c)), tail], dim=1)
+    return tail
+
+
+def _ssm_block(lp, cfg: ModelConfig, x, state=None, conv_bufs=None):
+    """Mamba2 block (the reference's lm.py:406): the sequence path (state
+    None), the one-token decode path (state given, S == 1), or the
+    sequence-with-state path (state given, S > 1: a suffix resumed from a
+    carried SSD state and conv buffers, the prefix-cache and chunked
+    prefill case).
+
+    Every path returns ``(x_out, new_state, new_bufs)``: the sequence
+    paths' state and buffers are the post-sequence decode state (the final
+    SSD state and the trailing pre-conv inputs), which hands a prefilled
+    request straight to the per-token recurrence."""
+    b = x.shape[0]
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    z = dense(h, lp["in_z"])
+    xi = dense(h, lp["in_x"])
+    bi = dense(h, lp["in_b"])
+    ci = dense(h, lp["in_c"])
+    dt = _softplus(dense(h, lp["in_dt"]).to(torch.float32) + lp["dt_bias"])
+    if state is None or x.shape[1] > 1:
+        k = cfg.conv_kernel
+        cx, cb, cc = conv_bufs if conv_bufs is not None else (None,) * 3
+        new_bufs = (_conv_tail(xi, k, cx), _conv_tail(bi, k, cb), _conv_tail(ci, k, cc))
+        xi = ssm_lib.causal_conv(xi, lp["conv_x"], state=cx)
+        bi = ssm_lib.causal_conv(bi, lp["conv_b"], state=cb)
+        ci = ssm_lib.causal_conv(ci, lp["conv_c"], state=cc)
+        s = x.shape[1]
+        xh = xi.reshape(b, s, cfg.ssm_heads, cfg.ssm_head_dim)
+        y, new_state = ssm_lib.ssd_chunked(
+            xh, dt, lp["a_log"], bi, ci, lp["d_skip"], cfg.ssm_chunk, h0=state
+        )
+        y = y.reshape(b, s, cfg.d_inner)
+    else:
+        cx, cb, cc = conv_bufs
+        xi1, cx = ssm_lib.conv_decode_step(cx, xi[:, 0], lp["conv_x"])
+        bi1, cb = ssm_lib.conv_decode_step(cb, bi[:, 0], lp["conv_b"])
+        ci1, cc = ssm_lib.conv_decode_step(cc, ci[:, 0], lp["conv_c"])
+        xh = xi1.reshape(b, cfg.ssm_heads, cfg.ssm_head_dim)
+        y1, new_state = ssm_lib.ssd_decode_step(
+            state, xh, dt[:, 0], lp["a_log"], bi1, ci1, lp["d_skip"]
+        )
+        y = y1.reshape(b, 1, cfg.d_inner)
+        new_bufs = (cx, cb, cc)
+    y = rms_norm(y * F.silu(z.to(torch.float32)).to(y.dtype), lp["gate_norm"], cfg.norm_eps)
+    return x + dense(y, lp["out"]), new_state, new_bufs
 
 
 # --------------------------------------------------------------------------
@@ -502,7 +639,7 @@ def prefill_with_cache(
     already RoPE'd: exactly the rows the pool stores); the MoE family
     appends the (L, E) expert-load tally (padded rows route and count).
     """
-    _require_ported(cfg, "prefill_with_cache")
+    _require_ported(cfg, "prefill_with_cache", ATTN_SERVED_FAMILIES)
     x = embed(tokens, params["embed"], torch_dtype(cfg))
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     ks, vs, tallies = [], [], []
@@ -552,7 +689,7 @@ def decode_step_paged(
     same tensors, updated in place; the MoE family appends the (L, E)
     expert-load tally (idle lanes route and count).
     """
-    _require_ported(cfg, "decode_step_paged")
+    _require_ported(cfg, "decode_step_paged", ATTN_SERVED_FAMILIES)
     moe = cfg.family == "moe"
     if stream_mask is not None and (
         len(stream_mask) != cfg.n_layers
@@ -628,7 +765,7 @@ def prefill_chunk_paged(
     tally (the dropless dispatch makes a chunk boundary invisible to
     routing, so chunked equals single-shot prefill).
     """
-    _require_ported(cfg, "prefill_chunk_paged")
+    _require_ported(cfg, "prefill_chunk_paged", ATTN_SERVED_FAMILIES)
     x = embed(tokens, params["embed"], torch_dtype(cfg))
     b, c, _ = x.shape
     q_offset = torch.as_tensor(start, device=x.device).reshape(1).to(torch.int32)
@@ -687,7 +824,7 @@ def verify_chunk_paged(
     Returns (logits (B, C, V) f32, pool_k, pool_v), the pools updated in
     place; the MoE family appends the (L, E) expert-load tally.
     """
-    _require_ported(cfg, "verify_chunk_paged")
+    _require_ported(cfg, "verify_chunk_paged", ATTN_SERVED_FAMILIES)
     x = embed(tokens, params["embed"], torch_dtype(cfg))
     b, c, _ = x.shape
     positions = starts.long()[:, None] + torch.arange(c, device=x.device)[None, :]
@@ -706,6 +843,198 @@ def verify_chunk_paged(
         x = x + dense(o.reshape(b, c, -1), lp["wo"])
         x = _serve_ffn(lp, cfg, x, tallies)
     return _with_tally(cfg, (_unembed(params, cfg, x), pool_k, pool_v), tallies)
+
+
+# --------------------------------------------------------------------------
+# Hybrid (Zamba2) paged serving: the shared attention blocks' KV pages
+# through the pool, the SSM conv buffers and state stay per decode lane
+# --------------------------------------------------------------------------
+
+LANE_KEYS = ("ssm", "conv_x", "conv_b", "conv_c")
+
+
+def init_ssm_lane_state(cfg: ModelConfig, slots: int, device=None) -> dict[str, torch.Tensor]:
+    """Per-lane SSM decode state of the hybrid pool scheduler, on
+    ``device`` (CUDA unless the caller asks for the CPU).
+
+    Unlike the attention KV cache it is fixed-size per lane (the SSD
+    recurrence is O(1) in sequence length), so it never pages: leaves are
+    (L, slots, ...) and a lane's slice is overwritten on admission. The
+    SSD state is f32; the conv buffers are in the model dtype."""
+    device = resolve_device(device)
+    dt = torch_dtype(cfg)
+    l, k = cfg.n_layers, cfg.conv_kernel
+    return {
+        "ssm": torch.zeros((l, slots, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                           dtype=torch.float32, device=device),
+        "conv_x": torch.zeros((l, slots, k - 1, cfg.d_inner), dtype=dt, device=device),
+        "conv_b": torch.zeros((l, slots, k - 1, cfg.ssm_state), dtype=dt, device=device),
+        "conv_c": torch.zeros((l, slots, k - 1, cfg.ssm_state), dtype=dt, device=device),
+    }
+
+
+def _lane_views(lane_state: dict, i: int) -> tuple[torch.Tensor, tuple]:
+    """Layer ``i``'s SSD state and conv buffers: views into the lanes."""
+    return lane_state["ssm"][i], tuple(lane_state[key][i] for key in LANE_KEYS[1:])
+
+
+def _store_lane(lane_state: dict, i: int, state, bufs) -> None:
+    """Write layer ``i``'s new SSD state and conv buffers into the lanes,
+    in place: a captured step keeps its lane buffers' addresses."""
+    for key, t in zip(LANE_KEYS, (state, *bufs)):
+        lane_state[key][i].copy_(t)
+
+
+def _shared_after(cfg: ModelConfig, i: int) -> int | None:
+    """The shared block's KV-cache layer that follows SSM layer ``i``, or
+    None inside a super-block."""
+    every = cfg.hybrid_attn_every
+    return (i + 1) // every - 1 if (i + 1) % every == 0 else None
+
+
+@torch.no_grad()
+def prefill_with_cache_hybrid(
+    params: LMParams, cfg: ModelConfig, tokens: torch.Tensor,
+    last_idx: int | torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, dict[str, torch.Tensor]]:
+    """Hybrid whole-prompt prefill keeping both kinds of decode state.
+
+    tokens: (B, S) prompts, **unpadded** (the final SSD state integrates
+    every position, so a padded tail would pollute it: the scheduler
+    prefills hybrid prompts at their own length, eagerly on the card).
+    The shared block's attention runs ``flash_fwd``, causal. Returns
+    (next-token logits (B, 1, V) f32, ks, vs stacked (n_super, B, S, n_kv,
+    hd): the shared blocks' K/V rows for the pool, and the lane-state dict
+    of ``init_ssm_lane_state`` with leaves (L, B, ...))."""
+    _require_ported(cfg, "prefill_with_cache_hybrid", ("hybrid",))
+    x = embed(tokens, params["embed"], torch_dtype(cfg))
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    shared = params.shared_block()
+    lane: dict[str, list] = {key: [] for key in LANE_KEYS}
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        x, st, bufs = _ssm_block(params.layer(i), cfg, x)
+        for key, t in zip(LANE_KEYS, (st, *bufs)):
+            lane[key].append(t)
+        if _shared_after(cfg, i) is not None:
+            x, (k, v) = _attn_block(shared, cfg, x, positions, causal=True)
+            x = _ffn_block(shared, cfg, x)
+            ks.append(k)
+            vs.append(v)
+    idx = torch.as_tensor(last_idx, device=x.device).reshape(1).long()
+    lg = _unembed(params, cfg, x.index_select(1, idx))
+    return lg, torch.stack(ks), torch.stack(vs), {k: torch.stack(v) for k, v in lane.items()}
+
+
+@torch.no_grad()
+def decode_step_paged_hybrid(
+    params: LMParams,
+    cfg: ModelConfig,
+    token: torch.Tensor,
+    pool_k: torch.Tensor,
+    pool_v: torch.Tensor,
+    row_table: torch.Tensor,
+    lengths: torch.Tensor,
+    lane_state: dict[str, torch.Tensor],
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, dict[str, torch.Tensor]]:
+    """``decode_step_paged`` for the hybrid family.
+
+    The shared attention block after each super-block writes and gathers
+    its K/V rows through the pool (pool_k/pool_v are (n_super, R, n_kv,
+    hd), addressed by the same per-lane ``row_table``/``lengths`` as the
+    attention families; the plain ``decode_attention``), while each SSM
+    layer advances the per-lane ``lane_state`` (leaves (L, B, ...)) by one
+    token. Every lane steps, idle ones included (a lane's state is
+    overwritten on admission). Returns (logits (B, 1, V) f32, pool_k,
+    pool_v, lane_state): the pools and the lane state are the same
+    tensors, updated in place, so a captured step binds them."""
+    _require_ported(cfg, "decode_step_paged_hybrid", ("hybrid",))
+    x = embed(token, params["embed"], torch_dtype(cfg))
+    b = x.shape[0]
+    s_max = row_table.shape[1]
+    lengths = lengths.long()
+    row_table = row_table.long()
+    pos_b = lengths[:, None]
+    write_rows = torch.gather(row_table, 1, torch.clamp(lengths, 0, s_max - 1)[:, None])[:, 0]
+    shared = params.shared_block()
+    for i in range(cfg.n_layers):
+        state, bufs = _lane_views(lane_state, i)
+        x, state, bufs = _ssm_block(params.layer(i), cfg, x, state=state, conv_bufs=bufs)
+        _store_lane(lane_state, i, state, bufs)
+        j = _shared_after(cfg, i)
+        if j is None:
+            continue
+        pk, pv = pool_k[j], pool_v[j]
+        q, k, v = _qkv(shared, cfg, x, pos_b)
+        pk[write_rows] = k[:, 0].to(pk.dtype)
+        pv[write_rows] = v[:, 0].to(pv.dtype)
+        o = attn.decode_attention(q, pk[row_table], pv[row_table], (lengths + 1)[:, None])
+        x = x + dense(o.reshape(b, 1, -1), shared["wo"])
+        x = _ffn_block(shared, cfg, x)
+    return _unembed(params, cfg, x), pool_k, pool_v, lane_state
+
+
+@torch.no_grad()
+def prefill_suffix_paged_hybrid(
+    params: LMParams,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,
+    pool_k: torch.Tensor,
+    pool_v: torch.Tensor,
+    row_table: torch.Tensor,
+    write_rows: torch.Tensor,
+    start: int | torch.Tensor,
+    last_idx: int | torch.Tensor,
+    lane_state: dict[str, torch.Tensor],
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, dict[str, torch.Tensor]]:
+    """Hybrid prefill of a prompt suffix, resumed from carried state.
+
+    Positions ``0..start-1`` were served already: by a cached prefix
+    (their shared-attention K/V rows sit in the pool, gathered through
+    ``row_table``, and ``lane_state`` is the anchor's snapshot) or by the
+    prompt's earlier chunks (``lane_state`` carried from the last one).
+    The suffix's SSD scan starts from the carried state and its causal
+    convs take their left context from the carried conv buffers, so the
+    result is the cold whole-prompt prefill's, up to the order of the
+    SSD's sums (another chunk partition).
+
+    tokens: (B, C) **unpadded** suffix; write_rows: (B, C) physical pool
+    row per suffix token; start: position of the suffix's first token;
+    last_idx: in-suffix index of the prompt's last token; each of the two
+    an int or a one-element integer tensor, used on the device either way
+    (``start`` is ``flash_fwd``'s device ``q_offset``), so one captured
+    step serves every start. The shared block's attention runs
+    ``flash_fwd`` over the gathered rows with ``q_offset = start`` (the
+    reference's plain ``chunk_attention``, as in ``prefill_chunk_paged``).
+    Returns (logits at last_idx (B, 1, V) f32, pool_k, pool_v,
+    lane_state), the pools and ``lane_state`` (leaves (L, B, ...)) updated
+    in place."""
+    _require_ported(cfg, "prefill_suffix_paged_hybrid", ("hybrid",))
+    x = embed(tokens, params["embed"], torch_dtype(cfg))
+    b, c, _ = x.shape
+    q_offset = torch.as_tensor(start, device=x.device).reshape(1).to(torch.int32)
+    positions = q_offset.long() + torch.arange(c, device=x.device)[None, :]
+    row_table = row_table.long()
+    write_rows = write_rows.long()
+    shared = params.shared_block()
+    for i in range(cfg.n_layers):
+        state, bufs = _lane_views(lane_state, i)
+        x, state, bufs = _ssm_block(params.layer(i), cfg, x, state=state, conv_bufs=bufs)
+        _store_lane(lane_state, i, state, bufs)
+        j = _shared_after(cfg, i)
+        if j is None:
+            continue
+        pk, pv = pool_k[j], pool_v[j]
+        q, k, v = _qkv(shared, cfg, x, positions)
+        pk[write_rows] = k.to(pk.dtype)
+        pv[write_rows] = v.to(pv.dtype)
+        o = attn.flash_attention(
+            q, pk[row_table], pv[row_table], causal=True, q_offset=q_offset
+        )
+        x = x + dense(o.reshape(b, c, -1), shared["wo"])
+        x = _ffn_block(shared, cfg, x)
+    idx = torch.as_tensor(last_idx, device=x.device).reshape(1).long()
+    return _unembed(params, cfg, x.index_select(1, idx)), pool_k, pool_v, lane_state
 
 
 # --------------------------------------------------------------------------

@@ -14,7 +14,9 @@ cycle with ``begin_draft`` / ``end_draft``: the chain's rows land in blocks
 charged to the ``draft`` owner, and a rejected suffix gives them back.
 
 Device side: ``k``/``v`` are (n_kv_cache_layers, n_blocks * block_tokens,
-n_kv, hd) row-addressed tensors (the block is an allocator concept only),
+n_kv, hd) row-addressed tensors (n_kv_cache_layers: every layer for the
+dense and MoE families, one per shared-block application for hybrid, whose
+SSM state the scheduler keeps per lane beside the pool) (the block is an allocator concept only),
 updated in place where the reference rebuilt its arrays. They are never
 rebound: a captured CUDA graph binds their addresses, so the
 copy-on-write copy is an in-place copy between two row ranges. Host side:

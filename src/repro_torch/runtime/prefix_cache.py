@@ -1,9 +1,8 @@
 """Radix-tree prefix index over committed token-id sequences.
 
 Port of ``repro.runtime.prefix_cache`` (numpy only, copied; it indexes
-the port's ``KVPool``). The port serves the dense and MoE families with it; the
-hybrid anchors below are copied as they stand and wait for the hybrid
-steps.
+the port's ``KVPool``). The port serves the dense, MoE and hybrid families
+with it; the hybrid scheduler commits and looks up the anchors below.
 
 The serving analog of the paper's FCMP cascade one level up: the KV pool
 already packs many requests into one physical memory; the prefix cache

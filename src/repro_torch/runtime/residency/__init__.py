@@ -8,7 +8,7 @@ experts) run the ordinary FFN path and streamed ones run
 ``kernels.weight_stream.stream_matmul``.
 """
 
-from repro_torch.runtime.residency.executor import supports_budgeted_decode
+from repro_torch.runtime.residency.executor import BUDGET_REFUSAL, supports_budgeted_decode
 from repro_torch.runtime.residency.plan import (
     RuntimeResidencyPlan,
     TrafficProfile,
@@ -20,6 +20,7 @@ from repro_torch.runtime.residency.plan import (
 )
 
 __all__ = [
+    "BUDGET_REFUSAL",
     "RuntimeResidencyPlan",
     "TrafficProfile",
     "compile_residency_plan",

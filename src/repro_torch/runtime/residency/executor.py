@@ -14,12 +14,21 @@ so budgeted decode is token-identical to the unbudgeted path there.
 
 from __future__ import annotations
 
-from repro_torch.models.config import PORTED_FAMILIES, ModelConfig
+from repro_torch.models.config import ATTN_SERVED_FAMILIES, ModelConfig
+
+
+# the reference's refusal (repro.runtime.residency.executor)
+BUDGET_REFUSAL = (
+    "budgeted decode needs a streamable-FFN attention family; got {family!r} "
+    "(ssm/hybrid state is out of the residency executor's scope)"
+)
 
 
 def supports_budgeted_decode(cfg: ModelConfig) -> bool:
     """Budgeted decode = paged decode + a streamable FFN weight set, for
-    the families the port serves: dense (a per-layer stream mask) and moe
-    (per (layer, expert) over the dropless dispatch). The reference also
-    covers vlm, which is not ported."""
-    return cfg.family in PORTED_FAMILIES
+    the attention families the port serves: dense (a per-layer stream
+    mask) and moe (per (layer, expert) over the dropless dispatch). The
+    reference also covers vlm, which is not ported; like the reference,
+    it leaves out hybrid, whose SSM state is out of the executor's
+    scope."""
+    return cfg.family in ATTN_SERVED_FAMILIES

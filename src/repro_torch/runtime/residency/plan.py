@@ -76,8 +76,10 @@ def weight_blocks(cfg: ModelConfig) -> tuple[WeightBlock, ...]:
     FFN matmul per layer, named ``L{l}.{mat}``, with ``bits_per_weight``
     the packed precision or the dense dtype width; for MoE one block per
     expert mat, ``L{l}.e{e}.{mat}``, always at the dense dtype's width
-    (experts are never packed). The reference's hybrid shared blocks come
-    with that family."""
+    (experts are never packed); for hybrid the shared block's three,
+    ``shared.{mat}``. Budgeted decode does not run hybrid (its SSM state is
+    out of the executor's scope, as in the reference), but its plan lists
+    and prices the shared blocks."""
     if cfg.family not in PORTED_FAMILIES:
         raise ValueError(
             f"the residency plan covers the ported families "
@@ -85,6 +87,9 @@ def weight_blocks(cfg: ModelConfig) -> tuple[WeightBlock, ...]:
         )
     d, ff = cfg.d_model, cfg.d_ff
     mats = {"w1": (d, ff), "w3": (d, ff), "w2": (ff, d)}
+    if cfg.family == "hybrid":
+        bits = _block_bits(cfg)
+        return tuple(WeightBlock(f"shared.{mat}", r, c, bits) for mat, (r, c) in mats.items())
     if cfg.family == "moe":
         ebits = _dtype_bytes(cfg) * 8
         return tuple(
@@ -111,9 +116,13 @@ def _region_of(name: str) -> str:
 
 def read_weight(name: str, cfg: ModelConfig) -> float:
     """Expected reads of a block per decode step (the Eq. 2 traffic
-    term): top_k / E for an MoE expert block, 1 otherwise."""
+    term): top_k / E for an MoE expert block, the shared block's
+    applications (n_layers / hybrid_attn_every) for a hybrid shared
+    block, 1 otherwise."""
     if cfg.family == "moe" and ".e" in name:
         return cfg.experts_per_token / max(1, cfg.n_experts)
+    if cfg.family == "hybrid" and name.startswith("shared."):
+        return cfg.n_layers / max(1, cfg.hybrid_attn_every)
     return 1.0
 
 

@@ -1,7 +1,7 @@
 """Continuous-batching request scheduler over a shared KV pool.
 
-Port of ``repro.runtime.scheduler`` for the dense and MoE families. Request
-lifecycle: QUEUED -> PREFILL -> DECODE -> DONE. Admission is token-budget
+Port of ``repro.runtime.scheduler`` for the dense, MoE and hybrid families.
+Request lifecycle: QUEUED -> PREFILL -> DECODE -> DONE. Admission is token-budget
 bound (committed prompt+generation tokens across in-flight requests never
 exceed ``token_budget``) and pool-bound (the ``KVPool`` must hold the
 request's full block commitment). A prompt within ``prefill_chunk``
@@ -23,6 +23,20 @@ tally (``_note_expert_counts``; padded prompt rows and idle decode lanes
 route and count, as in the reference), from which each round record
 derives the expert-load gauges.
 
+Hybrid (Zamba2): the pool pages only the shared attention block's K/V
+rows; each decode lane also holds a fixed-size SSM state (``_lane_state``,
+leaves (L, slots, ...) on the pool's device: the f32 SSD state and the
+conv buffers), which the decode step advances in place. Hybrid prompts
+never pad (the SSD state integrates every position): a prompt within
+``prefill_chunk`` prefills unpadded in one step at its own length, and a
+longer one streams through the suffix step, each chunk resuming from the
+state the last one left (``_chunk_lane``), so chunked prefill gives the
+single-shot tokens. The prefix cache stores an **anchor** beside the
+blocks: a host copy of the lane's state (``_lane_snapshot``, 72 MB a lane
+at zamba2-2.7b) at the committed prompt's end and at the conversation's
+end; a hybrid lookup matches anchors only, and a hit resumes the suffix
+from the anchor's copy.
+
 ``prefix_cache`` (a ``runtime.prefix_cache.PrefixCache`` over this pool)
 makes a new request adopt its longest cached prefix's blocks and prefill
 only the unmatched suffix, through the chunk step from the matched
@@ -41,7 +55,13 @@ one whole-prompt prefill graph per bucket (a multiple of
 ``block_tokens`` up to ``prefill_chunk``, as the reference compiles one
 program per bucket shape), all in one memory pool. ``compiled=False`` runs
 every step eagerly on the card; the CPU has no graphs, so a CPU pool runs
-eagerly and ``compiled=True`` on it raises.
+eagerly and ``compiled=True`` on it raises. For hybrid, what recurs is
+captured: the decode step (every lane's SSM state a static buffer,
+advanced in place) and the full-width suffix chunk (``prefill_chunk``
+tokens; the carried lane state is copied into the graph's static lane
+buffer before a replay and out after it). Unpadded whole prompts and
+shorter chunk tails run eagerly: their lengths vary, and the reference
+traces one program per length.
 
 ``speculative`` (a ``runtime.speculative.Speculator``) replaces each
 decode step with a speculate-and-verify cycle: the drafter proposes a
@@ -77,7 +97,13 @@ from repro_torch.models.config import (
     PREFIX_CACHE_FAMILIES,
     ModelConfig,
 )
-from repro_torch.models.lm import LMParams, SamplingParams, sample_logits
+from repro_torch.models.lm import (
+    LANE_KEYS,
+    LMParams,
+    SamplingParams,
+    init_ssm_lane_state,
+    sample_logits,
+)
 from repro_torch.runtime.tracker import DELTA_KEYS
 from repro_torch.runtime.kv_pool import KVPool
 from repro_torch.runtime.residency.plan import RuntimeResidencyPlan
@@ -86,6 +112,7 @@ from repro_torch.runtime.steps import (
     CapturedStep,
     make_budgeted_paged_serve_step,
     make_chunk_prefill_step,
+    make_hybrid_suffix_prefill_step,
     make_paged_serve_step,
     make_pool_prefill_step,
     make_verify_step,
@@ -267,8 +294,14 @@ class Scheduler:
         self.prefill_chunk = min(
             prefill_chunk or self.token_budget, self.token_budget
         )
+        self._hybrid = cfg.family == "hybrid"
         self._prefill = make_pool_prefill_step(cfg)
-        self._chunk_prefill = make_chunk_prefill_step(cfg)
+        # hybrid chunks through the carried-state suffix step, not the
+        # stateless attention chunk step
+        self._chunk_prefill = (
+            make_hybrid_suffix_prefill_step(cfg) if self._hybrid
+            else make_chunk_prefill_step(cfg)
+        )
         # a residency plan sends decode through the budgeted step: its
         # streamed layers run the FFN through stream_matmul
         self.residency = residency
@@ -290,6 +323,20 @@ class Scheduler:
         if self._moe and residency is not None:
             self._expert_resident = ~np.asarray(residency.expert_stream_mask(cfg), bool)
         self._chunk_cursor: dict[int, int] = {}
+        # hybrid: every lane's SSM decode state, resident next to the pool
+        # (which pages only the shared attention blocks' K/V); a long
+        # prompt's carried state between its chunks (leaves (L, 1, ...)),
+        # keyed like the cursor and moved into the lane on the last chunk;
+        # the chunk graph's static lane buffer; and the anchors' host copies:
+        # their count, bytes and host seconds (device to host)
+        self._lane_state = (
+            init_ssm_lane_state(cfg, slots, device=self.device) if self._hybrid else None
+        )
+        self._chunk_lane: dict[int, dict[str, torch.Tensor]] = {}
+        self._chunk_lane_buf: dict[str, torch.Tensor] | None = None
+        self.snapshots = 0
+        self.snapshot_bytes = 0
+        self.snapshot_s = 0.0
         self.queue: deque[Request] = deque()
         self.requests: dict[int, Request] = {}
         self.active: list[int | None] = [None] * slots
@@ -469,13 +516,32 @@ class Scheduler:
 
     # ---------------- admission / prefill ----------------
 
-    def _commit_prefix(self, req: Request) -> None:
-        """Index the freshly prefilled prompt in the radix cache: its full
-        blocks become shared nodes."""
-        if self.prefix_cache is not None:
-            self.prefix_cache.commit(req.prompt, self.pool.blocks_of(req.rid))
+    def _lane_snapshot(self, slot: int) -> dict[str, torch.Tensor]:
+        """A host copy of one lane's SSM state (leaves (L, 1, ...)), the
+        reference's ``np.asarray`` of it: an anchor must not follow the
+        lane, which later steps advance in place."""
+        t0 = time.perf_counter()
+        snap = {k: v[:, slot:slot + 1].to("cpu", copy=True) for k, v in self._lane_state.items()}
+        self.snapshot_s += time.perf_counter() - t0
+        self.snapshots += 1
+        self.snapshot_bytes += sum(v.nbytes for v in snap.values())
+        return snap
 
-    def _commit_generated(self, req: Request) -> None:
+    def _restore_lane(self, slot: int, lane: dict[str, torch.Tensor]) -> None:
+        """Copy a lane state (leaves (L, 1, ...), on any device) into lane
+        ``slot``, in place: the decode graph keeps its buffers."""
+        for key in LANE_KEYS:
+            self._lane_state[key][:, slot].copy_(lane[key][:, 0])
+
+    def _commit_prefix(self, slot: int, req: Request) -> None:
+        """Index the freshly prefilled prompt in the radix cache: its full
+        blocks become shared nodes; a hybrid also anchors its lane's SSM
+        state at the prompt's end (taken before decode advances it)."""
+        if self.prefix_cache is not None:
+            lane = self._lane_snapshot(slot) if self._hybrid else None
+            self.prefix_cache.commit(req.prompt, self.pool.blocks_of(req.rid), lane_state=lane)
+
+    def _commit_generated(self, slot: int, req: Request) -> None:
         """Re-index the finished conversation, prompt plus generated
         tokens, so a follow-up turn adopts the whole transcript's blocks.
         The last sampled token never went through the model and has no KV
@@ -486,7 +552,8 @@ class Scheduler:
         seq = np.concatenate([req.prompt, np.asarray(req.output[:-1], np.int32)])
         if len(seq) == len(req.prompt):
             return  # a 1-token request: the prompt's commit covers it
-        self.prefix_cache.commit(seq, self.pool.blocks_of(req.rid))
+        lane = self._lane_snapshot(slot) if self._hybrid else None
+        self.prefix_cache.commit(seq, self.pool.blocks_of(req.rid), lane_state=lane)
 
     def _start_decode(self, slot: int, req: Request, first: int, t_first: float) -> None:
         """Move a fully-prefilled request onto its decode lane. ``t_first``
@@ -494,7 +561,7 @@ class Scheduler:
         req.t_first_token = time.monotonic()
         self.stats.ttfts.append(req.ttft)
         req.output.append(first)
-        self._commit_prefix(req)
+        self._commit_prefix(slot, req)
         if self.spans is not None:
             # the first token exists the instant its prefill step ends: the
             # stamp is that span's end, a boundary on any clock
@@ -527,11 +594,13 @@ class Scheduler:
     def _admit_one(self) -> bool:
         """Admit the head-of-queue request if resources allow.
 
-        Prompts within ``prefill_chunk`` prefill in one bucketed step;
-        longer prompts are admitted only when no other request holds
-        budget, then stream through ``prefill_chunk``-sized rounds. A
-        prefix-cache hit adopts the matched blocks and prefills the rest
-        through chunks from the matched position, whatever the length.
+        Prompts within ``prefill_chunk`` prefill in one bucketed step
+        (hybrid: unpadded); longer prompts are admitted only when no other
+        request holds budget, then stream through ``prefill_chunk``-sized
+        rounds. A prefix-cache hit adopts the matched blocks and prefills
+        the rest through chunks from the matched position, whatever the
+        length; a hybrid looks up anchors only and resumes from the
+        anchor's copy of the SSM state (the zero state on a miss).
         """
         if not self.queue:
             return False
@@ -557,7 +626,7 @@ class Scheduler:
         # (refcount bump; copy-on-write for a partially matched block)
         match = None
         if self.prefix_cache is not None:
-            match = self.prefix_cache.lookup(req.prompt)
+            match = self.prefix_cache.lookup(req.prompt, anchor=self._hybrid)
         if match is not None:
             self.pool.adopt_prefix(req.rid, match.shared, match.tail_block, match.matched)
             self.stats.prefix_hits += 1
@@ -574,16 +643,26 @@ class Scheduler:
             # chunked prefill from the matched position (0 on a miss)
             self.active[slot] = req.rid
             self._chunk_cursor[req.rid] = match.matched if match is not None else 0
+            if self._hybrid:
+                # a copy: the chunks advance it in place, the anchor stays
+                self._chunk_lane[req.rid] = (
+                    {k: v.to(self.device, copy=True) for k, v in match.lane_state.items()}
+                    if match is not None else init_ssm_lane_state(self.cfg, 1, self.device)
+                )
             self._prefill_one_chunk(slot)
             return True
 
         t = self.pool.block_tokens
-        bucket = max(t, -(-p // t) * t)
+        # hybrid prompts never pad: a padded tail would enter the SSD state
+        bucket = p if self._hybrid else max(t, -(-p // t) * t)
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :p] = req.prompt
         t0 = self.spans.now() if self.spans is not None else 0.0
-        logits, ks, vs, counts = self._run_prefill(padded, p - 1)
-        self._note_expert_counts(counts)
+        logits, ks, vs, extra = self._run_prefill(padded, p - 1)
+        if self._hybrid:
+            self._restore_lane(slot, extra)  # the post-prompt state moves into the lane
+        else:
+            self._note_expert_counts(extra)
         self.pool.write_prefill(req.rid, ks[:, 0], vs[:, 0], n_tokens=p)
         self.stats.prefill_steps += 1
         self.stats.prefill_tokens += p
@@ -599,8 +678,12 @@ class Scheduler:
     def _run_prefill(self, tokens: np.ndarray, last: int):
         """The whole-prompt prefill of one bucket (``tokens`` (1, bucket)):
         the bucket's captured graph (captured on first use), or the eager
-        step. Returns (logits, ks, vs, the MoE tally or None); a graph's are
-        its static outputs, which its next replay overwrites."""
+        step. Returns (logits, ks, vs, the MoE tally or None; hybrid: the
+        prompt's lane state); a graph's are its static outputs, which its
+        next replay overwrites. A hybrid prompt (unpadded, any length)
+        always runs eagerly."""
+        if self._hybrid:
+            return self._prefill(self.params, self._to_device(tokens), self._to_device([last]))
         if not self.compiled:
             out, tally = _split(self._prefill(
                 self.params, self._to_device(tokens), self._to_device([last])
@@ -652,9 +735,49 @@ class Scheduler:
             self._host_tensor([last]),
         )
 
+    def _run_hybrid_chunk(self, rid: int, tokens, row_table, write_rows, start: int,
+                          last: int) -> torch.Tensor:
+        """One hybrid chunk (``tokens`` (1, n), unpadded), resumed from and
+        advancing ``_chunk_lane[rid]``: a full-width chunk through the
+        captured suffix graph (captured on first use; the carried state is
+        copied into its static lane buffer before the replay and out after
+        it), a shorter one eagerly. Returns the logits."""
+        lane = self._chunk_lane[rid]
+        if not self.compiled or tokens.shape[1] != self.prefill_chunk:
+            out = self._chunk_prefill(
+                self.params, self._to_device(tokens), self.pool.k, self.pool.v,
+                self._to_device(row_table), self._to_device(write_rows),
+                self._to_device([start]), self._to_device([last]), lane,
+            )
+            return out[0]
+        if self._chunk_graph is None:
+            self._chunk_lane_buf = init_ssm_lane_state(self.cfg, 1, self.device)
+            suffix, params, pk, pv, buf = (
+                self._chunk_prefill, self.params, self.pool.k, self.pool.v,
+                self._chunk_lane_buf,
+            )
+
+            def chunk(tok, table, rows, start_idx, last_idx):
+                return suffix(params, tok, pk, pv, table, rows, start_idx, last_idx, buf)[0]
+
+            self._chunk_graph = CapturedStep(chunk, device=self.device, mempool=self._graph_pool)
+        for key in LANE_KEYS:
+            self._chunk_lane_buf[key].copy_(lane[key])
+        logits = self._chunk_graph(
+            self._host_tensor(tokens), self._host_tensor(row_table),
+            self._host_tensor(write_rows), self._host_tensor([start]),
+            self._host_tensor([last]),
+        )
+        for key in LANE_KEYS:
+            lane[key].copy_(self._chunk_lane_buf[key])
+        return logits
+
     def _prefill_one_chunk(self, slot: int) -> None:
         """Run one ``prefill_chunk``-sized piece of a long prompt, padded
-        to the fixed chunk width with scratch rows."""
+        to the fixed chunk width with scratch rows; a hybrid chunk runs
+        unpadded (a padded tail would enter the carried SSD state) and
+        resumes from ``_chunk_lane``, so chunked hybrid prefill gives the
+        single-shot tokens."""
         rid = self.active[slot]
         req = self.requests[rid]
         c0 = self._chunk_cursor[rid]
@@ -665,13 +788,18 @@ class Scheduler:
         self.pool.note_tokens(rid, c0 + n)
         rows = self.pool.rows_of(rid)[c0 : c0 + n]
         row_table = self.pool.rows_of(rid, pad_to=self.s_max)[None]
-        scratch = int(self.pool.scratch_rows(1)[0])
-        write_rows = np.full((1, c), scratch, np.int32)
-        write_rows[0, :n] = rows
-        tokens = np.zeros((1, c), np.int32)
-        tokens[0, :n] = req.prompt[c0 : c0 + n]
-        logits, counts = self._run_chunk(tokens, row_table, write_rows, c0, n - 1)
-        self._note_expert_counts(counts)
+        if self._hybrid:
+            logits = self._run_hybrid_chunk(
+                rid, req.prompt[None, c0 : c0 + n], row_table, rows[None], c0, n - 1
+            )
+        else:
+            scratch = int(self.pool.scratch_rows(1)[0])
+            write_rows = np.full((1, c), scratch, np.int32)
+            write_rows[0, :n] = rows
+            tokens = np.zeros((1, c), np.int32)
+            tokens[0, :n] = req.prompt[c0 : c0 + n]
+            logits, counts = self._run_chunk(tokens, row_table, write_rows, c0, n - 1)
+            self._note_expert_counts(counts)
         self.stats.prefill_steps += 1
         self.stats.prefill_tokens += n
         t1 = 0.0
@@ -681,6 +809,9 @@ class Scheduler:
         self._chunk_cursor[rid] = c0 + n
         if c0 + n >= p:
             del self._chunk_cursor[rid]
+            if self._hybrid:
+                # the post-prompt state moves into the decode lane
+                self._restore_lane(slot, self._chunk_lane.pop(rid))
             first = self._sample_one(req, self._host(logits[0, 0]))
             self._start_decode(slot, req, first, t1)
 
@@ -688,7 +819,7 @@ class Scheduler:
         rid = self.active[slot]
         req = self.requests[rid]
         req._enter(RequestState.DONE)
-        self._commit_generated(req)
+        self._commit_generated(slot, req)
         if self.speculative is not None:
             self.speculative.release_lane(slot)
         self.pool.release(rid)
@@ -714,7 +845,9 @@ class Scheduler:
     def _run_decode(self):
         """One decode step over every lane: the captured graph (captured
         on first use), or the eager step. Returns (logits, the MoE tally or
-        None)."""
+        None). A hybrid step also advances every lane's SSM state in
+        place (the graph binds ``_lane_state``)."""
+        lane = (self._lane_state,) if self._hybrid else ()
         if not self.compiled:
             if self._table_dirty:
                 self._row_table_dev = self._to_device(self._row_table)
@@ -726,6 +859,7 @@ class Scheduler:
                 self.pool.v,
                 self._row_table_dev,
                 self._to_device(self._lengths),
+                *lane,
             ), self._moe)
             return out[0], tally
         if self._decode_graph is None:
@@ -734,7 +868,7 @@ class Scheduler:
             )
 
             def decode(token, table, lengths):
-                out, tally = _split(step(params, token, pk, pv, table, lengths), moe)
+                out, tally = _split(step(params, token, pk, pv, table, lengths, *lane), moe)
                 return out[0], tally
 
             self._decode_graph = CapturedStep(

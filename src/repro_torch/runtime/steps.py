@@ -2,10 +2,13 @@
 continuous-batching scheduler, and ``CapturedStep``, which compiles a pool
 step into a CUDA graph.
 
-Port of ``repro.runtime.steps`` for the dense and MoE families (the train
-step: dense only). A step is the model function closed over the config;
-the MoE family's pool steps return the (L, E) expert-load tally as one
-more output, which a ``CapturedStep`` binds like the others. There is no
+Port of ``repro.runtime.steps`` for the dense, MoE and hybrid families
+(the train step: dense only). A step is the model function closed over the
+config; the MoE family's pool steps return the (L, E) expert-load tally as
+one more output, which a ``CapturedStep`` binds like the others; the
+hybrid's decode step takes and returns the per-lane SSM state, its
+whole-prompt prefill returns the prompt's lane state, and its chunks run
+``make_hybrid_suffix_prefill_step``, which resumes from a carried state. There is no
 buffer donation: the train
 step updates the parameters and the optimizer state in place, the pool
 steps the pool tensors. The reference jits its pool steps; the port's
@@ -28,6 +31,7 @@ from repro_torch.kernels import _build
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adamw import AdamW, param_tree
+from repro_torch.runtime.residency.executor import BUDGET_REFUSAL, supports_budgeted_decode
 
 
 def make_loss_fn(cfg: ModelConfig, *, remat: str = "full", ce_chunk: int = 0) -> Callable:
@@ -90,7 +94,16 @@ def make_paged_serve_step(cfg: ModelConfig) -> Callable:
     """(params, token (B,1), pool_k, pool_v, row_table (B,S_max), lengths
     (B,)) -> (logits (B,1,V), pool_k, pool_v[, tally (L, E) for MoE]).
     Each decode lane gathers its KV rows from the shared pool through
-    ``row_table`` and writes the new token's row back in place."""
+    ``row_table`` and writes the new token's row back in place. The
+    hybrid step takes the per-lane SSM state as a seventh argument and
+    returns it, advanced in place, as a fourth output."""
+    if cfg.family == "hybrid":
+        def hybrid_step(params, token, pool_k, pool_v, row_table, lengths, lane_state):
+            return lm.decode_step_paged_hybrid(
+                params, cfg, token, pool_k, pool_v, row_table, lengths, lane_state
+            )
+
+        return hybrid_step
 
     def step(params, token, pool_k, pool_v, row_table, lengths):
         return lm.decode_step_paged(
@@ -103,7 +116,15 @@ def make_paged_serve_step(cfg: ModelConfig) -> Callable:
 def make_pool_prefill_step(cfg: ModelConfig) -> Callable:
     """(params, tokens (B, S), last_idx) -> (next-token logits (B, 1, V),
     ks, vs stacked (L, B, S, n_kv, hd)). One call fills a whole prompt;
-    ``last_idx`` is an int or a one-element tensor on the tokens' device."""
+    ``last_idx`` is an int or a one-element tensor on the tokens' device.
+    The hybrid step (unpadded prompts) returns the prompt's lane state as
+    a fourth output, its ks/vs stacked over the shared block's
+    applications."""
+    if cfg.family == "hybrid":
+        def hybrid_step(params, tokens, last_idx):
+            return lm.prefill_with_cache_hybrid(params, cfg, tokens, last_idx)
+
+        return hybrid_step
 
     def step(params, tokens, last_idx):
         return lm.prefill_with_cache(params, cfg, tokens, last_idx)
@@ -123,6 +144,25 @@ def make_chunk_prefill_step(cfg: ModelConfig) -> Callable:
         return lm.prefill_chunk_paged(
             params, cfg, tokens, pool_k, pool_v, row_table, write_rows,
             start, last_idx,
+        )
+
+    return step
+
+
+def make_hybrid_suffix_prefill_step(cfg: ModelConfig) -> Callable:
+    """(params, tokens (B, C) unpadded suffix, pool_k, pool_v, row_table
+    (B, S_max), write_rows (B, C), start, last_idx, lane_state) ->
+    (logits at last_idx (B, 1, V), pool_k, pool_v, lane_state). A hybrid
+    prompt's chunk, or the unmatched suffix of a prefix-cache hit,
+    resumed from the carried lane state (the previous chunk's, or the
+    anchor's snapshot); the pools and the lane state are updated in
+    place."""
+
+    def step(params, tokens, pool_k, pool_v, row_table, write_rows, start, last_idx,
+             lane_state):
+        return lm.prefill_suffix_paged_hybrid(
+            params, cfg, tokens, pool_k, pool_v, row_table, write_rows, start,
+            last_idx, lane_state,
         )
 
     return step
@@ -151,7 +191,11 @@ def make_budgeted_paged_serve_step(
     flagged in ``stream_mask`` ((L,) bools; for MoE (L, E): experts) stream
     their FFN weights through ``stream_matmul``'s ring (depth = the plan's
     R_F analogue), the others run the resident path. Same signature as
-    ``make_paged_serve_step``."""
+    ``make_paged_serve_step``. Other families raise the reference's
+    ``ValueError`` (hybrid: its SSM state is out of the executor's
+    scope)."""
+    if not supports_budgeted_decode(cfg):
+        raise ValueError(BUDGET_REFUSAL.format(family=cfg.family))
     if cfg.family == "moe":
         mask = tuple(tuple(bool(f) for f in row) for row in stream_mask)
     else:

@@ -351,15 +351,23 @@ def test_budgeted_serving_is_token_identical(w_bits, sampling):
 
 @pytest.mark.parametrize("family", ["ssm", "hybrid"])
 def test_residency_plan_covers_the_ported_family_only(family):
-    """Hybrid shared blocks are not in the port's weight set yet, and SSM
-    has none: planning for those families raises instead of planning the
-    dense layer blocks (MoE's expert blocks: tests/test_torch_moe.py)."""
+    """Neither family runs budgeted decode (as in the reference). SSM is
+    not ported and has no FFN: planning for it raises instead of planning
+    the dense layer blocks. Hybrid's plan lists its shared block's three
+    mats, each read once a shared-block application, as the reference's
+    does (its blocks and the weights: tests/test_torch_hybrid.py; MoE's
+    expert blocks: tests/test_torch_moe.py)."""
     _, tc = _cfgs("smoke", 2)
     assert texec.supports_budgeted_decode(tc)
-    other = dataclasses.replace(tc, family=family)
+    other = dataclasses.replace(tc, family=family, hybrid_attn_every=1)
     assert not texec.supports_budgeted_decode(other)
-    with pytest.raises(ValueError, match=family):
-        tplan.compile_residency_plan(other, vmem_budget_bytes=0)
+    if family == "ssm":
+        with pytest.raises(ValueError, match=family):
+            tplan.compile_residency_plan(other, vmem_budget_bytes=0)
+        return
+    plan = tplan.compile_residency_plan(other, vmem_budget_bytes=0)
+    assert [b.name for b in plan.blocks] == ["shared.w1", "shared.w3", "shared.w2"]
+    assert plan.read_weights == (float(other.n_layers),) * 3
 
 
 # ---------------- the serve entry point ----------------

@@ -571,8 +571,8 @@ def test_resolve_rejects_unknown_drafter_listing_options():
     want, got = _resolve_error((jc, tc), "no_such_arch")
     assert got == want and "ngram" in got
     # an arch the port has not ported is unknown to it, with the options
-    with pytest.raises(ValueError, match="unknown drafter arch 'zamba2_2p7b'.*ngram"):
-        tspec.resolve(tc, tspec.SpecConfig(drafter="zamba2_2p7b"), smoke=True)
+    with pytest.raises(ValueError, match="unknown drafter arch 'mamba2_1p3b'.*ngram"):
+        tspec.resolve(tc, tspec.SpecConfig(drafter="mamba2_1p3b"), smoke=True)
 
 
 def test_resolve_rejects_unpackable_drafter_family():
