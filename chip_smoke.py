@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--only kernels|prefill|moe|hybrid] [--src DIR] [--log FILE]
+    python3 chip_smoke.py [--only kernels|prefill|moe|hybrid|ssm] [--src DIR] [--log FILE]
 
 Phases, one JSON line each; any failure exits nonzero with no result:
 
@@ -181,7 +181,16 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               drafter's two, every other call a replay; the streams equal
               to plain compiled decode's counted, and every stream that
               parts does so where plain decode's top-1 / top-2 gap lies
-              within (ii)'s largest shift of that gap.
+              within (ii)'s largest shift of that gap. Then the
+              fixed-batch engine (``serve --engine fixed``) at --quant 2 on
+              the same weights: its decode step (8 lanes over a static
+              per-slot cache) captured, FIXED_REPLAYS replays in a row each
+              bitwise the eager step, logits and every cache leaf (``len``
+              included); its cell (8 x (128 + 64) tokens, 8 lanes) through
+              ``run_fixed_engine`` eager and compiled: identical tokens and
+              launches by route, exactly 3 x layers x steps launches of
+              ``packed_matmul``, all on the GEMV (M = 8), no other kernel,
+              one graph, every step but its first call a replay.
 4-5 (the other dense archs: llama3.2-1b, h2o-danube-1.8b, phi3-medium-14b;
               run last, after phase 7: run after phase 5, they left phase
               6's profiler windows short of an mvau record in two runs of
@@ -303,6 +312,33 @@ hybrid     -- (after the MoE phase; ``--only hybrid`` runs it alone after the
               partition; the planted control failing that gate, every
               position of a request that hit no anchor bitwise, and the
               prefill tokens cut by at least PREFIX_MIN_CUT.
+ssm        -- (after the hybrid phase; ``--only ssm`` runs it alone after the
+              build) mamba2-1.3b at full width and depth (48 Mamba2 layers,
+              d_model 2048, 64 SSM heads, state 128) through the
+              fixed-batch engine: (a) ``init_params`` (seconds, host
+              memory, device MiB); (b) its first SSM_CPU_LAYERS layers at
+              full width in bf16 on the card against float32 on the CPU,
+              same weights: 256 positions on 2 lanes through
+              ``decode_step``, every position's logits (``logits_vs_cpu``'s
+              gates), and along the positions the SSD state and the conv
+              buffers leaf by leaf (within SSM_STATE_REL_TOL, cosine >=
+              SSM_STATE_MIN_COS), their error not growing (SSM_GROWTH);
+              (c) the decode step (8 lanes) captured, FIXED_REPLAYS replays
+              in a row each bitwise the eager step, every cache leaf and
+              ``len`` included; (d) a 512-token prompt replayed through the
+              compiled decode step and teacher-forced against
+              ``lm.prefill`` (the SSD in chunks): the largest logit gap in
+              bf16 steps and the argmax share, in bf16 (within
+              SSM_PREFILL_LOGIT_STEPS, at least SSM_PREFILL_MIN_ARGMAX) and
+              on the same weights in float32 (within SSM_F32_LOGIT_STEPS,
+              at least SSM_F32_MIN_ARGMAX); (e) the fixed-engine cell (8 x
+              (128 + 64), 8 lanes) eager and compiled: identical tokens and
+              launches by route (none of the six kernels), one graph,
+              every step but its first call a replay; tokens/s, mean TTFT,
+              decode step ms (mean and replay), capture s and the graph
+              pool's MiB; (f) one decode step profiled eager and compiled
+              (card ms, busy share, kernels). They run in the order a, b,
+              c, f, e, d.
 6. cnn     -- the paper's CNV at full width (w1a2, then w2a2), random
               weights with randomised BN statistics and 256 random images
               from a seed: ``cnn_forward_streamlined`` on the card against
@@ -470,6 +506,47 @@ HYB_EAGER_REQUESTS = 8  # (e): the eager run (and its compiled twin) at 8 of the
 # partition (--prefill-chunk TURN_TOKENS), which a zeroed anchor lane fails
 HYB_WARM_LOGIT_STEPS = 24
 HYB_WARM_MIN_ARGMAX = 0.75
+# the fixed-batch engine (``serve --engine fixed``): the cell of the SSM
+# phase (e) and of phase 5's smollm-360m case: FIXED_REQUESTS requests of
+# FIXED_PROMPT + FIXED_GEN tokens on LANES lanes, eager and compiled
+FIXED_REQUESTS, FIXED_PROMPT, FIXED_GEN = 8, 128, 64
+FIXED_MAX_LEN = FIXED_PROMPT + FIXED_GEN
+FIXED_REPLAYS = 3  # replays held bitwise against the eager step, in a row
+# the SSM phase: mamba2-1.3b at full width and depth through the fixed-batch
+# engine; its card-vs-CPU check at SSM_CPU_LAYERS of its layers
+SSM_ARCH = "mamba2_1p3b"
+SSM_CPU_LAYERS = 2
+SSM_CPU_LANES = 2
+SSM_CPU_POSITIONS = 256  # (b): decode steps fed to both sides
+SSM_HOLD_EVERY = 32  # (b): the state held at position 7 and every 32nd
+# (b) bf16 on the card against float32 on the CPU: the SSD state and the
+# conv buffers leaf by leaf over the layers, and their error along the
+# positions. Read on the H100 (2 layers, 256 positions): the SSD state
+# 0.0104-0.0126, the conv buffers 0.0061-0.0078, cosines >= 0.99997, the
+# late error 0.95-0.99x the early. Bounds: ~3x the reading (as the hybrid
+# phase's lane bound is ~3x its own), and the largest error at positions
+# >= 192 within SSM_GROWTH of the largest at 7-63 (a state that forgets
+# does not gather error)
+SSM_STATE_REL_TOL = 0.04
+SSM_STATE_MIN_COS = 0.999
+SSM_GROWTH = 2.0
+SSM_PREFILL_PROMPT = 512  # (d): two SSD chunks of 256
+# (d) the fixed decode step (the SSD recurrence, its state in f32) replayed
+# through a prompt, teacher-forced, against ``prefill`` over it (the
+# chunked SSD, whose C.B^T, decay weights and intra-chunk product round to
+# bf16), 48 layers deep on random weights (near-flat logits, max |logit|
+# 5.5). Read on the H100 in bf16: 53.8 bf16 steps at most (flat along the
+# prompt: 50.9, 53.8, 38.9, 43.8 by quarter), the argmax the same at 55.3%
+# of 512 positions; the same weights widened to float32: 0.029 steps
+# (9.0e-4), the argmax the same at every position. So the bf16 gap is the
+# two paths' rounding carried through 48 layers, not a fault. Bounds: bf16
+# SSM_PREFILL_LOGIT_STEPS steps and SSM_PREFILL_MIN_ARGMAX (~1.5x the
+# reading); float32 SSM_F32_LOGIT_STEPS (of the bf16 run's step) and
+# SSM_F32_MIN_ARGMAX, which a fault in either path fails
+SSM_PREFILL_LOGIT_STEPS = 80
+SSM_PREFILL_MIN_ARGMAX = 0.4
+SSM_F32_LOGIT_STEPS = 0.5
+SSM_F32_MIN_ARGMAX = 0.95
 
 
 def fail(msg: str) -> None:
@@ -545,11 +622,12 @@ def main(argv: list[str] | None = None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
-    ap.add_argument("--only", choices=("kernels", "prefill", "moe", "hybrid"),
+    ap.add_argument("--only", choices=("kernels", "prefill", "moe", "hybrid", "ssm"),
                     help="kernels: stop after phase 3 (build, and hold each kernel against "
                          "its plain version); prefill: build, then only phase 4's prefill "
                          "check and profile; moe: build, then only the MoE phase; hybrid: "
-                         "build, then only the hybrid phase. Each prints no result")
+                         "build, then only the hybrid phase; ssm: build, then only the SSM "
+                         "phase. Each prints no result")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the source tree whose repro_torch to run (default: src beside this "
                          "script); another commit's, to compare the two in one call")
@@ -2253,6 +2331,259 @@ def main(argv: list[str] | None = None) -> int:
         phase("hybrid_phase", seconds=time.monotonic() - t_phase,
               launches_on_the_main_path_by_route=hybrid_launches)
 
+    # ---------------- the fixed-batch engine (phase 5's case and the SSM phase) ----------------
+    fixed_launches = {}  # the fixed-engine runs' share of ``launches``, by route
+
+    def random_cache(c, lanes, max_len, pos, seed):
+        """``lm.init_cache`` on the card with every float leaf drawn at
+        random (0.5 randn, in its dtype) and ``len`` at ``pos``."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        cache = lm.init_cache(c, lanes, max_len, device=dev)
+        for key, leaf in cache.items():
+            if leaf.is_floating_point():
+                leaf.copy_(0.5 * torch.randn(leaf.shape, generator=g, device=dev))
+        cache["len"].fill_(pos)
+        return cache
+
+    def hold_cache_replay(label, c, p, cache0) -> None:
+        """The fixed decode step (``lm.decode_step``) as a ``CapturedStep``
+        over a copy of ``cache0``, and eagerly over another: the graph's
+        first call and the eager step on the same token, then FIXED_REPLAYS
+        replays in a row, each held against the eager step on the same
+        token: the logits and every cache leaf (``len`` included) bitwise
+        equal."""
+        lanes = cache0["ssm" if "ssm" in cache0 else "k"].shape[1]
+        cache_g = {k: v.clone() for k, v in cache0.items()}
+        cache_e = {k: v.clone() for k, v in cache0.items()}
+        graph = CapturedStep(lambda t_: lm.decode_step(p, c, t_, cache_g)[0], device=dev,
+                             mempool=torch.cuda.graph_pool_handle())
+        toks = [torch.from_numpy(np.random.default_rng(20 + i).integers(0, c.vocab, (lanes, 1)))
+                for i in range(FIXED_REPLAYS + 1)]
+        graph(toks[0])
+        lm.decode_step(p, c, toks[0].to(dev), cache_e)
+        for i in range(1, FIXED_REPLAYS + 1):
+            lg_r = graph(toks[i])
+            lg_e = lm.decode_step(p, c, toks[i].to(dev), cache_e)[0]
+            replay_matches(label, i - 1, graph.replays, i, {
+                "logits": (lg_r, lg_e), **{f"cache_{k}": (cache_g[k], cache_e[k]) for k in cache0}})
+        del graph, cache_g, cache_e
+
+    def fixed_cell(label, c, p, want_counts) -> None:
+        """The fixed-batch engine's cell (``serve.run_fixed_engine``: the
+        reference's loop, lockstep lanes, prompts replayed through the
+        decode step) on ``p``, eager and then compiled (every step a replay
+        of one CUDA graph but the first call), launch counters reset just
+        before each run and read just after: every request done, the
+        tokens and the launch counts by route identical, and the counts
+        ``want_counts(steps)`` (by route); the compiled run's launches
+        counted on the main path."""
+        args = serve.build_parser().parse_args(
+            ["--arch", c.name, "--requests", str(FIXED_REQUESTS), "--batch", str(LANES),
+             "--prompt-len", str(FIXED_PROMPT), "--gen-len", str(FIXED_GEN),
+             "--max-len", str(FIXED_MAX_LEN), "--engine", "fixed"])
+        runs = {}
+        for mode in ("eager", "compiled"):
+            ops.reset_launch_counts()
+            m = serve.run_fixed_engine(c, p, args, dev, compiled=mode == "compiled")
+            torch.cuda.synchronize()
+            counts, by_route = ops.launch_counts(), ops.launch_routes()
+            runs[mode] = dict(metrics=m, counts=counts, by_route=by_route)
+            phase("serve", arch=c.name, engine="fixed", quant=c.w_bits, mode=mode,
+                  launches_counted=counts, launches_by_route=by_route,
+                  graph_pool_mib=m["graph_pool_bytes"] / 2**20,
+                  **{k: v for k, v in m.items() if k not in ("outputs", "engine")})
+            want = want_counts(m["steps"])
+            if (m["completed"] != FIXED_REQUESTS
+                    or m["generated_tokens"] != FIXED_REQUESTS * FIXED_GEN
+                    or by_route != {k: v for k, v in want.items() if v}
+                    or counts != {name: sum(want.get(name, {}).values()) for name in counts}):
+                fail(f"{label} ({mode}): {m['completed']} completed, launches {counts} by route "
+                     f"{by_route}; want {want}")
+            if mode == "compiled" and not (m["graphs"] == 1
+                                           and m["graph_replays"] == m["steps"] - 1):
+                fail(f"{label}: {m['graphs']} graphs, {m['graph_replays']} replays of "
+                     f"{m['steps']} steps: want one graph, every step but its first a replay")
+        eager, compiled = runs["eager"], runs["compiled"]
+        same_tokens = eager["metrics"]["outputs"] == compiled["metrics"]["outputs"]
+        same_launches = ((eager["counts"], eager["by_route"])
+                         == (compiled["counts"], compiled["by_route"]))
+        phase("serve_compiled_vs_eager", arch=c.name, engine="fixed", quant=c.w_bits,
+              token_streams_identical=same_tokens, launch_counts_identical=same_launches,
+              **{f"{key}_{mode}": runs[mode]["metrics"][key]
+                 for key in ("tokens_per_s", "decode_step_ms", "mean_ttft_s", "wall_s")
+                 for mode in runs})
+        if not (same_tokens and same_launches):
+            fail(f"{label}: compiled and eager fixed-engine serving differ (tokens "
+                 f"{same_tokens}, launches {same_launches})")
+        count_main_path(compiled)
+        for name, by in compiled["by_route"].items():
+            for route, n in by.items():
+                fixed_launches.setdefault(name, {})
+                fixed_launches[name][route] = fixed_launches[name].get(route, 0) + n
+
+    # ---------------- the SSM family (--only ssm: alone) ----------------
+    def ssm_vs_cpu(c, p) -> None:
+        """(b) ``c`` (SSM_CPU_LAYERS layers at full width) in bf16 on the
+        card against float32 on the CPU, same weights: SSM_CPU_POSITIONS
+        random tokens on SSM_CPU_LANES lanes through ``decode_step`` on
+        both; every position's logits (cosine >= PREFILL_MIN_COS, the card's
+        top-1 within PREFILL_TOP1_SLACK of the CPU's max), and at position 7
+        and every SSM_HOLD_EVERY-th the SSD state and the conv buffers, leaf
+        by leaf over the layers (within SSM_STATE_REL_TOL, cosine >=
+        SSM_STATE_MIN_COS), the error not growing along the positions
+        (SSM_GROWTH). Every reading is printed before a gate fails."""
+        cpu_c, cpu_p = cpu_copy(c, p)
+        toks = torch.from_numpy(np.random.default_rng(0).integers(
+            0, c.vocab, (SSM_CPU_LANES, SSM_CPU_POSITIONS)))
+        sides = {"card": (c, p, dev), "cpu": (cpu_c, cpu_p, "cpu")}
+        caches = {name: lm.init_cache(sc, SSM_CPU_LANES, SSM_CPU_POSITIONS, device=sd)
+                  for name, (sc, _, sd) in sides.items()}
+        secs = dict.fromkeys(sides, 0.0)
+        held, cosines, slacks, errs = [], [], [], []
+        for t in range(SSM_CPU_POSITIONS):
+            lg = {}
+            for name, (sc, sp, sd) in sides.items():
+                t0 = time.monotonic()
+                lg[name] = lm.decode_step(sp, sc, toks[:, t:t + 1].to(sd), caches[name])[0]
+                if name == "card":
+                    torch.cuda.synchronize()
+                secs[name] += time.monotonic() - t0
+            a = lg["card"][:, 0, :c.vocab].float().cpu()
+            b = lg["cpu"][:, 0, :c.vocab].float()
+            cosines.append(F.cosine_similarity(a, b, dim=-1).min().item())
+            slacks.append((b.max(dim=-1).values - b.gather(1, a.argmax(dim=-1)[:, None])[:, 0])
+                          .max().item())
+            errs.append((a - b).abs().max().item())
+            if t == 7 or (t + 1) % SSM_HOLD_EVERY == 0:
+                held.append(dict(position=t, logits_cosine=cosines[-1],
+                                 max_abs_logit_err=errs[-1],
+                                 **lane_vs_cpu(caches["card"], caches["cpu"])))
+        early = [h for h in held if h["position"] < 64]
+        late = [h for h in held if h["position"] >= 192]
+        growth = {key: max(h[key]["max_rel_err"] for h in late)
+                  / max(max(h[key]["max_rel_err"] for h in early), 1e-30) for key in lm.LANE_KEYS}
+        worst = {key: dict(max_rel_err=max(h[key]["max_rel_err"] for h in held),
+                           min_cosine=min(h[key]["min_cosine"] for h in held))
+                 for key in lm.LANE_KEYS}
+        phase("ssm_vs_cpu", arch=c.name, layers=c.n_layers, lanes=SSM_CPU_LANES,
+              positions=SSM_CPU_POSITIONS, depth_cut=(
+                  f"{c.n_layers} of {get_config(SSM_ARCH).n_layers} layers: the CPU's float32 "
+                  "side stays in seconds"), card_s=secs["card"], cpu_s=secs["cpu"],
+              logits_min_cosine=min(cosines), logits_max_top1_cpu_logit_gap=max(slacks),
+              max_abs_logit_err=max(errs), state=worst, state_error_growth=growth, held=held)
+        if not (min(cosines) >= PREFILL_MIN_COS and max(slacks) <= PREFILL_TOP1_SLACK):
+            fail(f"{c.name} decode, card vs CPU: logits cosine {min(cosines)}, top-1 gap "
+                 f"{max(slacks)}")
+        bad = {k: v for k, v in worst.items()
+               if not (v["max_rel_err"] <= SSM_STATE_REL_TOL
+                       and v["min_cosine"] >= SSM_STATE_MIN_COS)}
+        if bad or max(growth.values()) > SSM_GROWTH:
+            fail(f"{c.name} decode state, card vs CPU: {bad}, growth {growth}")
+
+    def ssm_decode_vs_prefill(c, p) -> None:
+        """(d) At full depth on the card: a SSM_PREFILL_PROMPT-token prompt
+        replayed token by token through the fixed decode step (one lane, a
+        CUDA graph) and teacher-forced against ``lm.prefill`` over it (the
+        SSD over the whole prompt, in chunks of ``ssm_chunk``), at every
+        position: the largest |logit difference| in bf16 steps at the
+        largest |logit| and the share of positions whose argmax agrees; in
+        bf16 (within SSM_PREFILL_LOGIT_STEPS, at least
+        SSM_PREFILL_MIN_ARGMAX), and on the same weights widened to float32
+        (within SSM_F32_LOGIT_STEPS, at least SSM_F32_MIN_ARGMAX): the
+        control that tells the two paths' rounding from a fault."""
+        toks = torch.from_numpy(np.random.default_rng(5).integers(
+            0, c.vocab, (1, SSM_PREFILL_PROMPT)))
+        tree = p.tree()
+        widened = lm.LMParams({**{k: v.float() for k, v in tree.items() if k != "layers"},
+                               "layers": {k: v.float() for k, v in tree["layers"].items()}})
+        out, step = {}, None
+        for name, (sc, sp) in (("bf16", (c, p)),
+                               ("f32", (dataclasses.replace(c, dtype="float32"), widened))):
+            t0 = time.monotonic()
+            want = lm.prefill(sp, sc, toks.to(dev))[0, :, :c.vocab].float()
+            torch.cuda.synchronize()
+            prefill_s = time.monotonic() - t0
+            cache = lm.init_cache(sc, 1, SSM_PREFILL_PROMPT, device=dev)
+            graph = CapturedStep(lambda t_: lm.decode_step(sp, sc, t_, cache)[0], device=dev,
+                                 mempool=torch.cuda.graph_pool_handle())
+            t0 = time.monotonic()
+            got = torch.stack([graph(toks[:, t:t + 1])[0, 0, :c.vocab].clone()
+                               for t in range(SSM_PREFILL_PROMPT)])
+            torch.cuda.synchronize()
+            decode_s = time.monotonic() - t0
+            diff = (got - want).abs().max(dim=-1).values
+            scale = want.abs().max().item()
+            step = step or 2.0 ** (math.floor(math.log2(scale)) - 7)  # the bf16 run's
+            quarter = SSM_PREFILL_PROMPT // 4
+            out[name] = dict(
+                max_abs_logit=scale, max_abs_logit_diff=diff.max().item(),
+                max_bf16_steps=diff.max().item() / step,
+                bf16_steps_by_quarter=[diff[i:i + quarter].max().item() / step
+                                       for i in range(0, SSM_PREFILL_PROMPT, quarter)],
+                argmax_agree_share=(got.argmax(dim=-1) == want.argmax(dim=-1)).float()
+                .mean().item(),
+                prefill_s=prefill_s, decode_s=decode_s,
+                finite=bool(torch.isfinite(got).all() and torch.isfinite(want).all()))
+            del graph, cache, got, want
+        del widened
+        torch.cuda.empty_cache()
+        phase("ssm_decode_vs_prefill", arch=c.name, layers=c.n_layers, prompt=SSM_PREFILL_PROMPT,
+              ssd_chunk=c.ssm_chunk, bf16_step=step, bound_bf16=dict(
+                  steps=SSM_PREFILL_LOGIT_STEPS, argmax_share=SSM_PREFILL_MIN_ARGMAX),
+              bound_f32=dict(steps=SSM_F32_LOGIT_STEPS, argmax_share=SSM_F32_MIN_ARGMAX), **out)
+        held = all(r["finite"] for r in out.values()) and all(
+            out[k]["max_bf16_steps"] <= steps and out[k]["argmax_agree_share"] >= share
+            for k, steps, share in (("bf16", SSM_PREFILL_LOGIT_STEPS, SSM_PREFILL_MIN_ARGMAX),
+                                    ("f32", SSM_F32_LOGIT_STEPS, SSM_F32_MIN_ARGMAX)))
+        if not held:
+            fail(f"{c.name} decode vs prefill: {out}")
+
+    def ssm_phase() -> None:
+        """The SSM phase (the module docstring says what it holds)."""
+        t_phase = time.monotonic()
+        full = get_config(SSM_ARCH)
+        # (a) one draw at full size
+        params, init = timed_init(full)
+        phase("init", arch=SSM_ARCH, layers=full.n_layers, d_model=full.d_model,
+              ssm_heads=full.ssm_heads, ssm_state=full.ssm_state, **init)
+        # (b) SSM_CPU_LAYERS layers at full width against the CPU
+        ssm_vs_cpu(*first_layers(full, params, SSM_CPU_LAYERS))
+        # (c) the decode step as a graph, its replays bitwise the eager step
+        cache0 = random_cache(full, LANES, FIXED_MAX_LEN, FIXED_PROMPT, seed=6)
+        hold_cache_replay(f"{SSM_ARCH} fixed decode step", full, params, cache0)
+        # (f) one decode step profiled, eager and compiled
+        tok = torch.from_numpy(np.random.default_rng(1).integers(0, full.vocab, (LANES, 1)))
+        graph = CapturedStep(lambda t_: lm.decode_step(params, full, t_, cache0)[0],
+                             device=dev, mempool=torch.cuda.graph_pool_handle())
+        graph(tok)
+        tok_dev = tok.to(dev)
+        for compiled in (False, True):
+            step = (lambda: graph(tok)) if compiled else (
+                lambda: lm.decode_step(params, full, tok_dev, cache0))
+            stats, by_name = profile_window(step, window=1)
+            phase("decode_profile", arch=SSM_ARCH, engine="fixed", lanes=LANES,
+                  compiled=compiled, **stats,
+                  event_median_ms=median_ms(step) if compiled else None,
+                  capture_s=graph.capture_s if compiled else None,
+                  graph_pool_mib=graph.pool_bytes / 2**20 if compiled else None,
+                  top_kernels_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8]))
+        del graph, cache0
+        phase_seconds(f"ssm {SSM_ARCH}: init, card vs CPU, graphs")
+        # (e) the fixed-engine cell, eager and compiled: no kernel of the six
+        fixed_cell(f"serve {SSM_ARCH} --engine fixed", full, params, lambda steps: {})
+        phase_seconds(f"ssm {SSM_ARCH}: serve")
+        # (d) decode against prefill, teacher-forced, in bf16 and in f32
+        ssm_decode_vs_prefill(full, params)
+        del params
+        torch.cuda.empty_cache()
+        phase_seconds(f"ssm {SSM_ARCH}: decode vs prefill")
+        phase("ssm_phase", seconds=time.monotonic() - t_phase)
+
+    if opts.only == "ssm":
+        ssm_phase()
+        print("[chip_smoke] --only ssm: stopped after the SSM phase", file=sys.stderr)
+        return 0
+
     if opts.only == "hybrid":
         hybrid_phase()
         print("[chip_smoke] --only hybrid: stopped after the hybrid phase", file=sys.stderr)
@@ -3868,6 +4199,15 @@ def main(argv: list[str] | None = None) -> int:
         fail(f"shared-prefix trace: shared peak {warm['shared_blocks_peak']}, chunk graphs "
              f"{warm['chunk_graphs']}, prefill cut {cut}, cow copies {warm['cow_copies']}")
 
+    # the fixed-batch engine at --quant 2: its decode step a graph whose
+    # replays are bitwise the eager step, every cache leaf included; the
+    # cell eager and compiled, every FFN matmul on the GEMV (M = LANES)
+    cache0 = random_cache(cfg_q2, LANES, FIXED_MAX_LEN, FIXED_PROMPT, seed=7)
+    hold_cache_replay(f"{cfg.name} fixed decode step, --quant 2", cfg_q2, params_q2, cache0)
+    del cache0
+    fixed_cell(f"serve {cfg.name} --engine fixed --quant 2", cfg_q2, params_q2,
+               lambda steps: {"packed_matmul": {"gemv": 3 * cfg_q2.n_layers * steps}})
+
     speculative_phase(cfg_q2, params_q2, runs[2, False])
     del params_q2
 
@@ -4415,9 +4755,10 @@ def main(argv: list[str] | None = None) -> int:
         serve_arch(arch)
         phase_seconds(f"4-5 {arch}")
 
-    # ---------------- the MoE family, then the hybrid family (last) ----------------
+    # ---------------- the MoE, the hybrid and the SSM family (last) ----------------
     moe_phase()
     hybrid_phase()
+    ssm_phase()
 
     # ---------------- result ----------------
     head_pm = next(c for c in packed_cases if (c["bits"], c["m"], c["k"]) == (2, LANES, d))
@@ -4460,6 +4801,7 @@ def main(argv: list[str] | None = None) -> int:
              replaces="src/repro/kernels/packed_matmul.py:74",
              launches=launches["packed_matmul"],
              launches_hybrid_phase=hybrid_launches.get("packed_matmul", {}),
+             launches_fixed_engine=fixed_launches.get("packed_matmul", {}),
              shape=f"bits=2 M={LANES} K={d} N={ff} bf16",
              tolerance=f"rel {PACKED_REL_TOL}",
              **{k: head_pm[k] for k in nums},

@@ -15,7 +15,7 @@ import importlib
 
 from repro_torch.models.config import ModelConfig, reduced
 
-# the reference's dense, MoE and hybrid archs, in its order
+# the reference's dense, MoE, hybrid and SSM archs, in its order
 ARCH_IDS = [
     "h2o_danube_1p8b",
     "llama3p2_1b",
@@ -24,6 +24,7 @@ ARCH_IDS = [
     "olmoe_1b_7b",
     "moonshot_v1_16b_a3b",
     "zamba2_2p7b",
+    "mamba2_1p3b",
 ]
 
 # assignment ids (dashes/dots) -> module names
@@ -35,6 +36,7 @@ ALIASES = {
     "olmoe-1b-7b": "olmoe_1b_7b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "zamba2-2.7b": "zamba2_2p7b",
+    "mamba2-1.3b": "mamba2_1p3b",
 }
 
 

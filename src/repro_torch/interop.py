@@ -2,9 +2,9 @@
 
 ``params_from_reference`` takes the JAX package's LM parameter pytree with
 numpy leaves (the caller runs ``jax.tree.map(np.asarray, params)``) and
-returns the port's ``LMParams``: stacked ``(L, ...)`` leaves, the
-hybrid's ``shared`` block and packed ``{"packed", "scale"}`` dicts carry
-over byte for byte.
+returns the port's ``LMParams``: stacked ``(L, ...)`` leaves (the SSM
+family's Mamba2 leaves among them), the hybrid's ``shared`` block and
+packed ``{"packed", "scale"}`` dicts carry over byte for byte.
 ``cnn_params_from_reference`` does the same for the CNN's
 ``{layer: {w, bn_*, act_scale}}`` tree. ``jax.random``
 initialisation cannot be reproduced in torch, so this is how parity tests
@@ -63,6 +63,8 @@ def params_from_reference(
     float leaves require gradients."""
     if "layers" not in tree or not isinstance(tree["layers"], dict):
         raise ValueError("expected the reference's tree with stacked 'layers'")
+    if cfg.family == "ssm":  # Mamba2 layers only: no FFN to check
+        return LMParams(_convert(tree, device, dtype), trainable)
     # the hybrid's FFN is its shared block's; MoE experts are dense at any
     # w_bits (the reference never packs them)
     ffn = "shared" if cfg.family == "hybrid" else "layers"

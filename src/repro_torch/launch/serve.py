@@ -1,7 +1,7 @@
 """Serving entry point: continuous batching over a shared KV pool, in PyTorch.
 
-Port of ``repro.launch.serve``'s pool engine: one physical KV pool
-(``runtime.kv_pool``), token-budget admission, bucketed one-step or
+Port of ``repro.launch.serve``. Its pool engine (the default): one
+physical KV pool (``runtime.kv_pool``), token-budget admission, bucketed one-step or
 chunked prefill, and paged decode lanes that each run at their own depth
 (``runtime.scheduler``), with the radix prefix cache over the pool on by
 default, as in the reference (``--no-prefix-cache`` turns it off). Runs
@@ -27,6 +27,17 @@ roll back a rejected chain; it is out of the residency executor's scope).
 It prints a ``[serve/hybrid]`` line: the lanes' state on the card, and the
 anchors' host copies (count, MB, ms each).
 
+``--engine fixed`` runs the reference's fixed-batch loop instead
+(``run_fixed_engine``): per-slot caches, lanes in lockstep, prompts
+replayed token by token through the decode step, greedy decoding; the A/B
+baseline, and the only engine of the SSM family: ``--arch mamba2-1.3b``
+switches to it with the reference's message, as every family outside the
+paged ones does. On the card each of its steps is one CUDA graph. With
+it, ``--vmem-budget`` and ``--speculate`` exit 2 with the reference's
+reasons, and so does an MoE arch (its fixed decode needs the capacity
+dispatch, not ported); ``--trace-out`` stays with the pool engine, as in
+the reference.
+
 ``--speculate`` serves with speculative decoding (``runtime.speculative``):
 ``ngram`` (the self-drafting suffix match) or an arch whose packed twin,
 at ``--spec-quant`` bits, drafts ``--spec-depth``-token chains; a drafter
@@ -46,6 +57,9 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b --smoke --device cpu --vmem-budget 0.5
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --quant 2
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --smoke --device cpu --prefill-chunk 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --batch 8 --prompt-len 128 --gen-len 64 --max-len 192
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --quant 2 --engine fixed
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --trace-out t.jsonl
     PYTHONPATH=src python -m repro_torch.perf.trace_export t.jsonl --check
 
@@ -76,7 +90,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.kernels import ops
 from repro_torch.models import lm
-from repro_torch.models.config import PACKING_FAMILIES, PORTED_FAMILIES
+from repro_torch.models.config import PACKING_FAMILIES, PAGED_FAMILIES, PORTED_FAMILIES
 from repro_torch.runtime.kv_pool import KVPool, choose_block_tokens
 from repro_torch.runtime.memledger import MemLedger, MemPressureMonitor
 from repro_torch.runtime.prefix_cache import PrefixCache
@@ -89,6 +103,7 @@ from repro_torch.runtime.residency import (
 from repro_torch.runtime.scheduler import Scheduler
 from repro_torch.runtime.spans import SpanRecorder
 from repro_torch.runtime.speculative import SpecConfig, build_speculator, resolve
+from repro_torch.runtime.steps import CapturedStep, make_serve_step
 from repro_torch.runtime.tracker import JsonlTracker
 
 
@@ -301,6 +316,145 @@ def run_pool_engine(
     }
 
 
+def check_fixed_geometry(args) -> None:
+    """The fixed engine's ring cache holds ``--max-len`` rows: a request
+    past them would clobber its own history (``ValueError``, exit 2)."""
+    if args.prompt_len + args.gen_len > args.max_len:
+        raise ValueError(
+            f"request needs {args.prompt_len + args.gen_len} tokens "
+            f"> max_len {args.max_len}"
+        )
+
+
+def run_fixed_engine(cfg, params, args, device, *, compiled: bool | None = None) -> dict:
+    """The reference's fixed-batch loop (``serve.py:200``): per-slot
+    caches (``lm.init_cache``), lockstep positions, prompts replayed token
+    by token through the decode step, greedy argmax, and the queue drained
+    to empty (``requests % batch != 0`` included). At each wave boundary
+    the cache is zeroed in place (the reference allocates a fresh one) and
+    every lane's token reset to 0, so a wave's first step feeds token 0 at
+    position 0 before the prompt's first token, as the reference's does.
+
+    ``compiled`` (None: on a CUDA device) runs every decode step as one
+    ``CapturedStep`` over the cache: the step's only input is the (B, 1)
+    token; the cache and its ``len`` are the graph's static buffers. There
+    is no fallback: a capture that fails raises. The metrics are the
+    reference's (``prefill_steps`` 0, ``decode_step_ms`` over the steps
+    that generate, host bookkeeping included, ``mean_ttft_s``), with the
+    graph's numbers and ``decode_step_ms_replay``: the host ms of a step
+    call to its argmax on the host, over the replays."""
+    check_fixed_geometry(args)
+    device = torch.device(device)
+    if compiled is None:
+        compiled = device.type == "cuda"
+    if compiled and device.type != "cuda":
+        raise ValueError(
+            f"compiled steps are CUDA graphs; {device} has none "
+            "(pass compiled=False or leave it None)"
+        )
+    b = args.batch
+    cache = lm.init_cache(cfg, b, args.max_len, device=device)
+    serve_step = make_serve_step(cfg)
+    graph = None
+    if compiled:
+        graph = CapturedStep(lambda t: serve_step(params, t, cache)[0], device=device,
+                             mempool=torch.cuda.graph_pool_handle())
+        step = graph
+    else:
+        def step(t):
+            return serve_step(params, t.to(device), cache)[0]
+
+    queue = make_requests(args, cfg.vocab)
+    active: list[int | None] = [None] * b
+    to_go = np.zeros(b, np.int32)
+    fed = np.zeros((b,), np.int32)
+    prompts: list[np.ndarray | None] = [None] * b
+    outputs: dict[int, list[int]] = {}
+    ttft: dict[int, float] = {}
+    next_req = done = steps = gen_steps = 0
+    decode_time = replay_time = 0.0
+    t0 = time.monotonic()
+    token = np.zeros((b, 1), np.int32)
+    while done < args.requests:
+        if next_req < len(queue) and all(a is None for a in active):
+            # wave boundary (lockstep lengths drain all slots at once)
+            lm.zero_cache(cache)
+            token[:] = 0
+        for i in range(b):
+            if active[i] is None and next_req < len(queue):
+                active[i] = next_req
+                prompts[i] = queue[next_req]
+                fed[i] = 0
+                to_go[i] = args.gen_len
+                outputs[next_req] = []
+                next_req += 1
+        ts = time.monotonic()
+        logits = step(torch.from_numpy(token))
+        nxt = logits[:, 0, :].argmax(dim=-1).to(torch.int32).cpu().numpy()
+        if steps:
+            replay_time += time.monotonic() - ts
+        steps += 1
+        generated_this_step = 0
+        for i in range(b):
+            if active[i] is None:
+                continue
+            if fed[i] < len(prompts[i]):  # still feeding the prompt
+                token[i, 0] = prompts[i][fed[i]]
+                fed[i] += 1
+            else:
+                if not outputs[active[i]]:
+                    ttft[active[i]] = time.monotonic() - t0
+                generated_this_step += 1
+                outputs[active[i]].append(int(nxt[i]))
+                token[i, 0] = nxt[i]
+                to_go[i] -= 1
+                if to_go[i] <= 0:
+                    done += 1
+                    active[i] = None
+        if generated_this_step:
+            # a decoding step, counted once per step, host bookkeeping included
+            decode_time += time.monotonic() - ts
+            gen_steps += 1
+        if steps > args.requests * (args.prompt_len + args.gen_len) + 64:
+            raise RuntimeError("serving loop failed to drain the queue")
+    dt = time.monotonic() - t0
+    total_tokens = sum(len(v) for v in outputs.values())
+    graphs = [graph] if graph is not None else []
+    return {
+        "engine": "fixed",
+        "device": str(device),
+        "compiled": compiled,
+        "requests": args.requests,
+        "completed": done,
+        "generated_tokens": total_tokens,
+        "steps": steps,
+        "prefill_steps": 0,
+        "decode_steps": steps,
+        "wall_s": dt,
+        "tokens_per_s": total_tokens / dt if dt > 0 else 0.0,
+        "decode_step_ms": decode_time / gen_steps * 1e3 if gen_steps else 0.0,
+        "mean_ttft_s": sum(ttft.values()) / len(ttft) if ttft else 0.0,
+        "pool_utilization": 0.0,
+        "block_tokens": 0,
+        "prefix_cache": False,
+        "prefix_hits": 0,
+        "prefix_hit_tokens": 0,
+        "prefix_hit_rate": 0.0,
+        "shared_blocks_peak": 0,
+        "cached_blocks": 0,
+        "cache_mib": sum(v.nbytes for v in cache.values()) / 2**20,
+        "graphs": len(graphs),
+        "graph_replays": sum(g.replays for g in graphs),
+        "graph_pool_bytes": sum(g.pool_bytes for g in graphs),
+        "graph_first_call_s": sum(g.first_call_s for g in graphs),
+        "graph_capture_s": sum(g.capture_s for g in graphs),
+        "decode_step_ms_replay": (
+            replay_time / (steps - 1) * 1e3 if compiled and steps > 1 else None
+        ),
+        "outputs": outputs,
+    }
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm_360m")
@@ -311,6 +465,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--gen-len", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--engine", choices=["pool", "fixed"], default="pool",
+                    help="pool: continuous batching over the KV pool; fixed: the "
+                         "fixed-batch loop over per-slot caches (lockstep "
+                         "positions, prompts replayed through the decode step), "
+                         "the A/B baseline and the SSM family's engine")
     ap.add_argument("--block-tokens", type=int, default=0,
                     help="KV-pool block size; 0 = bin-cost sweep")
     ap.add_argument("--rf", type=int, default=0,
@@ -382,11 +541,35 @@ def main(argv=None) -> int:
                   f"{cfg.family!r} (no dense FFN to pack)")
         else:
             cfg = dataclasses.replace(cfg, w_bits=args.quant)
+    engine = args.engine
+    if engine == "pool" and cfg.family not in PAGED_FAMILIES:
+        print(f"[serve] family {cfg.family!r} keeps fixed-size per-slot "
+              "decode state and holds no KV rows; using the fixed-batch "
+              "engine")
+        engine = "fixed"
+    if engine == "fixed":
+        if args.vmem_budget:
+            print(f"[serve] --vmem-budget needs the pool engine's paged decode; "
+                  f"family {cfg.family!r} / --engine fixed cannot run budgeted")
+            return 2
+        if args.speculate:
+            print(f"[serve] --speculate needs the pool engine's paged verify; "
+                  f"family {cfg.family!r} / --engine fixed cannot speculate")
+            return 2
+        if cfg.family == "moe":
+            print("[serve] --engine fixed: the MoE family's fixed-batch decode runs "
+                  "the capacity dispatch (moe.moe_ffn), which is not ported; use "
+                  "the pool engine")
+            return 2
     try:
-        residency = build_residency_plan(cfg, args)
-        spec = spec_config(args)
-        if spec is not None:
-            resolve(cfg, spec, smoke=args.smoke)  # before the weights are drawn
+        if engine == "fixed":
+            check_fixed_geometry(args)  # before the weights are drawn
+            residency = None
+        else:
+            residency = build_residency_plan(cfg, args)
+            spec = spec_config(args)
+            if spec is not None:
+                resolve(cfg, spec, smoke=args.smoke)  # before the weights are drawn
     except ValueError as e:
         print(f"[serve] {e}")
         return 2
@@ -396,9 +579,12 @@ def main(argv=None) -> int:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     init_s = time.monotonic() - t0
-    before = ops.launch_counts()
+    before, before_routes = ops.launch_counts(), ops.launch_routes()
     try:
-        m = run_pool_engine(cfg, params, args, device, residency)
+        if engine == "fixed":
+            m = run_fixed_engine(cfg, params, args, device)
+        else:
+            m = run_pool_engine(cfg, params, args, device, residency)
     except ValueError as e:
         # bad request/budget geometry (e.g. prompt+gen > --max-len)
         print(f"[serve] {e}")
@@ -407,23 +593,29 @@ def main(argv=None) -> int:
     m["kernel_launches"] = {
         name: n - before[name] for name, n in ops.launch_counts().items()
     }
+    m["kernel_launches_by_route"] = {
+        name: {r: n - before_routes.get(name, {}).get(r, 0) for r, n in by.items()}
+        for name, by in ops.launch_routes().items()
+    }
+    pool = m["engine"] == "pool"
     print(
         f"[serve/{m['engine']}] {m['requests']} requests, "
         f"{m['generated_tokens']} generated tokens in {m['steps']} steps "
         f"({m['prefill_steps']} prefill + {m['decode_steps']} decode), "
         f"{m['wall_s']:.1f}s ({m['tokens_per_s']:.1f} tok/s, "
         f"TTFT {m['mean_ttft_s']*1e3:.0f} ms), "
-        f"pool utilization {m['pool_utilization']*100:.1f}%; "
-        f"weights of {cfg.name} drawn in {init_s:.1f}s"
+        + (f"pool utilization {m['pool_utilization']*100:.1f}%; " if pool
+           else f"per-slot cache {m['cache_mib']:.1f} MiB; ")
+        + f"weights of {cfg.name} drawn in {init_s:.1f}s"
     )
-    if m["speculate"]:
+    if pool and m["speculate"]:
         print(
             f"[serve/spec] drafter {m['speculate']} depth {m['spec_depth']}: "
             f"{m['accepted_tokens']} tokens from {m['verify_steps']} verify "
             f"steps ({m['accepted_per_step']:.2f} accepted/step, "
             f"{m['draft_tokens']} drafted)"
         )
-    if m["prefix_cache"]:
+    if pool and m["prefix_cache"]:
         print(
             f"[serve/prefix] {m['prefix_hits']} prefix hits, "
             f"{m['prefix_hit_tokens']} prompt tokens served from cache "
@@ -431,7 +623,7 @@ def main(argv=None) -> int:
             f"{m['shared_blocks_peak']} shared blocks at peak, "
             f"{m['cached_blocks']} blocks cached at drain"
         )
-    if m["residency"]:
+    if pool and m["residency"]:
         r = m["residency"]
         streamed = ""
         if cfg.family == "moe":
@@ -448,7 +640,7 @@ def main(argv=None) -> int:
             f"stream_matmul; the HBM traffic on the card is the same, since "
             f"resident layers also read their weights every step"
         )
-    if m["moe"] is not None:
+    if pool and m["moe"] is not None:
         g = m["moe"]
         line = (f"[serve/moe] {m['expert_tokens']} routed (token, expert) slots, "
                 f"load entropy {g.get('moe_expert_entropy', 0.0):.4f}, "
@@ -458,7 +650,7 @@ def main(argv=None) -> int:
             line += (f", {g['moe_streamed_experts']} streamed experts, "
                      f"{g['moe_stream_mask_occupancy']*100:.1f}% of them routed to")
         print(line)
-    if m["hybrid"] is not None:
+    if pool and m["hybrid"] is not None:
         h = m["hybrid"]
         line = (f"[serve/hybrid] lane SSM state {h['lane_state_mib']:.1f} MiB on "
                 f"{m['device']}, {h['snapshots']} anchor copies to the host "
@@ -481,22 +673,23 @@ def main(argv=None) -> int:
                 else ""
             )
         )
-    mm = m["mem"]
-    frag = mm.get("frag_at_peak") or {}
-    line = (
-        f"[serve/mem] signal {mm['signal']}, peak occupancy "
-        f"{mm['peak_occupancy']*100:.1f}% "
-        f"({mm['peak_held_blocks']} blocks, headroom "
-        f"{mm['headroom_blocks']}), {mm['evicted_blocks']} blocks "
-        f"evicted, {m['mem_records']} ledger records"
-    )
-    if frag:
-        line += (
-            f", packing at peak "
-            f"{frag.get('baseline_efficiency', 1.0)*100:.1f}% "
-            f"(FFD bound {frag.get('ffd_efficiency', 1.0)*100:.1f}%)"
+    if pool:
+        mm = m["mem"]
+        frag = mm.get("frag_at_peak") or {}
+        line = (
+            f"[serve/mem] signal {mm['signal']}, peak occupancy "
+            f"{mm['peak_occupancy']*100:.1f}% "
+            f"({mm['peak_held_blocks']} blocks, headroom "
+            f"{mm['headroom_blocks']}), {mm['evicted_blocks']} blocks "
+            f"evicted, {m['mem_records']} ledger records"
         )
-    print(line)
+        if frag:
+            line += (
+                f", packing at peak "
+                f"{frag.get('baseline_efficiency', 1.0)*100:.1f}% "
+                f"(FFD bound {frag.get('ffd_efficiency', 1.0)*100:.1f}%)"
+            )
+        print(line)
     print(
         "[serve/kernels] "
         + ", ".join(f"{k} {n} launches" for k, n in m["kernel_launches"].items())

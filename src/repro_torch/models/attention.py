@@ -1,10 +1,12 @@
-"""Attention: the flash kernel for prompts, plain torch over pool rows.
+"""Attention: the flash kernel for prompts, plain torch over pool rows
+and per-slot caches.
 
 Port of ``repro.models.attention``. ``flash_attention`` goes to
 ``kernels.ops.flash_attention`` (the CUDA kernel on the card, its plain
 version on the CPU). ``decode_attention`` and ``chunk_attention`` attend
 over rows gathered from the KV pool with a dense masked softmax in f32;
-the reference has no Pallas kernel for them either.
+the reference has no Pallas kernel for them either. ``cache_insert``
+writes a decode step's K/V row into a per-slot ring cache in place.
 """
 
 from __future__ import annotations
@@ -101,3 +103,15 @@ def chunk_attention(
         v_rows.to(torch.float32),
     )
     return out.reshape(b, c, hq, d).to(q.dtype)
+
+
+def cache_insert(cache: torch.Tensor, new: torch.Tensor, pos: int | torch.Tensor) -> torch.Tensor:
+    """Write ``new`` (B, 1, Hkv, D) into ``cache`` (B, W, Hkv, D) at ring
+    position ``pos`` along dim 1, in place, and return ``cache`` (the
+    reference's ``cache_insert`` rebuilds the array). ``pos`` is an int or
+    a one-element integer tensor on the cache's device, clamped into the
+    cache as ``dynamic_update_slice`` clamps it; a device tensor keeps a
+    captured step's position out of its graph."""
+    idx = torch.as_tensor(pos, device=cache.device).reshape(1).long()
+    idx = torch.clamp(idx, 0, cache.shape[1] - new.shape[1])
+    return cache.index_copy_(1, idx, new.to(cache.dtype))

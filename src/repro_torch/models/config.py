@@ -28,7 +28,10 @@ PREFIX_CACHE_FAMILIES = ("dense", "vlm", "moe", "hybrid")
 # Families whose dense FFN stores 1/2-bit weights as packed uint8 carriers.
 PACKING_FAMILIES = ("dense", "vlm", "encdec", "hybrid")
 # Families the port serves so far (the rest raise ValueError).
-PORTED_FAMILIES = ("dense", "moe", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
+# The served families the KV pool, the scheduler and the residency plan
+# take: ported and paged (pure ssm serves through the fixed-batch engine).
+POOL_FAMILIES = tuple(f for f in PORTED_FAMILIES if f in PAGED_FAMILIES)
 # The served families whose every layer is an attention layer: the
 # attention-KV entry points (``prefill_with_cache``, ``decode_step_paged``,
 # ``prefill_chunk_paged``, ``verify_chunk_paged``) and budgeted decode
@@ -37,6 +40,9 @@ ATTN_SERVED_FAMILIES = tuple(f for f in PORTED_FAMILIES if f in ATTN_KV_FAMILIES
 # Families the port trains so far (MoE's capacity dispatch and its aux
 # loss are not ported: its training entry points raise ValueError).
 TRAIN_FAMILIES = ("dense",)
+# Families whose full-sequence forward (``trunk``, ``forward``, ``prefill``)
+# the port runs: the trained ones and, for inference, ssm.
+FORWARD_FAMILIES = TRAIN_FAMILIES + ("ssm",)
 
 
 @dataclasses.dataclass(frozen=True)

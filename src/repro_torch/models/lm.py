@@ -1,8 +1,14 @@
-"""Dense, MoE and hybrid LM families: packed FFN weights, the training
-forward and loss, the pool serving forward, sampling.
+"""Dense, MoE, hybrid and SSM LM families: packed FFN weights, the
+training forward and loss, the pool serving forward, the fixed-batch
+decode step, sampling.
 
-Port of ``repro.models.lm`` for ``family`` "dense", "moe" and "hybrid"
-(any other family raises ``ValueError``). The MoE family is served only:
+Port of ``repro.models.lm`` for ``family`` "dense", "moe", "hybrid" and
+"ssm" (any other family raises ``ValueError``). The fixed-batch engine's
+entry points (``init_cache``, ``decode_step``, ``prefill``) serve the
+dense, SSM and hybrid families over a static per-slot cache, updated in
+place so a captured CUDA graph binds it; the pure-SSM family (Mamba2) is
+served only through them, as in the reference, and runs the full-sequence
+forward for inference, not training. The MoE family is served only:
 its FFN is ``models.moe.moe_ffn_dropless`` and every serve entry point
 appends the (L, E) expert-load tally to its outputs, as the reference's
 do; its training path (capacity dispatch, aux loss) is not ported, so
@@ -52,7 +58,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import (
+    ATTN_KV_FAMILIES,
     ATTN_SERVED_FAMILIES,
+    FORWARD_FAMILIES,
     PORTED_FAMILIES,
     TRAIN_FAMILIES,
     ModelConfig,
@@ -288,11 +296,12 @@ def init_params(
 
     The MoE family (the reference's lm.py:223) adds a ``router`` leaf (L,
     d, E) kept in f32 and stacks its expert FFNs as (L, E, d, ff) and (L, E,
-    ff, d), dense at any ``w_bits``. The hybrid family (lm.py:239) stacks
-    Mamba2 leaves (the reference's ``_init_ssm``; ``dt_bias``, ``a_log``,
-    ``d_skip`` and ``gate_norm`` in f32) and draws one ``shared`` block:
-    its norms, attention projections and a 2-D FFN, packed at ``w_bits``
-    1/2.
+    ff, d), dense at any ``w_bits``. The SSM (lm.py:234) and hybrid
+    (lm.py:239) families stack ``ln1`` and the Mamba2 leaves (the
+    reference's ``_init_ssm``; ``dt_bias``, ``a_log``, ``d_skip`` and
+    ``gate_norm`` in f32), drawn by the same code; SSM has no FFN, and
+    hybrid then draws one ``shared`` block: its norms, attention
+    projections and a 2-D FFN, packed at ``w_bits`` 1/2.
     A slice of a multiple of 16 values takes the same draws from the
     generator as the whole leaf would, so the numbers are those of one
     draw per leaf.
@@ -328,8 +337,8 @@ def init_params(
     }
     if not cfg.tie_embeddings:
         tree["unembed"] = normal((pv, d), 0.02, EMBED_ROWS)
-    if cfg.family == "hybrid":
-        if l % cfg.hybrid_attn_every:
+    if cfg.family in ("ssm", "hybrid"):
+        if cfg.family == "hybrid" and l % cfg.hybrid_attn_every:
             raise ValueError(f"{cfg.name}: {l} layers are no whole number of "
                              f"super-blocks of {cfg.hybrid_attn_every}")
         di, st, nh, k = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.conv_kernel
@@ -353,6 +362,8 @@ def init_params(
             "gate_norm": const((l, di), 1.0),
             "out": normal((l, di, d), di ** -0.5),
         }
+        if cfg.family == "ssm":
+            return LMParams(tree, trainable)
         w1, w3, w2 = (normal((1, a, b), std) for a, b, std in (
             (d, ff, s), (d, ff, s), (ff, d, s * 0.5)))
         if cfg.w_bits in (1, 2):
@@ -535,9 +546,12 @@ REMAT_MODES = ("none", "dots", "full")
 
 
 def _layer(params: LMParams, i: int, cfg: ModelConfig, x, positions):
-    """Layer ``i`` of the dense trunk (the reference's ``_make_layer_fn``):
-    attention, then FFN, each a pre-norm residual."""
+    """Layer ``i`` of the trunk (the reference's ``_make_layer_fn``): for
+    the dense family attention, then FFN, each a pre-norm residual; for
+    the SSM family a Mamba2 block over the whole sequence."""
     lp = params.layer(i)
+    if cfg.family == "ssm":
+        return _ssm_block(lp, cfg, x)[0]
     x, _ = _attn_block(lp, cfg, x, positions, causal=True, window=cfg.sliding_window)
     return _ffn_block(lp, cfg, x)
 
@@ -564,11 +578,13 @@ def trunk(
     """All layers + final norm, without the unembedding.
 
     tokens: (B, S). Returns (hidden states (B, S, d), aux loss: 0 for the
-    dense family; the MoE family is not trainable in the port yet and
-    raises). ``remat`` "full" recomputes each layer in the backward
-    (``torch.utils.checkpoint``, non-reentrant), "dots" recomputes all but
-    the 2-D matmul outputs, "none" keeps every activation."""
-    _require_ported(cfg, "trunk", TRAIN_FAMILIES)
+    dense and SSM families; the MoE and hybrid families' forward is not
+    ported yet and raises). ``remat`` "full" recomputes each layer in the
+    backward (``torch.utils.checkpoint``, non-reentrant), "dots" recomputes
+    all but the 2-D matmul outputs, "none" keeps every activation. The SSM
+    family runs it for inference (``prefill``, ``make_prefill_step``);
+    ``loss_fn`` refuses it."""
+    _require_ported(cfg, "trunk", FORWARD_FAMILIES)
     if remat not in REMAT_MODES:
         raise ValueError(f"remat must be one of {REMAT_MODES}, got {remat!r}")
     x = embed(tokens, params["embed"], torch_dtype(cfg))
@@ -607,7 +623,9 @@ def loss_fn(
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Training loss ``ce + aux_weight * aux``, returned with (ce, aux).
     ``ce_chunk > 0`` switches to the fused chunked unembed + CE, which
-    never holds the (B, S, V) logits."""
+    never holds the (B, S, V) logits. Only the families the port trains
+    (``TRAIN_FAMILIES``) are taken."""
+    _require_ported(cfg, "loss_fn", TRAIN_FAMILIES)
     if ce_chunk:
         x, aux = trunk(params, cfg, tokens, remat=remat)
         table = params["embed"] if cfg.tie_embeddings else params["unembed"]
@@ -1035,6 +1053,118 @@ def prefill_suffix_paged_hybrid(
         x = _ffn_block(shared, cfg, x)
     idx = torch.as_tensor(last_idx, device=x.device).reshape(1).long()
     return _unembed(params, cfg, x.index_select(1, idx)), pool_k, pool_v, lane_state
+
+
+# --------------------------------------------------------------------------
+# Fixed-batch decode: a static per-slot cache, one-token steps, prefill
+# --------------------------------------------------------------------------
+
+
+def init_cache(
+    cfg: ModelConfig, batch: int, max_len: int, device=None
+) -> dict[str, torch.Tensor]:
+    """The fixed-batch engine's decode state (the reference's lm.py:597),
+    on ``device`` (CUDA unless the caller asks for the CPU): attention
+    caches (L, B, W, Hkv, D) with W = min(max_len, sliding_window) for the
+    dense and MoE families; for SSM and hybrid the SSD state (L, B, H, P,
+    N) in f32 and the conv buffers (L, B, K-1, C) in the model dtype; for
+    hybrid also the shared block's (n_super, B, max_len, Hkv, D) caches;
+    and ``len``, the lockstep position, an int32 of one element on the
+    device, so a captured step reads it there. ``decode_step`` updates
+    every leaf in place: the tensors never move (``zero_cache`` resets
+    them at a wave boundary)."""
+    _require_ported(cfg, "init_cache")
+    device = resolve_device(device)
+    dt = torch_dtype(cfg)
+    cache = {"len": torch.zeros((), dtype=torch.int32, device=device)}
+    w = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    if cfg.family in ATTN_KV_FAMILIES:
+        kv_shape = (cfg.n_layers, batch, w, cfg.n_kv, cfg.hd)
+        cache["k"] = torch.zeros(kv_shape, dtype=dt, device=device)
+        cache["v"] = torch.zeros(kv_shape, dtype=dt, device=device)
+    if cfg.family in ("ssm", "hybrid"):
+        cache.update(init_ssm_lane_state(cfg, batch, device))
+    if cfg.family == "hybrid":
+        kv_shape = (cfg.n_kv_cache_layers, batch, max_len, cfg.n_kv, cfg.hd)
+        cache["k"] = torch.zeros(kv_shape, dtype=dt, device=device)
+        cache["v"] = torch.zeros(kv_shape, dtype=dt, device=device)
+    return cache
+
+
+def zero_cache(cache: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Reset a cache in place to ``init_cache``'s state: the fixed
+    engine's wave boundary, where the reference allocates a fresh cache; a
+    captured step keeps binding the same tensors."""
+    for leaf in cache.values():
+        leaf.zero_()
+    return cache
+
+
+def _decode_attn_block(lp, cfg: ModelConfig, x, k_cache, v_cache, pos, *, window=0):
+    """One-token attention against one layer's per-slot cache (the
+    reference's lm.py:648): the new K/V row goes to ring slot ``pos % W``
+    under a window, ``min(pos, W - 1)`` otherwise, in place; ``pos`` is the
+    step's position, a 0-dim integer tensor on the device."""
+    b = x.shape[0]
+    q, k, v = _qkv(lp, cfg, x, pos.reshape(1, 1).expand(b, 1))
+    w = k_cache.shape[1]
+    slot = pos % w if window else torch.clamp(pos, max=w - 1)
+    attn.cache_insert(k_cache, k, slot)
+    attn.cache_insert(v_cache, v, slot)
+    o = attn.decode_attention(q, k_cache, v_cache, torch.clamp(pos + 1, max=w), window=window)
+    return x + dense(o.reshape(b, 1, -1), lp["wo"])
+
+
+@torch.no_grad()
+def decode_step(
+    params: LMParams, cfg: ModelConfig, token: torch.Tensor, cache: dict[str, torch.Tensor]
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """One fixed-batch serving step (the reference's lm.py:670): token (B,
+    1) at the lockstep position ``cache["len"]`` -> (logits (B, 1, V) f32,
+    cache). The dense family runs each layer's attention over its ring
+    cache, then the FFN (``packed_matmul`` at ``w_bits`` 1/2); SSM advances
+    each Mamba2 layer's SSD state and conv buffers by one token; hybrid
+    does that and after each super-block applies the shared attention +
+    FFN block over its cache. The returned cache is the same dict and the
+    same tensors, updated in place (``len`` too), so a captured step binds
+    them. The MoE family raises: the reference's fixed decode runs the
+    capacity dispatch (``moe.moe_ffn``), which the port has not ported."""
+    if cfg.family == "moe":
+        raise ValueError(
+            "decode_step: the fixed-batch engine's MoE decode runs the capacity "
+            "dispatch (moe.moe_ffn), which is not ported; serve MoE through the "
+            "pool engine"
+        )
+    _require_ported(cfg, "decode_step")
+    x = embed(token, params["embed"], torch_dtype(cfg))
+    pos = cache["len"].long()
+    if cfg.family == "dense":
+        for i in range(cfg.n_layers):
+            lp = params.layer(i)
+            x = _decode_attn_block(lp, cfg, x, cache["k"][i], cache["v"][i], pos,
+                                   window=cfg.sliding_window)
+            x = _ffn_block(lp, cfg, x)
+    else:
+        hybrid = cfg.family == "hybrid"
+        shared = params.shared_block() if hybrid else None
+        for i in range(cfg.n_layers):
+            state, bufs = _lane_views(cache, i)
+            x, state, bufs = _ssm_block(params.layer(i), cfg, x, state=state, conv_bufs=bufs)
+            _store_lane(cache, i, state, bufs)
+            j = _shared_after(cfg, i) if hybrid else None
+            if j is not None:
+                x = _decode_attn_block(shared, cfg, x, cache["k"][j], cache["v"][j], pos)
+                x = _ffn_block(shared, cfg, x)
+    cache["len"].add_(1)
+    return _unembed(params, cfg, x), cache
+
+
+@torch.no_grad()
+def prefill(params: LMParams, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """The reference's ``prefill`` (lm.py:760): the full-sequence forward's
+    logits (B, S, V) f32; filling a cache is the serving engine's job."""
+    lg, _ = forward(params, cfg, tokens)
+    return lg
 
 
 # --------------------------------------------------------------------------

@@ -44,7 +44,12 @@ from repro_torch import resolve_device
 from repro_torch.core.buffers import WeightBuffer
 from repro_torch.core.packing import PackItem, baseline_packing, pack_ffd
 from repro_torch.core.resource_model import RamPrimitive
-from repro_torch.models.config import PORTED_FAMILIES, ModelConfig, torch_dtype
+from repro_torch.models.config import (
+    PAGED_FAMILIES,
+    POOL_FAMILIES,
+    ModelConfig,
+    torch_dtype,
+)
 
 SCRATCH_BLOCK = 0  # block 0 is never allocated; idle slots write/read it
 
@@ -136,9 +141,15 @@ class KVPool:
         dtype: torch.dtype | None = None,
         device=None,
     ):
-        if cfg.family not in PORTED_FAMILIES:
+        if cfg.family not in PAGED_FAMILIES:
             raise ValueError(
-                f"KVPool serves the ported families {PORTED_FAMILIES}; got "
+                f"KVPool serves the paged families {PAGED_FAMILIES}; got "
+                f"{cfg.family!r} (pure-ssm decode state is fixed-size per "
+                "slot and holds no KV rows)"
+            )
+        if cfg.family not in POOL_FAMILIES:
+            raise ValueError(
+                f"KVPool serves the ported families {POOL_FAMILIES}; got "
                 f"{cfg.family!r}"
             )
         if n_blocks < 2:

@@ -40,7 +40,7 @@ from repro_torch.core.gals import N_PORTS
 from repro_torch.core.packing import Packing, bin_cost
 from repro_torch.core.resource_model import H100_SXM, GpuChip
 from repro_torch.core.vmem_plan import WeightBlock, pack_blocks, vmem_tile_ram
-from repro_torch.models.config import PORTED_FAMILIES, ModelConfig, torch_dtype
+from repro_torch.models.config import POOL_FAMILIES, ModelConfig, torch_dtype
 
 MAX_STREAM_DEPTH = 8
 CHIP = H100_SXM
@@ -80,10 +80,10 @@ def weight_blocks(cfg: ModelConfig) -> tuple[WeightBlock, ...]:
     ``shared.{mat}``. Budgeted decode does not run hybrid (its SSM state is
     out of the executor's scope, as in the reference), but its plan lists
     and prices the shared blocks."""
-    if cfg.family not in PORTED_FAMILIES:
+    if cfg.family not in POOL_FAMILIES:
         raise ValueError(
             f"the residency plan covers the ported families "
-            f"{', '.join(PORTED_FAMILIES)}; got {cfg.family!r}"
+            f"{', '.join(POOL_FAMILIES)}; got {cfg.family!r}"
         )
     d, ff = cfg.d_model, cfg.d_ff
     mats = {"w1": (d, ff), "w3": (d, ff), "w2": (ff, d)}

@@ -93,7 +93,7 @@ import torch
 
 from repro_torch.core.gals import required_rf
 from repro_torch.models.config import (
-    PORTED_FAMILIES,
+    POOL_FAMILIES,
     PREFIX_CACHE_FAMILIES,
     ModelConfig,
 )
@@ -234,8 +234,11 @@ class Scheduler:
         ledger=None,
         mem_monitor=None,
     ):
-        if cfg.family not in PORTED_FAMILIES:
-            raise ValueError(f"Scheduler: family {cfg.family!r} is not ported")
+        if cfg.family not in POOL_FAMILIES:
+            raise ValueError(
+                f"Scheduler: family {cfg.family!r} is not ported to the pool engine "
+                f"(ported: {', '.join(POOL_FAMILIES)})"
+            )
         self.cfg = cfg
         self.params = params
         self.pool = pool

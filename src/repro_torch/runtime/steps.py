@@ -1,22 +1,25 @@
-"""Step builders: the train step and the pool steps of the
-continuous-batching scheduler, and ``CapturedStep``, which compiles a pool
-step into a CUDA graph.
+"""Step builders: the train step, the fixed-batch engine's prefill and
+serve steps, the pool steps of the continuous-batching scheduler, and
+``CapturedStep``, which compiles a serve step into a CUDA graph.
 
-Port of ``repro.runtime.steps`` for the dense, MoE and hybrid families
-(the train step: dense only). A step is the model function closed over the
-config; the MoE family's pool steps return the (L, E) expert-load tally as
-one more output, which a ``CapturedStep`` binds like the others; the
-hybrid's decode step takes and returns the per-lane SSM state, its
-whole-prompt prefill returns the prompt's lane state, and its chunks run
-``make_hybrid_suffix_prefill_step``, which resumes from a carried state. There is no
-buffer donation: the train
-step updates the parameters and the optimizer state in place, the pool
-steps the pool tensors. The reference jits its pool steps; the port's
-counterpart is ``CapturedStep``, which the scheduler wraps around every
-pool step on a CUDA pool: the decode step, the prefill chunk, the
-whole-prompt prefill of each bucket and, when it speculates, the verify
-step of each chain length and its model drafter's decode and prefill
-steps. The train step runs eagerly.
+Port of ``repro.runtime.steps`` for the dense, MoE, hybrid and SSM
+families (the train step: dense only; the fixed-batch serve step: dense,
+SSM and hybrid; the prefill step: dense and SSM). A step is the model
+function closed over the config; the MoE family's pool steps return the
+(L, E) expert-load tally as one more output, which a ``CapturedStep``
+binds like the others; the hybrid's decode step takes and returns the
+per-lane SSM state, its whole-prompt prefill returns the prompt's lane
+state, and its chunks run ``make_hybrid_suffix_prefill_step``, which
+resumes from a carried state. There is no buffer donation: the train step
+updates the parameters and the optimizer state in place, the serve steps
+the pool tensors or the fixed engine's cache. The reference jits its
+serve steps; the port's counterpart is ``CapturedStep``, which the
+scheduler wraps around every pool step on a CUDA pool: the decode step,
+the prefill chunk, the whole-prompt prefill of each bucket and, when it
+speculates, the verify step of each chain length and its model drafter's
+decode and prefill steps; the fixed-batch engine
+(``launch.serve.run_fixed_engine``) wraps its serve step the same way.
+The train step runs eagerly.
 """
 
 from __future__ import annotations
@@ -30,17 +33,31 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import logits as unembed_logits
 from repro_torch.optim.adamw import AdamW, param_tree
 from repro_torch.runtime.residency.executor import BUDGET_REFUSAL, supports_budgeted_decode
+
+
+def _not_ported(cfg: ModelConfig, what: str) -> None:
+    """The vlm and enc-dec branches of the reference's step builders: their
+    modality inputs (patch embeddings, audio frames) are not ported."""
+    if cfg.family in ("vlm", "encdec"):
+        raise ValueError(f"{what}: family {cfg.family!r} is not ported to it")
+
+
+def _split_batch(cfg: ModelConfig, batch: dict):
+    """(tokens, labels) of a batch; the reference's vlm branch also takes
+    its patch embeddings, which are not ported."""
+    _not_ported(cfg, "_split_batch")
+    return batch["tokens"], batch["labels"]
 
 
 def make_loss_fn(cfg: ModelConfig, *, remat: str = "full", ce_chunk: int = 0) -> Callable:
     """(params, batch {tokens, labels}) -> scalar loss."""
 
     def loss(params, batch):
-        value, _ = lm.loss_fn(
-            params, cfg, batch["tokens"], batch["labels"], remat=remat, ce_chunk=ce_chunk
-        )
+        tokens, labels = _split_batch(cfg, batch)
+        value, _ = lm.loss_fn(params, cfg, tokens, labels, remat=remat, ce_chunk=ce_chunk)
         return value
 
     return loss
@@ -86,6 +103,36 @@ def make_train_step(
         grads = _grads(loss, param_tree(params))
         params, opt_state = opt.update(grads, opt_state, params)
         return params, opt_state, {"loss": loss.detach()}
+
+    return step
+
+
+def make_prefill_step(cfg: ModelConfig) -> Callable:
+    """(params, batch {tokens, labels}) -> next-token logits (B, 1, V): the
+    full-sequence trunk, with the hidden states sliced to the last
+    position before the unembedding, so the (B, S, V) logits are never
+    built (the reference's steps.py:72). The families ``lm.trunk`` takes."""
+    _not_ported(cfg, "make_prefill_step")
+
+    @torch.no_grad()
+    def step(params, batch):
+        tokens, _ = _split_batch(cfg, batch)
+        x, _ = lm.trunk(params, cfg, tokens)
+        table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+        return unembed_logits(x[:, -1:, :], table, cfg.vocab)
+
+    return step
+
+
+def make_serve_step(cfg: ModelConfig) -> Callable:
+    """(params, token (B, 1), cache) -> (logits (B, 1, V), cache): the
+    fixed-batch engine's decode step (``lm.decode_step``) over the static
+    per-slot cache of ``lm.init_cache``, updated in place, so a
+    ``CapturedStep`` over it binds the cache and takes only the token."""
+    _not_ported(cfg, "make_serve_step")
+
+    def step(params, token, cache):
+        return lm.decode_step(params, cfg, token, cache)
 
     return step
 

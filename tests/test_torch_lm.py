@@ -103,10 +103,10 @@ def test_port_configs_match_reference(arch):
 
 
 def test_registry_is_the_reference_s_over_the_ported_archs():
-    """``ARCH_IDS`` are the reference's dense, MoE and hybrid archs in its
-    order, the aliases its aliases, and ``all_configs`` its configs over
+    """``ARCH_IDS`` are the reference's dense, MoE, hybrid and SSM archs in
+    its order, the aliases its aliases, and ``all_configs`` its configs over
     them; an arch not ported yet raises, naming the ported ones."""
-    ported = ARCHS + MOE_ARCHS + ("zamba2_2p7b",)
+    ported = ARCHS + MOE_ARCHS + ("zamba2_2p7b", "mamba2_1p3b")
     assert tconf.ARCH_IDS == [a for a in jconf.ARCH_IDS if a in ported]
     assert tconf.ALIASES == {k: v for k, v in jconf.ALIASES.items() if v in ported}
     want = jconf.all_configs()
@@ -114,11 +114,11 @@ def test_registry_is_the_reference_s_over_the_ported_archs():
     assert list(got) == tconf.ARCH_IDS
     for arch, cfg in got.items():
         assert dataclasses.asdict(cfg) == dataclasses.asdict(want[arch])
-    for name in ("mamba2-1.3b", "whisper_tiny"):
+    for name in ("internvl2-76b", "whisper_tiny"):
         jconf.canonical(name)  # the reference has it
         with pytest.raises(ValueError, match="ported archs: h2o_danube_1p8b, llama3p2_1b, "
                                              "phi3_medium_14b, smollm_360m, olmoe_1b_7b, "
-                                             "moonshot_v1_16b_a3b, zamba2_2p7b"):
+                                             "moonshot_v1_16b_a3b, zamba2_2p7b, mamba2_1p3b"):
             tconf.get_config(name)
 
 
@@ -422,7 +422,7 @@ def test_tensor_q_offset_is_forward_only():
 def test_unported_family_raises():
     _, tc = _configs(0)
     with pytest.raises(ValueError, match="not ported"):
-        tlm.init_params(dataclasses.replace(tc, family="ssm"), device="cpu")
+        tlm.init_params(dataclasses.replace(tc, family="encdec"), device="cpu")
     # the MoE family is served, not trained: its training forward raises
     moe = t_smoke("olmoe_1b_7b")
     params = tlm.init_params(moe, device="cpu")

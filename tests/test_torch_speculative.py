@@ -571,8 +571,13 @@ def test_resolve_rejects_unknown_drafter_listing_options():
     want, got = _resolve_error((jc, tc), "no_such_arch")
     assert got == want and "ngram" in got
     # an arch the port has not ported is unknown to it, with the options
-    with pytest.raises(ValueError, match="unknown drafter arch 'mamba2_1p3b'.*ngram"):
-        tspec.resolve(tc, tspec.SpecConfig(drafter="mamba2_1p3b"), smoke=True)
+    with pytest.raises(ValueError, match="unknown drafter arch 'whisper_tiny'.*ngram"):
+        tspec.resolve(tc, tspec.SpecConfig(drafter="whisper_tiny"), smoke=True)
+    # mamba2 is known to both: an ssm drafter has no packed twin, refused
+    # with the reference's message (its drafter families cut to the port's)
+    want, got = _resolve_error((jc, tc), "mamba2_1p3b")
+    assert "family 'ssm'" in got and "packed twin" in got
+    assert got == want.replace(str(jspec.MODEL_DRAFT_FAMILIES), str(tspec.MODEL_DRAFT_FAMILIES))
 
 
 def test_resolve_rejects_unpackable_drafter_family():
