@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--only kernels|prefill|moe|hybrid|ssm] [--src DIR] [--log FILE]
+    python3 chip_smoke.py [--only kernels|prefill|moe|hybrid|ssm|vlm|encdec] [--src DIR]
+                          [--log FILE]
 
 Phases, one JSON line each; any failure exits nonzero with no result:
 
@@ -65,7 +66,19 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               the f32 weight, M 1 and 16 and moonshot's 2048x1408 and
               1408x2048 for agreement, and ``flash_fwd`` causal 512 and the
               chunk at olmoe's 16/16 heads, D 128, timed; the twin's 640 x
-              640 prefill and the mma path at M 24 are timed too; head dim
+              640 prefill and the mma path at M 24 are timed too; the vlm
+              and enc-dec families': ``packed_matmul`` at 2 bits at
+              internvl2-76b's 8192x28672 and 28672x8192 (the GEMV at M 8,
+              the mma path at M 256) and whisper-tiny's 384x1536 and
+              1536x384 (the GEMV at M 8, the mma path at M 12000: 8 lanes
+              x 1500 frames), each timed with its planned split, and each
+              row's bits independent of M at those shapes (whisper's also
+              against the head of a 12000-row launch); ``flash_fwd`` not
+              causal at whisper's encoder (48 lanes x heads, 1500 x 1500,
+              D 64) and cross-attention (64 tokens over 1500 frames), both
+              timed, the encoder also on the f32 route and a ragged cross
+              case checked; causal at internvl's 64/8 heads (G 8), D 128:
+              the 512-token prefill and the chunk, timed; head dim
               80 (h2o-danube's 32/8 heads) on
               both routes: causal 512, the chunk, the 4096 window at a chunk
               past it (Sq 256 over Sk 4352 at q_offset 4096), ragged cases,
@@ -366,7 +379,56 @@ ssm        -- (after the hybrid phase; ``--only ssm`` runs it alone after the
               gradient check at full width and depth 2 (head dim 80: both
               ``flash_bwd`` passes on their tensor-core kernels).
 
-A ``seconds`` line follows each phase (and each new arch).
+vlm        -- (after the SSM phase; ``--only vlm`` runs it alone after the
+              build) internvl2-76b at full width (d_model 8192, 64/8 heads,
+              D 128, d_ff 28672, vocab 128256) and SERVED_LAYERS (4) of its
+              80 layers, 2-bit FFN carriers: (a) ``init_params``
+              (seconds, host memory, device MiB) and the whole backbone's
+              bytes at bf16 / 2 / 1 bits (arithmetic); (b) its first
+              VLM_CPU_LAYERS layers in bf16 on the card against float32 on
+              the CPU, same weights: the 512-token prefill
+              (``prefill_vs_cpu``) and ``make_prefill_step`` with 256
+              seeded patch embeddings ahead of 64 tokens
+              (``logits_vs_cpu``; the card closer to the CPU than a
+              text-only prefill is); the pool's decode step and chunk
+              captured, each replay bitwise its eager step; (e) a decode
+              step profiled eager and compiled and a compiled chunk (card
+              ms, busy share, kernels); (c) the serve cell (16 x (512 +
+              64), 8 lanes, --prefill-chunk 256, --max-len 640, the prefix
+              cache on) at --quant 2 compiled, then at 8 requests eager and
+              compiled: identical tokens and launches by route; (d) the
+              fixed engine: its decode graph's FIXED_REPLAYS replays
+              bitwise eager, every cache leaf included, and its cell (8 x
+              (128 + 64)) eager and compiled, every FFN matmul on the GEMV.
+encdec     -- (last; ``--only encdec`` runs it alone after the build)
+              whisper-tiny at full size (4 + 4 layers, d 384, 6/6 heads,
+              1500 frames): (a) ``init_params`` at --quant 0 (the host
+              draw) and 2 (drawn on the card): the 2-bit leaves, the
+              encoder's included, bitwise the dense draw packed; (b) 8
+              seeded frame sets (8, 1500, 384) in bf16 on the card against
+              float32 on the CPU: the encoder's states (each lane's cosine
+              >= PREFILL_MIN_COS), each lane's prefill logits over 32
+              decoder tokens (``make_prefill_step``) and 32 decode steps
+              teacher-forced with the card's greedy tokens
+              (``logits_vs_cpu``); (c) the decode step
+              (``make_serve_step``) as one ``CapturedStep`` over the whole
+              cache: FIXED_REPLAYS replays bitwise the eager step, every
+              leaf (``cross_k``, ``cross_v``, ``k``, ``v``, ``len``)
+              included; (d) greedy decoding of 64 tokens on 8 lanes, eager
+              and compiled: identical tokens and launches by route
+              (``flash_fwd`` 4 not-causal launches in the encoder,
+              ``packed_matmul`` 12 on the mma path there and 12 a step on
+              the GEMV), tokens/s, step ms (mean and replay), and a decode
+              step's card ms and kernels.
+
+A ``seconds`` line follows each phase (and each new arch), with the host's
+resident memory and its peak over the phase. From phase 4 on, the later
+phases' weights are drawn ahead on a host thread while the card runs the
+phase before theirs (``lm.init_params(c, 0, device="cpu")``, bitwise the
+card's draw; the thread makes no CUDA call, so the graphs captured
+meanwhile stay valid), and a dense arch's 2-bit copy is packed from that
+draw on another host thread as soon as the draw is done; each ``init``
+line says what the host threads took and what the run waited for.
 
 The last lines are nvidia-smi's, then ``{"kernels": [...]}``, then
 ``{"ok": true, "device": {...}}``.
@@ -389,6 +451,7 @@ import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -453,8 +516,11 @@ REMAT_MIN_COS = 0.9999  # --remat full/dots vs none on the card: atomics order o
 NEW_ARCHS = ("llama3p2_1b", "h2o_danube_1p8b", "phi3_medium_14b")
 # ... but phi3, served at 32 of its 40 layers since the hybrid phase came:
 # with all 40 the whole run ended 63.3 s short of its limit on the H100
-# (its draw and packing, ~210 s at 40 layers, are the run's longest host work)
-SERVED_LAYERS = {"phi3_medium_14b": 32}
+# (its draw and packing, ~210 s at 40 layers, are the run's longest host work);
+# and internvl2-76b (the vlm phase) at 4 of its 80 layers at full width: its
+# whole backbone is ~141 GB in bf16 and ~42 GB with 2-bit FFN carriers, which
+# one 80 GB card holds, but its draw alone would take ~500 s on the host
+SERVED_LAYERS = {"phi3_medium_14b": 32, "internvl2_76b": 4}
 WINDOW_STEPS = 16  # decode steps of h2o-danube's run past its window
 # the MoE phase: olmoe at full size, moonshot cut to MOON_LAYERS of its 48
 # layers (its full draw would take ~200 s on the host; 4, not 8 as before,
@@ -547,10 +613,29 @@ SSM_PREFILL_LOGIT_STEPS = 80
 SSM_PREFILL_MIN_ARGMAX = 0.4
 SSM_F32_LOGIT_STEPS = 0.5
 SSM_F32_MIN_ARGMAX = 0.95
+# the vlm phase: internvl2-76b at full width, SERVED_LAYERS of its layers, 2-bit
+# FFN carriers; its checks against the CPU at VLM_CPU_LAYERS of them, the
+# patch prefill on VLM_PATCHES seeded patch embeddings ahead of VLM_TOKENS
+# tokens; eager against compiled serving at VLM_EAGER_REQUESTS of the cell's
+# 16 requests (the eager run's cut)
+VLM_ARCH = "internvl2_76b"
+VLM_CPU_LAYERS = 2
+VLM_PATCHES, VLM_TOKENS = 256, 64
+VLM_EAGER_REQUESTS = 8
+# the enc-dec phase: whisper-tiny at full size (4 + 4 layers, d 384, 1500
+# frames) on LANES lanes: ENC_TOKENS decoder tokens in the prefill and
+# teacher-forced decode steps against the CPU, ENC_GEN greedy tokens a lane
+ENC_ARCH = "whisper_tiny"
+ENC_TOKENS, ENC_GEN = 32, 64
+
+
+HOST_POOLS: list = []  # the host-draw threads' executors, cancelled on a failure
 
 
 def fail(msg: str) -> None:
     print(f"[chip_smoke] FAILED: {msg}", file=sys.stderr)
+    for pool in HOST_POOLS:
+        pool.shutdown(wait=False, cancel_futures=True)
     sys.exit(1)
 
 
@@ -622,12 +707,14 @@ def main(argv: list[str] | None = None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
-    ap.add_argument("--only", choices=("kernels", "prefill", "moe", "hybrid", "ssm"),
+    ap.add_argument("--only", choices=("kernels", "prefill", "moe", "hybrid", "ssm", "vlm",
+                                       "encdec"),
                     help="kernels: stop after phase 3 (build, and hold each kernel against "
                          "its plain version); prefill: build, then only phase 4's prefill "
                          "check and profile; moe: build, then only the MoE phase; hybrid: "
                          "build, then only the hybrid phase; ssm: build, then only the SSM "
-                         "phase. Each prints no result")
+                         "phase; vlm, encdec: build, then only that family's phase. Each "
+                         "prints no result")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the source tree whose repro_torch to run (default: src beside this "
                          "script); another commit's, to compare the two in one call")
@@ -656,13 +743,19 @@ def main(argv: list[str] | None = None) -> int:
 
     clock = [time.monotonic()] * 2  # the run's start, the last phase's end
 
+    host_peak, host_done = [0], threading.Event()
+
     def phase_seconds(name: str) -> None:
-        """The phase's seconds, the run's, and the card's memory after it."""
+        """The phase's seconds, the run's, the card's memory after it, and
+        the host's resident memory now and at its peak during the phase
+        (host draws ahead of their phase included)."""
         now = time.monotonic()
         phase("seconds", done=name, seconds=now - clock[1], run_seconds=now - clock[0],
               device_allocated_mib=torch.cuda.memory_allocated() / 2**20,
               device_reserved_mib=torch.cuda.memory_reserved() / 2**20,
-              device_peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+              device_peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+              host_rss_mib=rss() / 2**20, host_rss_peak_mib=host_peak[0] / 2**20)
+        host_peak[0] = rss()
         clock[1] = now
 
     # ---------------- 1. device ----------------
@@ -773,7 +866,8 @@ def main(argv: list[str] | None = None) -> int:
                     device_busy_share=dev_ms / wall_ms, kernels_per_step=len(kern) / window,
                     event_step_ms=statistics.median(spans_ms)), by_name
 
-    from repro_torch.runtime.steps import CapturedStep
+    from repro_torch.models import encdec
+    from repro_torch.runtime.steps import CapturedStep, make_prefill_step, make_serve_step
 
     def replay_matches(label, i, replays, want_replays, pairs) -> dict:
         """Replay ``i`` of a graph (``replays`` counted so far, which must
@@ -1087,12 +1181,90 @@ def main(argv: list[str] | None = None) -> int:
         with open("/proc/self/statm") as fh:
             return int(fh.read().split()[1]) * page
 
+    # the host's resident memory, sampled every 50 ms for the whole run: each
+    # ``seconds`` line reads its peak since the line before
+    host_peak[0] = rss()
+
+    def sample_host() -> None:
+        while not host_done.wait(0.05):
+            host_peak[0] = max(host_peak[0], rss())
+
+    threading.Thread(target=sample_host, daemon=True).start()
+
+    # ---- weights drawn ahead on host threads ----
+    # ``lm.init_params(c, 0, device="cpu")`` is bitwise the card's draw (the
+    # same generator, seed and order; the card's draw rounds to the model
+    # dtype on the host too), so the next arch's weights are drawn on a host
+    # thread while the card runs the phase before, and moved to the card
+    # when their phase starts (``timed_init``). The threads make no CUDA
+    # call: a CUDA call from another thread would invalidate a graph the
+    # phase captures meanwhile (global capture mode), so they touch
+    # pageable host tensors only (no pinned memory). One thread draws, in
+    # the order asked; another packs (``pack_ffn_params`` of a host draw).
+    draw_pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="host-draw")
+    pack_pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="host-pack")
+    HOST_POOLS.extend((draw_pool, pack_pool))
+    prefetched: dict = {}
+
+    def host_job(fn, *args):
+        t0 = time.monotonic()
+        out = fn(*args)
+        return out, time.monotonic() - t0
+
+    packed_ahead: dict = {}
+
+    def draw_then_pack(c, bits):
+        """The host draw of ``c`` (seed 0); with ``bits``, its FFN
+        leaves then packed on the pack thread (``pack_ffn_params``, bitwise
+        ``init_params`` at those bits), queued as soon as the draw is done,
+        for ``take_packed``."""
+        host = lm.init_params(c, 0, device="cpu")
+        if bits:
+            packed_ahead[c] = pack_pool.submit(host_job, lm.pack_ffn_params, host, bits)
+        return host
+
+    def prefetch(*configs, packed_bits=0) -> None:
+        """Queue the host draw of each config on the draw thread."""
+        for c in configs:
+            if c not in prefetched:
+                prefetched[c] = draw_pool.submit(host_job, draw_then_pack, c, packed_bits)
+
+    def to_card(p):
+        """A host ``LMParams`` copied to the card (the host copy stays)."""
+        def move(node):
+            return ({k: move(v) for k, v in node.items()} if isinstance(node, dict)
+                    else node.to(dev))
+        out = lm.LMParams(move(p.tree()))
+        torch.cuda.synchronize()
+        return out
+
+    def take(future) -> tuple:
+        """A host job's result and its seconds, and the seconds the card's
+        side waited for it."""
+        t0 = time.monotonic()
+        out, job_s = future.result()
+        return out, job_s, time.monotonic() - t0
+
     def timed_init(c) -> tuple:
-        """``lm.init_params(c, 0)`` on the card: the weights, and the seconds
-        it took (to the card's finish), the host's resident memory at its
-        start and at its peak (sampled every 20 ms; memory freed by earlier
-        phases and kept by the host allocator is reused, so the peak may not
-        rise) and the weights' device MiB."""
+        """``lm.init_params(c, 0)`` on the card: the weights and their
+        numbers. Weights ``prefetch`` queued come from the host draw,
+        copied to the card: ``init_s`` is the host thread's draw plus the
+        copy, ``foreground_s`` what the run waited for them (the wait and
+        the copy). Others are drawn on the card here: the seconds it took
+        (to the card's finish), the host's resident memory at its start and
+        at its peak (sampled every 20 ms; memory freed by earlier phases
+        and kept by the host allocator is reused, so the peak may not
+        rise). Either way, the weights' device MiB."""
+        dev0 = torch.cuda.memory_allocated()
+        if c in prefetched:
+            host, draw_s, wait_s = take(prefetched.pop(c))
+            t0 = time.monotonic()
+            p = to_card(host)
+            move_s = time.monotonic() - t0
+            return p, dict(init_s=draw_s + move_s, drawn_on_host_thread=True, draw_s=draw_s,
+                           wait_s=wait_s, move_s=move_s, foreground_s=wait_s + move_s,
+                           host_rss_mib=rss() / 2**20,
+                           weights_mib=(torch.cuda.memory_allocated() - dev0) / 2**20)
         base, peak, done = rss(), [0], threading.Event()
 
         def sample():
@@ -1101,7 +1273,6 @@ def main(argv: list[str] | None = None) -> int:
 
         sampler = threading.Thread(target=sample)
         sampler.start()
-        dev0 = torch.cuda.memory_allocated()
         t0 = time.monotonic()
         try:
             p = lm.init_params(c, 0, device=dev)
@@ -1113,6 +1284,50 @@ def main(argv: list[str] | None = None) -> int:
         return p, dict(init_s=init_s, init_host_rss_mib_start=base / 2**20,
                        init_host_rss_mib_peak=max(peak[0], rss()) / 2**20,
                        weights_mib=(torch.cuda.memory_allocated() - dev0) / 2**20)
+
+    def take_packed(c, params) -> tuple:
+        """``params`` (``c``'s dense weights on the card) with their FFN
+        leaves packed at 2 bits: the pack thread's copy of the host draw
+        where ``prefetch`` queued one, else packed here from the card's
+        copy; and the seconds the packing took and the run waited."""
+        t0 = time.monotonic()
+        if c in packed_ahead:
+            host, pack_s, wait_s = take(packed_ahead.pop(c))
+            packed = to_card(host)
+            return packed, dict(pack_s=pack_s, packed_on_host_thread=True, wait_s=wait_s,
+                                foreground_s=time.monotonic() - t0)
+        packed = lm.pack_ffn_params(params, 2)
+        torch.cuda.synchronize()
+        pack_s = time.monotonic() - t0
+        return packed, dict(pack_s=pack_s, foreground_s=pack_s)
+
+    def arch_configs(arch) -> tuple:
+        """A dense arch's two draws in ``serve_arch``: 2 layers at 2 bits
+        (the check against the CPU), dense at its served depth."""
+        full = get_config(arch)
+        return (dataclasses.replace(full, n_layers=2, w_bits=2),
+                dataclasses.replace(full, w_bits=0,
+                                    n_layers=SERVED_LAYERS.get(arch, full.n_layers)))
+
+    def prefetch_after(name) -> None:
+        """Queue the host draws that follow ``name``'s phase (a full run
+        only): from phase 4 on, each arch's weights behind the phases
+        before its own; the dense archs' served draws then packed at 2
+        bits on the pack thread."""
+        if opts.only:
+            return
+        if name == "phase 4":
+            for arch in NEW_ARCHS:
+                c2, cq0 = arch_configs(arch)
+                prefetch(c2)
+                prefetch(cq0, packed_bits=2)
+        elif name == NEW_ARCHS[0]:
+            prefetch(get_config(MOE_ARCH),
+                     dataclasses.replace(get_config(MOON_ARCH), n_layers=MOON_LAYERS))
+        elif name == MOE_ARCH:
+            prefetch(get_config(HYB_ARCH), get_config(SSM_ARCH))
+        elif name == HYB_ARCH:
+            prefetch(vlm_served_config(), dataclasses.replace(get_config(ENC_ARCH), w_bits=0))
 
     # ---- the kernel cases of phase 3, and of the hybrid phase's (c) ----
     packed_cases = []
@@ -1805,7 +2020,8 @@ def main(argv: list[str] | None = None) -> int:
     def first_layers(c, p, n):
         """``c`` and ``p`` cut to their first ``n`` layers (views)."""
         tree = p.tree()
-        tree["layers"] = {name: leaf[:n] for name, leaf in tree["layers"].items()}
+        tree["layers"] = {name: ({k: v[:n] for k, v in leaf.items()} if isinstance(leaf, dict)
+                                 else leaf[:n]) for name, leaf in tree["layers"].items()}
         return dataclasses.replace(c, n_layers=n), lm.LMParams(tree)
 
     def moe_phase() -> None:
@@ -1813,6 +2029,7 @@ def main(argv: list[str] | None = None) -> int:
         t_phase = time.monotonic()
         full = get_config(MOE_ARCH)
         params, init = timed_init(full)
+        prefetch_after(MOE_ARCH)
         phase("init", arch=MOE_ARCH, layers=full.n_layers, **init)
         moe_layers_vs_cpu(*first_layers(full, params, MOE_CHECK_LAYERS))
         moe_graphs(full, params)
@@ -2253,6 +2470,7 @@ def main(argv: list[str] | None = None) -> int:
         full = get_config(HYB_ARCH)
         # (a) one dense draw at full size; the 2-bit copy packs its shared FFN
         params0, init = timed_init(dataclasses.replace(full, w_bits=0))
+        prefetch_after(HYB_ARCH)
         phase("init", arch=HYB_ARCH, quant=0, layers=full.n_layers, **init)
         cq0, cq2 = (dataclasses.replace(full, w_bits=b) for b in (0, 2))
         t0 = time.monotonic()
@@ -2346,7 +2564,8 @@ def main(argv: list[str] | None = None) -> int:
         return cache
 
     def hold_cache_replay(label, c, p, cache0) -> None:
-        """The fixed decode step (``lm.decode_step``) as a ``CapturedStep``
+        """The fixed decode step (``steps.make_serve_step``: ``lm.decode_step``,
+        or ``encdec.decode_step`` over its cross K/V too) as a ``CapturedStep``
         over a copy of ``cache0``, and eagerly over another: the graph's
         first call and the eager step on the same token, then FIXED_REPLAYS
         replays in a row, each held against the eager step on the same
@@ -2355,20 +2574,21 @@ def main(argv: list[str] | None = None) -> int:
         lanes = cache0["ssm" if "ssm" in cache0 else "k"].shape[1]
         cache_g = {k: v.clone() for k, v in cache0.items()}
         cache_e = {k: v.clone() for k, v in cache0.items()}
-        graph = CapturedStep(lambda t_: lm.decode_step(p, c, t_, cache_g)[0], device=dev,
+        serve_step = make_serve_step(c)
+        graph = CapturedStep(lambda t_: serve_step(p, t_, cache_g)[0], device=dev,
                              mempool=torch.cuda.graph_pool_handle())
         toks = [torch.from_numpy(np.random.default_rng(20 + i).integers(0, c.vocab, (lanes, 1)))
                 for i in range(FIXED_REPLAYS + 1)]
         graph(toks[0])
-        lm.decode_step(p, c, toks[0].to(dev), cache_e)
+        serve_step(p, toks[0].to(dev), cache_e)
         for i in range(1, FIXED_REPLAYS + 1):
             lg_r = graph(toks[i])
-            lg_e = lm.decode_step(p, c, toks[i].to(dev), cache_e)[0]
+            lg_e = serve_step(p, toks[i].to(dev), cache_e)[0]
             replay_matches(label, i - 1, graph.replays, i, {
                 "logits": (lg_r, lg_e), **{f"cache_{k}": (cache_g[k], cache_e[k]) for k in cache0}})
         del graph, cache_g, cache_e
 
-    def fixed_cell(label, c, p, want_counts) -> None:
+    def fixed_cell(label, c, p, want_counts) -> dict:
         """The fixed-batch engine's cell (``serve.run_fixed_engine``: the
         reference's loop, lockstep lanes, prompts replayed through the
         decode step) on ``p``, eager and then compiled (every step a replay
@@ -2376,7 +2596,7 @@ def main(argv: list[str] | None = None) -> int:
         before each run and read just after: every request done, the
         tokens and the launch counts by route identical, and the counts
         ``want_counts(steps)`` (by route); the compiled run's launches
-        counted on the main path."""
+        counted on the main path, and returned by route."""
         args = serve.build_parser().parse_args(
             ["--arch", c.name, "--requests", str(FIXED_REQUESTS), "--batch", str(LANES),
              "--prompt-len", str(FIXED_PROMPT), "--gen-len", str(FIXED_GEN),
@@ -2420,6 +2640,7 @@ def main(argv: list[str] | None = None) -> int:
             for route, n in by.items():
                 fixed_launches.setdefault(name, {})
                 fixed_launches[name][route] = fixed_launches[name].get(route, 0) + n
+        return compiled["by_route"]
 
     # ---------------- the SSM family (--only ssm: alone) ----------------
     def ssm_vs_cpu(c, p) -> None:
@@ -2579,6 +2800,430 @@ def main(argv: list[str] | None = None) -> int:
         phase_seconds(f"ssm {SSM_ARCH}: decode vs prefill")
         phase("ssm_phase", seconds=time.monotonic() - t_phase)
 
+    # ---- shared by phases 4-5, the other archs and the vlm phase ----
+    def decode_kw(c, plan):
+        return {} if plan is None else dict(
+            stream_mask=plan.layer_stream_mask(c), stream_depth=plan.stream_ahead)
+
+    def profile_decode(p, c, plan=None, compiled=False) -> dict:
+        """One paged decode step of 8 lanes at depth PROMPT + 8: host wall
+        time per step (synchronised) against the card's kernel time in a
+        torch.profiler window, and the kernels that take it. With a plan,
+        the step is budgeted (its streamed layers run stream_matmul).
+        Compiled, it is the scheduler's captured step: host inputs copied
+        into the graph's buffers, then one replay; eager, the inputs are
+        already on the card."""
+        kw = decode_kw(c, plan)
+        rows = LANES * MAX_LEN + 16
+        pk = torch.zeros((c.n_layers, rows, c.n_kv, c.hd), dtype=torch.bfloat16, device=dev)
+        pv = torch.zeros_like(pk)
+        table = (16 + torch.arange(LANES * MAX_LEN, device=dev)).reshape(LANES, MAX_LEN)
+        tok = torch.zeros((LANES, 1), dtype=torch.long, device=dev)
+        lens = torch.full((LANES,), PROMPT + 8, device=dev)
+
+        if compiled:
+            graph = CapturedStep(
+                lambda t_, tb, ln: lm.decode_step_paged(p, c, t_, pk, pv, tb, ln, **kw)[0],
+                device=dev, mempool=torch.cuda.graph_pool_handle())
+            host_in = (tok.cpu(), table.cpu(), lens.cpu())
+
+            def step():
+                graph(*host_in)
+        else:
+            def step():
+                lm.decode_step_paged(p, c, tok, pk, pv, table, lens, **kw)
+
+        stats, by_name = profile_window(step)
+        return dict(
+            w_bits=c.w_bits, budgeted=plan is not None, compiled=compiled,
+            streamed_layers=sum(kw.get("stream_mask", ())), **stats,
+            gemv_ms=sum(ms for name, ms in by_name.items() if "gemv_kernel<" in name),
+            stream_ms=sum(ms for name, ms in by_name.items() if "stream_kernel<" in name),
+            top_kernels_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6]),
+        )
+
+    def outputs_of(metrics):
+        return {int(rid): toks for rid, toks in metrics["outputs"].items()}
+
+    def check_pool_run(label, metrics, counts, by_route, quant, compiled,
+                       streamed_layers=0, residency=None, requests=16) -> None:
+        """A serve cell run: every request (of ``requests``) done; 2 graphs
+        (the decode step, one chunk graph for every start) and every other
+        step a replay when compiled; the prefix cache on by default; prefill on the tensor-core
+        kernels, decode on the GEMV at 2 bits, no f32 route, no backward
+        kernel; ``stream_matmul`` 3 times a step for each of
+        ``streamed_layers``, and the plan's ``residency`` where a budget
+        set one."""
+        if metrics["completed"] != requests or metrics["generated_tokens"] != requests * 64:
+            fail(f"{label}: {metrics['completed']} completed, "
+                 f"{metrics['generated_tokens']} tokens")
+        if compiled and not (metrics["compiled"] and metrics["graphs"] == 2 and
+                             metrics["graph_replays"] == metrics["steps"] - metrics["graphs"]):
+            fail(f"{label}: compiled {metrics['compiled']}, {metrics['graphs']} graphs, "
+                 f"{metrics['graph_replays']} replays of {metrics['steps']} steps: want the "
+                 "decode step and one chunk graph for every start, every other step a replay")
+        if not metrics["prefix_cache"]:
+            fail(f"{label}: the prefix cache is not on by default")
+        if residency is not None and metrics["residency"] != residency:
+            fail(f"{label}: residency {metrics['residency']} is not the plan's {residency}")
+        want_stream = 3 * streamed_layers * metrics["decode_steps"]
+        if counts["stream_matmul"] != want_stream:
+            fail(f"{label}: stream_matmul launched {counts['stream_matmul']} times, not "
+                 f"3 x {streamed_layers} x {metrics['decode_steps']} = {want_stream}")
+        want_pm = {"mma", "gemv"} if quant else set()
+        pm_routes = by_route.get("packed_matmul", {})
+        if (set(pm_routes) != want_pm or min(pm_routes.values(), default=1) <= 0
+                or by_route.get("flash_fwd", {}).keys() != {"mma"}
+                or counts["flash_bwd_dq"] or counts["flash_bwd_dkv"]):
+            fail(f"{label}: launches {counts}, by route {by_route}")
+
+    # ---------------- the vlm family (--only vlm: alone) ----------------
+    family_launches = {"vlm": {}, "encdec": {}}  # the two phases' share of ``launches``
+    noncausal_launches = {}  # flash_fwd's launches with causal=False on the main path
+
+    def add_family(family, by_route) -> None:
+        """A main-path run's launches by route, into the family phase's share."""
+        for name, by in by_route.items():
+            for route, n in by.items():
+                family_launches[family].setdefault(name, {})
+                family_launches[family][name][route] = (
+                    family_launches[family][name].get(route, 0) + n)
+
+    def vlm_served_config():
+        return dataclasses.replace(get_config(VLM_ARCH), w_bits=2,
+                                   n_layers=SERVED_LAYERS[VLM_ARCH])
+
+    def patch_prefill_vs_cpu(c, p) -> None:
+        """(b) ``make_prefill_step`` with VLM_PATCHES seeded patch embeddings
+        ahead of VLM_TOKENS tokens, in bf16 on the card against float32 on
+        the CPU, same weights (``logits_vs_cpu``); the CPU's text-only
+        prefill of the same tokens beside it: the card must be closer to the
+        CPU's patch prefill than the text-only one is (the patches move the
+        logits more than bf16 does)."""
+        cpu_c, cpu_p = cpu_copy(c, p)
+        rng = np.random.default_rng(13)
+        toks = torch.from_numpy(rng.integers(0, c.vocab, size=(1, VLM_TOKENS)))
+        patches = torch.from_numpy(
+            (rng.standard_normal((1, VLM_PATCHES, c.d_model)) * 0.02).astype(np.float32))
+        t0 = time.monotonic()
+        lg_card = make_prefill_step(c)(p, {"tokens": toks.to(dev), "labels": toks.to(dev),
+                                           "prefix_embeds": patches.to(dev)})
+        torch.cuda.synchronize()
+        card_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        step_cpu = make_prefill_step(cpu_c)
+        lg_cpu = step_cpu(cpu_p, {"tokens": toks, "labels": toks, "prefix_embeds": patches})
+        cpu_s = time.monotonic() - t0
+        lg_text = lm.prefill(cpu_p, cpu_c, toks)[:, -1:]
+        out = logits_vs_cpu(lg_card[0, 0, : c.vocab], lg_cpu[0, 0, : c.vocab],
+                            f"{c.name} patch prefill", arch=VLM_ARCH, layers=c.n_layers,
+                            patches=VLM_PATCHES, tokens=VLM_TOKENS)
+        moves = (lg_cpu - lg_text)[0, 0, : c.vocab].abs().max().item()
+        phase("vlm_prefill", **out, patches_move_cpu_logits=moves, card_s=card_s, cpu_s=cpu_s)
+        if not out["max_abs_logit_err"] < moves:
+            fail(f"{c.name} patch prefill: the card is {out['max_abs_logit_err']} from the CPU, "
+                 f"the patches move the CPU's logits only {moves}")
+
+    def vlm_phase() -> None:
+        """The vlm phase (the module docstring says what it holds)."""
+        t_phase = time.monotonic()
+        full = get_config(VLM_ARCH)
+        c = vlm_served_config()
+        # (a) SERVED_LAYERS layers at full width, 2-bit FFN carriers
+        params, init = timed_init(c)
+        # the whole backbone's bytes (arithmetic): bf16 values, or 2-/1-bit
+        # FFN carriers with their f32 scales beside bf16 attention and tables
+        attn = full.d_model * full.hd * (2 * full.n_heads + 2 * full.n_kv)
+        ffn = 3 * full.d_model * full.d_ff
+        rest = 2 * (2 * full.padded_vocab * full.d_model + full.n_layers * attn)
+        scales = 4 * full.n_layers * (2 * full.d_ff + full.d_model)
+        phase("init", arch=VLM_ARCH, quant=2, layers=c.n_layers, depth_cut=(
+            f"{c.n_layers} of {full.n_layers} layers at full width: a full-depth draw takes "
+            "~500 s on the host"), **init,
+            full_depth_gb_arithmetic={
+                "bf16": (rest + 2 * full.n_layers * ffn) / 1e9,
+                "bits2": (rest + full.n_layers * ffn / 4 + scales) / 1e9,
+                "bits1": (rest + full.n_layers * ffn / 8 + scales) / 1e9})
+        # (b) VLM_CPU_LAYERS layers against the CPU: a text prompt, and patches
+        c2, p2 = first_layers(c, params, VLM_CPU_LAYERS)
+        cut = f"{VLM_CPU_LAYERS} of {full.n_layers} layers: the CPU's float32 side stays in seconds"
+        prefill_vs_cpu(c2, p2, arch=VLM_ARCH, layers=VLM_CPU_LAYERS, depth_cut=cut)
+        patch_prefill_vs_cpu(c2, p2)
+        del p2
+        # the pool's decode step and chunk captured, each replay bitwise eager
+        rows0 = (c.n_layers, LANES * MAX_LEN + 16, c.n_kv, c.hd)
+        pool_gen = torch.Generator(device=dev).manual_seed(4)
+        pk0 = torch.randn(rows0, generator=pool_gen, device=dev, dtype=torch.bfloat16)
+        pv0 = torch.randn(rows0, generator=pool_gen, device=dev, dtype=torch.bfloat16)
+        table = (16 + torch.arange(LANES * MAX_LEN)).reshape(LANES, MAX_LEN)
+        tok = torch.from_numpy(np.random.default_rng(1).integers(0, c.vocab, (LANES, 1)))
+        hold_replay(f"{VLM_ARCH} decode step, --quant 2",
+                    lambda k_, v_, t_, tb, ln: lm.decode_step_paged(
+                        params, c, t_, k_, v_, tb, ln)[0],
+                    (tok, table, torch.full((LANES,), PROMPT + 8)), pk0, pv0)
+        chunk = torch.from_numpy(np.random.default_rng(2).integers(0, c.vocab, size=(1, CHUNK)))
+        one = table[:1]
+
+        def chunk_in_at(start):
+            return (chunk, one, one[:, start:start + CHUNK], torch.tensor([start]),
+                    torch.tensor([CHUNK - 1]))
+
+        hold_replay(f"{VLM_ARCH} prefill chunk, --quant 2",
+                    lambda k_, v_, t_, rows, wr, st, last: lm.prefill_chunk_paged(
+                        params, c, t_, k_, v_, rows, wr, st, last)[0],
+                    chunk_in_at(CHUNK), pk0, pv0, replay_in=[chunk_in_at(s) for s in (CHUNK, 37)])
+        del pk0, pv0
+        # (e) where a decode step's and a chunk's time goes
+        for compiled in (False, True):
+            phase("decode_profile", arch=VLM_ARCH, **profile_decode(params, c, compiled=compiled))
+        pk1 = torch.zeros((c.n_layers, MAX_LEN + 16, c.n_kv, c.hd), dtype=torch.bfloat16,
+                          device=dev)
+        pv1 = torch.zeros_like(pk1)
+        chunk_graph = CapturedStep(
+            lambda t_, rows, wr, st, last: lm.prefill_chunk_paged(
+                params, c, t_, pk1, pv1, rows, wr, st, last)[0],
+            device=dev, mempool=torch.cuda.graph_pool_handle())
+        phase("prefill_profile", arch=VLM_ARCH, compiled=True, chunk=CHUNK, start=CHUNK,
+              pool_rows=MAX_LEN, **chunk_profile(lambda: chunk_graph(*chunk_in_at(CHUNK))))
+        del chunk_graph, pk1, pv1
+        phase_seconds(f"vlm {VLM_ARCH}: init, card vs CPU, graphs, profiles")
+        # (c) the serve cell compiled; then eager and compiled at fewer requests
+        argv = ["--arch", VLM_ARCH, "--batch", str(LANES), "--prompt-len", str(PROMPT),
+                "--gen-len", "64", "--max-len", str(MAX_LEN), "--prefill-chunk", str(CHUNK),
+                "--quant", "2"]
+        by_mode = {}
+        for mode, requests in (("compiled", 16), ("eager", VLM_EAGER_REQUESTS),
+                               ("compiled", VLM_EAGER_REQUESTS)):
+            args = serve.build_parser().parse_args(argv + ["--requests", str(requests)])
+            ops.reset_launch_counts()
+            metrics = serve.run_pool_engine(c, params, args, dev,
+                                            compiled=None if mode == "compiled" else False)
+            counts, by_route = ops.launch_counts(), ops.launch_routes()
+            label = f"serve {VLM_ARCH} --quant 2 ({mode}, {requests} requests)"
+            check_pool_run(label, metrics, counts, by_route, 2, mode == "compiled",
+                           requests=requests)
+            phase("serve", arch=VLM_ARCH, layers=c.n_layers, quant=2, mode=mode,
+                  init_s=init["init_s"], launches_counted=counts, launches_by_route=by_route,
+                  **{k: v for k, v in metrics.items() if k != "outputs"})
+            if requests == 16:
+                count_main_path(dict(counts=counts, by_route=by_route))
+                add_family("vlm", by_route)
+            else:
+                by_mode[mode] = (metrics, counts, by_route)
+        (cm, cc, cr), (em, ec, er) = by_mode["compiled"], by_mode["eager"]
+        same_tokens = outputs_of(cm) == outputs_of(em)
+        same_launches = (cc, cr) == (ec, er)
+        phase("serve_compiled_vs_eager", arch=VLM_ARCH, quant=2, requests=VLM_EAGER_REQUESTS,
+              token_streams_identical=same_tokens, launch_counts_identical=same_launches,
+              **{f"{key}_{mode}": by_mode[mode][0][key]
+                 for key in ("tokens_per_s", "decode_step_ms", "mean_ttft_s", "wall_s")
+                 for mode in ("eager", "compiled")})
+        if not (same_tokens and same_launches):
+            fail(f"serve {VLM_ARCH} --quant 2: compiled and eager differ (tokens {same_tokens}, "
+                 f"launches {cc} {cr} != {ec} {er})")
+        # (d) the fixed engine: its decode graph's replays bitwise eager, its cell
+        cache0 = random_cache(c, LANES, FIXED_MAX_LEN, FIXED_PROMPT, seed=8)
+        hold_cache_replay(f"{VLM_ARCH} fixed decode step, --quant 2", c, params, cache0)
+        del cache0
+        add_family("vlm", fixed_cell(
+            f"serve {VLM_ARCH} --engine fixed --quant 2", c, params,
+            lambda steps: {"packed_matmul": {"gemv": 3 * c.n_layers * steps}}))
+        del params
+        torch.cuda.empty_cache()
+        phase_seconds(f"vlm {VLM_ARCH}: serve")
+        phase("vlm_phase", seconds=time.monotonic() - t_phase)
+
+    # ---------------- the enc-dec family (--only encdec: alone) ----------------
+    def tree_leaves(tree, prefix=""):
+        """[(name, tensor)] of a nested dict of tensors."""
+        out = []
+        for k in sorted(tree):
+            if isinstance(tree[k], dict):
+                out += tree_leaves(tree[k], f"{prefix}{k}/")
+            else:
+                out.append((prefix + k, tree[k]))
+        return out
+
+    def encdec_vs_cpu(c, p, frames) -> None:
+        """(b) whisper at full size in bf16 on the card against float32 on
+        the CPU, same weights and frames: the encoder's states (each lane's
+        cosine >= PREFILL_MIN_COS), each lane's prefill logits over
+        ENC_TOKENS decoder tokens (``make_prefill_step``), and ENC_TOKENS
+        decode steps from ``init_decode_state`` teacher-forced with the
+        card's greedy tokens, each lane's logits at every step
+        (``logits_vs_cpu``)."""
+        cpu_c, cpu_p = cpu_copy(c, p)
+        t0 = time.monotonic()
+        enc_card = encdec.encode(p, c, frames.to(dev)).float().cpu()
+        enc_cpu = encdec.encode(cpu_p, cpu_c, frames)
+        cos = [F.cosine_similarity(a.flatten(), b.flatten(), dim=0).item()
+               for a, b in zip(enc_card, enc_cpu)]
+        rel = ((enc_card - enc_cpu).abs().max() / enc_cpu.abs().max()).item()
+        phase("encdec_encoder_vs_cpu", arch=ENC_ARCH, lanes=frames.shape[0],
+              frames=frames.shape[1], min_cosine=min(cos), rel_err=rel,
+              finite=bool(torch.isfinite(enc_card).all()))
+        if not (min(cos) >= PREFILL_MIN_COS and torch.isfinite(enc_card).all()):
+            fail(f"{ENC_ARCH} encoder states card vs CPU: cosines {cos}")
+        toks = torch.from_numpy(
+            np.random.default_rng(15).integers(0, c.vocab, size=(frames.shape[0], ENC_TOKENS)))
+        lg_card = make_prefill_step(c)(p, {"tokens": toks.to(dev), "labels": toks.to(dev),
+                                           "frames": frames.to(dev)})
+        lg_cpu = make_prefill_step(cpu_c)(cpu_p, {"tokens": toks, "labels": toks,
+                                                  "frames": frames})
+        held = [logits_vs_cpu(lg_card[i, 0, : c.vocab], lg_cpu[i, 0, : c.vocab],
+                              f"{ENC_ARCH} prefill lane {i}", lane=i)
+                for i in range(frames.shape[0])]
+        phase("encdec_prefill_vs_cpu", arch=ENC_ARCH, tokens=ENC_TOKENS,
+              min_cosine=min(h["cosine"] for h in held),
+              max_top1_cpu_logit_gap=max(h["top1_cpu_logit_gap"] for h in held),
+              max_abs_logit_err=max(h["max_abs_logit_err"] for h in held))
+        cache_card = encdec.init_decode_state(p, c, frames.to(dev), ENC_TOKENS)
+        cache_cpu = encdec.init_decode_state(cpu_p, cpu_c, frames, ENC_TOKENS)
+        tok = torch.zeros((frames.shape[0], 1), dtype=torch.long)
+        held = []
+        for step in range(ENC_TOKENS):
+            lg_c = encdec.decode_step(p, c, tok.to(dev), cache_card)[0][:, 0, : c.vocab]
+            lg_h = encdec.decode_step(cpu_p, cpu_c, tok, cache_cpu)[0][:, 0, : c.vocab]
+            held += [logits_vs_cpu(lg_c[i], lg_h[i], f"{ENC_ARCH} decode step {step} lane {i}")
+                     for i in range(frames.shape[0])]
+            tok = lg_c.argmax(-1, keepdim=True).cpu()
+        phase("encdec_decode_vs_cpu", arch=ENC_ARCH, steps=ENC_TOKENS, lanes=frames.shape[0],
+              positions_held=len(held), min_cosine=min(h["cosine"] for h in held),
+              max_top1_cpu_logit_gap=max(h["top1_cpu_logit_gap"] for h in held),
+              max_abs_logit_err=max(h["max_abs_logit_err"] for h in held),
+              top1_equal_share=statistics.fmean(h["top1_card"] == h["top1_cpu"] for h in held),
+              seconds=time.monotonic() - t0)
+
+    def encdec_greedy(c, p, frames, compiled) -> dict:
+        """(d) ENC_GEN greedy tokens on each lane: ``init_decode_state`` of
+        the frames, then the decode step (``make_serve_step``) eager or as
+        one ``CapturedStep`` (each step but the first a replay), each
+        step's argmax taken on the host as a serving loop would; launch
+        counters reset just before and read just after. Returns the
+        tokens, counts, metrics, and the step to profile."""
+        serve_step = make_serve_step(c)
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        cache = encdec.init_decode_state(p, c, frames.to(dev), ENC_GEN)
+        torch.cuda.synchronize()
+        encode_s = time.monotonic() - t0
+        graph = CapturedStep(lambda t_: serve_step(p, t_, cache)[0], device=dev,
+                             mempool=torch.cuda.graph_pool_handle()) if compiled else None
+        tok = torch.zeros((frames.shape[0], 1), dtype=torch.long)
+        out, step_s = [], []
+        for _ in range(ENC_GEN):
+            ts = time.monotonic()
+            lg = graph(tok) if compiled else serve_step(p, tok.to(dev), cache)[0]
+            tok = lg[:, 0, : c.vocab].argmax(-1, keepdim=True).cpu()
+            step_s.append(time.monotonic() - ts)
+            out.append(tok[:, 0].tolist())
+        wall = time.monotonic() - t0
+        counts, by_route = ops.launch_counts(), ops.launch_routes()
+        noncausal = ops.noncausal_flash_launches()
+        gen_tokens = frames.shape[0] * ENC_GEN
+        metrics = dict(
+            compiled=compiled, lanes=frames.shape[0], generated_tokens=gen_tokens,
+            wall_s=wall, tokens_per_s=gen_tokens / wall,
+            decode_tokens_per_s=gen_tokens / (wall - encode_s), encode_s=encode_s,
+            step_ms_mean=statistics.fmean(step_s) * 1e3,
+            step_ms_replay=statistics.fmean(step_s[1:]) * 1e3,
+            capture_s=graph.capture_s if compiled else None,
+            graph_replays=graph.replays if compiled else None,
+            graph_pool_mib=graph.pool_bytes / 2**20 if compiled else None,
+            cache_mib=sum(v.nbytes for v in cache.values()) / 2**20)
+        step = (lambda: graph(tok)) if compiled else (
+            lambda: serve_step(p, tok.to(dev), cache))
+        return dict(tokens=out, counts=counts, by_route=by_route, noncausal=noncausal,
+                    metrics=metrics, step=step)
+
+    def encdec_phase() -> None:
+        """The enc-dec phase (the module docstring says what it holds)."""
+        t_phase = time.monotonic()
+        full = get_config(ENC_ARCH)
+        c0, c2 = (dataclasses.replace(full, w_bits=b) for b in (0, 2))
+        # (a) the dense draw (from the host thread when queued) and the
+        # 2-bit draw on the card: its FFN leaves, encoder's included, are
+        # the dense draw's packed, bit for bit
+        p0, init0 = timed_init(c0)
+        phase("init", arch=ENC_ARCH, quant=0, layers=full.n_layers,
+              enc_layers=full.n_enc_layers, **init0)
+        p2, init2 = timed_init(c2)
+        phase("init", arch=ENC_ARCH, quant=2, layers=full.n_layers,
+              enc_layers=full.n_enc_layers, **init2)
+        repacked = dict(tree_leaves(lm.pack_ffn_params(p0, 2).tree()))
+        differ = [name for name, t in tree_leaves(p2.tree()) if not same_bits(t, repacked[name])]
+        phase("init_bitwise", arch=ENC_ARCH, leaves=len(repacked), leaves_differing=differ,
+              dense_drawn_on_host_thread=bool(init0.get("drawn_on_host_thread")))
+        if differ or len(repacked) != len(tree_leaves(p2.tree())):
+            fail(f"{ENC_ARCH}: the 2-bit draw is not the dense draw packed: {differ[:5]}")
+        del p0, repacked
+        frames = torch.from_numpy(np.random.default_rng(14).standard_normal(
+            (LANES, full.frontend_len, full.d_model)).astype(np.float32))
+        # (b) the encoder, the prefill and decode steps against the CPU
+        encdec_vs_cpu(c2, p2, frames)
+        # (c) the decode step as one graph over the whole cache, every
+        # leaf (cross_k / cross_v included) bitwise the eager step's
+        cache0 = encdec.init_decode_state(p2, c2, frames.to(dev), ENC_GEN)
+        for t in range(5):
+            encdec.decode_step(p2, c2, torch.full((LANES, 1), t + 1, device=dev), cache0)
+        hold_cache_replay(f"{ENC_ARCH} decode step, --quant 2", c2, p2, cache0)
+        del cache0
+        phase_seconds(f"encdec {ENC_ARCH}: init, card vs CPU, graph")
+        # (d) greedy decoding, eager and compiled: identical tokens and
+        # launches by route: the encoder's flash_fwd (not causal) and
+        # packed_matmul on the mma path (M = 8 x 1500), the decode steps'
+        # packed_matmul on the GEMV (M = 8)
+        runs = {mode: encdec_greedy(c2, p2, frames, mode == "compiled")
+                for mode in ("eager", "compiled")}
+        want = {"packed_matmul": {"mma": 3 * full.n_enc_layers,
+                                  "gemv": 3 * full.n_layers * ENC_GEN},
+                "flash_fwd": {"mma": full.n_enc_layers}}
+        for mode, r in runs.items():
+            phase("encdec_greedy", arch=ENC_ARCH, quant=2, mode=mode, **r["metrics"],
+                  launches_counted=r["counts"], launches_by_route=r["by_route"],
+                  flash_fwd_noncausal=r["noncausal"])
+            if r["by_route"] != want or r["noncausal"] != want["flash_fwd"]:
+                fail(f"{ENC_ARCH} greedy ({mode}): launches by route {r['by_route']}, "
+                     f"not causal {r['noncausal']}; want {want}")
+        eager, compiled = runs["eager"], runs["compiled"]
+        same_tokens = eager["tokens"] == compiled["tokens"]
+        same_launches = (eager["counts"], eager["by_route"]) == (compiled["counts"],
+                                                                 compiled["by_route"])
+        phase("encdec_compiled_vs_eager", arch=ENC_ARCH, token_streams_identical=same_tokens,
+              launch_counts_identical=same_launches,
+              graph_replays=compiled["metrics"]["graph_replays"],
+              **{f"{key}_{mode}": runs[mode]["metrics"][key]
+                 for key in ("tokens_per_s", "decode_tokens_per_s", "step_ms_mean",
+                             "step_ms_replay") for mode in runs})
+        if not (same_tokens and same_launches and compiled["metrics"]["graph_replays"]
+                == ENC_GEN - 1):
+            fail(f"{ENC_ARCH}: compiled and eager greedy decoding differ (tokens {same_tokens}, "
+                 f"launches {same_launches}, replays {compiled['metrics']['graph_replays']})")
+        count_main_path(compiled)
+        add_family("encdec", compiled["by_route"])
+        for route, n in compiled["noncausal"].items():
+            noncausal_launches[route] = noncausal_launches.get(route, 0) + n
+        # a decode step's card ms, busy share and kernels, eager and compiled
+        for mode, r in runs.items():
+            stats, by_name = profile_window(r["step"], window=1)
+            phase("decode_profile", arch=ENC_ARCH, engine="encdec", lanes=LANES,
+                  compiled=mode == "compiled", **stats,
+                  top_kernels_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8]))
+        del runs, p2
+        torch.cuda.empty_cache()
+        phase_seconds(f"encdec {ENC_ARCH}: greedy decoding")
+        phase("encdec_phase", seconds=time.monotonic() - t_phase)
+
+    if opts.only == "vlm":
+        vlm_phase()
+        print("[chip_smoke] --only vlm: stopped after the vlm phase", file=sys.stderr)
+        return 0
+
+    if opts.only == "encdec":
+        encdec_phase()
+        print("[chip_smoke] --only encdec: stopped after the enc-dec phase", file=sys.stderr)
+        return 0
+
     if opts.only == "ssm":
         ssm_phase()
         print("[chip_smoke] --only ssm: stopped after the SSM phase", file=sys.stderr)
@@ -2643,7 +3288,11 @@ def main(argv: list[str] | None = None) -> int:
     inv_gen = torch.Generator(device="cpu").manual_seed(6)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
-    def rows_do_not_follow_m(bits, k, n, g, arch="smollm_360m"):
+    def rows_do_not_follow_m(bits, k, n, g, arch="smollm_360m", big_m=0):
+        """The mma path's rows at every M of INVARIANT_MS bitwise the same
+        rows of its M=256 launch, the GEMV's at M 1-15 those of its M=16
+        launch; with ``big_m``, the M=256 launch's rows also bitwise the
+        head of a ``big_m``-row launch."""
         w = lm.make_packed(torch.randn((k, n), generator=g).to(dev), bits)
         x = torch.randn((CHUNK, k), generator=g).to(dev, torch.bfloat16)
         full = pm.packed_matmul(x, w["packed"], w["scale"], bits, k)
@@ -2652,8 +3301,14 @@ def main(argv: list[str] | None = None) -> int:
             pm.packed_matmul(x[:m], w["packed"], w["scale"], bits, k), full[:m])]
         gemv_off = [m for m in range(1, 16) if not same_bits(
             pm.packed_matmul(x[:m], w["packed"], w["scale"], bits, k), small[:m])]
+        if big_m:
+            xb = torch.cat([x, torch.randn((big_m - CHUNK, k), generator=g).to(dev, x.dtype)])
+            if not same_bits(pm.packed_matmul(xb, w["packed"], w["scale"], bits, k)[:CHUNK],
+                             full):
+                mma_off.append(big_m)
         phase("packed_matmul_rows_do_not_follow_m", arch=arch, bits=bits, k=k, n=n,
-              mma_ms=INVARIANT_MS, mma_splits=pm.mma_plan(k, n, sms)[0],
+              mma_ms=INVARIANT_MS + ((big_m,) if big_m else ()),
+              mma_splits=pm.mma_plan(k, n, sms)[0],
               mma_ms_whose_rows_differ=mma_off, gemv_ms_whose_rows_differ=gemv_off)
         if mma_off or gemv_off:
             fail(f"packed_matmul bits={bits} K={k} N={n}: rows follow M (mma at M "
@@ -3216,12 +3871,50 @@ def main(argv: list[str] | None = None) -> int:
     flash_case("olmoe_chunk_q_offset", olmoe.n_heads, olmoe.n_kv, CHUNK, MAX_LEN, olmoe.hd,
                True, 0, CHUNK, bf16, True, g=moe_gen)
 
+    # ---- the vlm and enc-dec families' shapes, from a generator of their own ----
+    # internvl2-76b's FFN (8192x28672 and back) at 2 bits: the GEMV at M 8
+    # (decode) and the mma path at M 256 (a prefill chunk); whisper-tiny's
+    # (384x1536 and back): the GEMV at M 8 and the mma path at M 12000 (the
+    # encoder's 8 lanes x 1500 frames); each case line names its planned
+    # split; a row's bits independent of M at each shape (whisper's also
+    # against the head of a 12000-row launch). flash_fwd not causal at
+    # whisper's encoder (8 lanes x 6 heads, 1500 x 1500, D 64: Sk is no
+    # multiple of the 64-key tile) and cross-attention (64 decoder tokens
+    # over 1500 frames), the encoder's also on the f32 route; and causal at
+    # internvl's 64/8 heads (G 8), D 128: the prefill and the chunk
+    fam_gen = torch.Generator(device="cpu").manual_seed(27)
+    vlm_full, enc_full = get_config(VLM_ARCH), get_config(ENC_ARCH)
+    for k, n in ((vlm_full.d_model, vlm_full.d_ff), (vlm_full.d_ff, vlm_full.d_model)):
+        for m in (LANES, CHUNK):
+            packed_case(2, m, k, n, bf16, timed=True, g=fam_gen)
+        rows_do_not_follow_m(2, k, n, fam_gen, VLM_ARCH)
+    enc_rows = LANES * enc_full.frontend_len
+    for k, n in ((enc_full.d_model, enc_full.d_ff), (enc_full.d_ff, enc_full.d_model)):
+        for m in (LANES, enc_rows):
+            packed_case(2, m, k, n, bf16, timed=True, g=fam_gen)
+        rows_do_not_follow_m(2, k, n, fam_gen, ENC_ARCH, big_m=enc_rows)
+    eh, fl = LANES * enc_full.n_heads, enc_full.frontend_len
+    flash_case("whisper_encoder", eh, eh, fl, fl, enc_full.hd, False, 0, 0, bf16, True,
+               g=fam_gen)
+    flash_case("whisper_cross", eh, eh, 64, fl, enc_full.hd, False, 0, 0, bf16, True, g=fam_gen)
+    flash_case("whisper_encoder", eh, eh, fl, fl, enc_full.hd, False, 0, 0, torch.float32,
+               False, g=fam_gen)
+    flash_case("whisper_cross_ragged", 6, 6, 30, fl, enc_full.hd, False, 0, 0, bf16, False,
+               g=fam_gen)
+    flash_case("internvl_prefill_causal", vlm_full.n_heads, vlm_full.n_kv, PROMPT, PROMPT,
+               vlm_full.hd, True, 0, 0, bf16, True, g=fam_gen)
+    flash_case("internvl_chunk_q_offset", vlm_full.n_heads, vlm_full.n_kv, CHUNK, MAX_LEN,
+               vlm_full.hd, True, 0, CHUNK, bf16, True, g=fam_gen)
+
     phase_seconds("3 kernels")
     if opts.only == "kernels":
         print("[chip_smoke] --only kernels: stopped after phase 3", file=sys.stderr)
         return 0
 
     # ---------------- 4. full-width prefill, card vs CPU ----------------
+    # the dense archs' weights start drawing on the host threads now, behind
+    # phases 4-7 (the MoE phase's behind the dense archs': host memory)
+    prefetch_after("phase 4")
     params, cfg2 = prefill_phase()
 
     # ---------------- where a decode step's time goes ----------------
@@ -3234,47 +3927,6 @@ def main(argv: list[str] | None = None) -> int:
         if not (any(mask) and not all(mask)):
             fail(f"half-budget plan of w_bits={c.w_bits} does not split the layers: {mask}")
         return plan, total / 2 / 2**20
-
-    def decode_kw(c, plan):
-        return {} if plan is None else dict(
-            stream_mask=plan.layer_stream_mask(c), stream_depth=plan.stream_ahead)
-
-    def profile_decode(p, c, plan=None, compiled=False) -> dict:
-        """One paged decode step of 8 lanes at depth PROMPT + 8: host wall
-        time per step (synchronised) against the card's kernel time in a
-        torch.profiler window, and the kernels that take it. With a plan,
-        the step is budgeted (its streamed layers run stream_matmul).
-        Compiled, it is the scheduler's captured step: host inputs copied
-        into the graph's buffers, then one replay; eager, the inputs are
-        already on the card."""
-        kw = decode_kw(c, plan)
-        rows = LANES * MAX_LEN + 16
-        pk = torch.zeros((c.n_layers, rows, c.n_kv, c.hd), dtype=torch.bfloat16, device=dev)
-        pv = torch.zeros_like(pk)
-        table = (16 + torch.arange(LANES * MAX_LEN, device=dev)).reshape(LANES, MAX_LEN)
-        tok = torch.zeros((LANES, 1), dtype=torch.long, device=dev)
-        lens = torch.full((LANES,), PROMPT + 8, device=dev)
-
-        if compiled:
-            graph = CapturedStep(
-                lambda t_, tb, ln: lm.decode_step_paged(p, c, t_, pk, pv, tb, ln, **kw)[0],
-                device=dev, mempool=torch.cuda.graph_pool_handle())
-            host_in = (tok.cpu(), table.cpu(), lens.cpu())
-
-            def step():
-                graph(*host_in)
-        else:
-            def step():
-                lm.decode_step_paged(p, c, tok, pk, pv, table, lens, **kw)
-
-        stats, by_name = profile_window(step)
-        return dict(
-            w_bits=c.w_bits, budgeted=plan is not None, compiled=compiled,
-            streamed_layers=sum(kw.get("stream_mask", ())), **stats,
-            gemv_ms=sum(ms for name, ms in by_name.items() if "gemv_kernel<" in name),
-            stream_ms=sum(ms for name, ms in by_name.items() if "stream_kernel<" in name),
-            top_kernels_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6]),
-        )
 
     plan2, _ = half_budget_plan(cfg2)
     # eager and compiled, unbudgeted and budgeted; the host time of a step
@@ -3400,41 +4052,6 @@ def main(argv: list[str] | None = None) -> int:
         metrics = json.loads(next(l for l in text.splitlines()
                                   if l.startswith("[serve/metrics] ")).split(" ", 1)[1])
         return metrics, counts, by_route
-
-    def outputs_of(metrics):
-        return {int(rid): toks for rid, toks in metrics["outputs"].items()}
-
-    def check_pool_run(label, metrics, counts, by_route, quant, compiled,
-                       streamed_layers=0, residency=None) -> None:
-        """A serve cell run: every request done; 2 graphs (the decode step,
-        one chunk graph for every start) and every other step a replay when
-        compiled; the prefix cache on by default; prefill on the tensor-core
-        kernels, decode on the GEMV at 2 bits, no f32 route, no backward
-        kernel; ``stream_matmul`` 3 times a step for each of
-        ``streamed_layers``, and the plan's ``residency`` where a budget
-        set one."""
-        if metrics["completed"] != 16 or metrics["generated_tokens"] != 16 * 64:
-            fail(f"{label}: {metrics['completed']} completed, "
-                 f"{metrics['generated_tokens']} tokens")
-        if compiled and not (metrics["compiled"] and metrics["graphs"] == 2 and
-                             metrics["graph_replays"] == metrics["steps"] - metrics["graphs"]):
-            fail(f"{label}: compiled {metrics['compiled']}, {metrics['graphs']} graphs, "
-                 f"{metrics['graph_replays']} replays of {metrics['steps']} steps: want the "
-                 "decode step and one chunk graph for every start, every other step a replay")
-        if not metrics["prefix_cache"]:
-            fail(f"{label}: the prefix cache is not on by default")
-        if residency is not None and metrics["residency"] != residency:
-            fail(f"{label}: residency {metrics['residency']} is not the plan's {residency}")
-        want_stream = 3 * streamed_layers * metrics["decode_steps"]
-        if counts["stream_matmul"] != want_stream:
-            fail(f"{label}: stream_matmul launched {counts['stream_matmul']} times, not "
-                 f"3 x {streamed_layers} x {metrics['decode_steps']} = {want_stream}")
-        want_pm = {"mma", "gemv"} if quant else set()
-        pm_routes = by_route.get("packed_matmul", {})
-        if (set(pm_routes) != want_pm or min(pm_routes.values(), default=1) <= 0
-                or by_route.get("flash_fwd", {}).keys() != {"mma"}
-                or counts["flash_bwd_dq"] or counts["flash_bwd_dkv"]):
-            fail(f"{label}: launches {counts}, by route {by_route}")
 
     # ---------------- 5 (c): speculative decoding ----------------
     def speculative_phase(cfg_q2, params_q2, plain_q2_run) -> None:
@@ -4277,7 +4894,7 @@ def main(argv: list[str] | None = None) -> int:
         cell at --quant 2, eagerly and compiled in turns (identical tokens
         and launches)."""
         full = get_config(arch)
-        c2 = dataclasses.replace(full, n_layers=2, w_bits=2)
+        c2, cq0 = arch_configs(arch)
         p2, init2 = timed_init(c2)
         prefill_vs_cpu(c2, p2, arch=arch, layers=2, depth_cut="2 of "
                        f"{full.n_layers} layers: the CPU's float32 side stays in seconds", **init2)
@@ -4288,8 +4905,8 @@ def main(argv: list[str] | None = None) -> int:
         argv = ["--arch", arch, "--requests", "16", "--batch", str(LANES), "--prompt-len",
                 str(PROMPT), "--gen-len", "64", "--max-len", str(MAX_LEN), "--prefill-chunk",
                 str(CHUNK)]
-        cq0 = dataclasses.replace(full, w_bits=0, n_layers=SERVED_LAYERS.get(arch, full.n_layers))
         params0, init = timed_init(cq0)
+        prefetch_after(arch)
         cut = {} if cq0.n_layers == full.n_layers else dict(depth_cut=(
             f"{cq0.n_layers} of {full.n_layers} layers: room for the hybrid phase within "
             "the run's time limit"))
@@ -4307,14 +4924,12 @@ def main(argv: list[str] | None = None) -> int:
         add_routes(by_route)
 
         cq2 = dataclasses.replace(cq0, w_bits=2)
-        t0 = time.monotonic()
-        params = lm.pack_ffn_params(params0, cq2.w_bits)
-        torch.cuda.synchronize()
-        pack_s = time.monotonic() - t0
+        params, packing = take_packed(cq0, params0)
+        pack_s = packing["pack_s"]
         del params0
         torch.cuda.empty_cache()
         phase("init", arch=arch, quant=2, layers=cq2.n_layers, dense_init_s=init["init_s"],
-              pack_s=pack_s, weights_mib=sum(t.nbytes for t in itertools.chain(
+              **packing, weights_mib=sum(t.nbytes for t in itertools.chain(
                   params.parameters(), params.buffers())) / 2**20)
         rows0 = (cq2.n_layers, LANES * MAX_LEN + 16, cq2.n_kv, cq2.hd)
         pool_gen = torch.Generator(device=dev).manual_seed(4)
@@ -4755,10 +5370,18 @@ def main(argv: list[str] | None = None) -> int:
         serve_arch(arch)
         phase_seconds(f"4-5 {arch}")
 
-    # ---------------- the MoE, the hybrid and the SSM family (last) ----------------
+    # ---------------- the MoE, hybrid, SSM, vlm and enc-dec families (last) ----------------
     moe_phase()
     hybrid_phase()
     ssm_phase()
+    vlm_phase()
+    encdec_phase()
+    leftover = [c.name for c in prefetched]
+    draw_pool.shutdown(cancel_futures=True)
+    pack_pool.shutdown(cancel_futures=True)
+    host_done.set()
+    if leftover or packed_ahead:
+        fail(f"host draws queued and never taken: {leftover}, packs {list(packed_ahead)}")
 
     # ---------------- result ----------------
     head_pm = next(c for c in packed_cases if (c["bits"], c["m"], c["k"]) == (2, LANES, d))
@@ -4802,6 +5425,8 @@ def main(argv: list[str] | None = None) -> int:
              launches=launches["packed_matmul"],
              launches_hybrid_phase=hybrid_launches.get("packed_matmul", {}),
              launches_fixed_engine=fixed_launches.get("packed_matmul", {}),
+             launches_vlm_phase=family_launches["vlm"].get("packed_matmul", {}),
+             launches_encdec_phase=family_launches["encdec"].get("packed_matmul", {}),
              shape=f"bits=2 M={LANES} K={d} N={ff} bf16",
              tolerance=f"rel {PACKED_REL_TOL}",
              **{k: head_pm[k] for k in nums},
@@ -4814,6 +5439,9 @@ def main(argv: list[str] | None = None) -> int:
              replaces="src/repro/kernels/flash_attention.py:218",
              launches=launches["flash_fwd"],
              launches_hybrid_phase=hybrid_launches.get("flash_fwd", {}),
+             launches_vlm_phase=family_launches["vlm"].get("flash_fwd", {}),
+             launches_encdec_phase=family_launches["encdec"].get("flash_fwd", {}),
+             launches_noncausal=noncausal_launches,
              shape=f"causal Sq=Sk={PROMPT} Hq={hq} Hkv={hkv} D={hd} bf16",
              tolerance=f"out abs {FLASH_OUT_TOL}, lse abs {FLASH_LSE_TOL}",
              **{k: head_fa[k] for k in nums},

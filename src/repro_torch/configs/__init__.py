@@ -2,8 +2,8 @@
 
 ``get_config(name)`` returns the full-size ``ModelConfig``,
 ``get_smoke_config(name)`` the reduced same-family config the CPU tests
-use. Only the archs already ported are registered; any other id raises
-``ValueError`` naming them; ``all_configs()`` maps each ported arch to its
+use. Every arch of the reference is registered; any other id raises
+``ValueError`` naming them; ``all_configs()`` maps each arch to its
 full-size config. The paper's FPGA accelerator models (CNV and ResNet-50
 as MVAU layer sets) come from ``get_accelerator(name)``; the LM lookups
 refuse their ids, as the reference's do.
@@ -15,12 +15,14 @@ import importlib
 
 from repro_torch.models.config import ModelConfig, reduced
 
-# the reference's dense, MoE, hybrid and SSM archs, in its order
+# the reference's archs, in its order
 ARCH_IDS = [
     "h2o_danube_1p8b",
     "llama3p2_1b",
     "phi3_medium_14b",
     "smollm_360m",
+    "internvl2_76b",
+    "whisper_tiny",
     "olmoe_1b_7b",
     "moonshot_v1_16b_a3b",
     "zamba2_2p7b",
@@ -33,6 +35,8 @@ ALIASES = {
     "llama3.2-1b": "llama3p2_1b",
     "phi3-medium-14b": "phi3_medium_14b",
     "smollm-360m": "smollm_360m",
+    "internvl2-76b": "internvl2_76b",
+    "whisper-tiny": "whisper_tiny",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "zamba2-2.7b": "zamba2_2p7b",
@@ -44,13 +48,13 @@ ACCEL_IDS = ["cnv_w1a1", "cnv_w2a2", "rn50_w1a2", "rn50_w2a2"]
 
 
 def canonical(name: str) -> str:
-    """Canonical module id for a ported arch or an accelerator name; an
-    unknown or not-yet-ported name raises ``ValueError`` listing the valid
-    ids, so every ``--arch``-taking entry point fails cleanly."""
+    """Canonical module id for an arch or an accelerator name; an unknown
+    name raises ``ValueError`` listing the valid ids, so every
+    ``--arch``-taking entry point fails cleanly."""
     cand = ALIASES.get(name, name.replace("-", "_").replace(".", "p"))
     if cand not in ARCH_IDS and cand not in ACCEL_IDS:
         raise ValueError(
-            f"unknown or not yet ported arch {name!r}; ported archs: "
+            f"unknown arch {name!r}; ported archs: "
             f"{', '.join(ARCH_IDS)}; accelerators: {', '.join(ACCEL_IDS)}"
         )
     return cand

@@ -3,8 +3,9 @@
 ``params_from_reference`` takes the JAX package's LM parameter pytree with
 numpy leaves (the caller runs ``jax.tree.map(np.asarray, params)``) and
 returns the port's ``LMParams``: stacked ``(L, ...)`` leaves (the SSM
-family's Mamba2 leaves among them), the hybrid's ``shared`` block and
-packed ``{"packed", "scale"}`` dicts carry over byte for byte.
+family's Mamba2 leaves among them), the hybrid's ``shared`` block, the
+enc-dec's ``enc_layers`` and packed ``{"packed", "scale"}`` dicts carry
+over byte for byte.
 ``cnn_params_from_reference`` does the same for the CNN's
 ``{layer: {w, bn_*, act_scale}}`` tree. ``jax.random``
 initialisation cannot be reproduced in torch, so this is how parity tests
@@ -23,8 +24,8 @@ from repro_torch.models.lm import LMParams
 
 # leaves that stay f32 whatever the model dtype (norm gains, packed scales,
 # the MoE router and the Mamba2 leaves the reference keeps in f32)
-F32_LEAVES = ("ln1", "ln2", "final_norm", "scale", "router", "dt_bias", "a_log",
-              "d_skip", "gate_norm")
+F32_LEAVES = ("ln1", "ln2", "ln_x", "final_norm", "enc_final_norm", "scale", "router",
+              "dt_bias", "a_log", "d_skip", "gate_norm")
 
 
 def _tensor(a) -> torch.Tensor:
@@ -65,19 +66,21 @@ def params_from_reference(
         raise ValueError("expected the reference's tree with stacked 'layers'")
     if cfg.family == "ssm":  # Mamba2 layers only: no FFN to check
         return LMParams(_convert(tree, device, dtype), trainable)
-    # the hybrid's FFN is its shared block's; MoE experts are dense at any
-    # w_bits (the reference never packs them)
-    ffn = "shared" if cfg.family == "hybrid" else "layers"
-    if not isinstance(tree.get(ffn), dict):
-        raise ValueError(f"expected the reference's {cfg.family} tree with '{ffn}'")
+    # the hybrid's FFN is its shared block's, the enc-dec's both stacks';
+    # MoE experts are dense at any w_bits (the reference never packs them)
+    ffns = {"hybrid": ("shared",), "encdec": ("layers", "enc_layers")}.get(
+        cfg.family, ("layers",))
     want_packed = cfg.w_bits in (1, 2) and cfg.family != "moe"
-    for name in ("w1", "w3", "w2"):
-        packed = isinstance(tree[ffn].get(name), dict)
-        if packed != want_packed:
-            raise ValueError(
-                f"{ffn}/{name} is {'packed' if packed else 'dense'} but "
-                f"cfg.w_bits is {cfg.w_bits} (family {cfg.family!r})"
-            )
+    for ffn in ffns:
+        if not isinstance(tree.get(ffn), dict):
+            raise ValueError(f"expected the reference's {cfg.family} tree with '{ffn}'")
+        for name in ("w1", "w3", "w2"):
+            packed = isinstance(tree[ffn].get(name), dict)
+            if packed != want_packed:
+                raise ValueError(
+                    f"{ffn}/{name} is {'packed' if packed else 'dense'} but "
+                    f"cfg.w_bits is {cfg.w_bits} (family {cfg.family!r})"
+                )
     return LMParams(_convert(tree, device, dtype), trainable)
 
 

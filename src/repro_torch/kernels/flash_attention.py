@@ -44,6 +44,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_bwd_dkv_ref, flash_bwd_dq_ref, flash_fwd_ref
 
 COUNTER = _build.LaunchCounter()
+# flash_fwd's launches with ``causal=False`` (the enc-dec encoder and its
+# cross-attention), counted again here by route beside COUNTER
+NONCAUSAL_COUNTER = _build.LaunchCounter()
 DQ_COUNTER = _build.LaunchCounter()  # flash_bwd's dq pass
 DKV_COUNTER = _build.LaunchCounter()  # flash_bwd's dk/dv pass
 HEAD_DIMS = (32, 64, 80, 128)
@@ -141,7 +144,10 @@ def flash_fwd(
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, rc, "flash_fwd")
-    COUNTER.add("mma" if q.dtype == torch.bfloat16 else "f32")
+    route = "mma" if q.dtype == torch.bfloat16 else "f32"
+    COUNTER.add(route)
+    if not causal:
+        NONCAUSAL_COUNTER.add(route)
     return out, lse
 
 

@@ -160,7 +160,14 @@ def launch_routes() -> dict[str, dict[str, int]]:
     return {name: dict(c.routes) for name, c in _COUNTERS.items() if c.routes}
 
 
+def noncausal_flash_launches() -> dict[str, int]:
+    """``flash_fwd``'s launches with ``causal=False`` since the last
+    ``reset_launch_counts``, by route (they are in ``launch_counts()``'s
+    ``flash_fwd`` too)."""
+    return dict(_fa.NONCAUSAL_COUNTER.routes)
+
+
 def reset_launch_counts() -> None:
-    for c in _COUNTERS.values():
+    for c in (*_COUNTERS.values(), _fa.NONCAUSAL_COUNTER):
         c.count = 0
         c.routes.clear()

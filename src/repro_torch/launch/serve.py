@@ -11,8 +11,11 @@ captured CUDA graph (the reference's jitted steps): the decode step, the
 prefill chunk and the whole-prompt prefill of each bucket; on the CPU
 every step runs eagerly.
 
-``--arch`` takes every ported arch: smollm-360m (the default),
-llama3.2-1b, h2o-danube-1.8b and phi3-medium-14b, and the MoE archs
+``--arch`` takes every arch: smollm-360m (the default),
+llama3.2-1b, h2o-danube-1.8b and phi3-medium-14b, the vlm arch
+internvl2-76b (its text tokens, served as a dense arch, as the reference
+serves it; its patch-embedding prefix runs through
+``runtime.steps.make_prefill_step``), and the MoE archs
 olmoe-1b-7b and moonshot-v1-16b-a3b (or their module ids). An MoE arch
 serves through the dropless expert dispatch and prints a ``[serve/moe]``
 line (routed tokens, load entropy, the share routed to resident experts);
@@ -25,7 +28,10 @@ its one shared FFN (the Mamba2 layers have none), and ``--speculate`` and
 ``--vmem-budget`` exit 2 with the reference's reasons (an SSM state cannot
 roll back a rejected chain; it is out of the residency executor's scope).
 It prints a ``[serve/hybrid]`` line: the lanes' state on the card, and the
-anchors' host copies (count, MB, ms each).
+anchors' host copies (count, MB, ms each). The enc-dec arch whisper-tiny
+prints the reference's line and exits 0: its encoder, cross-attention and
+decode step (``models.encdec``) run in the tests and the smoke run, not
+through this CLI.
 
 ``--engine fixed`` runs the reference's fixed-batch loop instead
 (``run_fixed_engine``): per-slot caches, lanes in lockstep, prompts
@@ -48,6 +54,7 @@ Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m --quant 2
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-medium-14b --quant 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-76b --smoke --device cpu --quant 2
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b --smoke --device cpu --quant 2
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --no-prefix-cache
@@ -90,7 +97,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.kernels import ops
 from repro_torch.models import lm
-from repro_torch.models.config import PACKING_FAMILIES, PAGED_FAMILIES, PORTED_FAMILIES
+from repro_torch.models.config import PACKING_FAMILIES, PAGED_FAMILIES
 from repro_torch.runtime.kv_pool import KVPool, choose_block_tokens
 from repro_torch.runtime.memledger import MemLedger, MemPressureMonitor
 from repro_torch.runtime.prefix_cache import PrefixCache
@@ -494,7 +501,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--speculate", default="",
                     help="speculative decoding drafter: 'ngram' (self-drafting "
                          "suffix match) or an arch id whose packed twin drafts "
-                         "for the target (dense family)")
+                         "for the target (dense or vlm family)")
     ap.add_argument("--spec-depth", type=int, default=4,
                     help="draft chain depth k: each verify step scores the "
                          "pending token plus k-1 proposals")
@@ -532,9 +539,9 @@ def main(argv=None) -> int:
     except ValueError as e:
         print(f"[serve] {e}")
         return 2
-    if cfg.family not in PORTED_FAMILIES:
-        print(f"[serve] family {cfg.family!r} is not ported yet")
-        return 2
+    if cfg.family == "encdec":
+        print("[serve] encdec serving is exercised in tests; use an LM arch")
+        return 0
     if args.quant:
         if cfg.family not in PACKING_FAMILIES:
             print(f"[serve] note: --quant has no effect on family "

@@ -1,8 +1,9 @@
 """Model configuration: the port's own copy of ``repro.models.config``.
 
-``ModelConfig``, ``reduced``, ``pad_to`` and the family tuples, copied so
-that the port never imports the reference package. ``dtype`` stays a
-string ("bfloat16" / "float32"); ``torch_dtype`` maps it to torch.
+``ModelConfig``, ``reduced``, ``pad_to``, ``modality_batch_leaves`` and
+the family tuples, copied so that the port never imports the reference
+package. ``dtype`` stays a string ("bfloat16" / "float32");
+``torch_dtype`` maps it to torch.
 """
 
 from __future__ import annotations
@@ -27,10 +28,11 @@ CHUNKABLE_FAMILIES = ("dense", "vlm", "moe", "hybrid")
 PREFIX_CACHE_FAMILIES = ("dense", "vlm", "moe", "hybrid")
 # Families whose dense FFN stores 1/2-bit weights as packed uint8 carriers.
 PACKING_FAMILIES = ("dense", "vlm", "encdec", "hybrid")
-# Families the port serves so far (the rest raise ValueError).
-PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
+# Families the port serves: every family of the reference.
+PORTED_FAMILIES = ("dense", "vlm", "encdec", "moe", "hybrid", "ssm")
 # The served families the KV pool, the scheduler and the residency plan
-# take: ported and paged (pure ssm serves through the fixed-batch engine).
+# take: ported and paged (pure ssm serves through the fixed-batch engine,
+# enc-dec through its own decode state: ``models.encdec``).
 POOL_FAMILIES = tuple(f for f in PORTED_FAMILIES if f in PAGED_FAMILIES)
 # The served families whose every layer is an attention layer: the
 # attention-KV entry points (``prefill_with_cache``, ``decode_step_paged``,
@@ -38,11 +40,13 @@ POOL_FAMILIES = tuple(f for f in PORTED_FAMILIES if f in PAGED_FAMILIES)
 # take these; hybrid serves through its own entry points.
 ATTN_SERVED_FAMILIES = tuple(f for f in PORTED_FAMILIES if f in ATTN_KV_FAMILIES)
 # Families the port trains so far (MoE's capacity dispatch and its aux
-# loss are not ported: its training entry points raise ValueError).
+# loss, the vlm and enc-dec losses are not ported: their training entry
+# points raise ValueError).
 TRAIN_FAMILIES = ("dense",)
-# Families whose full-sequence forward (``trunk``, ``forward``, ``prefill``)
-# the port runs: the trained ones and, for inference, ssm.
-FORWARD_FAMILIES = TRAIN_FAMILIES + ("ssm",)
+# Families whose full-sequence forward (``lm.trunk``, ``forward``,
+# ``prefill``) the port runs: the trained ones and, for inference, vlm
+# (with ``prefix_embeds``) and ssm; enc-dec runs ``models.encdec.trunk``.
+FORWARD_FAMILIES = TRAIN_FAMILIES + ("vlm", "ssm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,6 +111,17 @@ class ModelConfig:
         if self.family in ATTN_KV_FAMILIES or self.family == "encdec":
             return self.n_layers
         return 0
+
+
+def modality_batch_leaves(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    """Extra (non-token) batch leaves per family: name -> per-example
+    shape (batch dim excluded): the vlm's patch embeddings, the enc-dec's
+    audio frames (both stubbed frontends' outputs)."""
+    if cfg.family == "vlm":
+        return {"prefix_embeds": (cfg.n_patches, cfg.d_model)}
+    if cfg.family == "encdec":
+        return {"frames": (cfg.frontend_len, cfg.d_model)}
+    return {}
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:

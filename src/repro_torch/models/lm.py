@@ -1,11 +1,15 @@
-"""Dense, MoE, hybrid and SSM LM families: packed FFN weights, the
+"""Dense, vlm, MoE, hybrid and SSM LM families: packed FFN weights, the
 training forward and loss, the pool serving forward, the fixed-batch
-decode step, sampling.
+decode step, sampling; and the enc-dec family's parameters and cache
+(its forward and decode step are ``models.encdec``'s).
 
-Port of ``repro.models.lm`` for ``family`` "dense", "moe", "hybrid" and
-"ssm" (any other family raises ``ValueError``). The fixed-batch engine's
-entry points (``init_cache``, ``decode_step``, ``prefill``) serve the
-dense, SSM and hybrid families over a static per-slot cache, updated in
+Port of ``repro.models.lm``. The vlm family (InternVL's backbone) is the
+dense family with precomputed patch embeddings (``prefix_embeds``, (B, P,
+d)) ahead of the token embeddings in the full-sequence forward (``trunk``,
+``forward``, ``prefill``); it serves text tokens through every dense
+entry point, as the reference serves it. The fixed-batch engine's entry
+points (``init_cache``, ``decode_step``, ``prefill``) serve the dense,
+vlm, SSM and hybrid families over a static per-slot cache, updated in
 place so a captured CUDA graph binds it; the pure-SSM family (Mamba2) is
 served only through them, as in the reference, and runs the full-sequence
 forward for inference, not training. The MoE family is served only:
@@ -20,26 +24,28 @@ points (``prefill_with_cache_hybrid``, ``decode_step_paged_hybrid``,
 the pool; the attention-family entry points refuse it. The reference's
 parameter pytree becomes ``LMParams``, an ``nn.Module`` that keeps the
 same stacked ``(L, ...)`` per-layer leaves (and the hybrid's unstacked
-``shared`` subtree): float weights are parameters (frozen unless built
-with ``trainable=True``), the FCMP-packed FFN leaves are ``{"packed",
-"scale"}`` pairs of buffers (uint8 carrier, f32 per-channel scale). The
-reference's ``lax.scan`` over layers is a Python loop over views of the
-stacked leaves, so each layer's gradient lands in its slice of the
-stacked leaf.
+``shared`` subtree, the enc-dec's ``enc_layers``): float weights are
+parameters (frozen unless built with ``trainable=True``), the FCMP-packed
+FFN leaves are ``{"packed", "scale"}`` pairs of buffers (uint8 carrier,
+f32 per-channel scale). The reference's ``lax.scan`` over layers is a
+Python loop over views of the stacked leaves, so each layer's gradient
+lands in its slice of the stacked leaf.
 
 With ``cfg.w_bits`` in {1, 2} every dense-family FFN matmul (and the
-hybrid's shared FFN) goes through ``kernels.ops.packed_matmul``: on the
-card the carrier is decoded in registers by the CUDA kernel and never
-expanded in device memory. Under a residency plan, the decode FFN of each
-streamed layer goes through ``kernels.ops.stream_matmul`` instead (dense
-or packed); for MoE the plan streams single experts. MoE experts are
-never packed, whatever ``w_bits`` is, as in the reference.
+hybrid's shared FFN, both of the enc-dec's FFN stacks) goes through
+``kernels.ops.packed_matmul``: on the card the carrier is decoded in
+registers by the CUDA kernel and never expanded in device memory. Under
+a residency plan, the decode FFN of each streamed layer goes through
+``kernels.ops.stream_matmul`` instead (dense or packed); for MoE the plan
+streams single experts. MoE experts are never packed, whatever
+``w_bits`` is, as in the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any
 
 import numpy as np
@@ -197,36 +203,47 @@ class _Leaves(nn.Module):
         return {n: self.leaf(n) for n in self.names}
 
 
+def _layer_views(leaves: _Leaves, i: int) -> dict[str, Any]:
+    """Views of stack entry ``i`` of every leaf (packed leaves stay pairs)."""
+    return {
+        name: {"packed": v["packed"][i], "scale": v["scale"][i]} if isinstance(v, dict) else v[i]
+        for name, v in leaves.tree().items()
+    }
+
+
 class LMParams(nn.Module):
     """The parameter tree of ``init_params`` as a module: top-level leaves
-    (``embed``, ``final_norm``, ``unembed`` when untied) plus ``layers``,
-    whose leaves are stacked over the layer axis, and for the hybrid
-    family ``shared``, the one attention + FFN block every super-block
-    applies (unstacked leaves). ``trainable`` makes the float leaves
-    require gradients (training); serving keeps them frozen, so it builds
-    no autograd graph."""
+    (``embed``, ``final_norm``, ``unembed`` when untied; the enc-dec's
+    ``enc_final_norm``) plus ``layers``, whose leaves are stacked over the
+    layer axis, for the hybrid family ``shared``, the one attention + FFN
+    block every super-block applies (unstacked leaves), and for the
+    enc-dec family ``enc_layers``, the encoder's stacked layers.
+    ``trainable`` makes the float leaves require gradients (training);
+    serving keeps them frozen, so it builds no autograd graph."""
+
+    SUBTREES = ("layers", "shared", "enc_layers")
 
     def __init__(self, tree: dict[str, Any], trainable: bool = False):
         super().__init__()
         self.top = _Leaves(
-            {k: v for k, v in tree.items() if k not in ("layers", "shared")}, trainable
+            {k: v for k, v in tree.items() if k not in self.SUBTREES}, trainable
         )
         self.layers = _Leaves(tree["layers"], trainable)
         self.shared = _Leaves(tree["shared"], trainable) if "shared" in tree else None
+        self.enc_layers = (
+            _Leaves(tree["enc_layers"], trainable) if "enc_layers" in tree else None
+        )
 
     def __getitem__(self, name: str):
         return self.top.leaf(name)
 
     def layer(self, i: int) -> dict[str, Any]:
         """Views of layer ``i``'s leaves (packed leaves stay pairs)."""
-        out = {}
-        for name, v in self.layers.tree().items():
-            out[name] = (
-                {"packed": v["packed"][i], "scale": v["scale"][i]}
-                if isinstance(v, dict)
-                else v[i]
-            )
-        return out
+        return _layer_views(self.layers, i)
+
+    def enc_layer(self, i: int) -> dict[str, Any]:
+        """Views of the enc-dec encoder's layer ``i``'s leaves."""
+        return _layer_views(self.enc_layers, i)
 
     def shared_block(self) -> dict[str, Any]:
         """The hybrid's shared attention + FFN block's leaves."""
@@ -236,11 +253,14 @@ class LMParams(nn.Module):
         out = {**self.top.tree(), "layers": self.layers.tree()}
         if self.shared is not None:
             out["shared"] = self.shared.tree()
+        if self.enc_layers is not None:
+            out["enc_layers"] = self.enc_layers.tree()
         return out
 
 
 EMBED_ROWS = 8192  # embedding rows drawn at a time by init_params
 FFN_LEAVES = ("w1", "w3", "w2")
+PACK_WORKERS = 4  # host threads of pack_ffn, each packing one layer at a time
 
 
 def pack_ffn(w: torch.Tensor, bits: int) -> dict[str, torch.Tensor]:
@@ -248,27 +268,33 @@ def pack_ffn(w: torch.Tensor, bits: int) -> dict[str, torch.Tensor]:
     layer at a time on the host, into a pair on ``w``'s device. ``make_packed``
     reduces in the weight's dtype, and the card reduces in another order than
     the host, so packing on the host keeps the packed weights the same bits
-    wherever the dense ones live; the host holds one layer at a time."""
+    wherever the dense ones live. ``PACK_WORKERS`` threads pack layers
+    concurrently (each layer the same ``make_packed`` call, so the same
+    bits; torch's intra-op thread count is process-wide, so each thread's
+    ops share it); the host holds a layer per thread."""
     l, k, n = w.shape
     out = {
         "packed": torch.empty((l, k * bits // 8, n), dtype=torch.uint8, device=w.device),
         "scale": torch.empty((l, n), dtype=torch.float32, device=w.device),
     }
-    for i in range(l):
-        layer = make_packed(w[i].cpu(), bits)
-        for key, leaf in out.items():
-            leaf[i] = layer[key]
+    with ThreadPoolExecutor(min(PACK_WORKERS, l)) as pool:
+        for i, layer in enumerate(pool.map(lambda j: make_packed(w[j].cpu(), bits), range(l))):
+            for key, leaf in out.items():
+                leaf[i] = layer[key]
     return out
 
 
 def pack_ffn_params(params: LMParams, bits: int) -> LMParams:
     """Dense ``params`` with their FFN leaves packed (``pack_ffn``; the
-    hybrid's shared FFN a (1, K, N) stack of one), the other leaves
-    shared: bitwise ``init_params`` at ``w_bits=bits`` when ``params`` is
-    its dense (``w_bits=0``) draw of the same seed."""
+    hybrid's shared FFN a (1, K, N) stack of one; the enc-dec's encoder
+    FFN too), the other leaves shared: bitwise ``init_params`` at
+    ``w_bits=bits`` when ``params`` is its dense (``w_bits=0``) draw of the
+    same seed."""
     tree = params.tree()
-    tree["layers"] = {name: pack_ffn(leaf, bits) if name in FFN_LEAVES else leaf
-                      for name, leaf in tree["layers"].items()}
+    for stack in ("layers", "enc_layers"):
+        if stack in tree:
+            tree[stack] = {name: pack_ffn(leaf, bits) if name in FFN_LEAVES else leaf
+                           for name, leaf in tree[stack].items()}
     if "shared" in tree:
         tree["shared"] = {
             name: ({k: v[0] for k, v in pack_ffn(leaf[None], bits).items()}
@@ -294,14 +320,20 @@ def init_params(
     time (367 MB of f32 at phi3-medium's widest, not the 14.7 GB of its
     stacked ``w1``; one layer's 64 experts, 537 MB at olmoe).
 
-    The MoE family (the reference's lm.py:223) adds a ``router`` leaf (L,
-    d, E) kept in f32 and stacks its expert FFNs as (L, E, d, ff) and (L, E,
-    ff, d), dense at any ``w_bits``. The SSM (lm.py:234) and hybrid
-    (lm.py:239) families stack ``ln1`` and the Mamba2 leaves (the
-    reference's ``_init_ssm``; ``dt_bias``, ``a_log``, ``d_skip`` and
-    ``gate_norm`` in f32), drawn by the same code; SSM has no FFN, and
-    hybrid then draws one ``shared`` block: its norms, attention
-    projections and a 2-D FFN, packed at ``w_bits`` 1/2.
+    The vlm family draws as the dense family does (the reference's
+    lm.py:216). The MoE family (the reference's lm.py:223) adds a
+    ``router`` leaf (L, d, E) kept in f32 and stacks its expert FFNs as (L,
+    E, d, ff) and (L, E, ff, d), dense at any ``w_bits``. The enc-dec
+    family (lm.py:253) stacks decoder ``layers`` (``ln1``, ``ln_x``,
+    ``ln2``, the attention, the ``x_``-prefixed cross-attention
+    projections, the FFN) and encoder ``enc_layers`` (``ln1``, ``ln2``,
+    attention, FFN) and adds ``enc_final_norm``; both FFN stacks pack at
+    ``w_bits`` 1/2. The SSM (lm.py:234) and hybrid (lm.py:239) families
+    stack ``ln1`` and the Mamba2 leaves (the reference's ``_init_ssm``;
+    ``dt_bias``, ``a_log``, ``d_skip`` and ``gate_norm`` in f32), drawn by
+    the same code; SSM has no FFN, and hybrid then draws one ``shared``
+    block: its norms, attention projections and a 2-D FFN, packed at
+    ``w_bits`` 1/2.
     A slice of a multiple of 16 values takes the same draws from the
     generator as the whole leaf would, so the numbers are those of one
     draw per leaf.
@@ -326,11 +358,29 @@ def init_params(
     moe = cfg.family == "moe"
     lead = (cfg.n_experts,) if moe else ()
 
-    def ffn(k, n, std):
-        w = normal((l,) + lead + (k, n), std)
+    def ffn(k, n, std, count=l):
+        w = normal((count,) + lead + (k, n), std)
         return pack_ffn(w, cfg.w_bits) if cfg.w_bits in (1, 2) and not moe else w
 
+    def ones(*shape):
+        return torch.ones(shape, dtype=torch.float32, device=device)
+
     s = d ** -0.5
+
+    def attn_ffn(count, prefixes=("",)):
+        """A stack's attention projections (each of ``prefixes``: the
+        enc-dec's cross-attention is ``x_``), then its FFN, in draw order."""
+        out = {}
+        for pre in prefixes:
+            out.update({
+                f"{pre}wq": normal((count, d, hq * hd), s),
+                f"{pre}wk": normal((count, d, hkv * hd), s),
+                f"{pre}wv": normal((count, d, hkv * hd), s),
+                f"{pre}wo": normal((count, hq * hd, d), s),
+            })
+        return {**out, "w1": ffn(d, ff, s, count), "w3": ffn(d, ff, s, count),
+                "w2": ffn(ff, d, s * 0.5, count)}
+
     tree: dict[str, Any] = {
         "embed": normal((pv, d), 0.02, EMBED_ROWS),
         "final_norm": torch.ones((d,), dtype=torch.float32, device=device),
@@ -378,6 +428,13 @@ def init_params(
             **{name: ({key: v[0] for key, v in w.items()} if isinstance(w, dict) else w[0])
                for name, w in (("w1", w1), ("w3", w3), ("w2", w2))},
         }
+        return LMParams(tree, trainable)
+    if cfg.family == "encdec":
+        le = cfg.n_enc_layers
+        tree["layers"] = {"ln1": ones(l, d), "ln_x": ones(l, d), "ln2": ones(l, d),
+                          **attn_ffn(l, ("", "x_"))}
+        tree["enc_layers"] = {"ln1": ones(le, d), "ln2": ones(le, d), **attn_ffn(le)}
+        tree["enc_final_norm"] = ones(d)
         return LMParams(tree, trainable)
     tree["layers"] = {
         "ln1": torch.ones((l, d), dtype=torch.float32, device=device),
@@ -572,22 +629,46 @@ def _remat_kwargs(remat: str) -> dict:
     return {}
 
 
+def _refuse_encdec(cfg: ModelConfig, what: str) -> None:
+    """The enc-dec family's layers carry cross-attention: its forward and
+    decode step are ``models.encdec``'s, never the dense layer's."""
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"{what}: family 'encdec' runs cross-attention into the encoder; "
+            f"use encdec.{what}"
+        )
+
+
 def trunk(
-    params: LMParams, cfg: ModelConfig, tokens: torch.Tensor, *, remat: str = "none"
+    params: LMParams,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,
+    *,
+    prefix_embeds: torch.Tensor | None = None,
+    remat: str = "none",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """All layers + final norm, without the unembedding.
 
-    tokens: (B, S). Returns (hidden states (B, S, d), aux loss: 0 for the
-    dense and SSM families; the MoE and hybrid families' forward is not
-    ported yet and raises). ``remat`` "full" recomputes each layer in the
-    backward (``torch.utils.checkpoint``, non-reentrant), "dots" recomputes
-    all but the 2-D matmul outputs, "none" keeps every activation. The SSM
-    family runs it for inference (``prefill``, ``make_prefill_step``);
-    ``loss_fn`` refuses it."""
+    tokens: (B, S). ``prefix_embeds`` (B, P, d) are precomputed modality
+    embeddings (the vlm's patches), concatenated ahead of the token
+    embeddings in the model dtype; positions run over P + S. Returns
+    (hidden states over the token positions (B, S, d), aux loss: 0 for the
+    dense, vlm and SSM families; the MoE and hybrid families' forward is
+    not ported and raises; enc-dec raises, naming ``encdec.trunk``).
+    ``remat`` "full" recomputes each layer in the backward
+    (``torch.utils.checkpoint``, non-reentrant), "dots" recomputes all but
+    the 2-D matmul outputs, "none" keeps every activation. The vlm and SSM
+    families run it for inference (``prefill``, ``make_prefill_step``);
+    ``loss_fn`` refuses them."""
+    _refuse_encdec(cfg, "trunk")
     _require_ported(cfg, "trunk", FORWARD_FAMILIES)
     if remat not in REMAT_MODES:
         raise ValueError(f"remat must be one of {REMAT_MODES}, got {remat!r}")
     x = embed(tokens, params["embed"], torch_dtype(cfg))
+    n_prefix = 0
+    if prefix_embeds is not None:
+        n_prefix = prefix_embeds.shape[1]
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for i in range(cfg.n_layers):
         if remat == "none":
@@ -598,15 +679,21 @@ def trunk(
                 **_remat_kwargs(remat),
             )
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x[:, n_prefix:], torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def forward(
-    params: LMParams, cfg: ModelConfig, tokens: torch.Tensor, *, remat: str = "none"
+    params: LMParams,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,
+    *,
+    prefix_embeds: torch.Tensor | None = None,
+    remat: str = "none",
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. tokens: (B, S). Returns (logits (B, S, V)
-    f32, aux)."""
-    x, aux = trunk(params, cfg, tokens, remat=remat)
+    """Full-sequence forward. tokens: (B, S); ``prefix_embeds`` as in
+    ``trunk``. Returns (logits over the token positions (B, S, V) f32,
+    aux)."""
+    x, aux = trunk(params, cfg, tokens, prefix_embeds=prefix_embeds, remat=remat)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
     return unembed_logits(x, table, cfg.vocab), aux
 
@@ -1066,8 +1153,10 @@ def init_cache(
     """The fixed-batch engine's decode state (the reference's lm.py:597),
     on ``device`` (CUDA unless the caller asks for the CPU): attention
     caches (L, B, W, Hkv, D) with W = min(max_len, sliding_window) for the
-    dense and MoE families; for SSM and hybrid the SSD state (L, B, H, P,
-    N) in f32 and the conv buffers (L, B, K-1, C) in the model dtype; for
+    dense, vlm, MoE and enc-dec families (the enc-dec's decoder
+    self-attention; ``encdec.init_decode_state`` adds its cross K/V); for
+    SSM and hybrid the SSD state (L, B, H, P, N) in f32 and the conv
+    buffers (L, B, K-1, C) in the model dtype; for
     hybrid also the shared block's (n_super, B, max_len, Hkv, D) caches;
     and ``len``, the lockstep position, an int32 of one element on the
     device, so a captured step reads it there. ``decode_step`` updates
@@ -1078,7 +1167,7 @@ def init_cache(
     dt = torch_dtype(cfg)
     cache = {"len": torch.zeros((), dtype=torch.int32, device=device)}
     w = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
-    if cfg.family in ATTN_KV_FAMILIES:
+    if cfg.family in ATTN_KV_FAMILIES + ("encdec",):
         kv_shape = (cfg.n_layers, batch, w, cfg.n_kv, cfg.hd)
         cache["k"] = torch.zeros(kv_shape, dtype=dt, device=device)
         cache["v"] = torch.zeros(kv_shape, dtype=dt, device=device)
@@ -1127,8 +1216,11 @@ def decode_step(
     does that and after each super-block applies the shared attention +
     FFN block over its cache. The returned cache is the same dict and the
     same tensors, updated in place (``len`` too), so a captured step binds
-    them. The MoE family raises: the reference's fixed decode runs the
-    capacity dispatch (``moe.moe_ffn``), which the port has not ported."""
+    them. The vlm family decodes text tokens as the dense family does. The
+    MoE family raises: the reference's fixed decode runs the capacity
+    dispatch (``moe.moe_ffn``), which the port has not ported; the enc-dec
+    family raises, naming ``encdec.decode_step``."""
+    _refuse_encdec(cfg, "decode_step")
     if cfg.family == "moe":
         raise ValueError(
             "decode_step: the fixed-batch engine's MoE decode runs the capacity "
@@ -1138,7 +1230,7 @@ def decode_step(
     _require_ported(cfg, "decode_step")
     x = embed(token, params["embed"], torch_dtype(cfg))
     pos = cache["len"].long()
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         for i in range(cfg.n_layers):
             lp = params.layer(i)
             x = _decode_attn_block(lp, cfg, x, cache["k"][i], cache["v"][i], pos,
@@ -1160,10 +1252,17 @@ def decode_step(
 
 
 @torch.no_grad()
-def prefill(params: LMParams, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+def prefill(
+    params: LMParams,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,
+    *,
+    prefix_embeds: torch.Tensor | None = None,
+) -> torch.Tensor:
     """The reference's ``prefill`` (lm.py:760): the full-sequence forward's
-    logits (B, S, V) f32; filling a cache is the serving engine's job."""
-    lg, _ = forward(params, cfg, tokens)
+    logits (B, S, V) f32 over the token positions; filling a cache is the
+    serving engine's job."""
+    lg, _ = forward(params, cfg, tokens, prefix_embeds=prefix_embeds)
     return lg
 
 

@@ -1,6 +1,6 @@
 """Execute a residency plan: budgeted paged decode over a split weight set.
 
-Port of ``repro.runtime.residency.executor`` for the dense and MoE
+Port of ``repro.runtime.residency.executor`` for the dense, vlm and MoE
 families. The plan's ``layer_stream_mask`` splits the layers into
 *resident* (the FFN runs the ordinary path: ``packed_matmul``, or
 ``torch.matmul`` for dense weights) and *streamed* (the FFN runs
@@ -26,9 +26,8 @@ BUDGET_REFUSAL = (
 
 def supports_budgeted_decode(cfg: ModelConfig) -> bool:
     """Budgeted decode = paged decode + a streamable FFN weight set, for
-    the attention families the port serves: dense (a per-layer stream
-    mask) and moe (per (layer, expert) over the dropless dispatch). The
-    reference also covers vlm, which is not ported; like the reference,
-    it leaves out hybrid, whose SSM state is out of the executor's
-    scope."""
+    the attention families the port serves, as the reference's: dense and
+    vlm (a per-layer stream mask) and moe (per (layer, expert) over the
+    dropless dispatch). Like the reference, it leaves out hybrid, whose
+    SSM state is out of the executor's scope."""
     return cfg.family in ATTN_SERVED_FAMILIES

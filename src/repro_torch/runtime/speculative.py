@@ -1,7 +1,7 @@
 """Speculative decoding over the paged KV pool: drafters and resolution.
 
-Port of ``repro.runtime.speculative`` for dense and MoE targets. Decode re-reads
-the whole weight set to emit one token per lane. Speculate-and-verify buys
+Port of ``repro.runtime.speculative`` for dense, vlm and MoE targets.
+Decode re-reads the whole weight set to emit one token per lane. Speculate-and-verify buys
 some of that back: a cheap drafter proposes a depth-``k`` chain per decode
 lane, and the target scores every chain position in one batched call
 (``lm.verify_chunk_paged``), accepting the longest prefix whose sampled
@@ -17,11 +17,11 @@ target's own logits with the same (seed, rid, m)-keyed rng that plain
 decode uses, and a position's logits depend only on accepted (identical)
 earlier tokens. The drafter moves the acceptance rate, never the output.
 
-Drafter eligibility, cut to the ported families (the reference also
-verifies vlm targets, and drafts with vlm twins)::
+Drafter eligibility, as in the reference::
 
     target family   model drafter (packed twin)   ngram drafter
     dense           yes                           yes
+    vlm             yes                           yes
     moe             foreign dense arch only       yes
                     (experts never pack: no twin)
 
@@ -48,10 +48,10 @@ from repro_torch.runtime.steps import (
     make_pool_prefill_step,
 )
 
-# families verify_chunk_paged serves (the reference's, cut to the ported)
-SPEC_FAMILIES = ("dense", "moe")
+# families verify_chunk_paged serves (the reference's)
+SPEC_FAMILIES = ("dense", "vlm", "moe")
 # families whose FFN leaves pack into FCMP carriers -> model drafters
-MODEL_DRAFT_FAMILIES = ("dense",)
+MODEL_DRAFT_FAMILIES = ("dense", "vlm")
 
 NGRAM = "ngram"
 

@@ -2,9 +2,10 @@
 serve steps, the pool steps of the continuous-batching scheduler, and
 ``CapturedStep``, which compiles a serve step into a CUDA graph.
 
-Port of ``repro.runtime.steps`` for the dense, MoE, hybrid and SSM
-families (the train step: dense only; the fixed-batch serve step: dense,
-SSM and hybrid; the prefill step: dense and SSM). A step is the model
+Port of ``repro.runtime.steps`` (the train step: dense only; the
+fixed-batch serve step: dense, vlm, SSM, hybrid and enc-dec; the prefill
+step: dense, vlm with its patch embeddings, SSM and enc-dec with its audio
+frames; the pool steps: dense, vlm, MoE and hybrid). A step is the model
 function closed over the config; the MoE family's pool steps return the
 (L, E) expert-load tally as one more output, which a ``CapturedStep``
 binds like the others; the hybrid's decode step takes and returns the
@@ -31,32 +32,35 @@ from typing import Callable
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import lm
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import TRAIN_FAMILIES, ModelConfig
 from repro_torch.models.layers import logits as unembed_logits
 from repro_torch.optim.adamw import AdamW, param_tree
 from repro_torch.runtime.residency.executor import BUDGET_REFUSAL, supports_budgeted_decode
 
 
-def _not_ported(cfg: ModelConfig, what: str) -> None:
-    """The vlm and enc-dec branches of the reference's step builders: their
-    modality inputs (patch embeddings, audio frames) are not ported."""
-    if cfg.family in ("vlm", "encdec"):
-        raise ValueError(f"{what}: family {cfg.family!r} is not ported to it")
-
-
 def _split_batch(cfg: ModelConfig, batch: dict):
-    """(tokens, labels) of a batch; the reference's vlm branch also takes
-    its patch embeddings, which are not ported."""
-    _not_ported(cfg, "_split_batch")
-    return batch["tokens"], batch["labels"]
+    """(tokens, labels, model kwargs) of a batch: the vlm family's patch
+    embeddings go to the model as ``prefix_embeds``."""
+    kwargs = {}
+    if cfg.family == "vlm":
+        kwargs["prefix_embeds"] = batch["prefix_embeds"]
+    return batch["tokens"], batch["labels"], kwargs
 
 
 def make_loss_fn(cfg: ModelConfig, *, remat: str = "full", ce_chunk: int = 0) -> Callable:
-    """(params, batch {tokens, labels}) -> scalar loss."""
+    """(params, batch {tokens, labels}) -> scalar loss. The families the
+    port trains only (``TRAIN_FAMILIES``): the others raise here, as
+    ``lm.loss_fn`` does."""
+    if cfg.family not in TRAIN_FAMILIES:
+        raise ValueError(
+            f"make_loss_fn: family {cfg.family!r} is not ported to training (ported: "
+            f"{', '.join(TRAIN_FAMILIES)}): its loss and backward are not ported yet"
+        )
 
     def loss(params, batch):
-        tokens, labels = _split_batch(cfg, batch)
+        tokens, labels, _ = _split_batch(cfg, batch)
         value, _ = lm.loss_fn(params, cfg, tokens, labels, remat=remat, ce_chunk=ce_chunk)
         return value
 
@@ -108,16 +112,20 @@ def make_train_step(
 
 
 def make_prefill_step(cfg: ModelConfig) -> Callable:
-    """(params, batch {tokens, labels}) -> next-token logits (B, 1, V): the
-    full-sequence trunk, with the hidden states sliced to the last
-    position before the unembedding, so the (B, S, V) logits are never
-    built (the reference's steps.py:72). The families ``lm.trunk`` takes."""
-    _not_ported(cfg, "make_prefill_step")
+    """(params, batch {tokens, labels[, prefix_embeds | frames]}) ->
+    next-token logits (B, 1, V): the full-sequence trunk, with the hidden
+    states sliced to the last position before the unembedding, so the (B,
+    S, V) logits are never built (the reference's steps.py:72). The
+    families ``lm.trunk`` takes (vlm with the batch's ``prefix_embeds``),
+    and enc-dec through ``encdec.trunk`` over the batch's ``frames``."""
 
     @torch.no_grad()
     def step(params, batch):
-        tokens, _ = _split_batch(cfg, batch)
-        x, _ = lm.trunk(params, cfg, tokens)
+        if cfg.family == "encdec":
+            x, _ = encdec_lib.trunk(params, cfg, batch["tokens"], batch["frames"])
+        else:
+            tokens, _, kw = _split_batch(cfg, batch)
+            x, _ = lm.trunk(params, cfg, tokens, **kw)
         table = params["embed"] if cfg.tie_embeddings else params["unembed"]
         return unembed_logits(x[:, -1:, :], table, cfg.vocab)
 
@@ -126,10 +134,16 @@ def make_prefill_step(cfg: ModelConfig) -> Callable:
 
 def make_serve_step(cfg: ModelConfig) -> Callable:
     """(params, token (B, 1), cache) -> (logits (B, 1, V), cache): the
-    fixed-batch engine's decode step (``lm.decode_step``) over the static
-    per-slot cache of ``lm.init_cache``, updated in place, so a
-    ``CapturedStep`` over it binds the cache and takes only the token."""
-    _not_ported(cfg, "make_serve_step")
+    fixed-batch engine's decode step (``lm.decode_step``; enc-dec:
+    ``encdec.decode_step`` over the cache of ``encdec.init_decode_state``)
+    over the static per-slot cache of ``lm.init_cache``, updated in place,
+    so a ``CapturedStep`` over it binds the cache and takes only the
+    token."""
+    if cfg.family == "encdec":
+        def encdec_step(params, token, cache):
+            return encdec_lib.decode_step(params, cfg, token, cache)
+
+        return encdec_step
 
     def step(params, token, cache):
         return lm.decode_step(params, cfg, token, cache)

@@ -50,3 +50,14 @@ def test_boundary_check_catches_forbidden_imports():
     src = "import jax.numpy\nfrom repro.models import lm\nimport repro_torch\n"
     names = [n for _, n in _imported_roots(ast.parse(src))]
     assert [n.split(".")[0] in FORBIDDEN for n in names] == [True, True, False]
+
+
+def test_boundary_covers_every_family_s_modules():
+    """The walk takes the enc-dec module and the last two configs ported,
+    beside the rest of the package."""
+    files = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for name in ("src/repro_torch/models/encdec.py",
+                 "src/repro_torch/configs/internvl2_76b.py",
+                 "src/repro_torch/configs/whisper_tiny.py",
+                 "src/repro_torch/models/lm.py", "chip_smoke.py"):
+        assert name in files, name

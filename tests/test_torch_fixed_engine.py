@@ -300,14 +300,21 @@ def test_prefill_step_matches_reference(case):
 
 
 def test_step_builders_refuse_the_unported_modalities():
-    tc = tconf.get_smoke_config("smollm_360m")
-    for family in ("vlm", "encdec"):
-        other = dataclasses.replace(tc, family=family)
-        for build in (tsteps.make_prefill_step, tsteps.make_serve_step):
-            with pytest.raises(ValueError, match=f"family '{family}' is not ported"):
-                build(other)
-        with pytest.raises(ValueError, match="not ported"):
-            tsteps._split_batch(other, {"tokens": None, "labels": None})
+    """The prefill and serve builders take the vlm and enc-dec families
+    (their branches: ``prefix_embeds``, ``encdec``); ``_split_batch``
+    hands the vlm's patch embeddings to the model, as the reference's
+    does; training refuses both families at build time."""
+    for arch in ("internvl2_76b", "whisper_tiny"):
+        tc = tconf.get_smoke_config(arch)
+        assert callable(tsteps.make_prefill_step(tc)) and callable(tsteps.make_serve_step(tc))
+        batch = {"tokens": 1, "labels": 2, "prefix_embeds": 3, "frames": 4}
+        want = jsteps._split_batch(jconf.get_smoke_config(arch), batch)
+        assert tsteps._split_batch(tc, batch) == want
+        for build in (tsteps.make_loss_fn, tsteps.make_train_step):
+            with pytest.raises(ValueError,
+                               match=f"family '{tc.family}' is not ported to training"):
+                build(tc)
+    assert tsteps._split_batch(tconf.get_smoke_config("smollm_360m"), batch) == (1, 2, {})
 
 
 # ---------------- run_fixed_engine and serve.main ----------------

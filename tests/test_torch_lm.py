@@ -103,23 +103,28 @@ def test_port_configs_match_reference(arch):
 
 
 def test_registry_is_the_reference_s_over_the_ported_archs():
-    """``ARCH_IDS`` are the reference's dense, MoE, hybrid and SSM archs in
-    its order, the aliases its aliases, and ``all_configs`` its configs over
-    them; an arch not ported yet raises, naming the ported ones."""
-    ported = ARCHS + MOE_ARCHS + ("zamba2_2p7b", "mamba2_1p3b")
-    assert tconf.ARCH_IDS == [a for a in jconf.ARCH_IDS if a in ported]
-    assert tconf.ALIASES == {k: v for k, v in jconf.ALIASES.items() if v in ported}
+    """``ARCH_IDS`` are the reference's archs, all ten, in its order, the
+    aliases its aliases, and ``all_configs`` its configs over them; the
+    last two ported (internvl2-76b and whisper-tiny) resolve by either id
+    to the reference's full and smoke configs; an unknown arch raises,
+    naming the archs."""
+    assert tconf.ARCH_IDS == jconf.ARCH_IDS and len(tconf.ARCH_IDS) == 10
+    assert tconf.ALIASES == jconf.ALIASES
     want = jconf.all_configs()
     got = tconf.all_configs()
     assert list(got) == tconf.ARCH_IDS
     for arch, cfg in got.items():
         assert dataclasses.asdict(cfg) == dataclasses.asdict(want[arch])
     for name in ("internvl2-76b", "whisper_tiny"):
-        jconf.canonical(name)  # the reference has it
-        with pytest.raises(ValueError, match="ported archs: h2o_danube_1p8b, llama3p2_1b, "
-                                             "phi3_medium_14b, smollm_360m, olmoe_1b_7b, "
-                                             "moonshot_v1_16b_a3b, zamba2_2p7b, mamba2_1p3b"):
-            tconf.get_config(name)
+        assert tconf.canonical(name) == jconf.canonical(name)
+        assert dataclasses.asdict(tconf.get_config(name)) == dataclasses.asdict(
+            jconf.get_config(name))
+        assert dataclasses.asdict(t_smoke(name)) == dataclasses.asdict(j_smoke(name))
+    with pytest.raises(ValueError, match="ported archs: h2o_danube_1p8b, llama3p2_1b, "
+                                         "phi3_medium_14b, smollm_360m, internvl2_76b, "
+                                         "whisper_tiny, olmoe_1b_7b, moonshot_v1_16b_a3b, "
+                                         "zamba2_2p7b, mamba2_1p3b"):
+        tconf.get_config("no-such-arch")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -420,14 +425,26 @@ def test_tensor_q_offset_is_forward_only():
 
 
 def test_unported_family_raises():
-    _, tc = _configs(0)
-    with pytest.raises(ValueError, match="not ported"):
-        tlm.init_params(dataclasses.replace(tc, family="encdec"), device="cpu")
+    """What stays unported refuses: the MoE family's training forward,
+    ``lm.trunk`` / ``lm.decode_step`` on an enc-dec tree (naming
+    ``encdec``'s), and ``loss_fn`` on the vlm and enc-dec families."""
     # the MoE family is served, not trained: its training forward raises
     moe = t_smoke("olmoe_1b_7b")
     params = tlm.init_params(moe, device="cpu")
+    toks = torch.zeros((1, 4), dtype=torch.long)
     with pytest.raises(ValueError, match="trunk: family 'moe' is not ported"):
-        tlm.forward(params, moe, torch.zeros((1, 4), dtype=torch.long))
+        tlm.forward(params, moe, toks)
+    enc = t_smoke("whisper_tiny")
+    enc_params = tlm.init_params(enc, device="cpu")
+    with pytest.raises(ValueError, match="trunk: family 'encdec' .* use encdec.trunk"):
+        tlm.trunk(enc_params, enc, toks)
+    with pytest.raises(ValueError, match="use encdec.decode_step"):
+        tlm.decode_step(enc_params, enc, toks[:, :1], tlm.init_cache(enc, 1, 8, device="cpu"))
+    for arch in ("internvl2_76b", "whisper_tiny"):
+        cfg = t_smoke(arch)
+        p = enc_params if cfg.family == "encdec" else tlm.init_params(cfg, device="cpu")
+        with pytest.raises(ValueError, match=f"loss_fn: family '{cfg.family}' is not ported"):
+            tlm.loss_fn(p, cfg, toks, toks)
 
 
 def test_sample_logits_matches_reference():

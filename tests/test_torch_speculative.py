@@ -570,9 +570,10 @@ def test_resolve_rejects_unknown_drafter_listing_options():
     jc, tc, _, _ = _ctx()
     want, got = _resolve_error((jc, tc), "no_such_arch")
     assert got == want and "ngram" in got
-    # an arch the port has not ported is unknown to it, with the options
-    with pytest.raises(ValueError, match="unknown drafter arch 'whisper_tiny'.*ngram"):
-        tspec.resolve(tc, tspec.SpecConfig(drafter="whisper_tiny"), smoke=True)
+    # whisper is known to both: an enc-dec drafter has no packed twin,
+    # refused with the reference's message
+    want, got = _resolve_error((jc, tc), "whisper_tiny")
+    assert got == want and "family 'encdec'" in got and "packed twin" in got
     # mamba2 is known to both: an ssm drafter has no packed twin, refused
     # with the reference's message (its drafter families cut to the port's)
     want, got = _resolve_error((jc, tc), "mamba2_1p3b")
@@ -651,13 +652,12 @@ def test_compatible_drafters_cover_packable_families():
     assert "smollm_360m" in opts  # the twin itself
     for arch in opts[1:]:
         assert t_smoke(arch).family in tspec.MODEL_DRAFT_FAMILIES
-    # the reference's list, over the ported archs
-    assert opts == [a for a in jspec.compatible_drafters(jc, smoke=True)
-                    if a == "ngram" or a in tconf.ARCH_IDS]
-    assert tspec.SPEC_FAMILIES == tuple(f for f in jspec.SPEC_FAMILIES
-                                        if f in ("dense", "moe"))
-    assert tspec.MODEL_DRAFT_FAMILIES == tuple(
-        f for f in jspec.MODEL_DRAFT_FAMILIES if f == "dense")
+    # the reference's list and families (internvl's smoke twin among the
+    # drafters: its vocab is the smoke configs' 512)
+    assert opts == jspec.compatible_drafters(jc, smoke=True)
+    assert "internvl2_76b" in opts
+    assert tspec.SPEC_FAMILIES == jspec.SPEC_FAMILIES
+    assert tspec.MODEL_DRAFT_FAMILIES == jspec.MODEL_DRAFT_FAMILIES
 
 
 def test_speculation_refuses_what_has_no_graphs_or_family():
