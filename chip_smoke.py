@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--only kernels|prefill|moe|hybrid|ssm|vlm|encdec] [--src DIR]
+    python3 chip_smoke.py [--only kernels|prefill|moe|hybrid|ssm|vlm|encdec|fleet] [--src DIR]
                           [--log FILE]
 
 Phases, one JSON line each; any failure exits nonzero with no result:
@@ -152,7 +152,14 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               shared blocks at peak > 0, exactly one chunk
               graph, and prefill tokens cut by at least 30%; a third,
               cached run with a planted fault (the copy-on-write copy
-              skipped) must be seen to differ. Then (c) speculative
+              skipped) must be seen to differ; and a follow-up turn: the
+              first wave's 8 requests, then each one's prompt + output +
+              96 fresh tokens, without the cache and with it
+              teacher-forced by the uncached run's tokens (the follow-ups
+              adopt the K/V rows decode wrote: the GEMV's, where a cold
+              prefill runs the mma path): the logits at every sampled
+              position within FOLLOWUP_LOGIT_STEPS bf16 steps, the argmax
+              the same at FOLLOWUP_MIN_ARGMAX. Then (c) speculative
               decoding on the serve cell's traffic (--spec-depth 4), on the
               --quant 2 target and on a dequantized one (seed 0's FFN
               leaves decoded from their 2-bit carriers,
@@ -203,7 +210,35 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               ``run_fixed_engine`` eager and compiled: identical tokens and
               launches by route, exactly 3 x layers x steps launches of
               ``packed_matmul``, all on the GEMV (M = 8), no other kernel,
-              one graph, every step but its first call a replay.
+              one graph, every step but its first call a replay. Then (d)
+              the fleet (``runtime.cluster``) on phase 5's weights: one
+              trace (FLEET_REQUESTS = 24 requests, prompts 128 / 512 /
+              1024, 64 / 128 generated, 2000 arrivals a virtual second,
+              seed 1), 8 lanes
+              an engine, the prefix cache on, greedy, compiled, the cost
+              model the H100 data sheet's, in ``benchmarks/fleet_bench.py``'s
+              four modes: single (1 engine), fleet2 (2), disagg_gals (4,
+              split by ``provision_split``) and disagg_naive (4, split
+              2:2, prefill engine 0 drained at the median arrival): every
+              stream identical to single's with its max_new_tokens,
+              ``validate()`` on every pool, a handoff a request in each
+              disagg run, no decode graph on a prefill engine and no prefill graph
+              on a decode engine, prefill on the tensor-core kernels and
+              decode on the GEMV (no f32 route, no stream_matmul); each
+              handoff's payload MiB, ``export_blocks`` ms and import ms
+              (CUDA events); on the trace's first 8 requests at 8 tokens
+              each (the eager step takes ~55 ms on the host), single
+              against disagg_gals under seeded sampling identical, and
+              disagg_gals eager against compiled identical in tokens and
+              launches by route; then
+              ``repro_torch.launch.fleet.main`` (disagg, 4 engines, 2 bits,
+              8 slots, its own trace and draw) returning 0, its stream
+              passing ``validate_trace`` and ``validate_ledger`` and
+              replaying to each engine's counters. Measured: wall s,
+              tokens/s, graphs, capture s, KV and graph pool MiB per
+              engine, the decode step's host ms; modelled (the virtual
+              clock): the SLO report, the split, and the cost model's
+              decode step beside the measured one.
 4-5 (the other dense archs: llama3.2-1b, h2o-danube-1.8b, phi3-medium-14b;
               run last, after phase 7: run after phase 5, they left phase
               6's profiler windows short of an mvau record in two runs of
@@ -438,6 +473,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import io
 import itertools
@@ -469,6 +505,20 @@ SHORT_LENS = ((48, 40, 45, 36), (100, 97, 110, 112), (150, 155, 160, 145), (240,
 SHORT_GEN, SHORT_MAX_LEN = 32, 272
 # phase 5 (b): the reference's prefix bench traffic at full width
 SESSIONS, TURNS, TURN_TOKENS, SESSION_GEN, SESSION_MAX_LEN = 4, 4, 96, 32, 416
+# (b)'s follow-up turn, teacher-forced cached against uncached: the
+# verify-against-decode gate's values (SPEC_LOGIT_STEPS, SPEC_MIN_ARGMAX_SHARE)
+FOLLOWUP_LOGIT_STEPS = 4
+FOLLOWUP_MIN_ARGMAX = 0.85
+# (d) the fleet's trace (benchmarks/fleet_bench.py's four modes at the
+# serve cell's lengths; 24 requests, not 32, and the seeded and the eager
+# pairs on its first 8 at 8 tokens each, to fit the run's time limit: an
+# eager decode step takes ~55 ms on the host) and launch/fleet.py's SLOs
+# (virtual seconds)
+FLEET_REQUESTS = 24
+FLEET_CHECK_REQUESTS, FLEET_CHECK_GEN = 8, 8
+FLEET_PROMPT_LENS = ((128, 0.5), (512, 0.35), (1024, 0.15))
+FLEET_GEN_LENS = ((64, 0.7), (128, 0.3))
+FLEET_SLO_TTFT, FLEET_SLO_TPOT = 0.03, 0.002
 SPEC_DEPTH = 4  # phase 5 (c): --spec-depth, the serve cell's
 # phase 5 (c)'s gate on the verify path's logits against plain decode's
 # (which run other kernels, summing in other orders): the largest |logit
@@ -708,12 +758,13 @@ def main(argv: list[str] | None = None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     ap.add_argument("--only", choices=("kernels", "prefill", "moe", "hybrid", "ssm", "vlm",
-                                       "encdec"),
+                                       "encdec", "fleet"),
                     help="kernels: stop after phase 3 (build, and hold each kernel against "
                          "its plain version); prefill: build, then only phase 4's prefill "
                          "check and profile; moe: build, then only the MoE phase; hybrid: "
                          "build, then only the hybrid phase; ssm: build, then only the SSM "
-                         "phase; vlm, encdec: build, then only that family's phase. Each "
+                         "phase; vlm, encdec: build, then only that family's phase; fleet: "
+                         "build, then only phase 5 (b)'s follow-up turn and phase 5 (d). Each "
                          "prints no result")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the source tree whose repro_torch to run (default: src beside this "
@@ -3214,6 +3265,357 @@ def main(argv: list[str] | None = None) -> int:
         phase_seconds(f"encdec {ENC_ARCH}: greedy decoding")
         phase("encdec_phase", seconds=time.monotonic() - t_phase)
 
+    # ---------------- phase 5 (b)'s follow-up turn (with --only fleet too) ----------------
+    def followup_turn(c, p) -> None:
+        """(b) K/V rows that decode made, adopted by a follow-up turn: the
+        first wave of (b)'s traffic (8 prompts of TURN_TOKENS tokens,
+        SESSION_GEN generated), then each request's follow-up (its prompt,
+        its output and TURN_TOKENS fresh tokens), served without the cache
+        and with it, teacher-forced by the uncached run's tokens. Cached,
+        the follow-up adopts its transcript's blocks, whose generated rows
+        the decode step made (the GEMV at M = LANES); uncached, one
+        whole-prompt prefill makes them (the mma path). The gate: the
+        largest |logit difference| at the follow-ups' sampled positions
+        within FOLLOWUP_LOGIT_STEPS bf16 steps at the largest |logit|, the
+        argmax the same at FOLLOWUP_MIN_ARGMAX of them; the first waves
+        identical, and every follow-up a hit reaching into the generated
+        rows."""
+        from repro_torch.runtime.kv_pool import KVPool
+        from repro_torch.runtime.prefix_cache import PrefixCache
+        from repro_torch.runtime.scheduler import Scheduler
+
+        t0 = time.monotonic()
+        first = session_waves(c.vocab)[0]
+        rng = np.random.default_rng(23)
+        extra = [rng.integers(0, c.vocab, size=TURN_TOKENS).astype(np.int32) for _ in first]
+
+        def run(cached, force=None) -> dict:
+            pool = KVPool.for_slots(c, slots=LANES, max_len=SESSION_MAX_LEN, block_tokens=16,
+                                    device=dev)
+            sched = Scheduler(c, p, pool, slots=LANES, max_len=SESSION_MAX_LEN,
+                              prefill_chunk=CHUNK,
+                              prefix_cache=PrefixCache(pool) if cached else None)
+            r1 = drive(sched, [first], SESSION_GEN)
+            follow = [np.concatenate([prompt, np.asarray(r1["outputs"][i], np.int32), extra[i]])
+                      for i, prompt in enumerate(first)]
+            hit0 = sched.stats.prefix_hit_tokens
+            if force is not None:
+                sched._sample_one = lambda req, row: force[req.rid][len(req.output)]
+            r2 = drive(sched, [follow], SESSION_GEN)
+            r2["first_outputs"] = r1["outputs"]
+            r2["followup_hit_tokens"] = sched.stats.prefix_hit_tokens - hit0
+            r2["counts"] = {k: r1["counts"][k] + r2["counts"][k] for k in r2["counts"]}
+            by_route = {}
+            for r in (r1, r2):
+                for name, by in r["by_route"].items():
+                    for rt, n in by.items():
+                        by_route.setdefault(name, {})
+                        by_route[name][rt] = by_route[name].get(rt, 0) + n
+            r2["by_route"] = by_route
+            del sched, pool
+            return r2
+
+        cold = run(False)
+        warm = run(True, force=cold["outputs"])
+        count_main_path(cold)
+        count_main_path(warm)
+        keys = [key for key in cold["top_logits"] if key[0] >= len(first)]
+        fv = forced_vs(dict(top_logits={k: warm["top_logits"][k] for k in keys}),
+                       dict(top_logits={k: cold["top_logits"][k] for k in keys}))
+        step = 2.0 ** (math.floor(math.log2(fv["max_abs_logit"])) - 7)
+        transcripts = len(first) * (TURN_TOKENS + SESSION_GEN - 1)  # the tokens committed
+        phase("serve_followup_turn", arch=c.name, quant=c.w_bits, requests=len(first),
+              followup_tokens=TURN_TOKENS + SESSION_GEN + TURN_TOKENS, gen=SESSION_GEN,
+              **fv, bf16_step=step,
+              max_bf16_steps=fv["max_abs_logit_diff"] / step,
+              argmax_share=fv["argmax_agree"] / fv["positions"],
+              gate_steps=FOLLOWUP_LOGIT_STEPS, gate_argmax_share=FOLLOWUP_MIN_ARGMAX,
+              followup_hit_tokens=warm["followup_hit_tokens"], transcript_tokens=transcripts,
+              first_waves_identical=warm["first_outputs"] == cold["first_outputs"],
+              launches_by_route_cache=warm["by_route"], launches_by_route_no_cache=cold["by_route"],
+              seconds=time.monotonic() - t0)
+        if warm["first_outputs"] != cold["first_outputs"]:
+            fail("follow-up turn: the first waves differ cached and uncached")
+        if warm["followup_hit_tokens"] < len(first) * (TURN_TOKENS + 16):
+            fail(f"follow-up turn: {warm['followup_hit_tokens']} hit tokens: the follow-ups "
+                 "did not adopt their generated rows")
+        if not (fv["max_abs_logit_diff"] <= FOLLOWUP_LOGIT_STEPS * step
+                and fv["argmax_agree"] >= FOLLOWUP_MIN_ARGMAX * fv["positions"]):
+            fail(f"follow-up turn: cached vs uncached (teacher-forced) {fv}, bf16 step {step}")
+
+    # ---------------- the fleet (phase 5 (d); --only fleet: alone) ----------------
+    family_launches["fleet"] = {}
+
+    @contextlib.contextmanager
+    def heap_frozen():
+        """The objects alive now frozen out of the collector's scans (they
+        are not garbage: it collects first) until the block ends. The fleet
+        phase captures ~34 graphs, each after a full collection
+        (``CapturedStep``), which in the whole run's heap walks every object
+        of the earlier phases; what the block itself leaves is collected as
+        ever."""
+        gc.collect()
+        gc.freeze()
+        try:
+            yield
+        finally:
+            gc.unfreeze()
+
+    def fleet_phase(c, p) -> None:
+        """Phase 5 (d) (the module docstring says what it holds): ``c`` is
+        smollm-360m's full config at 2 bits, ``p`` phase 5's weights."""
+        from repro_torch.launch import fleet as fleet_cli
+        from repro_torch.runtime import cluster as cl
+        from repro_torch.runtime.kv_pool import choose_block_tokens
+        from repro_torch.runtime.memledger import validate_ledger
+        from repro_torch.runtime.spans import validate_trace
+        from repro_torch.runtime.tracker import read_jsonl, replay_summary
+
+        t_phase = time.monotonic()
+        captures = []  # every run's engines' capture seconds
+        spec = cl.TrafficSpec(n_requests=FLEET_REQUESTS, arrival_rate=2000.0,
+                              prompt_lens=FLEET_PROMPT_LENS, gen_lens=FLEET_GEN_LENS,
+                              session_reuse=0.3, vocab=c.vocab, seed=1)
+        trace = cl.synthesize(spec)
+        max_len = max(r.total_tokens for r in trace) + 8
+        block = choose_block_tokens([spec.max_total_tokens] * spec.n_requests)
+        cost = cl.StepCostModel.for_config(c, slots=LANES)  # the H100's data sheet
+        rates = cl.measured_role_rates(cost, spec, slots=LANES)
+        gals = cl.provision_split(4, rates)
+        median = statistics.median(r.t_arrival for r in trace)
+        slo = cl.SloPolicy(ttft=FLEET_SLO_TTFT, tpot=FLEET_SLO_TPOT)
+        modes = {"single": (1, None, None), "fleet2": (2, None, None),
+                 "disagg_gals": (4, None, None), "disagg_naive": (4, (2, 2), (0, median))}
+        phase("fleet_cost_model", card=smi, modelled=True, hw="H100 SXM data sheet "
+              "(perf.roofline.HW)", arch=c.name, w_bits=c.w_bits, slots=LANES,
+              **dataclasses.asdict(cost), rho_p_req_s=rates.prefill_req_rate,
+              rho_d_req_s=rates.decode_req_rate, r_f=rates.r_f, gals_split=list(gals),
+              requests=spec.n_requests, max_len=max_len, block_tokens=block,
+              median_arrival_s=median)
+
+        def time_handoffs(cluster) -> list:
+            """CUDA events around every ``export_blocks`` of the prefill
+            engines and every adopting ``import_prefilled`` of the decode
+            engines (with its host seconds); read once the run is done."""
+            out = []
+            for e in cluster.engines:
+                sched = e.scheduler
+                if e.role == "prefill":
+                    def export(rid, n_tokens=None, inner=sched.pool.export_blocks):
+                        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                        a.record()
+                        ids, ks, vs = inner(rid, n_tokens)
+                        b.record()
+                        out.append(("export", a, b, ks.nbytes + vs.nbytes, 0.0))
+                        return ids, ks, vs
+
+                    sched.pool.export_blocks = export
+                elif e.role == "decode":
+                    def adopt(payload, *, ready_at=None, inner=sched.import_prefilled):
+                        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                        h0 = time.perf_counter()
+                        a.record()
+                        ok = inner(payload, ready_at=ready_at)
+                        b.record()
+                        if ok:
+                            out.append(("import", a, b, payload.kv_bytes,
+                                        time.perf_counter() - h0))
+                        return ok
+
+                    sched.import_prefilled = adopt
+            return out
+
+        # the seeded and the eager pairs' trace: the first requests, shorter
+        checks = [dataclasses.replace(r, max_new_tokens=FLEET_CHECK_GEN)
+                  for r in trace[:FLEET_CHECK_REQUESTS]]
+
+        def run(mode, *, compiled=None, sampling=None, timed=False, trace=trace) -> dict:
+            n, split, drain = modes[mode]
+            common = dict(slots=LANES, max_len=max_len, block_tokens=block, cost=cost,
+                          sampling=sampling, prefix_cache=True, slo=slo, compiled=compiled)
+            if mode.startswith("disagg"):
+                cluster = cl.DisaggCluster(c, p, n_engines=n, spec=spec, split=split, **common)
+            else:
+                cluster = cl.FleetCluster(c, p, n_engines=n, **common)
+            handoffs = time_handoffs(cluster) if timed else []
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.monotonic()
+            res = cluster.run(trace, drain_at=drain)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            counts, by_route = ops.launch_counts(), ops.launch_routes()
+            label = f"fleet {mode} ({'eager' if compiled is False else 'compiled'}" + (
+                ", seeded" if sampling else "") + f", {len(trace)} requests)"
+            engines = []
+            for e in cluster.engines:
+                sched = e.scheduler
+                sched.pool.validate()
+                graphs = sched.graphs
+                captures.extend(g.capture_s for g in graphs)
+                if (e.role == "prefill" and sched.decode_graph is not None) or (
+                        e.role == "decode" and (sched.prefill_buckets or len(graphs) > 1)):
+                    fail(f"{label}: engine {e.engine_id} ({e.role}) captured "
+                         f"{len(graphs)} graphs, buckets {sched.prefill_buckets}")
+                st = sched.stats
+                engines.append(dict(
+                    engine=e.engine_id, role=e.role, completed=st.completed,
+                    handoffs=st.handoffs, prefill_steps=st.prefill_steps,
+                    decode_steps=st.decode_steps, graphs=len(graphs),
+                    graph_replays=sum(g.replays for g in graphs),
+                    capture_s=sum(g.capture_s for g in graphs),
+                    graph_pool_mib=sum(g.pool_bytes for g in graphs) / 2**20,
+                    kv_pool_mib=(sched.pool.k.nbytes + sched.pool.v.nbytes) / 2**20,
+                    decode_step_host_ms=(st.decode_time / st.decode_steps * 1e3
+                                         if st.decode_steps else None),
+                    modelled_clock_s=e.clock))
+            tokens = sum(len(v) for v in res.outputs.values())
+            short = [r.rid for r in trace if len(res.outputs.get(r.rid, ())) != r.max_new_tokens]
+            if short:
+                fail(f"{label}: requests {short[:8]} did not get their max_new_tokens")
+            # every prompt is > 16 rows: prefill on the mma path and flash's
+            # tensor-core kernel, decode on the GEMV, 3 FFN matmuls a layer
+            steps = {k: sum(x[k] for x in engines) for k in ("prefill_steps", "decode_steps")}
+            want = {"packed_matmul": {"gemv": 3 * c.n_layers * steps["decode_steps"],
+                                      "mma": 3 * c.n_layers * steps["prefill_steps"]},
+                    "flash_fwd": {"mma": c.n_layers * steps["prefill_steps"]}}
+            if by_route != want or counts["stream_matmul"] or counts["mvau"]:
+                fail(f"{label}: launches {counts}, by route {by_route}, want {want}")
+            report = res.report(slo).row()
+            moved = sorted(rid for rid, eids in res.assignments.items() if len(eids) > 1)
+            phase("fleet_run", card=smi, mode=mode, compiled=compiled is not False,
+                  seeded=sampling is not None, requests=len(trace),
+                  engines=len(cluster.engines),
+                  split=list(getattr(cluster, "split", ()) or ()),
+                  drain_at=list(drain) if drain else None, drained_requests_moved=moved,
+                  measured=dict(wall_s=wall, generated_tokens=tokens, tokens_per_s=tokens / wall),
+                  per_engine=engines, launches_counted=counts, launches_by_route=by_route,
+                  modelled_slo=dict(makespan_s=report["makespan"], ttft_p50_s=report["ttft_p50"],
+                                    ttft_p99_s=report["ttft_p99"], tpot_p50_s=report["tpot_p50"],
+                                    tpot_p99_s=report["tpot_p99"], slo_met=report["slo_met"],
+                                    goodput_tokens_per_s=report["goodput_tokens_per_s"],
+                                    throughput_tokens_per_s=report["throughput_tokens_per_s"]))
+            out = dict(outputs=res.outputs, counts=counts, by_route=by_route,
+                       handoffs=sum(x["handoffs"] for x in engines), engines=engines)
+            if timed:
+                torch.cuda.synchronize()
+                for kind in ("export", "import"):
+                    xs = [(a.elapsed_time(b), nb, h) for k, a, b, nb, h in handoffs if k == kind]
+                    ms = [x for x, _, _ in xs]
+                    out[kind] = dict(count=len(xs),
+                                     mean_mib=statistics.fmean(nb for _, nb, _ in xs) / 2**20,
+                                     ms_mean=statistics.fmean(ms), ms_median=statistics.median(ms),
+                                     ms_min=min(ms), ms_max=max(ms),
+                                     host_ms_mean=statistics.fmean(h for _, _, h in xs) * 1e3)
+            return out
+
+        def count(r) -> None:
+            count_main_path(r)
+            add_family("fleet", r["by_route"])
+
+        runs = {}
+        for mode in modes:
+            runs[mode] = r = run(mode, timed=mode == "disagg_gals")
+            count(r)
+        single = runs["single"]["outputs"]
+        parted = {mode: sorted(rid for rid, toks in r["outputs"].items() if toks != single[rid])
+                  for mode, r in runs.items()}
+        hand = {mode: runs[mode]["handoffs"] for mode in ("disagg_gals", "disagg_naive")}
+        g = runs["disagg_gals"]
+        phase("fleet_handoffs", card=smi, measured=True, payloads=g["export"]["count"],
+              payload_mib_mean=g["export"]["mean_mib"],
+              export_blocks_ms={k: g["export"][f"ms_{k}"] for k in ("median", "mean", "min", "max")},
+              import_ms={k: g["import"][f"ms_{k}"] for k in ("median", "mean", "min", "max")},
+              import_host_ms_mean=g["import"]["host_ms_mean"], imports=g["import"]["count"],
+              bytes_per_token=c.n_kv_cache_layers * 2 * c.n_kv * c.hd * 2,
+              timing="CUDA events around export_blocks / import_prefilled, host gaps included")
+        phase("fleet_streams", streams=len(single), parted_from_single=parted, handoffs=hand)
+        if any(parted.values()) or any(n != spec.n_requests for n in hand.values()):
+            fail(f"fleet: streams part from single's {parted}, handoffs {hand}")
+        if g["export"]["count"] != spec.n_requests or g["import"]["count"] != spec.n_requests:
+            fail(f"fleet: {g['export']['count']} exports, {g['import']['count']} imports")
+
+        # seeded sampling: single against disagg_gals, and disagg_gals
+        # eager against compiled (tokens and launches by route)
+        seeded = lm.SamplingParams(temperature=0.8, top_k=16, top_p=0.9, seed=0)
+        s1 = run("single", sampling=seeded, trace=checks)
+        compiled = run("disagg_gals", sampling=seeded, trace=checks)
+        eager = run("disagg_gals", sampling=seeded, compiled=False, trace=checks)
+        for r in (s1, compiled, eager):
+            count(r)
+        same_seeded = s1["outputs"] == compiled["outputs"]
+        same_tokens = eager["outputs"] == compiled["outputs"]
+        same_launches = (eager["counts"], eager["by_route"]) == (
+            compiled["counts"], compiled["by_route"])
+        # a greedy stream's head is the greedy stream of the shorter request
+        greedy_head = {r.rid: single[r.rid][:FLEET_CHECK_GEN] for r in checks}
+        phase("fleet_checks", requests=len(checks), gen=FLEET_CHECK_GEN,
+              seeded_single_vs_disagg_identical=same_seeded,
+              seeded_differs_from_greedy=s1["outputs"] != greedy_head,
+              disagg_gals_compiled_vs_eager_tokens_identical=same_tokens,
+              disagg_gals_compiled_vs_eager_launches_identical=same_launches)
+        if not (same_seeded and same_tokens and same_launches):
+            fail(f"fleet: seeded identical {same_seeded}, compiled = eager tokens {same_tokens}, "
+                 f"launches {same_launches} ({compiled['by_route']} vs {eager['by_route']})")
+
+        # (b) the entry point: disagg on 4 engines, its interleaved stream
+        out_dir = ROOT / "build" / "chip_smoke"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        trace_path, json_path = out_dir / "fleet.jsonl", out_dir / "fleet.json"
+        for path in (trace_path, json_path):
+            path.unlink(missing_ok=True)
+        argv = ["--arch", "smollm-360m", "--mode", "disagg", "--engines", "4", "--quant", "2",
+                "--slots", str(LANES), "--requests", str(FLEET_REQUESTS),
+                "--trace-out", str(trace_path), "--json", str(json_path)]
+        buf = io.StringIO()
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(buf):
+            rc = fleet_cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts, by_route = ops.launch_counts(), ops.launch_routes()
+        sys.stderr.write(buf.getvalue())
+        if rc != 0:
+            fail(f"repro_torch.launch.fleet.main({argv}) returned {rc}")
+        count(dict(counts=counts, by_route=by_route))
+        records = read_jsonl(trace_path)
+        doc = json.loads(json_path.read_text())
+        errors = validate_trace(records) + validate_ledger(records)
+        for s in doc["engine_summaries"]:
+            rep = replay_summary(records, engine=s["engine"])
+            errors += [f"engine {s['engine']}: replayed {k} {rep[k]} != {s[k]}" for k in (
+                "completed", "handoffs", "prefill_steps", "prefill_tokens", "decode_steps",
+                "generated_tokens") if rep[k] != s[k]]
+        r = doc["report"]
+        phase("fleet_cli", card=smi, argv=argv, rc=rc, wall_s=wall, records=len(records),
+              split=doc["split"], completed=r["completed"], generated_tokens=r["generated_tokens"],
+              launches_counted=counts, launches_by_route=by_route, errors=errors[:8],
+              modelled_slo={k: r[k] for k in ("makespan", "ttft_p50", "ttft_p99", "tpot_p50",
+                                               "tpot_p99", "goodput_tokens_per_s")})
+        if errors or r["completed"] != FLEET_REQUESTS:
+            fail(f"fleet CLI: {r['completed']} completed; trace / ledger / replay: {errors[:8]}")
+        measured = [x["decode_step_host_ms"] for x in g["engines"] if x["decode_step_host_ms"]]
+        phase("fleet_modelled_vs_measured", card=smi,
+              modelled_decode_s_per_step=cost.decode_s_per_step,
+              modelled_prefill_s_per_token=cost.prefill_s_per_token,
+              measured_compiled_decode_step_host_ms=statistics.fmean(measured),
+              ratio=statistics.fmean(measured) / 1e3 / cost.decode_s_per_step)
+        phase("fleet_phase", seconds=time.monotonic() - t_phase, graphs_captured=len(captures),
+              capture_s=sum(captures))
+
+    if opts.only == "fleet":
+        cq = dataclasses.replace(get_config("smollm_360m"), w_bits=2)
+        pq = lm.init_params(cq, 0, device=dev)
+        followup_turn(cq, pq)
+        phase_seconds("5 (b) follow-up turn")
+        with heap_frozen():
+            fleet_phase(cq, pq)
+        phase_seconds("5 (d) fleet")
+        print("[chip_smoke] --only fleet: stopped after the follow-up turn and the fleet",
+              file=sys.stderr)
+        return 0
+
     if opts.only == "vlm":
         vlm_phase()
         print("[chip_smoke] --only vlm: stopped after the vlm phase", file=sys.stderr)
@@ -4815,6 +5217,8 @@ def main(argv: list[str] | None = None) -> int:
             and cut >= PREFIX_MIN_CUT and warm["cow_copies"] > 0):
         fail(f"shared-prefix trace: shared peak {warm['shared_blocks_peak']}, chunk graphs "
              f"{warm['chunk_graphs']}, prefill cut {cut}, cow copies {warm['cow_copies']}")
+    # a follow-up turn that adopts the rows decode made
+    followup_turn(cfg_q2, params_q2)
 
     # the fixed-batch engine at --quant 2: its decode step a graph whose
     # replays are bitwise the eager step, every cache leaf included; the
@@ -4826,6 +5230,10 @@ def main(argv: list[str] | None = None) -> int:
                lambda steps: {"packed_matmul": {"gemv": 3 * cfg_q2.n_layers * steps}})
 
     speculative_phase(cfg_q2, params_q2, runs[2, False])
+    phase_seconds("5 serve, smollm-360m")
+    with heap_frozen():
+        fleet_phase(cfg_q2, params_q2)
+    phase_seconds("5 (d) fleet, smollm-360m")
     del params_q2
 
     # ------- 4-5 for the other dense archs, at full width (and depth) -------
@@ -4996,8 +5404,6 @@ def main(argv: list[str] | None = None) -> int:
         add_routes(cr)
         del params, by_mode
         torch.cuda.empty_cache()
-
-    phase_seconds("5 serve, smollm-360m")
 
     # ---------------- 6. CNV at full width, card vs CPU ----------------
     def cnn_setup(w_bits):
@@ -5427,6 +5833,7 @@ def main(argv: list[str] | None = None) -> int:
              launches_fixed_engine=fixed_launches.get("packed_matmul", {}),
              launches_vlm_phase=family_launches["vlm"].get("packed_matmul", {}),
              launches_encdec_phase=family_launches["encdec"].get("packed_matmul", {}),
+             launches_fleet_phase=family_launches["fleet"].get("packed_matmul", {}),
              shape=f"bits=2 M={LANES} K={d} N={ff} bf16",
              tolerance=f"rel {PACKED_REL_TOL}",
              **{k: head_pm[k] for k in nums},
@@ -5441,6 +5848,7 @@ def main(argv: list[str] | None = None) -> int:
              launches_hybrid_phase=hybrid_launches.get("flash_fwd", {}),
              launches_vlm_phase=family_launches["vlm"].get("flash_fwd", {}),
              launches_encdec_phase=family_launches["encdec"].get("flash_fwd", {}),
+             launches_fleet_phase=family_launches["fleet"].get("flash_fwd", {}),
              launches_noncausal=noncausal_launches,
              shape=f"causal Sq=Sk={PROMPT} Hq={hq} Hkv={hkv} D={hd} bf16",
              tolerance=f"out abs {FLASH_OUT_TOL}, lse abs {FLASH_LSE_TOL}",

@@ -112,6 +112,48 @@ class ModelConfig:
             return self.n_layers
         return 0
 
+    def n_params(self) -> int:
+        """Analytic parameter count (embedding included once if tied)."""
+        d, ff, v = self.d_model, self.d_ff, self.padded_vocab
+        hd, nh, nkv = self.hd, self.n_heads, self.n_kv
+        attn = d * (nh * hd) + 2 * d * (nkv * hd) + (nh * hd) * d
+        dense_ffn = 3 * d * ff
+        per_layer = 0
+        if self.family in ("dense", "vlm", "encdec"):
+            per_layer = attn + dense_ffn + 2 * d
+        elif self.family == "moe":
+            per_layer = attn + self.n_experts * dense_ffn + d * self.n_experts + 2 * d
+        elif self.family in ("ssm", "hybrid"):
+            di, st, nhs = self.d_inner, self.ssm_state, self.ssm_heads
+            ssm = (
+                d * (2 * di + 2 * st + nhs)  # in-proj (z, x, B, C, dt)
+                + self.conv_kernel * (di + 2 * st)  # causal conv
+                + di * d  # out-proj
+                + 2 * nhs  # A_log, D
+                + di  # gate norm
+            )
+            per_layer = ssm + 2 * d
+        total = self.n_layers * per_layer
+        if self.family == "hybrid":
+            total += attn + dense_ffn + 2 * d  # one shared block, reused
+        if self.family == "encdec":
+            # the encoder's layers, and the decoder's cross-attention
+            total += self.n_enc_layers * (attn + dense_ffn + 2 * d)
+            total += self.n_layers * (attn + 2 * d)
+        emb = v * d
+        total += emb if self.tie_embeddings else 2 * emb
+        return total
+
+    def active_params(self) -> int:
+        """Params touched per token (MoE activates top-k of E experts)."""
+        if self.family != "moe":
+            return self.n_params()
+        inactive = (
+            self.n_layers * (self.n_experts - self.experts_per_token)
+            * 3 * self.d_model * self.d_ff
+        )
+        return self.n_params() - inactive
+
 
 def modality_batch_leaves(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     """Extra (non-token) batch leaves per family: name -> per-example

@@ -543,6 +543,22 @@ class KVPool:
         self.k.index_copy_(1, idx, ks.to(self.k.dtype))
         self.v.index_copy_(1, idx, vs.to(self.v.dtype))
 
+    def export_blocks(
+        self, rid: int, n_tokens: int | None = None
+    ) -> tuple[tuple[int, ...], torch.Tensor, torch.Tensor]:
+        """A request's K/V for a handoff, in block-id order: (block ids, K
+        rows, V rows), the rows shaped (L, n_tokens, n_kv, hd). ``rows_of``
+        gathers rows in the order the blocks were allocated, so the ids
+        describe the payload's layout. The rows are copies on the pool's
+        device (``index_select``): the importing pool may share the card,
+        and the payload must not follow this pool's later writes. Shared
+        (prefix-cache) blocks export by value like any other; the importing
+        pool writes them into blocks of its own (``write_prefill``)."""
+        ids = tuple(self._held[rid])
+        n = n_tokens if n_tokens is not None else self._tokens[rid]
+        idx = torch.from_numpy(self.rows_of(rid)[:n].astype(np.int64)).to(self.device)
+        return ids, self.k.index_select(1, idx), self.v.index_select(1, idx)
+
     # ---------------- accounting ----------------
 
     def stats(self) -> PoolStats:

@@ -76,8 +76,17 @@ Observability, as in the reference: ``tracker`` gets one record a round
 ``ledger`` a ``MemLedger`` attached to the pool (``runtime.memledger``)
 and ``mem_monitor`` a ``MemPressureMonitor`` fed once a round.
 
-Not ported yet: ``handoff`` and the fleet's ``on_round`` and ``charge``
-hooks; their counters stay 0.
+The fleet's hooks (``runtime.cluster``), as in the reference: ``handoff``
+makes a prefill-role scheduler export each prefilled request as a
+``PrefillHandoff`` (its K/V rows copied on the card in block order, its
+first token, and for a hybrid a device copy of its lane state) instead of
+decoding it, and ``import_prefilled`` adopts one on a decode-role
+scheduler, writing the pool, the lane and the step buffers in place, so a
+decode graph already captured stays valid. ``drain`` gives queued and
+mid-chunk requests back to a router. ``charge(op, tokens=, steps=)`` is
+called where each unit of work ends (a fleet engine advances its virtual
+clock there, so spans, ledger and pressure monitor read that clock), and
+``on_round`` takes the round record in place of the tracker.
 """
 
 from __future__ import annotations
@@ -87,6 +96,7 @@ import enum
 import math
 import time
 from collections import deque
+from typing import Callable
 
 import numpy as np
 import torch
@@ -122,7 +132,42 @@ class RequestState(enum.Enum):
     QUEUED = "queued"
     PREFILL = "prefill"
     DECODE = "decode"
+    HANDOFF = "handoff"  # prefilled here, decoded on another engine
     DONE = "done"
+
+
+@dataclasses.dataclass
+class PrefillHandoff:
+    """A prefilled request leaving a prefill-role engine.
+
+    ``k``/``v`` hold the request's K/V rows in block order, shaped (L,
+    n_tokens, n_kv, hd), copies on the source pool's device
+    (``KVPool.export_blocks``); ``block_ids`` records which blocks held
+    them. A hybrid request also ships ``lane_state``, a device copy of its
+    lane's SSM state at the prompt's end (leaves (L, 1, ...)), which the
+    source lane does not alias.
+    """
+
+    rid: int
+    prompt: np.ndarray
+    max_new_tokens: int
+    first_token: int
+    n_tokens: int
+    block_ids: tuple[int, ...]
+    block_tokens: int
+    k: torch.Tensor
+    v: torch.Tensor
+    lane_state: dict[str, torch.Tensor] | None = None
+
+    @property
+    def kv_bytes(self) -> int:
+        lane = (sum(t.nbytes for t in self.lane_state.values())
+                if self.lane_state is not None else 0)
+        return self.k.nbytes + self.v.nbytes + lane
+
+    @property
+    def total_tokens(self) -> int:
+        return self.n_tokens + self.max_new_tokens
 
 
 @dataclasses.dataclass
@@ -162,10 +207,7 @@ class SchedulerStats:
     prefix_hits: int = 0
     prefix_hit_tokens: int = 0  # prompt tokens served from cached blocks
     decode_steps: int = 0
-    # the reference's counter of a feature the port has not ported yet
-    # (prefill/decode handoff): 0, as the reference reports it on a run
-    # without that feature
-    handoffs: int = 0
+    handoffs: int = 0  # prefilled requests exported to another engine
     expert_tokens: int = 0  # moe: routed (token, expert) slots, all layers
     # speculative decode: tokens emitted by verify steps (1..k each),
     # drafter proposals offered, and batched verify calls run
@@ -227,6 +269,7 @@ class Scheduler:
         prefill_chunk: int | None = None,
         residency: RuntimeResidencyPlan | None = None,
         compiled: bool | None = None,
+        handoff: Callable[[PrefillHandoff], None] | None = None,
         prefix_cache=None,
         speculative=None,
         tracker=None,
@@ -258,6 +301,9 @@ class Scheduler:
         self._chunk_graph: CapturedStep | None = None
         self._prefill_graphs: dict[int, CapturedStep] = {}  # by bucket
         self._verify_graphs: dict[int, CapturedStep] = {}  # by chain length
+        # a prefill-role engine exports each prefilled request through this
+        # hook instead of decoding it (it never runs a decode step)
+        self.handoff = handoff
         if prefix_cache is not None:
             if cfg.family not in PREFIX_CACHE_FAMILIES:
                 raise ValueError(
@@ -356,11 +402,19 @@ class Scheduler:
         # one record per round (runtime.tracker): counters as deltas
         # against ``_emit_base``, so replaying a stream gives the totals
         self.tracker = tracker
+        # a fleet engine takes the round record here instead (to stamp its
+        # virtual clock and identity on it before logging)
+        self.on_round: Callable[[dict], None] | None = None
         self._emit_base: dict[str, int] = {}
         self._emit_ttft_base = 0
         # request-lifecycle spans (runtime.spans.SpanRecorder): queue /
         # prefill chunk / decode slice per request, tiled without gaps
         self.spans = spans
+        # the virtual-time hook a fleet engine installs: charge(op,
+        # tokens=, steps=) with op "prefill", "decode", "draft" or "verify",
+        # called as each unit of work ends, before the span that ends there
+        # reads the clock
+        self.charge: Callable[..., None] | None = None
         # open decode slices: rid -> [t_slice_start, steps] for the
         # contiguous decode steps a lane ran this round (one span each)
         self._decode_open: dict[int, list] = {}
@@ -449,10 +503,18 @@ class Scheduler:
     # ---------------- submission ----------------
 
     def submit(
-        self, prompt: np.ndarray, max_new_tokens: int, *, rid: int | None = None
+        self,
+        prompt: np.ndarray,
+        max_new_tokens: int,
+        *,
+        rid: int | None = None,
+        t_submit: float | None = None,
     ) -> int:
         """Queue a request. The sampler is keyed on (seed, rid, position),
-        so a request's token stream does not depend on its lane."""
+        so a request's token stream does not depend on its lane or engine
+        (a fleet router passes fleet-wide ids). ``t_submit`` starts the
+        queue span on the spans' clock (a router passes the client's
+        arrival; default: now)."""
         total = len(prompt) + max_new_tokens
         if len(prompt) < 1 or max_new_tokens < 1:
             raise ValueError("need a non-empty prompt and max_new_tokens >= 1")
@@ -476,8 +538,42 @@ class Scheduler:
         self.queue.append(req)
         self.requests[rid] = req
         if self.spans is not None:
-            self.spans.open(rid, "queue")
+            self.spans.open(rid, "queue", t0=t_submit)
         return rid
+
+    def drain(self) -> list[Request]:
+        """Stop intake: pop and return every request this engine can still
+        give up, for a router to requeue elsewhere (sampling is rid-keyed,
+        so the stream survives the move): the queue, and any request mid
+        chunked prefill, whose blocks, cursor, carried hybrid state and
+        lane are released here (it has sampled no token yet), so it
+        restarts cold with nothing leaked. Decoding requests finish here."""
+        out: list[Request] = []
+        # aborted chunked prefills first: older than anything still queued
+        for slot, rid in enumerate(self.active):
+            if rid is None or rid not in self._chunk_cursor:
+                continue
+            req = self.requests.pop(rid)
+            del self._chunk_cursor[rid]
+            self._chunk_lane.pop(rid, None)
+            self.pool.release(rid)
+            self.active[slot] = None
+            self._token[slot, 0] = 0
+            self._lengths[slot] = 0
+            self._row_table[slot] = self.pool.scratch_rows(self.s_max)
+            self._table_dirty = True
+            req.output.clear()
+            req._enter(RequestState.QUEUED)
+            if self.spans is not None:
+                self.spans.abort(rid, reason="drain")
+            out.append(req)
+        while self.queue:
+            req = self.queue.popleft()
+            del self.requests[req.rid]
+            if self.spans is not None:
+                self.spans.abort(req.rid, reason="drain")
+            out.append(req)
+        return out
 
     # ---------------- internals ----------------
 
@@ -559,12 +655,16 @@ class Scheduler:
         self.prefix_cache.commit(seq, self.pool.blocks_of(req.rid), lane_state=lane)
 
     def _start_decode(self, slot: int, req: Request, first: int, t_first: float) -> None:
-        """Move a fully-prefilled request onto its decode lane. ``t_first``
+        """Move a fully-prefilled request onto its decode lane, or, on a
+        prefill-role engine, export it through the handoff hook. ``t_first``
         is the span clock's end of the prefill step that made ``first``."""
         req.t_first_token = time.monotonic()
         self.stats.ttfts.append(req.ttft)
         req.output.append(first)
         self._commit_prefix(slot, req)
+        if self.handoff is not None:
+            self._export_handoff(slot, req)
+            return
         if self.spans is not None:
             # the first token exists the instant its prefill step ends: the
             # stamp is that span's end, a boundary on any clock
@@ -588,11 +688,101 @@ class Scheduler:
         ``t_first``."""
         t0 = self.spans.now() if self.spans is not None else 0.0
         tokens, steps = self.speculative.start_lane(slot, req.prompt)
-        if (tokens or steps) and self.spans is not None:
-            t1 = self.spans.now()
-            self.spans.mark(req.rid, "draft", t0, t1, tokens=tokens)
-            return t1
+        if tokens or steps:
+            if self.charge is not None:
+                self.charge("draft", tokens=tokens, steps=steps)
+            if self.spans is not None:
+                t1 = self.spans.now()
+                self.spans.mark(req.rid, "draft", t0, t1, tokens=tokens)
+                return t1
         return t_first
+
+    def _export_handoff(self, slot: int, req: Request) -> None:
+        """Ship a prefilled request's K/V (in block order) and, for a
+        hybrid, a device copy of its lane state off this engine, and take
+        its lane and blocks back at once."""
+        rid = req.rid
+        p = len(req.prompt)
+        block_ids, ks, vs = self.pool.export_blocks(rid, n_tokens=p)
+        lane = ({k: v[:, slot:slot + 1].clone() for k, v in self._lane_state.items()}
+                if self._hybrid else None)
+        payload = PrefillHandoff(
+            rid=rid, prompt=req.prompt, max_new_tokens=req.max_new_tokens,
+            first_token=req.output[0], n_tokens=p, block_ids=block_ids,
+            block_tokens=self.pool.block_tokens, k=ks, v=vs, lane_state=lane,
+        )
+        req._enter(RequestState.HANDOFF)
+        self.pool.release(rid)
+        self.active[slot] = None
+        self.stats.handoffs += 1
+        self.handoff(payload)
+
+    def import_prefilled(
+        self, payload: PrefillHandoff, *, ready_at: float | None = None
+    ) -> bool:
+        """Adopt a request prefilled on another engine: admit its whole
+        token commitment, write the handed-off K/V rows into the pool, and
+        start its decode lane at the next position. Every write is in
+        place (the pool through ``write_prefill``, the lane through
+        ``_restore_lane``, the token, length and row-table buffers as
+        ``_start_decode`` writes them), so a captured decode graph stays
+        valid. Returns False, with no side effect, when no lane, budget or
+        pool room is free. ``ready_at`` is when the payload arrived on the
+        spans' clock: the request's timeline resumes there, and any wait
+        for a lane shows as a ``wait`` span."""
+        if payload.rid in self.requests:
+            raise ValueError(f"request {payload.rid} already on this engine")
+        slot = self._free_slot()
+        if slot is None:
+            return False
+        total = payload.total_tokens
+        if self.committed_tokens + total > self.token_budget:
+            return False
+        if not self.pool.can_admit(total):
+            return False
+        if self._hybrid and payload.lane_state is None:
+            raise ValueError(
+                f"hybrid handoff of request {payload.rid} lacks the SSM "
+                "lane state; decode cannot resume from KV rows alone"
+            )
+        rid = payload.rid
+        req = Request(rid, np.asarray(payload.prompt, np.int32), payload.max_new_tokens)
+        req.t_submit = time.monotonic()
+        req.t_first_token = req.t_submit  # the first token came with the K/V
+        req.output.append(payload.first_token)
+        req._enter(RequestState.DECODE)
+        self.requests[rid] = req
+        self.pool.admit(rid, total)
+        self.pool.write_prefill(rid, payload.k, payload.v, n_tokens=payload.n_tokens)
+        if self._hybrid:
+            self._restore_lane(slot, payload.lane_state)
+        if self.prefix_cache is not None:
+            # the imported K/V warms this engine's cache too (a hybrid's
+            # anchor is a host copy, as every anchor is)
+            lane = self._lane_snapshot(slot) if self._hybrid else None
+            self.prefix_cache.commit(req.prompt, self.pool.blocks_of(rid), lane_state=lane)
+        self._next_rid = max(self._next_rid, rid + 1)
+        self.active[slot] = rid
+        self._token[slot, 0] = payload.first_token
+        self._lengths[slot] = payload.n_tokens
+        self._row_table[slot] = self.pool.rows_of(rid, pad_to=self.s_max)
+        self._table_dirty = True
+        now = 0.0
+        if self.spans is not None:
+            now = self.spans.now()
+            t_ready = now if ready_at is None else min(ready_at, now)
+            self.spans.seed(rid, t_ready)
+            if now > t_ready:
+                self.spans.mark(rid, "wait", t_ready, now, reason="import")
+            # the first token came with the payload: the client sees it the
+            # instant this engine adopts it
+            self.spans.event("first", rid, now)
+        t_done = now
+        if self.speculative is not None:
+            t_done = self._start_drafter(slot, req, now)
+        if len(req.output) >= req.max_new_tokens:
+            self._complete(slot, t_done if self.spans is not None else None)
+        return True
 
     def _admit_one(self) -> bool:
         """Admit the head-of-queue request if resources allow.
@@ -669,6 +859,8 @@ class Scheduler:
         self.pool.write_prefill(req.rid, ks[:, 0], vs[:, 0], n_tokens=p)
         self.stats.prefill_steps += 1
         self.stats.prefill_tokens += p
+        if self.charge is not None:
+            self.charge("prefill", tokens=p, steps=1)
         t1 = 0.0
         if self.spans is not None:
             t1 = self.spans.now()
@@ -805,6 +997,8 @@ class Scheduler:
             self._note_expert_counts(counts)
         self.stats.prefill_steps += 1
         self.stats.prefill_tokens += n
+        if self.charge is not None:
+            self.charge("prefill", tokens=n, steps=1)
         t1 = 0.0
         if self.spans is not None:
             t1 = self.spans.now()
@@ -896,6 +1090,8 @@ class Scheduler:
         logits, counts = self._run_decode()
         self._note_expert_counts(counts)
         self.stats.decode_steps += 1
+        if self.charge is not None:
+            self.charge("decode", steps=1)
         if self.spans is not None:
             # extend (or open) each participating lane's decode slice; a
             # lane's contiguous steps this round become one span
@@ -995,11 +1191,13 @@ class Scheduler:
         props: dict[int, np.ndarray] = {}
         if kmax > 1:
             h0 = time.monotonic()
-            proposed, _ = self.speculative.propose(views, kmax, self.sampling)
+            proposed, draft_steps = self.speculative.propose(views, kmax, self.sampling)
             self.propose_s += time.monotonic() - h0
             for v, row in zip(views, proposed):
                 props[v.rid] = row
             self.stats.draft_tokens += sum(k_eff[rid] - 1 for _, rid in lanes)
+            if self.charge is not None and draft_steps:
+                self.charge("draft", steps=draft_steps)
         t1 = self.spans.now() if self.spans is not None else t0
         # room for every lane's chain rows: draft-class blocks, settled (or
         # all returned) by end_draft after acceptance
@@ -1028,6 +1226,9 @@ class Scheduler:
         self.verify_s += time.monotonic() - h0
         self.stats.verify_steps += 1
         self.verify_lengths[kmax] = self.verify_lengths.get(kmax, 0) + 1
+        if self.charge is not None:
+            # one weight sweep, and the chain's tokens beyond one a lane
+            self.charge("verify", steps=1, tokens=sum(k_eff.values()) - len(lanes))
         t2 = self.spans.now() if self.spans is not None else t0
         if self.spans is not None:
             for i, rid in lanes:
@@ -1105,7 +1306,7 @@ class Scheduler:
                     else 0
                 ),
             )
-        if self.tracker is not None:
+        if self.tracker is not None or self.on_round is not None:
             self._emit_round()
         if self.spans is not None:
             self.spans.flush()
@@ -1115,7 +1316,9 @@ class Scheduler:
     def _emit_round(self) -> None:
         """One structured record per round (see ``runtime.tracker``), the
         reference's fields: counters as deltas against the previous
-        emission, gauges at emission time."""
+        emission (so work done outside ``round``, an import or a drain,
+        lands in the next record), gauges at emission time. It goes to
+        ``on_round`` when that is set, else to the tracker."""
         s = self.stats
         # mem-ledger barrier: fold un-evented note_tokens drift into one
         # sync record and flush the buffer before the gauge record, so
@@ -1175,7 +1378,10 @@ class Scheduler:
             )
         if self._expert_counts is not None:
             rec.update(self.moe_gauges())
-        self.tracker.log_metrics(rec, step=s.rounds)
+        if self.on_round is not None:
+            self.on_round(rec)
+        else:
+            self.tracker.log_metrics(rec, step=s.rounds)
 
     def moe_gauges(self) -> dict:
         """The round record's MoE gauges over the cumulative (L, E) tally,

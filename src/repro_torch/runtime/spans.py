@@ -13,9 +13,9 @@ inside the scheduler and emits one span per lifecycle phase —
     decode         one span per round's contiguous run of decode steps
                    a lane participated in (``steps`` attr)
     handoff        prefilled KV in flight prefill->decode engine
-                   (``kv_bytes`` attr)
+                   (virtual interconnect transit, ``kv_bytes`` attr)
     wait           any gap the recorder tiles between two phases (round
-                   overhead, other lanes' work)
+                   overhead, other lanes' work, import transit wait)
     requeue        a drain abort marker (``aborted: true``): the
                    request restarts cold elsewhere; spans recorded for
                    it here are excluded from decomposition
@@ -23,7 +23,8 @@ inside the scheduler and emits one span per lifecycle phase —
 — through ``Tracker.log_spans`` as ``kind="span"`` records, interleaved
 with the round records in the same JSONL file. The port's scheduler emits
 queue, prefix_lookup, prefill, decode, wait, and draft and verify when it
-speculates; handoff and requeue belong to features it does not have yet.
+speculates; a fleet engine (``runtime.cluster``) adds handoff, and a
+drain (``Scheduler.drain``) the requeue marker.
 
 The decomposition contract (checked by ``validate_trace``, the span
 analogue of ``tracker.replay_summary``): for every completed request,

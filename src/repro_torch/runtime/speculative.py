@@ -159,13 +159,15 @@ class ResolvedSpec:
     """A validated drafter choice for one target config.
 
     ``draft_cfg`` is the serving-size drafter config (None for ngram);
-    ``twin`` marks a drafter of the target's own arch, built by packing the
-    served params rather than drawing fresh ones. (The reference also
-    carries the full-size config, for its fleet's cost model, which the
-    port has not ported.)"""
+    ``draft_full_cfg`` the full-size one, which a fleet engine's virtual
+    clock charges (``runtime.cluster.engine.StepCostModel.for_config``: a
+    packed twin's FFN bytes are discounted there); ``twin`` marks a drafter
+    of the target's own arch, built by packing the served params rather
+    than drawing fresh ones."""
 
     spec: SpecConfig
     draft_cfg: ModelConfig | None
+    draft_full_cfg: ModelConfig | None
     twin: bool
 
     def build(
@@ -222,7 +224,7 @@ def resolve(cfg: ModelConfig, spec: SpecConfig, *, smoke: bool = False) -> Resol
             "FCMP packs 1- or 2-bit codes"
         )
     if spec.drafter == NGRAM:
-        return ResolvedSpec(spec, None, twin=False)
+        return ResolvedSpec(spec, None, None, twin=False)
 
     from repro_torch import configs
 
@@ -230,6 +232,7 @@ def resolve(cfg: ModelConfig, spec: SpecConfig, *, smoke: bool = False) -> Resol
     try:
         arch = configs.canonical(spec.drafter)
         dcfg = configs.get_smoke_config(arch) if smoke else configs.get_config(arch)
+        dfull = configs.get_config(arch)
     except ValueError:
         raise ValueError(
             f"unknown drafter arch {spec.drafter!r}; compatible drafters "
@@ -255,7 +258,8 @@ def resolve(cfg: ModelConfig, spec: SpecConfig, *, smoke: bool = False) -> Resol
             f"{spec.quant}; use --spec-quant {cfg.w_bits} (or serve the target "
             "with --quant 0)"
         )
-    return ResolvedSpec(spec, dataclasses.replace(dcfg, w_bits=spec.quant), twin=twin)
+    return ResolvedSpec(spec, dataclasses.replace(dcfg, w_bits=spec.quant),
+                        dataclasses.replace(dfull, w_bits=spec.quant), twin=twin)
 
 
 # --------------------------------------------------------------------------

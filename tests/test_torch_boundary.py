@@ -61,3 +61,13 @@ def test_boundary_covers_every_family_s_modules():
                  "src/repro_torch/configs/whisper_tiny.py",
                  "src/repro_torch/models/lm.py", "chip_smoke.py"):
         assert name in files, name
+
+
+def test_boundary_covers_the_fleet_modules():
+    """The walk takes the fleet's modules: the cluster package, its CLI
+    and the H100 record its cost model reads."""
+    files = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for name in ("traffic", "engine", "router", "disagg", "__init__"):
+        assert f"src/repro_torch/runtime/cluster/{name}.py" in files, name
+    for name in ("src/repro_torch/launch/fleet.py", "src/repro_torch/perf/roofline.py"):
+        assert name in files, name

@@ -344,6 +344,39 @@ def test_followup_adopts_generated_tokens(weights):
     assert warm.stats.prefill_tokens == 10 + (len(followup) - 12)
 
 
+def test_followup_on_decode_made_rows_is_uncached_serving(weights):
+    """A follow-up turn (prompt + output + fresh tokens) adopts K/V rows
+    that decode steps wrote; in f32 on the CPU its streams are the
+    uncached run's and the reference's cached run's, and its logits at
+    every sampled position the uncached run's within the parity tolerance
+    (the on-card counterpart is chip_smoke's follow-up turn)."""
+    cfg = weights[PORT][0]
+    rng = np.random.default_rng(19)
+    first = [_prompt(rng, n, cfg.vocab) for n in (9, 14)]
+    extra = [_prompt(rng, 6, cfg.vocab) for _ in first]
+    runs = {}
+    for side, cached in ((PORT, True), (PORT, False), (REF, True)):
+        sched = _sched(side, weights, cached=cached)
+        replies = _serve_waves(sched, [first], gen=6)
+        follow = [np.concatenate([p, np.asarray(replies[i], np.int32), extra[i]])
+                  for i, p in enumerate(first)]
+        rows = _recording(sched) if side is PORT else None
+        hits = sched.stats.prefix_hit_tokens
+        outs = _serve_waves(sched, [follow], gen=6)
+        runs[side is PORT, cached] = (outs, rows, sched.stats.prefix_hit_tokens - hits)
+    (warm, warm_rows, warm_hits), (cold, cold_rows, cold_hits) = (
+        runs[True, True], runs[True, False])
+    ref_outs, _, ref_hits = runs[False, True]
+    assert warm == cold == ref_outs
+    # each follow-up adopts its transcript's full blocks (prompt + 5 of its
+    # 6 tokens committed: 14 and 19 tokens, 3 and 4 blocks), reaching past
+    # its prompt into rows that decode wrote
+    assert (warm_hits, cold_hits, ref_hits) == (12 + 16, 0, 12 + 16)
+    assert warm_rows.keys() == cold_rows.keys() and len(warm_rows) == 2 * 6
+    for key, row in cold_rows.items():
+        np.testing.assert_allclose(warm_rows[key], row, rtol=1e-4, atol=1e-5)
+
+
 def test_copy_on_write_is_in_place():
     """The copy-on-write copy writes inside ``pool.k`` and ``pool.v``,
     which stay the same tensors at the same addresses (a captured graph
