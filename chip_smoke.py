@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--only kernels|prefill|moe|hybrid|ssm|vlm|encdec|fleet] [--src DIR]
-                          [--log FILE]
+    python3 chip_smoke.py [--only kernels|prefill|moe|hybrid|ssm|vlm|encdec|fleet|train_families]
+                          [--src DIR] [--log FILE]
 
 Phases, one JSON line each; any failure exits nonzero with no result:
 
@@ -84,6 +84,11 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               past it (Sq 256 over Sk 4352 at q_offset 4096), ragged cases,
               a device q_offset bitwise the host int, and both backward
               passes at the gradient check's shape (timed) and ragged.
+              The train_families phase's ``flash_bwd`` shapes (both passes,
+              timed, batch 2): head dim 128 causal at olmoe's 16/16 and
+              internvl's 64/8 heads (256 tokens), and not causal at
+              whisper's 6/6 heads, D 64: the encoder (1500 x 1500) and the
+              cross-attention (256 tokens over 1500 frames).
               Each serve-path kernel (the GEMV, ``packed_matmul``'s and
               ``flash_fwd``'s ``mma`` routes, ``stream_kernel``) at a
               serve shape compiled into a CUDA graph
@@ -247,7 +252,7 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               512-token prefill at full width and depth 2 (2 of 16 / 24 / 40
               layers, so the CPU's float32 side stays in seconds) in bf16 on
               the card against float32 on the CPU; for h2o-danube a
-              depth-2 run past its 4096-token window (a 4352-token prompt in
+              depth-1 run (WINDOW_LAYERS) past its 4096-token window (a 4352-token prompt in
               256-token chunks, then 16 greedy decode steps), every chunk's
               and step's logits against the CPU's, and the CPU without the
               window beside it; ``init_params`` at full width and depth
@@ -262,8 +267,10 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               on the GEMV, never an f32 route or stream_matmul), and at
               --quant 0 compiled through ``serve.main`` (its own weights).
 moe        -- (after 4-5; ``--only moe`` runs it alone after the build)
-              olmoe-1b-7b at full width and depth (64 experts top-8, the
-              dropless dispatch, every expert over every row in f32):
+              olmoe-1b-7b at full width and 12 of its 16 layers (MOE_LAYERS;
+              16 until the train_families phase needed the time; 64
+              experts top-8, the dropless dispatch, every expert over every
+              row in f32):
               (a) a 512-token prefill at 2 of its 16 layers, layer by
               layer, each layer fed the CPU's float32 input: the (token,
               layer) expert sets the card (bf16 hidden state) changes only
@@ -273,7 +280,7 @@ moe        -- (after 4-5; ``--only moe`` runs it alone after the build)
               tally within 2k per changed set; the card's FFN on the
               CPU's own f32 hidden state within MOE_FFN_F32_REL_TOL (TF32
               and bf16 expert products, printed beside, must read above
-              it); the end-to-end logits printed, not gated; (b) ``init_params`` at full size
+              it); the end-to-end logits printed, not gated; (b) ``init_params`` at 12 layers
               (seconds, host memory, device MiB); (c) the decode step, a
               chunk (at starts 256 and 37), a 208-token bucket and a
               verify step of 4 on 8 lanes, each captured and its replay
@@ -285,7 +292,7 @@ moe        -- (after 4-5; ``--only moe`` runs it alone after the build)
               cell (16 x (512 + 64), 8 lanes, --prefill-chunk 256,
               --max-len 640, the prefix cache on) through serve's engine,
               eager and compiled: identical tokens and launches by route,
-              flash_fwd 16 a chunk on its tensor-core route, no
+              flash_fwd 12 a chunk on its tensor-core route, no
               packed_matmul, no stream_matmul, the MoE gauges; the
               compiled run under the process's own f32 matmul settings
               (TF32 off: PyTorch's default, and no file of the port sets
@@ -307,11 +314,17 @@ moe        -- (after 4-5; ``--only moe`` runs it alone after the build)
               eager and compiled identical in tokens and launches, parting
               from plain decode only at near-ties, and phase 5 (c)'s gate (a
               verify step against 4 decode steps on a prefilled pool: 4
-              bf16 steps, 85% argmax); (h) moonshot-v1-16b-a3b at 4 of
+              bf16 steps, 85% argmax); (h) moonshot-v1-16b-a3b at 2 of
               its 48 layers (a full draw takes ~200 s on the host; 8 until
-              the hybrid phase needed the time): (a)
-              at 2 layers, (f)'s 16-token prompt check, its 9216-block
-              residency plan timed, and the compiled serve cell once.
+              the hybrid phase needed the time, 4 until the train_families
+              phase did): (a), (f)'s 16-token prompt check, its 9216-block
+              residency plan timed, and the compiled serve cell once; (i)
+              (run before (h)) olmoe on the fixed-batch engine, its decode
+              step the capacity dispatch over groups of one token: the step
+              captured, FIXED_REPLAYS replays bitwise eager, every cache
+              leaf included, and one wave of the fixed cell (8 x (32 +
+              32): MOE_FIXED) eager and compiled, identical tokens and
+              launches (none).
 hybrid     -- (after the MoE phase; ``--only hybrid`` runs it alone after the
               build) zamba2-2.7b at full width and depth (54 Mamba2 layers,
               one shared attention + FFN block after every 6): (a)
@@ -455,6 +468,35 @@ encdec     -- (last; ``--only encdec`` runs it alone after the build)
               ``packed_matmul`` 12 on the mma path there and 12 a step on
               the GEMV), tokens/s, step ms (mean and replay), and a decode
               step's card ms and kernels.
+train_families -- (last; ``--only train_families`` runs it alone after the
+              build, drawing its weights) training the MoE, hybrid, SSM,
+              vlm and enc-dec families on the card, on the dense weights
+              their phases drew (olmoe's first 8 layers, copied; internvl's
+              first layer, its FFN the 2-bit carriers' decoded values):
+              (a) gradients at full width, ``make_loss_fn`` and its backward
+              in bf16 on the card against float32 on the CPU, same weights
+              and batch (2 x 256 tokens; internvl's 256 seeded patch
+              embeddings ahead of them, whisper's 1500 seeded frames): the
+              loss within GRAD_LOSS_RTOL, each leaf's cosine >=
+              GRAD_MIN_COS, the flash kernels one launch a pass per
+              attention layer on the tensor cores, the not-causal ones
+              counted (whisper at full size; mamba2 and olmoe at 2 layers,
+              zamba2 at one super-block, internvl at 1 layer); olmoe's
+              ``moe_ffn`` output, aux and gradients the same bits in two
+              runs; (b) zamba2-2.7b at full size through
+              ``repro_torch.launch.train.main`` (8 x 512, --remat full, 4
+              steps at lr 3e-4; the shared block is not recomputed):
+              ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` 9 x
+              steps each, all mma, the loss finite and falling, step ms,
+              tokens/s and peak device GiB; (c) ``make_train_step``, 4 steps
+              each at lr 3e-4: whisper-tiny at full size (8 x 256; the not-causal
+              backward on the main path, 8 of its 12 attention layers a
+              step), mamba2-1.3b at full size (4 x 512, --remat full) and
+              olmoe-1b-7b at 8 of its 16 layers (4 x 512; its aux loss a
+              step): the loss finite and falling, launches exact by route.
+
+The MoE, hybrid, SSM, vlm and enc-dec phases hand their dense weights on to
+the train_families phase (a full run only), so it draws none.
 
 A ``seconds`` line follows each phase (and each new arch), with the host's
 resident memory and its peak over the phase. From phase 4 on, the later
@@ -572,14 +614,25 @@ NEW_ARCHS = ("llama3p2_1b", "h2o_danube_1p8b", "phi3_medium_14b")
 # one 80 GB card holds, but its draw alone would take ~500 s on the host
 SERVED_LAYERS = {"phi3_medium_14b": 32, "internvl2_76b": 4}
 WINDOW_STEPS = 16  # decode steps of h2o-danube's run past its window
-# the MoE phase: olmoe at full size, moonshot cut to MOON_LAYERS of its 48
-# layers (its full draw would take ~200 s on the host; 4, not 8 as before,
-# makes room for the hybrid phase within the run's time limit); each
-# prefill check at MOE_CHECK_LAYERS layers, so the CPU's float32 experts
-# stay in seconds
-MOE_ARCH, MOON_ARCH, MOON_LAYERS, MOE_CHECK_LAYERS = (
-    "olmoe_1b_7b", "moonshot_v1_16b_a3b", 4, 2)
+# layers of that run, 1 (2 before the train_families phase came): its
+# float32 CPU side over the 4352-token prompt, windowed and not, took 52.3
+# of the danube phase's 74.4 s at 2 layers on the H100's host; the gate
+# (the card past the window 0.053 from the windowed CPU, the window moving
+# the CPU's logits 1.03) had a 20x margin
+WINDOW_LAYERS = 1
+# the MoE phase: olmoe at full width and MOE_LAYERS of its 16 layers (all
+# 16 until the train_families phase came: the run's time limit), moonshot
+# cut to MOON_LAYERS of its 48
+# layers (its full draw would take ~200 s on the host; 8 until the hybrid
+# phase came, 4 until the train_families phase: each cut makes room within
+# the run's time limit); each prefill check at MOE_CHECK_LAYERS layers, so
+# the CPU's float32 experts stay in seconds
+MOE_ARCH, MOE_LAYERS, MOON_ARCH, MOON_LAYERS, MOE_CHECK_LAYERS = (
+    "olmoe_1b_7b", 12, "moonshot_v1_16b_a3b", 2, 2)
 MOE_SPEC_REQUESTS, MOE_SPEC_GEN = 8, 32  # (g): one wave of the cell's prompts
+# (i): the fixed-engine wave's prompt and generated tokens (its eager run at
+# the fixed cell's 128 + 64 took 11.3 s on the H100's host)
+MOE_FIXED = (32, 32)
 SHORT_PREFIX_GEN = 8  # (f): tokens generated per request of the short-prefix check
 # routing on the card (bf16 hidden state) against the CPU (f32), each layer
 # fed the CPU's input: a token may take another expert set only where its
@@ -677,6 +730,25 @@ VLM_EAGER_REQUESTS = 8
 # teacher-forced decode steps against the CPU, ENC_GEN greedy tokens a lane
 ENC_ARCH = "whisper_tiny"
 ENC_TOKENS, ENC_GEN = 32, 64
+# the train_families phase (last, on the weights the family phases drew):
+# (a) each family's gradients at full width against the CPU, at
+# TF_GRAD_LAYERS layers (zamba2: one super-block; whisper at full size);
+# (b) zamba2-2.7b at full size through the train CLI, TF_HYB_BATCH x
+# TF_HYB_SEQ tokens, --remat full; (c) make_train_step at TF_SHORT's (batch,
+# seq, remat) for each arch, olmoe at TF_MOE_LAYERS of its 16 layers (at 12 B
+# a parameter all 16 would need ~83 GB); TF_STEPS steps a run at TF_LR, the
+# train CLI's default (on the H100, at 4 steps: zamba2's loss rose at the
+# second step at 3e-2 (10.9 -> 16.4) and 1e-2 (-> 12.1), swung at 3e-3
+# (8.98, 12.25, 8.25) and fell at 3e-4 (10.886, 10.890, 10.729, 10.628);
+# olmoe's swung at 3e-2 (12.7, 15.8, 23.0, 10.0))
+TF_GRAD_LAYERS = {"olmoe_1b_7b": 2, "mamba2_1p3b": 2, "internvl2_76b": 1}
+TF_MOE_LAYERS = 8
+TF_HYB_BATCH, TF_HYB_SEQ = 8, 512
+TF_SHORT = {"whisper_tiny": (8, 256, "none"), "mamba2_1p3b": (4, 512, "full"),
+            "olmoe_1b_7b": (4, 512, "none")}
+TF_STEPS, TF_LR = 4, 3e-4
+# the seeded scale of a modality batch leaf, as the vlm and enc-dec phases draw them
+MODALITY_STD = {"prefix_embeds": 0.02, "frames": 1.0}
 
 
 HOST_POOLS: list = []  # the host-draw threads' executors, cancelled on a failure
@@ -758,14 +830,15 @@ def main(argv: list[str] | None = None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     ap.add_argument("--only", choices=("kernels", "prefill", "moe", "hybrid", "ssm", "vlm",
-                                       "encdec", "fleet"),
+                                       "encdec", "fleet", "train_families"),
                     help="kernels: stop after phase 3 (build, and hold each kernel against "
                          "its plain version); prefill: build, then only phase 4's prefill "
                          "check and profile; moe: build, then only the MoE phase; hybrid: "
                          "build, then only the hybrid phase; ssm: build, then only the SSM "
                          "phase; vlm, encdec: build, then only that family's phase; fleet: "
-                         "build, then only phase 5 (b)'s follow-up turn and phase 5 (d). Each "
-                         "prints no result")
+                         "build, then only phase 5 (b)'s follow-up turn and phase 5 (d); "
+                         "train_families: build, then only that phase, on weights it draws. "
+                         "Each prints no result")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the source tree whose repro_torch to run (default: src beside this "
                          "script); another commit's, to compare the two in one call")
@@ -1373,7 +1446,7 @@ def main(argv: list[str] | None = None) -> int:
                 prefetch(c2)
                 prefetch(cq0, packed_bits=2)
         elif name == NEW_ARCHS[0]:
-            prefetch(get_config(MOE_ARCH),
+            prefetch(moe_served_config(),
                      dataclasses.replace(get_config(MOON_ARCH), n_layers=MOON_LAYERS))
         elif name == MOE_ARCH:
             prefetch(get_config(HYB_ARCH), get_config(SSM_ARCH))
@@ -1495,6 +1568,10 @@ def main(argv: list[str] | None = None) -> int:
         )
         flash_cases.append(case)
         phase("kernel", name="flash_fwd", **case)
+
+    # the dense weights each family phase hands on to the train_families
+    # phase (a full run only): arch -> LMParams on the card
+    held: dict = {}
 
     # ---------------- the MoE family (run last; --only moe: alone) ----------------
     from repro_torch.models import moe as moe_lib
@@ -2075,13 +2152,17 @@ def main(argv: list[str] | None = None) -> int:
                                  else leaf[:n]) for name, leaf in tree["layers"].items()}
         return dataclasses.replace(c, n_layers=n), lm.LMParams(tree)
 
+    def moe_served_config():
+        return dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+
     def moe_phase() -> None:
         """The MoE phase (the module docstring says what it holds)."""
         t_phase = time.monotonic()
-        full = get_config(MOE_ARCH)
+        full = moe_served_config()
         params, init = timed_init(full)
         prefetch_after(MOE_ARCH)
-        phase("init", arch=MOE_ARCH, layers=full.n_layers, **init)
+        phase("init", arch=MOE_ARCH, layers=full.n_layers, depth_cut=(
+            f"{full.n_layers} of 16 layers at full width: the run's time limit"), **init)
         moe_layers_vs_cpu(*first_layers(full, params, MOE_CHECK_LAYERS))
         moe_graphs(full, params)
         # (d) the serve cell, eager then compiled; the compiled run under the
@@ -2115,6 +2196,17 @@ def main(argv: list[str] | None = None) -> int:
         moe_shared_prefix(full, params)
         moe_short_prefix(full, params)
         moe_spec(full, params, compiled)
+        # (i) the fixed-batch engine: its decode step (the capacity dispatch
+        # over groups of one token) captured, FIXED_REPLAYS replays bitwise
+        # the eager step, every cache leaf included; one wave of the fixed
+        # cell eager and compiled: identical tokens and launches (none)
+        cache0 = random_cache(full, LANES, FIXED_MAX_LEN, FIXED_PROMPT, seed=9)
+        hold_cache_replay(f"{MOE_ARCH} fixed decode step", full, params, cache0)
+        del cache0
+        fixed_cell(f"serve {MOE_ARCH} --engine fixed", full, params, lambda steps: {},
+                   *MOE_FIXED)
+        if not opts.only:
+            held[MOE_ARCH] = kept_layers(full, params, TF_MOE_LAYERS)
         del params
         torch.cuda.empty_cache()
         phase_seconds(f"moe {MOE_ARCH}")
@@ -2594,6 +2686,8 @@ def main(argv: list[str] | None = None) -> int:
         del cells, eager, compiled
         # (f) the shared-prefix traffic, with the cache and without
         hybrid_shared_prefix(cq2, params2)
+        if not opts.only:
+            held[HYB_ARCH] = params0
         del params0, params2
         torch.cuda.empty_cache()
         phase_seconds(f"hybrid {HYB_ARCH}: serve")
@@ -2639,7 +2733,7 @@ def main(argv: list[str] | None = None) -> int:
                 "logits": (lg_r, lg_e), **{f"cache_{k}": (cache_g[k], cache_e[k]) for k in cache0}})
         del graph, cache_g, cache_e
 
-    def fixed_cell(label, c, p, want_counts) -> dict:
+    def fixed_cell(label, c, p, want_counts, prompt=FIXED_PROMPT, gen=FIXED_GEN) -> dict:
         """The fixed-batch engine's cell (``serve.run_fixed_engine``: the
         reference's loop, lockstep lanes, prompts replayed through the
         decode step) on ``p``, eager and then compiled (every step a replay
@@ -2647,11 +2741,12 @@ def main(argv: list[str] | None = None) -> int:
         before each run and read just after: every request done, the
         tokens and the launch counts by route identical, and the counts
         ``want_counts(steps)`` (by route); the compiled run's launches
-        counted on the main path, and returned by route."""
+        counted on the main path, and returned by route. Requests of
+        ``prompt`` + ``gen`` tokens (FIXED_PROMPT + FIXED_GEN unless named)."""
         args = serve.build_parser().parse_args(
             ["--arch", c.name, "--requests", str(FIXED_REQUESTS), "--batch", str(LANES),
-             "--prompt-len", str(FIXED_PROMPT), "--gen-len", str(FIXED_GEN),
-             "--max-len", str(FIXED_MAX_LEN), "--engine", "fixed"])
+             "--prompt-len", str(prompt), "--gen-len", str(gen),
+             "--max-len", str(prompt + gen), "--engine", "fixed"])
         runs = {}
         for mode in ("eager", "compiled"):
             ops.reset_launch_counts()
@@ -2665,7 +2760,7 @@ def main(argv: list[str] | None = None) -> int:
                   **{k: v for k, v in m.items() if k not in ("outputs", "engine")})
             want = want_counts(m["steps"])
             if (m["completed"] != FIXED_REQUESTS
-                    or m["generated_tokens"] != FIXED_REQUESTS * FIXED_GEN
+                    or m["generated_tokens"] != FIXED_REQUESTS * gen
                     or by_route != {k: v for k, v in want.items() if v}
                     or counts != {name: sum(want.get(name, {}).values()) for name in counts}):
                 fail(f"{label} ({mode}): {m['completed']} completed, launches {counts} by route "
@@ -2846,6 +2941,8 @@ def main(argv: list[str] | None = None) -> int:
         phase_seconds(f"ssm {SSM_ARCH}: serve")
         # (d) decode against prefill, teacher-forced, in bf16 and in f32
         ssm_decode_vs_prefill(full, params)
+        if not opts.only:
+            held[SSM_ARCH] = params
         del params
         torch.cuda.empty_cache()
         phase_seconds(f"ssm {SSM_ARCH}: decode vs prefill")
@@ -3079,6 +3176,13 @@ def main(argv: list[str] | None = None) -> int:
         add_family("vlm", fixed_cell(
             f"serve {VLM_ARCH} --engine fixed --quant 2", c, params,
             lambda steps: {"packed_matmul": {"gemv": 3 * c.n_layers * steps}}))
+        if not opts.only:
+            # one layer, dense: its FFN the 2-bit carriers' decoded values in bf16
+            tree = dequantize_ffn_params(first_layers(c, params, 1)[1], 2).tree()
+            tree["layers"] = {k: v.to(torch.bfloat16) if k in lm.FFN_LEAVES else v.clone()
+                              for k, v in tree["layers"].items()}
+            held[VLM_ARCH] = lm.LMParams(tree)
+            del tree
         del params
         torch.cuda.empty_cache()
         phase_seconds(f"vlm {VLM_ARCH}: serve")
@@ -3207,6 +3311,8 @@ def main(argv: list[str] | None = None) -> int:
               dense_drawn_on_host_thread=bool(init0.get("drawn_on_host_thread")))
         if differ or len(repacked) != len(tree_leaves(p2.tree())):
             fail(f"{ENC_ARCH}: the 2-bit draw is not the dense draw packed: {differ[:5]}")
+        if not opts.only:
+            held[ENC_ARCH] = p0
         del p0, repacked
         frames = torch.from_numpy(np.random.default_rng(14).standard_normal(
             (LANES, full.frontend_len, full.d_model)).astype(np.float32))
@@ -3264,6 +3370,329 @@ def main(argv: list[str] | None = None) -> int:
         torch.cuda.empty_cache()
         phase_seconds(f"encdec {ENC_ARCH}: greedy decoding")
         phase("encdec_phase", seconds=time.monotonic() - t_phase)
+
+    # ---- training: the gradient check (phase 7, train_families), and train_families ----
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.config import modality_batch_leaves
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime.speculative import dequantize_ffn_params
+    from repro_torch.runtime.steps import make_loss_fn, make_train_step
+
+    def flat(tree, prefix=""):
+        """[(name, tensor)] of a nested dict of tensors."""
+        out = []
+        for k in sorted(tree):
+            if isinstance(tree[k], dict):
+                out += flat(tree[k], f"{prefix}{k}/")
+            else:
+                out.append((prefix + k, tree[k]))
+        return out
+
+    def tree_map(fn, tree):
+        return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+    def train_batch(c, batch, seq, step, device):
+        """A train batch: TokenPipeline's tokens and labels (seed 0) at
+        ``step``, and the family's modality leaves (the vlm's patch
+        embeddings, the enc-dec's frames) drawn from a seed."""
+        tb = TokenPipeline(vocab=c.vocab, batch=batch, seq_len=seq, seed=0).batch_at(step)
+        rng = np.random.default_rng(300 + step)
+        for name, shape in modality_batch_leaves(c).items():
+            tb[name] = (rng.standard_normal((batch, *shape))
+                        * MODALITY_STD[name]).astype(np.float32)
+        return {k: torch.from_numpy(v).to(device) for k, v in tb.items()}
+
+    def loss_and_grads(p, c, device, remat="none"):
+        loss = make_loss_fn(c, remat=remat)(p, train_batch(c, GRAD_BATCH, GRAD_SEQ, 0, device))
+        names, leaves = zip(*flat(p.tree()))
+        return loss.item(), dict(zip(names, torch.autograd.grad(loss, leaves)))
+
+    def attention_layers(c) -> tuple[int, int]:
+        """(attention layers a forward of ``c`` runs, of them not causal):
+        one ``flash_fwd`` launch each, and one of each backward pass."""
+        if c.family == "ssm":
+            return 0, 0
+        if c.family == "hybrid":
+            return c.n_layers // c.hybrid_attn_every, 0
+        if c.family == "encdec":
+            return c.n_enc_layers + 2 * c.n_layers, c.n_enc_layers + c.n_layers
+        return c.n_layers, 0
+
+    FLASH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+    def noncausal_by_name() -> dict:
+        return {name: r for name in FLASH_NAMES if (r := ops.noncausal_flash_launches(name))}
+
+    def grads_vs_cpu(c, p=None, **fields):
+        """(a) gradients at full width: ``make_loss_fn`` and its backward in
+        bf16 with the kernels on the card against float32 with the plain
+        versions on the CPU, same weights and batch (GRAD_BATCH x GRAD_SEQ
+        tokens, and the family's modality leaves): the loss within
+        GRAD_LOSS_RTOL, each leaf's gradient cosine >= GRAD_MIN_COS, the
+        flash kernels' launches by route (the not-causal ones too) exactly
+        one a pass per attention layer, all on the tensor cores. ``p``: the
+        weights (made trainable), else drawn (seed 0). Returns the card's
+        weights, loss and gradients."""
+        p = (lm.init_params(c, 0, device=dev, trainable=True) if p is None
+             else lm.LMParams(p.tree(), trainable=True))
+        cpu_c = dataclasses.replace(c, dtype="float32")
+        t0 = time.monotonic()
+        # the same values in f32 on the host: each leaf widened on the card
+        # (exact), then copied (a host-side cast of internvl's 3 B values
+        # takes tens of seconds)
+        cpu_p = lm.LMParams(tree_map(lambda t: t.detach().float().cpu(), p.tree()),
+                            trainable=True)
+        copy_s = time.monotonic() - t0
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        loss_card, grads_card = loss_and_grads(p, c, dev)
+        card_s = time.monotonic() - t0
+        by_route, noncausal = ops.launch_routes(), noncausal_by_name()
+        t0 = time.monotonic()
+        loss_cpu, grads_cpu = loss_and_grads(cpu_p, cpu_c, "cpu")
+        cpu_s = time.monotonic() - t0
+        del cpu_p
+        t0 = time.monotonic()
+        cosines = {  # on the card: internvl's 3 B values take ~18 s on the host
+            name: F.cosine_similarity(g.float().flatten(), grads_cpu[name].to(dev).flatten(),
+                                      dim=0).item()
+            for name, g in grads_card.items()
+        }
+        compare_s = time.monotonic() - t0
+        del grads_cpu
+        worst = min(cosines, key=cosines.get)
+        loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+        phase("train_gradients", **fields, family=c.family, layers=c.n_layers,
+              batch=GRAD_BATCH, seq=GRAD_SEQ, head_dim=c.hd, loss_card=loss_card,
+              loss_cpu=loss_cpu, loss_rel_err=loss_rel, worst_leaf=worst,
+              worst_cosine=cosines[worst], cosines=cosines, launches_by_route=by_route,
+              launches_noncausal=noncausal, card_s=card_s, cpu_s=cpu_s, copy_s=copy_s,
+              compare_s=compare_s)
+        if not (loss_rel <= GRAD_LOSS_RTOL and cosines[worst] >= GRAD_MIN_COS):
+            fail(f"train gradients {c.name} card vs CPU: loss rel err {loss_rel}, "
+                 f"worst cosine {cosines[worst]} ({worst})")
+        n, n_nc = attention_layers(c)
+        want = {name: {"mma": n} for name in FLASH_NAMES} if n else {}
+        want_nc = {name: {"mma": n_nc} for name in FLASH_NAMES} if n_nc else {}
+        if by_route != want or noncausal != want_nc:
+            fail(f"train gradients {c.name}: launches by route {by_route}, not causal "
+                 f"{noncausal}; want {want}, {want_nc}")
+        return p, loss_card, grads_card
+
+    def falling(losses, steps) -> tuple[float, float, bool]:
+        """Phase 7's gate: finite losses whose last k's mean (k = min(5,
+        steps // 2)) lies below the first k's."""
+        k = min(5, steps // 2)
+        head, tail = statistics.mean(losses[:k]), statistics.mean(losses[-k:])
+        return head, tail, (len(losses) == steps and all(map(math.isfinite, losses))
+                            and tail < head)
+
+    def want_train_launches(c, steps, remat) -> tuple[dict, dict]:
+        """(launch counts, not-causal launches by route) of ``steps`` train
+        steps of ``c``: each attention layer's flash_fwd once a step (twice
+        under --remat full where the layer is recomputed: every family but
+        the hybrid, whose shared block is not, and enc-dec, which takes no
+        remat) and each backward pass once."""
+        n, n_nc = attention_layers(c)
+        twice = remat == "full" and c.family not in ("hybrid", "encdec")
+        counts = dict.fromkeys(ops.launch_counts(), 0) | {
+            "flash_fwd": n * steps * (2 if twice else 1),
+            "flash_bwd_dq": n * steps, "flash_bwd_dkv": n * steps}
+        return counts, ({name: {"mma": n_nc * steps} for name in FLASH_NAMES} if n_nc else {})
+
+    def check_train_launches(label, c, steps, remat, counts, by_route, noncausal) -> None:
+        want, want_nc = want_train_launches(c, steps, remat)
+        want_routes = {name: {"mma": want[name]} for name in FLASH_NAMES if want[name]}
+        if counts != want or by_route != want_routes or noncausal != want_nc:
+            fail(f"{label}: launches {counts} by route {by_route}, not causal {noncausal}; "
+                 f"want {want}, all on the tensor-core kernels, not causal {want_nc}")
+
+    def count_train_run(counts, by_route) -> None:
+        for name, n in counts.items():
+            launches[name] += n
+        add_routes(by_route)
+
+    def short_train(c, p, batch, seq, remat, **fields) -> None:
+        """(c) TF_STEPS steps of ``make_train_step`` on the card (AdamW at
+        TF_LR), each on a fresh batch: the loss finite and falling
+        (``falling``), the launches exact, all on the tensor cores; step ms
+        (median of the steps after the first), tokens/s and the peak device
+        GiB; the MoE's aux loss a step."""
+        p = lm.LMParams(p.tree(), trainable=True)
+        opt = AdamW(lr=TF_LR)
+        state = opt.init(p)
+        step = make_train_step(c, opt, remat=remat)
+        gc.collect()
+        torch.cuda.synchronize()
+        allocated_before = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        losses, auxes, times = [], [], []
+        for i in range(TF_STEPS):
+            tb = train_batch(c, batch, seq, i, dev)
+            t0 = time.monotonic()
+            p, state, m = step(p, state, tb)
+            losses.append(m["loss"].item())  # waits for the card
+            times.append(time.monotonic() - t0)
+            if "aux" in m:
+                auxes.append(m["aux"].item())
+        counts, by_route, noncausal = ops.launch_counts(), ops.launch_routes(), noncausal_by_name()
+        head, tail, ok = falling(losses, TF_STEPS)
+        steady = times[1:]
+        phase("train", **fields, arch=c.name, family=c.family, entry="make_train_step",
+              layers=c.n_layers, batch=batch, seq=seq, remat=remat, steps=TF_STEPS, lr=TF_LR,
+              losses=losses, aux=auxes or None, first_losses_mean=head, last_losses_mean=tail,
+              first_step_ms=times[0] * 1e3, step_ms_median=statistics.median(steady) * 1e3,
+              tokens_per_s=batch * seq * len(steady) / sum(steady),
+              peak_device_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+              device_allocated_gib_before=allocated_before,
+              launches_counted=counts, launches_by_route=by_route,
+              launches_noncausal=noncausal)
+        if not ok:
+            fail(f"train {c.name}: losses {losses} (the last steps' mean must be below the "
+                 f"first's)")
+        check_train_launches(f"train {c.name}", c, TF_STEPS, remat, counts, by_route, noncausal)
+        count_train_run(counts, by_route)
+        del p, state, opt
+
+    def moe_same_bits_twice(c, p) -> None:
+        """``moe_ffn`` at the gradient check's shape on layer 0 of ``p``:
+        the output, the aux loss and every gradient the same bits in two
+        runs (the combine and the gather's gradient sum each index's rows
+        in a fixed order)."""
+        from repro_torch.models import moe as moe_lib
+
+        lp = p.layer(0)
+        g = torch.Generator(device="cpu").manual_seed(33)
+        x = torch.randn((GRAD_BATCH, GRAD_SEQ, c.d_model), generator=g).to(dev, torch.bfloat16)
+        r = torch.randn(x.shape, generator=g).to(dev, torch.bfloat16)
+        runs = []
+        for _ in range(2):
+            ins = [t.detach().clone().requires_grad_() for t in
+                   (x, lp["router"], lp["w1"], lp["w3"], lp["w2"])]
+            y, aux = moe_lib.moe_ffn(*ins, c)
+            grads = torch.autograd.grad((y * r).float().sum() + aux, ins)
+            runs.append((y, aux, *grads))
+        torch.cuda.synchronize()
+        names = ("y", "aux", "dx", "drouter", "dw1", "dw3", "dw2")
+        same = {n: same_bits(a, b) for n, a, b in zip(names, *runs)}
+        phase("moe_ffn_same_bits_twice", arch=c.name, batch=GRAD_BATCH, seq=GRAD_SEQ,
+              capacity=moe_lib.moe_capacity(c, GRAD_SEQ), **same)
+        if not all(same.values()):
+            fail(f"moe_ffn on the card: two runs differ: {same}")
+
+    def train_families_phase(held: dict) -> None:
+        """The train_families phase (the module docstring says what it
+        holds), on ``held``: arch -> the dense weights a family phase drew
+        (olmoe cut to TF_MOE_LAYERS, internvl to one dense layer), each
+        drawn here where missing."""
+        t_phase = time.monotonic()
+        run0 = dict(launches)
+
+        def weights(arch, c):
+            if arch in held:
+                return held.pop(arch)
+            p, init = timed_init(c)
+            phase("init", arch=arch, layers=c.n_layers, quant=c.w_bits, **init)
+            return p
+
+        cfgs = train_family_configs()
+        # whisper-tiny at full size: (a), then (c): the not-causal backward
+        c, p = cfgs[ENC_ARCH], weights(ENC_ARCH, cfgs[ENC_ARCH])
+        grads_vs_cpu(c, p, arch=ENC_ARCH)
+        short_train(c, p, *TF_SHORT[ENC_ARCH])
+        del p
+        gc.collect()
+        # mamba2-1.3b: (a) at 2 layers, (c) at full size
+        c, p = cfgs[SSM_ARCH], weights(SSM_ARCH, cfgs[SSM_ARCH])
+        n = TF_GRAD_LAYERS[SSM_ARCH]
+        grads_vs_cpu(*first_layers(c, p, n), arch=SSM_ARCH,
+                     depth_cut=f"{n} of {c.n_layers} layers: the CPU's float32 side stays "
+                               "in seconds")
+        short_train(c, p, *TF_SHORT[SSM_ARCH])
+        del p
+        gc.collect()
+        # internvl2-76b: (a) at one dense layer with its 256 patches
+        c, p = cfgs[VLM_ARCH], weights(VLM_ARCH, cfgs[VLM_ARCH])
+        grads_vs_cpu(c, p, arch=VLM_ARCH, patches=c.n_patches,
+                     depth_cut="1 of 80 layers at full width (~3.0 B values: f32 weights and "
+                               "gradients on the host take ~24 GB)")
+        del p
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_seconds("train_families: whisper-tiny, mamba2-1.3b, internvl2-76b")
+        # zamba2-2.7b: (a) at one super-block, (b) at full size through the CLI
+        c, p = cfgs[HYB_ARCH], weights(HYB_ARCH, cfgs[HYB_ARCH])
+        grads_vs_cpu(*first_layers(c, p, c.hybrid_attn_every), arch=HYB_ARCH,
+                     depth_cut=f"one super-block ({c.hybrid_attn_every} Mamba2 layers and the "
+                               "shared block)")
+        argv = ["--arch", HYB_ARCH, "--batch", str(TF_HYB_BATCH), "--seq", str(TF_HYB_SEQ),
+                "--steps", str(TF_STEPS), "--remat", "full", "--lr", str(TF_LR)]
+        buf = io.StringIO()
+        ops.reset_launch_counts()
+        with contextlib.redirect_stdout(buf):
+            rc = train_cli.main(argv, params=p)
+        counts, by_route, noncausal = ops.launch_counts(), ops.launch_routes(), noncausal_by_name()
+        text = buf.getvalue()
+        sys.stderr.write(text)
+        del p
+        gc.collect()
+        torch.cuda.empty_cache()
+        if rc != 0:
+            fail(f"train {HYB_ARCH} exited {rc}")
+        metrics = json.loads(
+            next(l for l in text.splitlines() if l.startswith("[train/metrics] ")).split(" ", 1)[1])
+        head, tail, ok = falling(metrics["losses"], TF_STEPS)
+        phase("train", family="hybrid", entry="repro_torch.launch.train.main",
+              argv=argv, launches_counted=counts, launches_by_route=by_route,
+              launches_noncausal=noncausal, first_losses_mean=head, last_losses_mean=tail,
+              **metrics)
+        if not ok:
+            fail(f"train {HYB_ARCH}: losses {metrics['losses']} (the last steps' mean must be "
+                 f"below the first's)")
+        check_train_launches(f"train {HYB_ARCH}", c, TF_STEPS, "full", counts, by_route,
+                             noncausal)
+        count_train_run(counts, by_route)
+        phase_seconds("train_families: zamba2-2.7b")
+        # olmoe-1b-7b: the combine's bits, (a) at 2 layers, (c) at TF_MOE_LAYERS
+        c, p = cfgs[MOE_ARCH], weights(MOE_ARCH, cfgs[MOE_ARCH])
+        moe_same_bits_twice(c, p)
+        n = TF_GRAD_LAYERS[MOE_ARCH]
+        grads_vs_cpu(*first_layers(c, p, n), arch=MOE_ARCH,
+                     depth_cut=f"{n} of 16 layers: the CPU's float32 experts stay in seconds")
+        short_train(c, p, *TF_SHORT[MOE_ARCH],
+                    depth_cut=f"{TF_MOE_LAYERS} of 16 layers: at 12 B a parameter (bf16 "
+                              "weights and gradients, f32 moments) all 16 need ~83 GB")
+        del p
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_seconds("train_families: olmoe-1b-7b")
+        phase("train_families_phase", seconds=time.monotonic() - t_phase,
+              launches_on_the_main_path={k: launches[k] - run0[k] for k in launches})
+
+    def train_family_configs() -> dict:
+        """Each arch's config in the train_families phase, in its order, as
+        the weights it takes were drawn: whisper dense, mamba2 at full size,
+        internvl at one dense layer, zamba2 at full size, olmoe at
+        TF_MOE_LAYERS layers (last: its 12 B a parameter need the most room)."""
+        return {ENC_ARCH: dataclasses.replace(get_config(ENC_ARCH), w_bits=0),
+                SSM_ARCH: get_config(SSM_ARCH),
+                VLM_ARCH: dataclasses.replace(get_config(VLM_ARCH), n_layers=1, w_bits=0),
+                HYB_ARCH: get_config(HYB_ARCH),
+                MOE_ARCH: dataclasses.replace(get_config(MOE_ARCH), n_layers=TF_MOE_LAYERS)}
+
+    def kept_layers(c, p, n) -> "lm.LMParams":
+        """A copy on the card of ``p`` cut to its first ``n`` layers, so the
+        weights it was cut from can be freed."""
+        return lm.LMParams(tree_map(lambda t: t.detach().clone(),
+                                    first_layers(c, p, n)[1].tree()))
+
+        def copy(node):
+            return ({k: copy(v) for k, v in node.items()} if isinstance(node, dict)
+                    else node.detach().clone())
+        return c, lm.LMParams(copy(p.tree()))
 
     # ---------------- phase 5 (b)'s follow-up turn (with --only fleet too) ----------------
     def followup_turn(c, p) -> None:
@@ -3613,6 +4042,13 @@ def main(argv: list[str] | None = None) -> int:
             fleet_phase(cq, pq)
         phase_seconds("5 (d) fleet")
         print("[chip_smoke] --only fleet: stopped after the follow-up turn and the fleet",
+              file=sys.stderr)
+        return 0
+
+    if opts.only == "train_families":
+        prefetch(*train_family_configs().values())
+        train_families_phase({})
+        print("[chip_smoke] --only train_families: stopped after the train_families phase",
               file=sys.stderr)
         return 0
 
@@ -4307,6 +4743,25 @@ def main(argv: list[str] | None = None) -> int:
                vlm_full.hd, True, 0, 0, bf16, True, g=fam_gen)
     flash_case("internvl_chunk_q_offset", vlm_full.n_heads, vlm_full.n_kv, CHUNK, MAX_LEN,
                vlm_full.hd, True, 0, CHUNK, bf16, True, g=fam_gen)
+
+    # ---- the train_families phase's flash_bwd shapes, from a generator of their own ----
+    # both passes, timed, at the gradient check's batch: head dim 128 causal
+    # at olmoe's 16/16 heads (G 1) and internvl's 64/8 (G 8); not causal at
+    # whisper's 6/6 heads, D 64: the encoder (1500 x 1500: Sk no multiple of
+    # the 64-key tile) and the cross-attention (GRAD_SEQ tokens over 1500
+    # frames)
+    bwd_gen = torch.Generator(device="cpu").manual_seed(29)
+    family_bwd = [
+        flash_bwd_case("olmoe_grad_causal", GRAD_BATCH, olmoe.n_heads, olmoe.n_kv, GRAD_SEQ,
+                       GRAD_SEQ, olmoe.hd, bf16, timed=True, g=bwd_gen),
+        flash_bwd_case("internvl_grad_causal", GRAD_BATCH, vlm_full.n_heads, vlm_full.n_kv,
+                       GRAD_SEQ, GRAD_SEQ, vlm_full.hd, bf16, timed=True, g=bwd_gen),
+        flash_bwd_case("whisper_encoder_not_causal", GRAD_BATCH, enc_full.n_heads,
+                       enc_full.n_kv, fl, fl, enc_full.hd, bf16, timed=True, causal=False,
+                       g=bwd_gen),
+        flash_bwd_case("whisper_cross_not_causal", GRAD_BATCH, enc_full.n_heads, enc_full.n_kv,
+                       GRAD_SEQ, fl, enc_full.hd, bf16, timed=True, causal=False, g=bwd_gen),
+    ]
 
     phase_seconds("3 kernels")
     if opts.only == "kernels":
@@ -5307,7 +5762,7 @@ def main(argv: list[str] | None = None) -> int:
         prefill_vs_cpu(c2, p2, arch=arch, layers=2, depth_cut="2 of "
                        f"{full.n_layers} layers: the CPU's float32 side stays in seconds", **init2)
         if full.sliding_window:
-            window_vs_cpu(c2, p2)
+            window_vs_cpu(*first_layers(c2, p2, WINDOW_LAYERS))
         del p2
 
         argv = ["--arch", arch, "--requests", "16", "--batch", str(LANES), "--prompt-len",
@@ -5575,66 +6030,6 @@ def main(argv: list[str] | None = None) -> int:
     phase_seconds("6 cnn")
 
     # ---------------- 7. training at full width and depth ----------------
-    from repro_torch.ckpt import CheckpointManager
-    from repro_torch.data.pipeline import TokenPipeline
-    from repro_torch.launch import train as train_cli
-    from repro_torch.optim.adamw import AdamW
-    from repro_torch.runtime.steps import make_train_step
-
-    def flat(tree, prefix=""):
-        """[(name, tensor)] of a nested dict of tensors."""
-        out = []
-        for k in sorted(tree):
-            if isinstance(tree[k], dict):
-                out += flat(tree[k], f"{prefix}{k}/")
-            else:
-                out.append((prefix + k, tree[k]))
-        return out
-
-    def loss_and_grads(p, c, device, remat="none"):
-        tb = {k: torch.from_numpy(v).to(device) for k, v in TokenPipeline(
-            vocab=c.vocab, batch=GRAD_BATCH, seq_len=GRAD_SEQ, seed=0).batch_at(0).items()}
-        loss, _ = lm.loss_fn(p, c, tb["tokens"], tb["labels"], remat=remat)
-        names, leaves = zip(*flat(p.tree()))
-        return loss.item(), dict(zip(names, torch.autograd.grad(loss, leaves)))
-
-    def grads_vs_cpu(c, **fields):
-        """(a) gradients at full width: ``loss_fn`` and its backward in bf16
-        with the kernels on the card against float32 with the plain versions
-        on the CPU, same weights and batch (GRAD_BATCH x GRAD_SEQ): the loss
-        within GRAD_LOSS_RTOL, each leaf's gradient cosine >= GRAD_MIN_COS.
-        Returns the card's weights, loss and gradients."""
-        p = lm.init_params(c, 0, device=dev, trainable=True)
-        cpu_c = dataclasses.replace(c, dtype="float32")
-        cpu_p = params_from_reference(
-            _to_cpu(p.tree()), cpu_c, device="cpu", dtype=torch.float32, trainable=True)
-        ops.reset_launch_counts()
-        t0 = time.monotonic()
-        loss_card, grads_card = loss_and_grads(p, c, dev)
-        card_s = time.monotonic() - t0
-        by_route = ops.launch_routes()
-        t0 = time.monotonic()
-        loss_cpu, grads_cpu = loss_and_grads(cpu_p, cpu_c, "cpu")
-        cpu_s = time.monotonic() - t0
-        cosines = {
-            name: F.cosine_similarity(g.float().cpu().flatten(), grads_cpu[name].flatten(),
-                                      dim=0).item()
-            for name, g in grads_card.items()
-        }
-        worst = min(cosines, key=cosines.get)
-        loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
-        phase("train_gradients", **fields, layers=c.n_layers, batch=GRAD_BATCH, seq=GRAD_SEQ,
-              head_dim=c.hd, loss_card=loss_card, loss_cpu=loss_cpu, loss_rel_err=loss_rel,
-              worst_leaf=worst, worst_cosine=cosines[worst], cosines=cosines,
-              launches_by_route=by_route, card_s=card_s, cpu_s=cpu_s)
-        if not (loss_rel <= GRAD_LOSS_RTOL and cosines[worst] >= GRAD_MIN_COS):
-            fail(f"train gradients {c.name} card vs CPU: loss rel err {loss_rel}, "
-                 f"worst cosine {cosines[worst]} ({worst})")
-        want = {name: {"mma": c.n_layers} for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
-        if by_route != want:
-            fail(f"train gradients {c.name}: launches by route {by_route}, not {want}")
-        return p, loss_card, grads_card
-
     # smollm-360m at depth 4, then h2o-danube-1.8b (head dim 80) at depth 2
     gcfg = dataclasses.replace(cfg, n_layers=GRAD_DEPTH)
     gparams, loss_card, grads_card = grads_vs_cpu(gcfg)
@@ -5776,12 +6171,13 @@ def main(argv: list[str] | None = None) -> int:
         serve_arch(arch)
         phase_seconds(f"4-5 {arch}")
 
-    # ---------------- the MoE, hybrid, SSM, vlm and enc-dec families (last) ----------------
+    # ---- the MoE, hybrid, SSM, vlm and enc-dec families, then train_families (last) ----
     moe_phase()
     hybrid_phase()
     ssm_phase()
     vlm_phase()
     encdec_phase()
+    train_families_phase(held)
     leftover = [c.name for c in prefetched]
     draw_pool.shutdown(cancel_futures=True)
     pack_pool.shutdown(cancel_futures=True)
@@ -5893,7 +6289,7 @@ def main(argv: list[str] | None = None) -> int:
                           "enable_gqa=True): dq, dk and dv together",
              **{k: head_dq[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms", "host_us")},
-             cases=[head_dq] + [dq for dq, _ in d80_bwd]),
+             cases=[head_dq] + [dq for dq, _ in d80_bwd + family_bwd]),
         dict(name="flash_bwd_dkv", route="cuda",
              source="src/repro_torch/csrc/flash_bwd.cu",
              replaces="src/repro/kernels/flash_attention.py:306",
@@ -5906,7 +6302,7 @@ def main(argv: list[str] | None = None) -> int:
                           "enable_gqa=True): dq, dk and dv together",
              **{k: head_dkv[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms", "host_us")},
-             cases=[head_dkv] + [dkv for _, dkv in d80_bwd]),
+             cases=[head_dkv] + [dkv for _, dkv in d80_bwd + family_bwd]),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

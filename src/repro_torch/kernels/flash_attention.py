@@ -44,11 +44,13 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_bwd_dkv_ref, flash_bwd_dq_ref, flash_fwd_ref
 
 COUNTER = _build.LaunchCounter()
-# flash_fwd's launches with ``causal=False`` (the enc-dec encoder and its
-# cross-attention), counted again here by route beside COUNTER
-NONCAUSAL_COUNTER = _build.LaunchCounter()
 DQ_COUNTER = _build.LaunchCounter()  # flash_bwd's dq pass
 DKV_COUNTER = _build.LaunchCounter()  # flash_bwd's dk/dv pass
+# each wrapper's launches with ``causal=False`` (the enc-dec encoder and
+# its cross-attention), counted again here by route beside its counter
+NONCAUSAL_COUNTER = _build.LaunchCounter()
+NONCAUSAL_DQ_COUNTER = _build.LaunchCounter()
+NONCAUSAL_DKV_COUNTER = _build.LaunchCounter()
 HEAD_DIMS = (32, 64, 80, 128)
 
 
@@ -187,7 +189,10 @@ def flash_bwd_dq(q, k, v, out, lse, do, *, causal=True, window=0, q_offset=0):
         1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, rc, "flash_bwd_dq")
-    DQ_COUNTER.add("mma" if q.dtype == torch.bfloat16 else "f32")
+    route = "mma" if q.dtype == torch.bfloat16 else "f32"
+    DQ_COUNTER.add(route)
+    if not causal:
+        NONCAUSAL_DQ_COUNTER.add(route)
     return dq, delta
 
 
@@ -213,7 +218,10 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal=True, window=0, q_offset=0)
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, rc, "flash_bwd_dkv")
-    DKV_COUNTER.add("mma" if q.dtype == torch.bfloat16 else "f32")
+    route = "mma" if q.dtype == torch.bfloat16 else "f32"
+    DKV_COUNTER.add(route)
+    if not causal:
+        NONCAUSAL_DKV_COUNTER.add(route)
     return dk, dv
 
 

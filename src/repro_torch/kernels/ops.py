@@ -160,14 +160,22 @@ def launch_routes() -> dict[str, dict[str, int]]:
     return {name: dict(c.routes) for name, c in _COUNTERS.items() if c.routes}
 
 
-def noncausal_flash_launches() -> dict[str, int]:
-    """``flash_fwd``'s launches with ``causal=False`` since the last
+_NONCAUSAL = {
+    "flash_fwd": _fa.NONCAUSAL_COUNTER,
+    "flash_bwd_dq": _fa.NONCAUSAL_DQ_COUNTER,
+    "flash_bwd_dkv": _fa.NONCAUSAL_DKV_COUNTER,
+}
+
+
+def noncausal_flash_launches(name: str = "flash_fwd") -> dict[str, int]:
+    """The launches of ``name`` (``flash_fwd``, ``flash_bwd_dq`` or
+    ``flash_bwd_dkv``) with ``causal=False`` since the last
     ``reset_launch_counts``, by route (they are in ``launch_counts()``'s
-    ``flash_fwd`` too)."""
-    return dict(_fa.NONCAUSAL_COUNTER.routes)
+    count of ``name`` too)."""
+    return dict(_NONCAUSAL[name].routes)
 
 
 def reset_launch_counts() -> None:
-    for c in (*_COUNTERS.values(), _fa.NONCAUSAL_COUNTER):
+    for c in (*_COUNTERS.values(), *_NONCAUSAL.values()):
         c.count = 0
         c.routes.clear()

@@ -40,9 +40,9 @@ baseline, and the only engine of the SSM family: ``--arch mamba2-1.3b``
 switches to it with the reference's message, as every family outside the
 paged ones does. On the card each of its steps is one CUDA graph. With
 it, ``--vmem-budget`` and ``--speculate`` exit 2 with the reference's
-reasons, and so does an MoE arch (its fixed decode needs the capacity
-dispatch, not ported); ``--trace-out`` stays with the pool engine, as in
-the reference.
+reasons; ``--trace-out`` stays with the pool engine, as in the reference.
+An MoE arch on it decodes through the capacity dispatch
+(``moe.moe_ffn``), as the reference's fixed loop does.
 
 ``--speculate`` serves with speculative decoding (``runtime.speculative``):
 ``ngram`` (the self-drafting suffix match) or an arch whose packed twin,
@@ -562,11 +562,6 @@ def main(argv=None) -> int:
         if args.speculate:
             print(f"[serve] --speculate needs the pool engine's paged verify; "
                   f"family {cfg.family!r} / --engine fixed cannot speculate")
-            return 2
-        if cfg.family == "moe":
-            print("[serve] --engine fixed: the MoE family's fixed-batch decode runs "
-                  "the capacity dispatch (moe.moe_ffn), which is not ported; use "
-                  "the pool engine")
             return 2
     try:
         if engine == "fixed":

@@ -1,12 +1,18 @@
 """Training entry point, in PyTorch.
 
-Port of ``repro.launch.train`` for the dense family: AdamW over the
-stacked parameters, ``runtime.train.TrainLoop`` over ``TokenPipeline``
-batches, with atomic async checkpoints in the reference's format and
-deterministic resume. Attention runs the flash kernels forward and
-backward (``flash_fwd``, ``flash_bwd``). Runs on CUDA unless ``--device
-cpu`` is given; without a GPU and without ``--device cpu`` it raises.
-The reference's ``--production-mesh`` is mesh code and is not ported.
+Port of ``repro.launch.train``: AdamW over the stacked parameters,
+``runtime.train.TrainLoop`` over ``TokenPipeline`` batches, with atomic
+async checkpoints in the reference's format and deterministic resume. It
+trains the families whose batches are tokens and labels alone: dense,
+MoE (the capacity dispatch and its aux loss), SSM and hybrid. The vlm and
+enc-dec families need batches that carry ``prefix_embeds`` / ``frames``,
+which ``TokenPipeline`` does not yield (the reference's CLI fails there
+with a ``KeyError`` at the first step): this CLI exits 2 with that
+reason, and they train through ``runtime.steps.make_train_step`` on such
+batches. Attention runs the flash kernels forward and backward
+(``flash_fwd``, ``flash_bwd``). Runs on CUDA unless ``--device cpu`` is
+given; without a GPU and without ``--device cpu`` it raises. The
+reference's ``--production-mesh`` is mesh code and is not ported.
 
 Usage::
 
@@ -16,7 +22,10 @@ Usage::
         --steps 3 --batch 2 --seq 32 --ckpt /tmp/ckpt
 
 Besides the reference's ``[train]`` lines it prints each kernel's launch
-count and a ``[train/metrics]`` line with the run's numbers as JSON.
+count and a ``[train/metrics]`` line with the run's numbers as JSON (for
+MoE also the last step's aux loss). ``main(argv, params=...)`` trains
+weights the caller already holds, the ones ``lm.init_params(cfg,
+--seed)`` would draw, in place of a fresh draw.
 """
 
 from __future__ import annotations
@@ -34,7 +43,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.kernels import ops
 from repro_torch.models import lm
-from repro_torch.models.config import PACKING_FAMILIES, TRAIN_FAMILIES
+from repro_torch.models.config import PACKING_FAMILIES, modality_batch_leaves
 from repro_torch.optim.adamw import AdamW
 from repro_torch.runtime.steps import make_train_step
 from repro_torch.runtime.train import TrainLoop, TrainLoopConfig
@@ -59,27 +68,40 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None) -> int:
+def main(argv=None, params: lm.LMParams | None = None) -> int:
+    """The CLI. ``params``: the weights of ``--arch`` at ``--seed`` already
+    drawn on the device (``lm.init_params``), trained in place of a fresh
+    draw; None draws them."""
     args = build_parser().parse_args(argv)
     try:
         cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     except ValueError as e:
         print(f"[train] {e}")
         return 2
-    if cfg.family not in TRAIN_FAMILIES:
-        print(f"[train] family {cfg.family!r} is not ported to training yet")
-        return 2
-    if args.quant and cfg.family in PACKING_FAMILIES:
-        # packed uint8 carriers are inference-only: no gradients, no moments
-        print(
-            f"[train] --quant {args.quant} is not trainable: "
-            f"{cfg.family!r} archs pack FFN weights into inference-only "
-            "uint8 carriers. Train dense (no --quant), then quantize the "
-            "checkpoint for serving (launch/serve.py)."
-        )
+    if args.quant:
+        if cfg.family in PACKING_FAMILIES:
+            # packed uint8 carriers are inference-only: no gradients, no moments
+            print(
+                f"[train] --quant {args.quant} is not trainable: "
+                f"{cfg.family!r} archs pack FFN weights into inference-only "
+                "uint8 carriers. Train dense (no --quant), then quantize the "
+                "checkpoint for serving (launch/serve.py)."
+            )
+            return 2
+        print(f"[train] note: --quant has no effect on family "
+              f"{cfg.family!r} (no dense FFN to pack); ignoring")
+    leaves = modality_batch_leaves(cfg)
+    if leaves:
+        print(f"[train] family {cfg.family!r} trains on batches that carry "
+              f"{', '.join(map(repr, leaves))}, which this CLI's TokenPipeline does not "
+              "yield (the reference's CLI fails with a KeyError at its first step); "
+              "train it through runtime.steps.make_train_step on such batches")
         return 2
     device = resolve_device(args.device)
-    params = lm.init_params(cfg, args.seed, device=device, trainable=True)
+    if params is None:
+        params = lm.init_params(cfg, args.seed, device=device, trainable=True)
+    else:
+        params = lm.LMParams(params.tree(), trainable=True)
     n_params = sum(p.numel() for p in params.parameters())
     print(f"[train] {cfg.name}: {n_params/1e6:.1f}M params, device {device}")
 
@@ -132,6 +154,7 @@ def main(argv=None) -> int:
         "first_loss": first,
         "last_loss": last,
         "losses": [e["loss"] for e in log],
+        **({"last_aux": log[-1]["aux"]} if cfg.family == "moe" else {}),
         "kernel_launches": launches,
     }))
     return 0 if math.isfinite(last) else 1

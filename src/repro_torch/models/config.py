@@ -39,14 +39,13 @@ POOL_FAMILIES = tuple(f for f in PORTED_FAMILIES if f in PAGED_FAMILIES)
 # ``prefill_chunk_paged``, ``verify_chunk_paged``) and budgeted decode
 # take these; hybrid serves through its own entry points.
 ATTN_SERVED_FAMILIES = tuple(f for f in PORTED_FAMILIES if f in ATTN_KV_FAMILIES)
-# Families the port trains so far (MoE's capacity dispatch and its aux
-# loss, the vlm and enc-dec losses are not ported: their training entry
-# points raise ValueError).
-TRAIN_FAMILIES = ("dense",)
+# Families the port trains: every family (enc-dec through
+# ``models.encdec.loss_fn``, the others through ``lm.loss_fn``).
+TRAIN_FAMILIES = PORTED_FAMILIES
 # Families whose full-sequence forward (``lm.trunk``, ``forward``,
-# ``prefill``) the port runs: the trained ones and, for inference, vlm
-# (with ``prefix_embeds``) and ssm; enc-dec runs ``models.encdec.trunk``.
-FORWARD_FAMILIES = TRAIN_FAMILIES + ("vlm", "ssm")
+# ``prefill``) the port runs: every family but enc-dec, which runs
+# ``models.encdec.trunk``.
+FORWARD_FAMILIES = tuple(f for f in PORTED_FAMILIES if f != "encdec")
 
 
 @dataclasses.dataclass(frozen=True)

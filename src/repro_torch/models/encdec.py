@@ -11,8 +11,10 @@ ring per layer) plus each layer's cross K/V, computed once by
 ``init_decode_state`` into preallocated (L, B, F, Hkv, D) leaves; every
 leaf is updated in place, so a captured step binds the whole cache and
 takes only the token. The parameters are ``lm.init_params``' enc-dec tree
-(``LMParams`` with ``enc_layers``). Training (the reference's ``loss_fn``)
-is not ported.
+(``LMParams`` with ``enc_layers``). ``loss_fn`` is the teacher-forced
+decoder's cross-entropy; its backward runs ``flash_bwd`` not causal
+through the encoder and the cross-attention, causal through the decoder's
+self-attention.
 """
 
 from __future__ import annotations
@@ -22,7 +24,13 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig, torch_dtype
-from repro_torch.models.layers import dense, embed, logits as unembed_logits, rms_norm
+from repro_torch.models.layers import (
+    cross_entropy,
+    dense,
+    embed,
+    logits as unembed_logits,
+    rms_norm,
+)
 
 
 def _require_encdec(cfg: ModelConfig, what: str) -> None:
@@ -58,7 +66,7 @@ def encode(params: lm.LMParams, cfg: ModelConfig, frames: torch.Tensor) -> torch
     for i in range(cfg.n_enc_layers):
         lp = params.enc_layer(i)
         x, _ = lm._attn_block(lp, cfg, x, positions, causal=False)
-        x = lm._ffn_block(lp, cfg, x)
+        x, _ = lm._ffn_block(lp, cfg, x)
     return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
 
 
@@ -74,7 +82,7 @@ def trunk(
         lp = params.layer(i)
         x, _ = lm._attn_block(lp, cfg, x, positions, causal=True)
         x = _cross_attn_block(lp, cfg, x, *_cross_kv(lp, cfg, enc))
-        x = lm._ffn_block(lp, cfg, x)
+        x, _ = lm._ffn_block(lp, cfg, x)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -87,6 +95,21 @@ def forward(
     x, aux = trunk(params, cfg, tokens, frames)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
     return unembed_logits(x, table, cfg.vocab), aux
+
+
+def loss_fn(
+    params: lm.LMParams,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,
+    labels: torch.Tensor,
+    frames: torch.Tensor,
+    aux_weight: float = 0.0,
+) -> tuple[torch.Tensor, tuple[torch.Tensor]]:
+    """Training loss (the reference's ``encdec.loss_fn``): the decoder's
+    cross-entropy over ``labels`` plus ``aux_weight * aux`` (aux is 0: the
+    enc-dec family has no MoE layer), returned with (aux,)."""
+    lg, aux = forward(params, cfg, tokens, frames)
+    return cross_entropy(lg, labels, cfg.vocab) + aux_weight * aux, (aux,)
 
 
 @torch.no_grad()
@@ -140,7 +163,7 @@ def decode_step(
         q = dense(h, lp["x_wq"]).reshape(b, 1, cfg.n_heads, cfg.hd)
         o = attn.decode_attention(q, cache["cross_k"][i], cache["cross_v"][i], frames)
         x = x + dense(o.reshape(b, 1, -1), lp["x_wo"])
-        x = lm._ffn_block(lp, cfg, x)
+        x, _ = lm._ffn_block(lp, cfg, x)
     cache["len"].add_(1)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]

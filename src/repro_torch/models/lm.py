@@ -1,27 +1,29 @@
 """Dense, vlm, MoE, hybrid and SSM LM families: packed FFN weights, the
 training forward and loss, the pool serving forward, the fixed-batch
 decode step, sampling; and the enc-dec family's parameters and cache
-(its forward and decode step are ``models.encdec``'s).
+(its forward, loss and decode step are ``models.encdec``'s).
 
-Port of ``repro.models.lm``. The vlm family (InternVL's backbone) is the
-dense family with precomputed patch embeddings (``prefix_embeds``, (B, P,
-d)) ahead of the token embeddings in the full-sequence forward (``trunk``,
-``forward``, ``prefill``); it serves text tokens through every dense
-entry point, as the reference serves it. The fixed-batch engine's entry
-points (``init_cache``, ``decode_step``, ``prefill``) serve the dense,
-vlm, SSM and hybrid families over a static per-slot cache, updated in
-place so a captured CUDA graph binds it; the pure-SSM family (Mamba2) is
-served only through them, as in the reference, and runs the full-sequence
-forward for inference, not training. The MoE family is served only:
-its FFN is ``models.moe.moe_ffn_dropless`` and every serve entry point
-appends the (L, E) expert-load tally to its outputs, as the reference's
-do; its training path (capacity dispatch, aux loss) is not ported, so
-``trunk``, ``forward`` and ``loss_fn`` refuse it. The hybrid family
-(Zamba2: Mamba2 layers, one shared attention + FFN block after every
-``hybrid_attn_every`` of them) is served only, through its own entry
-points (``prefill_with_cache_hybrid``, ``decode_step_paged_hybrid``,
-``prefill_suffix_paged_hybrid``), which carry a per-lane SSM state beside
-the pool; the attention-family entry points refuse it. The reference's
+Port of ``repro.models.lm``. The full-sequence forward (``trunk``,
+``forward``, ``prefill``) and ``loss_fn`` take every family but enc-dec.
+The vlm family (InternVL's backbone) is the dense family with precomputed
+patch embeddings (``prefix_embeds``, (B, P, d)) ahead of the token
+embeddings there; it serves text tokens through every dense entry point,
+as the reference serves it. The MoE family's FFN is the capacity dispatch
+``models.moe.moe_ffn`` in the forward and the fixed-batch decode step,
+whose Switch aux loss ``trunk`` sums over the layers, and the dropless
+``moe_ffn_dropless`` in the pool's serve entry points, which append the
+(L, E) expert-load tally to their outputs, as the reference's do. The
+hybrid family (Zamba2: Mamba2 layers, one shared attention + FFN block
+after every ``hybrid_attn_every`` of them) runs the shared block's leaves
+at every application, so its gradient is the sum over them; the pool
+serves it through its own entry points (``prefill_with_cache_hybrid``,
+``decode_step_paged_hybrid``, ``prefill_suffix_paged_hybrid``), which
+carry a per-lane SSM state beside the pool, and the attention-family
+entry points refuse it. The fixed-batch engine's entry points
+(``init_cache``, ``decode_step``, ``prefill``) serve every family but
+enc-dec over a static per-slot cache, updated in place so a captured CUDA
+graph binds it; the pure-SSM family (Mamba2) is served only through them,
+as in the reference. The reference's
 parameter pytree becomes ``LMParams``, an ``nn.Module`` that keeps the
 same stacked ``(L, ...)`` per-layer leaves (and the hybrid's unstacked
 ``shared`` subtree, the enc-dec's ``enc_layers``): float weights are
@@ -481,13 +483,19 @@ def _attn_block(lp, cfg: ModelConfig, x, positions, *, causal=True, window=0):
 
 
 def _ffn_block(lp, cfg: ModelConfig, x, ln_name="ln2"):
-    """Pre-norm FFN residual; packed carriers when ``cfg.w_bits`` is 1/2."""
+    """Pre-norm FFN residual: (x + FFN(norm(x)), aux). For the MoE family
+    the FFN is the capacity dispatch (``moe.moe_ffn``) and aux its Switch
+    loss, an f32 scalar; elsewhere the dense FFN (packed carriers when
+    ``cfg.w_bits`` is 1/2) and aux 0.0."""
     h = rms_norm(x, lp[ln_name], cfg.norm_eps)
+    if cfg.family == "moe":
+        y, aux = moe_lib.moe_ffn(h, lp["router"], lp["w1"], lp["w3"], lp["w2"], cfg)
+        return x + y, aux
     if cfg.w_bits in (1, 2):
         y = packed_swiglu(h, lp["w1"], lp["w3"], lp["w2"], cfg.w_bits)
     else:
         y = swiglu(h, lp["w1"], lp["w3"], lp["w2"])
-    return x + y
+    return x + y, 0.0
 
 
 def _ffn_block_streamed(lp, cfg: ModelConfig, x, depth: int):
@@ -506,7 +514,7 @@ def _serve_ffn(lp, cfg: ModelConfig, x, tallies: list, *, expert_mask=None,
     gives a row the same bits whatever the call's row count), whose (E,)
     tally is appended to ``tallies``."""
     if cfg.family != "moe":
-        return _ffn_block(lp, cfg, x)
+        return _ffn_block(lp, cfg, x)[0]
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     y, counts = moe_lib.moe_ffn_dropless(
         h, lp["router"], lp["w1"], lp["w3"], lp["w2"], cfg,
@@ -603,12 +611,14 @@ REMAT_MODES = ("none", "dots", "full")
 
 
 def _layer(params: LMParams, i: int, cfg: ModelConfig, x, positions):
-    """Layer ``i`` of the trunk (the reference's ``_make_layer_fn``): for
-    the dense family attention, then FFN, each a pre-norm residual; for
-    the SSM family a Mamba2 block over the whole sequence."""
+    """Layer ``i`` of the trunk (the reference's ``_make_layer_fn``) ->
+    (x, aux): for the dense, vlm and MoE families attention, then the FFN
+    (aux: the MoE's Switch loss, else 0.0), each a pre-norm residual; for
+    the SSM and hybrid families a Mamba2 block over the whole sequence
+    (aux 0.0)."""
     lp = params.layer(i)
-    if cfg.family == "ssm":
-        return _ssm_block(lp, cfg, x)[0]
+    if cfg.family in ("ssm", "hybrid"):
+        return _ssm_block(lp, cfg, x)[0], 0.0
     x, _ = _attn_block(lp, cfg, x, positions, causal=True, window=cfg.sliding_window)
     return _ffn_block(lp, cfg, x)
 
@@ -630,8 +640,8 @@ def _remat_kwargs(remat: str) -> dict:
 
 
 def _refuse_encdec(cfg: ModelConfig, what: str) -> None:
-    """The enc-dec family's layers carry cross-attention: its forward and
-    decode step are ``models.encdec``'s, never the dense layer's."""
+    """The enc-dec family's layers carry cross-attention: its forward, loss
+    and decode step are ``models.encdec``'s, never the dense layer's."""
     if cfg.family == "encdec":
         raise ValueError(
             f"{what}: family 'encdec' runs cross-attention into the encoder; "
@@ -652,14 +662,15 @@ def trunk(
     tokens: (B, S). ``prefix_embeds`` (B, P, d) are precomputed modality
     embeddings (the vlm's patches), concatenated ahead of the token
     embeddings in the model dtype; positions run over P + S. Returns
-    (hidden states over the token positions (B, S, d), aux loss: 0 for the
-    dense, vlm and SSM families; the MoE and hybrid families' forward is
-    not ported and raises; enc-dec raises, naming ``encdec.trunk``).
-    ``remat`` "full" recomputes each layer in the backward
-    (``torch.utils.checkpoint``, non-reentrant), "dots" recomputes all but
-    the 2-D matmul outputs, "none" keeps every activation. The vlm and SSM
-    families run it for inference (``prefill``, ``make_prefill_step``);
-    ``loss_fn`` refuses them."""
+    (hidden states over the token positions (B, S, d), aux loss: the MoE
+    layers' Switch losses summed, an f32 scalar, 0 for the other
+    families). The hybrid family applies the shared attention + FFN block
+    after every ``hybrid_attn_every`` Mamba2 layers (the reference's
+    ``_hybrid_stack``). ``remat`` "full" recomputes each layer in the
+    backward (``torch.utils.checkpoint``, non-reentrant), "dots" recomputes
+    all but the 2-D matmul outputs, "none" keeps every activation; as in
+    the reference, the hybrid's shared block is never recomputed. Enc-dec
+    raises, naming ``encdec.trunk``."""
     _refuse_encdec(cfg, "trunk")
     _require_ported(cfg, "trunk", FORWARD_FAMILIES)
     if remat not in REMAT_MODES:
@@ -670,16 +681,23 @@ def trunk(
         n_prefix = prefix_embeds.shape[1]
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    shared = params.shared_block() if cfg.family == "hybrid" else None
     for i in range(cfg.n_layers):
         if remat == "none":
-            x = _layer(params, i, cfg, x, positions)
+            x, a = _layer(params, i, cfg, x, positions)
         else:
-            x = checkpoint(
+            x, a = checkpoint(
                 _layer, params, i, cfg, x, positions, use_reentrant=False,
                 **_remat_kwargs(remat),
             )
+        aux = aux + a
+        if shared is not None and (i + 1) % cfg.hybrid_attn_every == 0:
+            x, _ = _attn_block(shared, cfg, x, positions, causal=True)
+            x, a = _ffn_block(shared, cfg, x)
+            aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x[:, n_prefix:], torch.zeros((), dtype=torch.float32, device=x.device)
+    return x[:, n_prefix:], aux
 
 
 def forward(
@@ -704,21 +722,24 @@ def loss_fn(
     tokens: torch.Tensor,
     labels: torch.Tensor,
     *,
+    prefix_embeds: torch.Tensor | None = None,
     remat: str = "none",
     aux_weight: float = 0.01,
     ce_chunk: int = 0,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Training loss ``ce + aux_weight * aux``, returned with (ce, aux).
-    ``ce_chunk > 0`` switches to the fused chunked unembed + CE, which
-    never holds the (B, S, V) logits. Only the families the port trains
-    (``TRAIN_FAMILIES``) are taken."""
+    ``prefix_embeds`` as in ``trunk`` (the vlm's patches; the loss is over
+    the token positions). ``ce_chunk > 0`` switches to the fused chunked
+    unembed + CE, which never holds the (B, S, V) logits. Every family but
+    enc-dec, whose loss is ``encdec.loss_fn``."""
+    _refuse_encdec(cfg, "loss_fn")
     _require_ported(cfg, "loss_fn", TRAIN_FAMILIES)
     if ce_chunk:
-        x, aux = trunk(params, cfg, tokens, remat=remat)
+        x, aux = trunk(params, cfg, tokens, prefix_embeds=prefix_embeds, remat=remat)
         table = params["embed"] if cfg.tie_embeddings else params["unembed"]
         ce = chunked_softmax_xent(x, table, labels, cfg.vocab, chunk=ce_chunk)
     else:
-        lg, aux = forward(params, cfg, tokens, remat=remat)
+        lg, aux = forward(params, cfg, tokens, prefix_embeds=prefix_embeds, remat=remat)
         ce = cross_entropy(lg, labels, cfg.vocab)
     return ce + aux_weight * aux, (ce, aux)
 
@@ -832,7 +853,7 @@ def decode_step_paged(
         elif stream_mask is not None and stream_mask[i]:
             x = _ffn_block_streamed(lp, cfg, x, stream_depth)
         else:
-            x = _ffn_block(lp, cfg, x)
+            x, _ = _ffn_block(lp, cfg, x)
     return _with_tally(cfg, (_unembed(params, cfg, x), pool_k, pool_v), tallies)
 
 
@@ -1023,7 +1044,7 @@ def prefill_with_cache_hybrid(
             lane[key].append(t)
         if _shared_after(cfg, i) is not None:
             x, (k, v) = _attn_block(shared, cfg, x, positions, causal=True)
-            x = _ffn_block(shared, cfg, x)
+            x, _ = _ffn_block(shared, cfg, x)
             ks.append(k)
             vs.append(v)
     idx = torch.as_tensor(last_idx, device=x.device).reshape(1).long()
@@ -1075,7 +1096,7 @@ def decode_step_paged_hybrid(
         pv[write_rows] = v[:, 0].to(pv.dtype)
         o = attn.decode_attention(q, pk[row_table], pv[row_table], (lengths + 1)[:, None])
         x = x + dense(o.reshape(b, 1, -1), shared["wo"])
-        x = _ffn_block(shared, cfg, x)
+        x, _ = _ffn_block(shared, cfg, x)
     return _unembed(params, cfg, x), pool_k, pool_v, lane_state
 
 
@@ -1137,7 +1158,7 @@ def prefill_suffix_paged_hybrid(
             q, pk[row_table], pv[row_table], causal=True, q_offset=q_offset
         )
         x = x + dense(o.reshape(b, c, -1), shared["wo"])
-        x = _ffn_block(shared, cfg, x)
+        x, _ = _ffn_block(shared, cfg, x)
     idx = torch.as_tensor(last_idx, device=x.device).reshape(1).long()
     return _unembed(params, cfg, x.index_select(1, idx)), pool_k, pool_v, lane_state
 
@@ -1216,26 +1237,21 @@ def decode_step(
     does that and after each super-block applies the shared attention +
     FFN block over its cache. The returned cache is the same dict and the
     same tensors, updated in place (``len`` too), so a captured step binds
-    them. The vlm family decodes text tokens as the dense family does. The
-    MoE family raises: the reference's fixed decode runs the capacity
-    dispatch (``moe.moe_ffn``), which the port has not ported; the enc-dec
-    family raises, naming ``encdec.decode_step``."""
+    them. The vlm family decodes text tokens as the dense family does; the
+    MoE family too, its FFN the capacity dispatch (``moe.moe_ffn``) over
+    groups of one token, as the reference's fixed decode runs it: a group
+    of one fits every expert's capacity, so each token keeps its whole
+    top-k mix. The enc-dec family raises, naming ``encdec.decode_step``."""
     _refuse_encdec(cfg, "decode_step")
-    if cfg.family == "moe":
-        raise ValueError(
-            "decode_step: the fixed-batch engine's MoE decode runs the capacity "
-            "dispatch (moe.moe_ffn), which is not ported; serve MoE through the "
-            "pool engine"
-        )
     _require_ported(cfg, "decode_step")
     x = embed(token, params["embed"], torch_dtype(cfg))
     pos = cache["len"].long()
-    if cfg.family in ("dense", "vlm"):
+    if cfg.family in ("dense", "vlm", "moe"):
         for i in range(cfg.n_layers):
             lp = params.layer(i)
             x = _decode_attn_block(lp, cfg, x, cache["k"][i], cache["v"][i], pos,
                                    window=cfg.sliding_window)
-            x = _ffn_block(lp, cfg, x)
+            x, _ = _ffn_block(lp, cfg, x)
     else:
         hybrid = cfg.family == "hybrid"
         shared = params.shared_block() if hybrid else None
@@ -1246,7 +1262,7 @@ def decode_step(
             j = _shared_after(cfg, i) if hybrid else None
             if j is not None:
                 x = _decode_attn_block(shared, cfg, x, cache["k"][j], cache["v"][j], pos)
-                x = _ffn_block(shared, cfg, x)
+                x, _ = _ffn_block(shared, cfg, x)
     cache["len"].add_(1)
     return _unembed(params, cfg, x), cache
 

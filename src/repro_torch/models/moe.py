@@ -1,12 +1,27 @@
-"""Mixture-of-Experts FFN: the dropless per-token dispatch that serving runs.
+"""Mixture-of-Experts FFN: the capacity dispatch that training (and the
+fixed-batch engine's decode step) runs, and the dropless per-token
+dispatch that the pool engine serves with.
 
-Port of ``repro.models.moe``'s serving half (``_token_gates``,
-``moe_ffn_dropless``). Every token keeps its full top-k mix with no
+Port of ``repro.models.moe`` (``moe_capacity``, ``_token_gates``,
+``moe_ffn``, ``moe_ffn_dropless``); the reference's expert-parallel
+sharding hooks are mesh code and are not ported.
+
+``moe_ffn`` is GShard's grouped dispatch, one group per batch row: each
+expert takes the ``moe_capacity`` tokens of its row with the largest gate
+(a stable descending sort of the (B, E, S) gate, so that equal gates go to
+the lower position first, as ``lax.top_k`` orders them; tokens beyond
+capacity drop), the chosen rows are gathered, the expert FFN runs as batched einsums in the
+model dtype, and the outputs, scaled by their gates, are summed back into
+their rows. The sum is ``index_put`` with ``accumulate=True`` (and the
+gather's gradient is the same op), which CUDA runs as a sort, then a sum
+of each index's run in a fixed order, so a call gives the same bits every
+time (``index_add_`` on CUDA floats uses atomics and does not). It also
+returns the Switch load-balance loss, in f32.
+
+The dropless dispatch: every token keeps its full top-k mix with no
 capacity competition, so a token's output is a function of its own hidden
 state and the expert weights only: chunked prefill, a bare-suffix prefill
-after a prefix-cache hit and padded batching are exact. The training
-dispatch (``moe_capacity``, the capacity-einsum ``moe_ffn`` and its aux
-loss) is not ported.
+after a prefix-cache hit and padded batching are exact.
 
 Experts are visited in expert order, each over all B*S rows, and
 accumulated as ``acc + g_e[:, None] * y_e`` in f32, as the reference's
@@ -54,6 +69,17 @@ def _fixed_rows(fn, x: torch.Tensor, fixed: bool) -> torch.Tensor:
     if pad:
         x = torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
     return torch.cat([fn(t) for t in x.split(EXPERT_ROWS)])[:m]
+
+
+def moe_capacity(cfg: ModelConfig, group_tokens: int) -> int:
+    """Per-group expert capacity (groups are batch rows): ``S * k * cf /
+    E`` truncated, at least 1, rounded up to a multiple of 8 only from 8
+    on, then clamped to the group size, as the reference computes it."""
+    cap = int(group_tokens * cfg.experts_per_token * cfg.capacity_factor / cfg.n_experts)
+    cap = max(1, cap)
+    if cap >= 8:
+        cap = (cap + 7) // 8 * 8
+    return min(group_tokens, cap)
 
 
 def _token_gates(
@@ -143,3 +169,40 @@ def moe_ffn_dropless(
             y = _resident(x2, w1[i], w3[i], w2[i], fixed_rows)
         acc = acc + g2[:, i, None] * y
     return acc.reshape(b, s, d).to(x.dtype), counts
+
+
+def moe_ffn(
+    x: torch.Tensor,
+    router: torch.Tensor,
+    w1: torch.Tensor,
+    w3: torch.Tensor,
+    w2: torch.Tensor,
+    cfg: ModelConfig,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The capacity dispatch (the reference's ``moe_ffn``). x: (B, S, d);
+    router: (d, E); w1/w3: (E, d, ff); w2: (E, ff, d).
+
+    Returns (output (B, S, d) in x's dtype, the Switch aux loss ``E *
+    sum_e f_e * p_e`` as an f32 scalar: f_e the share of routed slots that
+    go to expert e, p_e its mean router probability)."""
+    b, s, d = x.shape
+    e = cfg.n_experts
+    gate, probs, top_i = _token_gates(x, router, cfg)
+    # the reference's one-hot (B, S, k, E) summed over k: top-k picks distinct experts
+    picked = torch.zeros_like(probs).scatter_(-1, top_i, 1.0)
+    aux = e * torch.sum(picked.mean(dim=(0, 1)) * probs.mean(dim=(0, 1)))
+    cap = moe_capacity(cfg, s)
+    # each expert's C largest gates of its row, ties to the lower position
+    # (lax.top_k's order; torch.topk leaves ties unordered)
+    sel_g, sel_i = torch.sort(gate.transpose(1, 2), dim=-1, descending=True, stable=True)
+    sel_g, sel_i = sel_g[..., :cap], sel_i[..., :cap]  # (B, E, C)
+    rows = torch.arange(b, device=x.device)[:, None].expand(b, e * cap)
+    idx = sel_i.reshape(b, e * cap)
+    xe = x[rows, idx].reshape(b, e, cap, d)  # row-local gather, in x's dtype
+    h = F.silu(torch.einsum("becd,edf->becf", xe, w1.to(xe.dtype))) * torch.einsum(
+        "becd,edf->becf", xe, w3.to(xe.dtype))
+    ye = torch.einsum("becf,efd->becd", h, w2.to(h.dtype))
+    gate_scale = ((sel_g > 0.0) * sel_g).to(ye.dtype)
+    ye = (ye * gate_scale[..., None]).reshape(b, e * cap, d)
+    y = torch.zeros_like(x).index_put((rows, idx), ye, accumulate=True)
+    return y, aux.to(torch.float32)

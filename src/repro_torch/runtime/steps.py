@@ -2,10 +2,10 @@
 serve steps, the pool steps of the continuous-batching scheduler, and
 ``CapturedStep``, which compiles a serve step into a CUDA graph.
 
-Port of ``repro.runtime.steps`` (the train step: dense only; the
-fixed-batch serve step: dense, vlm, SSM, hybrid and enc-dec; the prefill
-step: dense, vlm with its patch embeddings, SSM and enc-dec with its audio
-frames; the pool steps: dense, vlm, MoE and hybrid). A step is the model
+Port of ``repro.runtime.steps`` (the loss and the train step: every
+family, the vlm's with its patch embeddings and the enc-dec's with its
+audio frames; the fixed-batch serve step: every family; the prefill step:
+every family; the pool steps: dense, vlm, MoE and hybrid). A step is the model
 function closed over the config; the MoE family's pool steps return the
 (L, E) expert-load tally as one more output, which a ``CapturedStep``
 binds like the others; the hybrid's decode step takes and returns the
@@ -34,7 +34,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import lm
-from repro_torch.models.config import TRAIN_FAMILIES, ModelConfig
+from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import logits as unembed_logits
 from repro_torch.optim.adamw import AdamW, param_tree
 from repro_torch.runtime.residency.executor import BUDGET_REFUSAL, supports_budgeted_decode
@@ -49,20 +49,34 @@ def _split_batch(cfg: ModelConfig, batch: dict):
     return batch["tokens"], batch["labels"], kwargs
 
 
-def make_loss_fn(cfg: ModelConfig, *, remat: str = "full", ce_chunk: int = 0) -> Callable:
-    """(params, batch {tokens, labels}) -> scalar loss. The families the
-    port trains only (``TRAIN_FAMILIES``): the others raise here, as
-    ``lm.loss_fn`` does."""
-    if cfg.family not in TRAIN_FAMILIES:
-        raise ValueError(
-            f"make_loss_fn: family {cfg.family!r} is not ported to training (ported: "
-            f"{', '.join(TRAIN_FAMILIES)}): its loss and backward are not ported yet"
-        )
+def _loss_and_aux(cfg: ModelConfig, remat: str, ce_chunk: int) -> Callable:
+    """(params, batch) -> (loss, aux): the reference's ``make_loss_fn``
+    body, keeping the aux loss (the MoE's Switch loss; 0 elsewhere). The
+    enc-dec family takes the batch's ``frames`` and, as in the reference,
+    neither ``remat`` nor ``ce_chunk``."""
 
     def loss(params, batch):
-        tokens, labels, _ = _split_batch(cfg, batch)
-        value, _ = lm.loss_fn(params, cfg, tokens, labels, remat=remat, ce_chunk=ce_chunk)
-        return value
+        if cfg.family == "encdec":
+            value, (aux,) = encdec_lib.loss_fn(
+                params, cfg, batch["tokens"], batch["labels"], batch["frames"])
+            return value, aux
+        tokens, labels, kw = _split_batch(cfg, batch)
+        value, (_, aux) = lm.loss_fn(
+            params, cfg, tokens, labels, remat=remat, ce_chunk=ce_chunk, **kw)
+        return value, aux
+
+    return loss
+
+
+def make_loss_fn(cfg: ModelConfig, *, remat: str = "full", ce_chunk: int = 0) -> Callable:
+    """(params, batch {tokens, labels[, prefix_embeds | frames]}) ->
+    scalar loss, for every family: ``lm.loss_fn`` (the vlm's with the
+    batch's ``prefix_embeds``), or ``encdec.loss_fn`` over the batch's
+    ``frames``."""
+    loss_and_aux = _loss_and_aux(cfg, remat, ce_chunk)
+
+    def loss(params, batch):
+        return loss_and_aux(params, batch)[0]
 
     return loss
 
@@ -95,18 +109,23 @@ def _grads(loss: torch.Tensor, tree):
 def make_train_step(
     cfg: ModelConfig, opt: AdamW | None = None, *, remat: str = "full", ce_chunk: int = 0
 ) -> Callable:
-    """(params, opt_state, batch) -> (params, opt_state, {"loss": ...}).
+    """(params, opt_state, batch) -> (params, opt_state, {"loss": ...}),
+    for every family (the batch as ``make_loss_fn`` takes it); the MoE
+    family's metrics add "aux", the step's Switch loss.
 
     ``params`` must be trainable (``init_params(..., trainable=True)``);
     the step updates it and the optimizer state in place."""
     opt = opt or AdamW()
-    loss_fn = make_loss_fn(cfg, remat=remat, ce_chunk=ce_chunk)
+    loss_and_aux = _loss_and_aux(cfg, remat, ce_chunk)
 
     def step(params, opt_state, batch):
-        loss = loss_fn(params, batch)
+        loss, aux = loss_and_aux(params, batch)
         grads = _grads(loss, param_tree(params))
         params, opt_state = opt.update(grads, opt_state, params)
-        return params, opt_state, {"loss": loss.detach()}
+        metrics = {"loss": loss.detach()}
+        if cfg.family == "moe":
+            metrics["aux"] = aux.detach()
+        return params, opt_state, metrics
 
     return step
 

@@ -284,9 +284,11 @@ def test_init_decode_state_refills_a_cache_in_place():
 
 
 def test_the_dense_entry_points_refuse_encdec():
-    """``lm.trunk`` and ``lm.decode_step`` never run the dense layer on a
-    tree with cross-attention: they name ``encdec``'s; training, the pool
-    and budgeted decode refuse the family."""
+    """``lm.trunk``, ``lm.decode_step`` and ``lm.loss_fn`` never run the
+    dense layer on a tree with cross-attention: they name ``encdec``'s;
+    the training builders take the family through ``encdec.loss_fn``
+    (their parity: ``tests/test_torch_train_families.py``); the pool and
+    budgeted decode refuse it."""
     _, tc, _, _, tp = _weights(0)
     toks = torch.zeros((1, 4), dtype=torch.long)
     with pytest.raises(ValueError, match="use encdec.trunk"):
@@ -296,12 +298,9 @@ def test_the_dense_entry_points_refuse_encdec():
     cache = tlm.init_cache(tc, 1, 8, device="cpu")
     with pytest.raises(ValueError, match="use encdec.decode_step"):
         tlm.decode_step(tp, tc, toks[:, :1], cache)
-    with pytest.raises(ValueError, match="loss_fn: family 'encdec' is not ported"):
+    with pytest.raises(ValueError, match="use encdec.loss_fn"):
         tlm.loss_fn(tp, tc, toks, toks)
-    with pytest.raises(ValueError, match="family 'encdec' is not ported to training"):
-        tsteps.make_loss_fn(tc)
-    with pytest.raises(ValueError, match="family 'encdec' is not ported to training"):
-        tsteps.make_train_step(tc)
+    assert callable(tsteps.make_loss_fn(tc)) and callable(tsteps.make_train_step(tc))
     with pytest.raises(ValueError, match="encdec"):
         TPool(tc, n_blocks=4, block_tokens=4, device="cpu")
     assert not supports_budgeted_decode(tc)

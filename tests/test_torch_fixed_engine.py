@@ -4,11 +4,12 @@ against the reference (``repro``), on the reference's own weights
 ``cache_insert``, ``decode_step`` over the static per-slot cache (dense at
 w_bits 0 and 2, a windowed ring that wraps, SSM, hybrid), decode against
 the full-sequence forward, ``make_prefill_step``, ``run_fixed_engine``'s
-token streams and ``serve.main``'s rules for the fixed engine. Float
-outputs are held at 1e-4 relative, 1e-5 absolute; token streams, shapes,
-dtypes and exit codes exactly. The pool side (``KVPool``, ``Scheduler``,
-the residency plan) and training still refuse the SSM family, and the
-seeded ``init_params`` of zamba2 and smollm keep their bytes."""
+token streams and ``serve.main``'s rules for the fixed engine; the MoE
+family (olmoe) on it, through the capacity dispatch. Float outputs are
+held at 1e-4 relative, 1e-5 absolute; token streams, shapes, dtypes and
+exit codes exactly. The pool side (``KVPool``, ``Scheduler``, the
+residency plan) still refuses the SSM family, and the seeded
+``init_params`` of zamba2 and smollm keep their bytes."""
 
 import dataclasses
 import functools
@@ -59,6 +60,7 @@ CASES = {
     "mamba2": (ARCH, 0, None),
     "zamba2": ("zamba2_2p7b", 0, None),
     "zamba2_w2": ("zamba2_2p7b", 2, None),
+    "olmoe": ("olmoe_1b_7b", 0, None),
 }
 
 
@@ -257,11 +259,25 @@ def test_decode_step_matches_reference(case):
 
 
 def test_decode_step_refuses_moe():
-    tc = tconf.get_smoke_config("olmoe_1b_7b")
-    params = tlm.init_params(tc, device="cpu")
+    """The refusal is lifted: the MoE decode step runs the capacity
+    dispatch (``moe.moe_ffn``) over groups of one token, as the reference's
+    does, and a group of one fits every expert's capacity, so each token
+    keeps its whole top-k mix: the step's FFN is the dropless dispatch's on
+    the same hidden state, and the step equals the reference's
+    (``test_decode_step_matches_reference[olmoe]``)."""
+    from repro_torch.models import moe as tmoe
+
+    _, tc, _, _, tp = _weights("olmoe")
+    lp = tp.layer(0)
+    h = torch.from_numpy(np.random.default_rng(2).normal(size=(B, 1, tc.d_model))
+                         .astype(np.float32))
+    got, aux = tmoe.moe_ffn(h, lp["router"], lp["w1"], lp["w3"], lp["w2"], tc)
+    want, _ = tmoe.moe_ffn_dropless(h, lp["router"], lp["w1"], lp["w3"], lp["w2"], tc)
+    assert tmoe.moe_capacity(tc, 1) == 1 and aux.item() > 0
+    _close(got.numpy(), want.numpy())
     cache = tlm.init_cache(tc, 1, 8, device="cpu")
-    with pytest.raises(ValueError, match="capacity dispatch"):
-        tlm.decode_step(params, tc, torch.zeros((1, 1), dtype=torch.long), cache)
+    lg, _ = tlm.decode_step(tp, tc, torch.zeros((1, 1), dtype=torch.long), cache)
+    assert lg.shape == (1, 1, tc.padded_vocab) and bool(torch.isfinite(lg).all())
 
 
 @pytest.mark.parametrize("arch", ["llama3p2_1b", "smollm_360m", ARCH])
@@ -300,20 +316,19 @@ def test_prefill_step_matches_reference(case):
 
 
 def test_step_builders_refuse_the_unported_modalities():
-    """The prefill and serve builders take the vlm and enc-dec families
-    (their branches: ``prefix_embeds``, ``encdec``); ``_split_batch``
-    hands the vlm's patch embeddings to the model, as the reference's
-    does; training refuses both families at build time."""
+    """Nothing is left to refuse: the prefill, serve and training builders
+    take the vlm and enc-dec families (their branches: ``prefix_embeds``,
+    ``encdec``); ``_split_batch`` hands the vlm's patch embeddings to the
+    model, as the reference's does (training's parity:
+    ``tests/test_torch_train_families.py``)."""
     for arch in ("internvl2_76b", "whisper_tiny"):
         tc = tconf.get_smoke_config(arch)
-        assert callable(tsteps.make_prefill_step(tc)) and callable(tsteps.make_serve_step(tc))
+        for build in (tsteps.make_prefill_step, tsteps.make_serve_step, tsteps.make_loss_fn,
+                      tsteps.make_train_step):
+            assert callable(build(tc))
         batch = {"tokens": 1, "labels": 2, "prefix_embeds": 3, "frames": 4}
         want = jsteps._split_batch(jconf.get_smoke_config(arch), batch)
         assert tsteps._split_batch(tc, batch) == want
-        for build in (tsteps.make_loss_fn, tsteps.make_train_step):
-            with pytest.raises(ValueError,
-                               match=f"family '{tc.family}' is not ported to training"):
-                build(tc)
     assert tsteps._split_batch(tconf.get_smoke_config("smollm_360m"), batch) == (1, 2, {})
 
 
@@ -323,7 +338,7 @@ FIXED = ["--requests", "5", "--batch", "2", "--prompt-len", "6", "--gen-len", "5
          "--max-len", "16", "--seed", "3"]
 
 
-@pytest.mark.parametrize("case", ["smollm", "smollm_w2", "mamba2", "zamba2_w2"])
+@pytest.mark.parametrize("case", ["smollm", "smollm_w2", "mamba2", "zamba2_w2", "olmoe"])
 def test_run_fixed_engine_streams_match_reference(case):
     """5 requests on 2 lanes (5 % 2 != 0: the last wave runs one lane idle)
     through both packages' fixed loops on the same weights: identical token
@@ -397,9 +412,20 @@ def test_serve_cli_fixed_engine_refusals_are_the_reference_s(argv, capsys):
 
 
 def test_serve_cli_refuses_moe_on_the_fixed_engine(capsys):
+    """The refusal is lifted: ``serve --engine fixed`` on olmoe serves
+    through the capacity dispatch, and its streams are
+    ``run_fixed_engine``'s on the seed's weights (which hold the
+    reference's, ``test_run_fixed_engine_streams_match_reference``); no
+    kernel is launched on the CPU."""
     assert serve.main(["--arch", "olmoe_1b_7b", "--smoke", "--device", "cpu", "--engine",
-                       "fixed"]) == 2
-    assert "capacity dispatch (moe.moe_ffn), which is not ported" in capsys.readouterr().out
+                       "fixed", *FIXED]) == 0
+    m = _metrics(capsys.readouterr().out)
+    assert (m["engine"], m["completed"], m["generated_tokens"]) == ("fixed", 5, 25)
+    assert m["kernel_launches"] == dict.fromkeys(m["kernel_launches"], 0)
+    tc = tconf.get_smoke_config("olmoe_1b_7b")
+    want = serve.run_fixed_engine(tc, tlm.init_params(tc, 3, device="cpu"),
+                                  serve.build_parser().parse_args(FIXED), "cpu")
+    assert {int(k): v for k, v in m["outputs"].items()} == want["outputs"]
 
 
 # ---------------- what still refuses the SSM family ----------------
@@ -423,9 +449,15 @@ def test_pool_side_refuses_ssm():
 
 
 def test_training_refuses_ssm():
-    _, tc, _, _, tp = _weights("mamba2")
-    toks = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(ValueError, match="loss_fn: family 'ssm' is not ported"):
-        tlm.loss_fn(tp, tc, toks, toks)
-    with pytest.raises(ValueError, match="loss_fn: family 'ssm' is not ported"):
-        tsteps.make_loss_fn(tc)(tp, {"tokens": toks, "labels": toks})
+    """The refusal is lifted: ``lm.loss_fn`` and ``make_loss_fn`` take the
+    SSM family and agree with the reference's loss (its gradients:
+    ``tests/test_torch_train_families.py``)."""
+    jc, tc, jp, _, tp = _weights("mamba2")
+    toks = np.random.default_rng(4).integers(0, jc.vocab, (2, 12))
+    labels = np.roll(toks, -1, axis=1)
+    want, _ = jlm.loss_fn(jp, jc, jnp.asarray(toks, jnp.int32), jnp.asarray(labels, jnp.int32))
+    got, (ce, aux) = tlm.loss_fn(tp, tc, torch.from_numpy(toks), torch.from_numpy(labels))
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
+    assert aux.item() == 0.0 and got.item() == ce.item()
+    batch = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels)}
+    assert tsteps.make_loss_fn(tc)(tp, batch).item() == got.item()

@@ -425,26 +425,28 @@ def test_tensor_q_offset_is_forward_only():
 
 
 def test_unported_family_raises():
-    """What stays unported refuses: the MoE family's training forward,
-    ``lm.trunk`` / ``lm.decode_step`` on an enc-dec tree (naming
-    ``encdec``'s), and ``loss_fn`` on the vlm and enc-dec families."""
-    # the MoE family is served, not trained: its training forward raises
+    """Only the enc-dec family is refused by the full-sequence entry
+    points: ``lm.trunk`` / ``lm.decode_step`` / ``lm.loss_fn`` on an
+    enc-dec tree name ``encdec``'s. The MoE family's forward runs (the
+    capacity dispatch, its aux loss > 0), and so do the vlm's and the MoE's
+    losses (their parity: ``tests/test_torch_train_families.py``)."""
     moe = t_smoke("olmoe_1b_7b")
     params = tlm.init_params(moe, device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(ValueError, match="trunk: family 'moe' is not ported"):
-        tlm.forward(params, moe, toks)
+    lg, aux = tlm.forward(params, moe, toks)
+    assert lg.shape == (1, 4, moe.padded_vocab) and aux.item() > 0
     enc = t_smoke("whisper_tiny")
     enc_params = tlm.init_params(enc, device="cpu")
     with pytest.raises(ValueError, match="trunk: family 'encdec' .* use encdec.trunk"):
         tlm.trunk(enc_params, enc, toks)
     with pytest.raises(ValueError, match="use encdec.decode_step"):
         tlm.decode_step(enc_params, enc, toks[:, :1], tlm.init_cache(enc, 1, 8, device="cpu"))
-    for arch in ("internvl2_76b", "whisper_tiny"):
-        cfg = t_smoke(arch)
-        p = enc_params if cfg.family == "encdec" else tlm.init_params(cfg, device="cpu")
-        with pytest.raises(ValueError, match=f"loss_fn: family '{cfg.family}' is not ported"):
-            tlm.loss_fn(p, cfg, toks, toks)
+    with pytest.raises(ValueError, match="loss_fn: family 'encdec' .* use encdec.loss_fn"):
+        tlm.loss_fn(enc_params, enc, toks, toks)
+    for cfg, p in ((t_smoke("internvl2_76b"), None), (moe, params)):
+        p = p if p is not None else tlm.init_params(cfg, device="cpu")
+        loss, _ = tlm.loss_fn(p, cfg, toks, toks)
+        assert bool(torch.isfinite(loss))
 
 
 def test_sample_logits_matches_reference():

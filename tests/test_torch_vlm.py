@@ -105,9 +105,9 @@ def test_config_and_registry_match_reference():
     assert (full.family, full.n_layers, full.d_model, full.n_heads, full.n_kv, full.hd,
             full.d_ff, full.vocab, full.n_patches) == (
         "vlm", 80, 8192, 64, 8, 128, 28672, 128256, 256)
-    # the pool engine and the attention-KV entry points take it; training not
+    # the pool engine, the attention-KV entry points and training take it
     assert "vlm" in POOL_FAMILIES and "vlm" in ATTN_SERVED_FAMILIES
-    assert "vlm" not in TRAIN_FAMILIES and texec.supports_budgeted_decode(full)
+    assert "vlm" in TRAIN_FAMILIES and texec.supports_budgeted_decode(full)
 
 
 @pytest.mark.parametrize("arch", jconf.ARCH_IDS)
