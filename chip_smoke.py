@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--only kernels|prefill|moe|hybrid|ssm|vlm|encdec|fleet|train_families]
+    python3 chip_smoke.py [--only kernels|prefill|moe|hybrid|ssm|vlm|encdec|fleet|
+                                  train_families|analysis]
                           [--src DIR] [--log FILE]
 
 Phases, one JSON line each; any failure exits nonzero with no result:
@@ -244,10 +245,36 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               engine, the decode step's host ms; modelled (the virtual
               clock): the SLO report, the split, and the cost model's
               decode step beside the measured one.
+analysis   -- (after phase 7, on phase 5's weights; ``--only analysis`` runs it alone
+              after the build, with no measured serve cell beside the
+              model) where a model fits and what bounds a step, each
+              number beside the card's name and power limit: (a)
+              ``launch.port.lm_port_rows`` over ``GPU_TIERS`` (data-sheet
+              arithmetic, no device) for smollm-360m, phi3-medium-14b and
+              internvl2-76b at --quant 2 and 0 (each rung's fits_hbm,
+              modelled tokens/s, packed against dense), and the h100_sxm
+              rung's modelled tokens/s for smollm-360m beside phase 5's
+              measured compiled tokens/s at the same traffic (8 lanes, 512
+              + 64), recorded, not gated; (b) the op walk
+              (``perf.op_analysis``) of three eager steps of smollm-360m at
+              full size: the pool's decode step (8 lanes, depth 520) and a
+              256-token prefill chunk at 2 bits, and a train step (8 x 512,
+              --remat none) on dense weights (a packed carrier has no
+              gradient); each step's card ms (CUDA-event median of 20:
+              the captured replay for the decode step and the chunk, the
+              eager step for training), its dot flops, bytes, model flops,
+              the useful-compute share model_flops / (card_s * 989 TFLOP/s)
+              and the bytes share traffic_bytes / (card_s * 3.35 TB/s), its
+              roofline (``perf.roofline``) and the walk's top 5 ops by
+              bytes. Gates: every share in (0, 1.05] (above, the count is
+              wrong); the walk's kernel launches equal the launch counters'
+              over the same step; the train walk's dot flops at least 0.9
+              x its model flops (the backward is counted); (c)
+              ``dist.sharding``: every full-size arch's ``param_specs`` on
+              16x16 and 2x16x16 mesh views validated leaf by leaf, and
+              ``sharded_byte_fraction`` printed.
 4-5 (the other dense archs: llama3.2-1b, h2o-danube-1.8b, phi3-medium-14b;
-              run last, after phase 7: run after phase 5, they left phase
-              6's profiler windows short of an mvau record in two runs of
-              two), each in turn, with
+              run last, after phase 7), each in turn, with
               2-bit FFN carriers unless named: the
               512-token prefill at full width and depth 2 (2 of 16 / 24 / 40
               layers, so the CPU's float32 side stays in seconds) in bf16 on
@@ -256,7 +283,7 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               256-token chunks, then 16 greedy decode steps), every chunk's
               and step's logits against the CPU's, and the CPU without the
               window beside it; ``init_params`` at full width and depth
-              (phi3: 32 of its 40 layers, SERVED_LAYERS, to fit the run's
+              (phi3: 16 of its 40 layers, SERVED_LAYERS, to fit the run's
               time limit) (seconds, host memory, device MiB); its decode step and
               prefill chunk captured, each replay bitwise its eager step;
               a compiled decode step and prefill chunk profiled (card ms);
@@ -267,8 +294,9 @@ Phases, one JSON line each; any failure exits nonzero with no result:
               on the GEMV, never an f32 route or stream_matmul), and at
               --quant 0 compiled through ``serve.main`` (its own weights).
 moe        -- (after 4-5; ``--only moe`` runs it alone after the build)
-              olmoe-1b-7b at full width and 12 of its 16 layers (MOE_LAYERS;
-              16 until the train_families phase needed the time; 64
+              olmoe-1b-7b at full width and 4 of its 16 layers (MOE_LAYERS;
+              16 until the train_families phase needed the time, then 12,
+              8 until a slow host's run overran the limit; 64
               experts top-8, the dropless dispatch, every expert over every
               row in f32):
               (a) a 512-token prefill at 2 of its 16 layers, layer by
@@ -280,7 +308,7 @@ moe        -- (after 4-5; ``--only moe`` runs it alone after the build)
               tally within 2k per changed set; the card's FFN on the
               CPU's own f32 hidden state within MOE_FFN_F32_REL_TOL (TF32
               and bf16 expert products, printed beside, must read above
-              it); the end-to-end logits printed, not gated; (b) ``init_params`` at 12 layers
+              it); the end-to-end logits printed, not gated; (b) ``init_params`` at 4 layers
               (seconds, host memory, device MiB); (c) the decode step, a
               chunk (at starts 256 and 37), a 208-token bucket and a
               verify step of 4 on 8 lanes, each captured and its replay
@@ -408,7 +436,10 @@ ssm        -- (after the hybrid phase; ``--only ssm`` runs it alone after the
               end (argmax agreement); images/s at batch 256 and 1, the
               card's time per layer split into mvau / im2col / the rest
               (torch.profiler) with ``mvau``'s share of the card, and
-              exactly 7 ``mvau`` launches a forward.
+              exactly 7 ``mvau`` launches a forward. Run right after phase
+              3, before phase 4: run after phases 4-5 (or 4-5 and the
+              other dense archs), its profiler windows lost kernel
+              records, an ``mvau``'s among them, in six full runs.
 7. train   -- smollm-360m: first a gradient check at full width and depth
               4 (batch 2 x 256), ``loss_fn`` and its backward in bf16 on the
               card against float32 on the CPU, same weights (loss within
@@ -492,7 +523,7 @@ train_families -- (last; ``--only train_families`` runs it alone after the
               each at lr 3e-4: whisper-tiny at full size (8 x 256; the not-causal
               backward on the main path, 8 of its 12 attention layers a
               step), mamba2-1.3b at full size (4 x 512, --remat full) and
-              olmoe-1b-7b at 8 of its 16 layers (4 x 512; its aux loss a
+              olmoe-1b-7b at 4 of its 16 layers (4 x 512; its aux loss a
               step): the loss finite and falling, launches exact by route.
 
 The MoE, hybrid, SSM, vlm and enc-dec phases hand their dense weights on to
@@ -606,13 +637,14 @@ GRAD_MIN_COS = 0.99  # the same, per gradient leaf
 REMAT_MIN_COS = 0.9999  # --remat full/dots vs none on the card: atomics order only
 # the other dense archs, each served at full width and depth (phases 4-5)
 NEW_ARCHS = ("llama3p2_1b", "h2o_danube_1p8b", "phi3_medium_14b")
-# ... but phi3, served at 32 of its 40 layers since the hybrid phase came:
-# with all 40 the whole run ended 63.3 s short of its limit on the H100
-# (its draw and packing, ~210 s at 40 layers, are the run's longest host work);
+# ... but phi3, served at 16 of its 40 layers (32 from the hybrid phase on,
+# until a slow host's whole run overran its limit; with all 40 the run had
+# ended 63.3 s short of it on the H100: its draw and packing, ~210 s at 40
+# layers, are the run's longest host work);
 # and internvl2-76b (the vlm phase) at 4 of its 80 layers at full width: its
 # whole backbone is ~141 GB in bf16 and ~42 GB with 2-bit FFN carriers, which
 # one 80 GB card holds, but its draw alone would take ~500 s on the host
-SERVED_LAYERS = {"phi3_medium_14b": 32, "internvl2_76b": 4}
+SERVED_LAYERS = {"phi3_medium_14b": 16, "internvl2_76b": 4}
 WINDOW_STEPS = 16  # decode steps of h2o-danube's run past its window
 # layers of that run, 1 (2 before the train_families phase came): its
 # float32 CPU side over the 4352-token prompt, windowed and not, took 52.3
@@ -621,14 +653,15 @@ WINDOW_STEPS = 16  # decode steps of h2o-danube's run past its window
 # the CPU's logits 1.03) had a 20x margin
 WINDOW_LAYERS = 1
 # the MoE phase: olmoe at full width and MOE_LAYERS of its 16 layers (all
-# 16 until the train_families phase came: the run's time limit), moonshot
+# 16 until the train_families phase came, then 12, then 8: the run's time
+# limit, which slow hosts' runs at 12 and at 8 overran), moonshot
 # cut to MOON_LAYERS of its 48
 # layers (its full draw would take ~200 s on the host; 8 until the hybrid
 # phase came, 4 until the train_families phase: each cut makes room within
 # the run's time limit); each prefill check at MOE_CHECK_LAYERS layers, so
 # the CPU's float32 experts stay in seconds
 MOE_ARCH, MOE_LAYERS, MOON_ARCH, MOON_LAYERS, MOE_CHECK_LAYERS = (
-    "olmoe_1b_7b", 12, "moonshot_v1_16b_a3b", 2, 2)
+    "olmoe_1b_7b", 4, "moonshot_v1_16b_a3b", 2, 2)
 MOE_SPEC_REQUESTS, MOE_SPEC_GEN = 8, 32  # (g): one wave of the cell's prompts
 # (i): the fixed-engine wave's prompt and generated tokens (its eager run at
 # the fixed cell's 128 + 64 took 11.3 s on the H100's host)
@@ -742,7 +775,7 @@ ENC_TOKENS, ENC_GEN = 32, 64
 # (8.98, 12.25, 8.25) and fell at 3e-4 (10.886, 10.890, 10.729, 10.628);
 # olmoe's swung at 3e-2 (12.7, 15.8, 23.0, 10.0))
 TF_GRAD_LAYERS = {"olmoe_1b_7b": 2, "mamba2_1p3b": 2, "internvl2_76b": 1}
-TF_MOE_LAYERS = 8
+TF_MOE_LAYERS = 4  # the MoE phase's weights, MOE_LAYERS deep
 TF_HYB_BATCH, TF_HYB_SEQ = 8, 512
 TF_SHORT = {"whisper_tiny": (8, 256, "none"), "mamba2_1p3b": (4, 512, "full"),
             "olmoe_1b_7b": (4, 512, "none")}
@@ -830,15 +863,16 @@ def main(argv: list[str] | None = None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     ap.add_argument("--only", choices=("kernels", "prefill", "moe", "hybrid", "ssm", "vlm",
-                                       "encdec", "fleet", "train_families"),
+                                       "encdec", "fleet", "train_families", "analysis"),
                     help="kernels: stop after phase 3 (build, and hold each kernel against "
                          "its plain version); prefill: build, then only phase 4's prefill "
                          "check and profile; moe: build, then only the MoE phase; hybrid: "
                          "build, then only the hybrid phase; ssm: build, then only the SSM "
                          "phase; vlm, encdec: build, then only that family's phase; fleet: "
                          "build, then only phase 5 (b)'s follow-up turn and phase 5 (d); "
-                         "train_families: build, then only that phase, on weights it draws. "
-                         "Each prints no result")
+                         "train_families: build, then only that phase, on weights it draws; "
+                         "analysis: build, then only the analysis phase (no measured serve "
+                         "cell beside the model). Each prints no result")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the source tree whose repro_torch to run (default: src beside this "
                          "script); another commit's, to compare the two in one call")
@@ -4033,6 +4067,158 @@ def main(argv: list[str] | None = None) -> int:
         phase("fleet_phase", seconds=time.monotonic() - t_phase, graphs_captured=len(captures),
               capture_s=sum(captures))
 
+    def analysis_phase(c, p, measured_tokens_per_s) -> None:
+        """The analysis phase (the module docstring says what it holds):
+        ``c`` is smollm-360m's full config at 2 bits, ``p`` phase 5's
+        weights, ``measured_tokens_per_s`` phase 5's compiled serve cell's
+        tokens/s by --quant (empty under ``--only analysis``)."""
+        from repro_torch.configs import ARCH_IDS
+        from repro_torch.data.pipeline import TokenPipeline
+        from repro_torch.dist import sharding as shd
+        from repro_torch.dist.legalize import validate_spec
+        from repro_torch.dist.mesh_axes import MeshView
+        from repro_torch.launch.port import lm_port_rows
+        from repro_torch.models.config import ShapeConfig
+        from repro_torch.optim.adamw import AdamW
+        from repro_torch.perf import op_analysis
+        from repro_torch.perf.roofline import HW, roofline
+        from repro_torch.runtime.steps import make_train_step
+
+        t_phase = time.monotonic()
+        # (a) the port ladder: data-sheet arithmetic over GPU_TIERS
+        traffic = dict(lanes=LANES, prompt_len=PROMPT, gen_len=64)
+        keep = ("device", "variant", "fits_hbm", "tokens_per_s", "bound", "delta_fps_pct",
+                "fcmp_vs_dense_speedup_pct")
+        ladder = {}
+        for arch in ("smollm_360m", "phi3_medium_14b", "internvl2_76b"):
+            for quant in (2, 0):
+                rows = lm_port_rows(arch, quant=quant, **traffic)
+                ladder[arch, quant] = rows
+                phase("port_ladder", card=smi, modelled=True, arch=arch, quant=quant, **traffic,
+                      rows=[{k: r[k] for k in keep if k in r} for r in rows])
+        for quant in (2, 0):
+            variant = "fcmp_packed" if quant else "dense"
+            modelled = next(r["tokens_per_s"] for r in ladder["smollm_360m", quant]
+                            if (r["device"], r["variant"]) == ("h100_sxm", variant))
+            measured = measured_tokens_per_s.get(quant)
+            phase("port_h100_vs_measured", card=smi, arch="smollm_360m", quant=quant, **traffic,
+                  modelled_tokens_per_s=modelled, measured_compiled_tokens_per_s=measured,
+                  modelled_over_measured=modelled / measured if measured else None)
+
+        # (b) the whole-step roofline: the op walk of each eager step, the
+        # card's ms of the step as it runs (the captured replay, or eager)
+        def card_ms(step, reps=20) -> float:
+            for _ in range(3):
+                step()
+            torch.cuda.synchronize()
+            spans = []
+            for _ in range(reps):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                step()
+                end.record()
+                spans.append((start, end))
+            torch.cuda.synchronize()
+            return statistics.median(a.elapsed_time(b) for a, b in spans)
+
+        def walk(label, eager, timed, shape, model_cfg, timed_as) -> None:
+            ops.reset_launch_counts()
+            cost = op_analysis.analyze(eager)
+            torch.cuda.synchronize()
+            counted = {k: n for k, n in ops.launch_counts().items() if n}
+            ms = card_ms(timed)
+            rep = roofline(label, cost, model_cfg, shape, n_devices=1)
+            card_s = ms / 1e3
+            shares = dict(useful_compute_share=rep.model_flops / (card_s * HW.peak_flops),
+                          bytes_share=cost.traffic_bytes / (card_s * HW.hbm_bw))
+            phase("step_roofline", card=smi, step=label, arch=model_cfg.name,
+                  w_bits=model_cfg.w_bits, timed=timed_as, card_ms=ms, **shares,
+                  dot_share=cost.dot_flops / (card_s * HW.peak_flops),
+                  dot_flops=cost.dot_flops, traffic_bytes=cost.traffic_bytes,
+                  model_flops=rep.model_flops, transcendentals=cost.transcendentals,
+                  t_compute_ms=rep.t_compute * 1e3, t_memory_ms=rep.t_memory * 1e3,
+                  bottleneck=rep.bottleneck, useful_flops_ratio=rep.useful_flops_ratio,
+                  roofline_fraction=rep.roofline_fraction,
+                  walk_kernel_launches=cost.kernel_launches, counted_launches=counted,
+                  top_ops_by_bytes=[dict(bytes=v, op=op, shapes=sh, calls=n) for v, op, sh, n
+                                    in op_analysis.top_contributors(cost, "traffic", 5)])
+            bad = {k: v for k, v in shares.items() if not 0.0 < v <= 1.05}
+            if bad:
+                fail(f"{label}: shares {bad} outside (0, 1.05]: the walk's count is wrong")
+            if cost.kernel_launches != counted:
+                fail(f"{label}: the walk saw kernel launches {cost.kernel_launches}, the "
+                     f"counters {counted}")
+            if shape.kind == "train" and cost.dot_flops < 0.9 * rep.model_flops:
+                fail(f"{label}: the walk's dot flops {cost.dot_flops:.4g} are below 0.9 x the "
+                     f"model's {rep.model_flops:.4g}: the backward was not counted")
+
+        rows = LANES * MAX_LEN + 16
+        pk = torch.zeros((c.n_layers, rows, c.n_kv, c.hd), dtype=torch.bfloat16, device=dev)
+        pv = torch.zeros_like(pk)
+        table = (16 + torch.arange(LANES * MAX_LEN, device=dev)).reshape(LANES, MAX_LEN)
+        tok = torch.from_numpy(np.random.default_rng(5).integers(0, c.vocab, (LANES, 1))).to(dev)
+        lens = torch.full((LANES,), PROMPT + 8, device=dev)
+        decode = CapturedStep(
+            lambda t_, tb, ln: lm.decode_step_paged(p, c, t_, pk, pv, tb, ln)[0],
+            device=dev, mempool=torch.cuda.graph_pool_handle())
+        host_in = (tok.cpu(), table.cpu(), lens.cpu())
+        decode(*host_in)
+        walk("decode step, 8 lanes", lambda: lm.decode_step_paged(p, c, tok, pk, pv, table, lens),
+             lambda: decode(*host_in), ShapeConfig("decode", 1, LANES, "decode"), c,
+             "captured replay")
+        del decode
+        chunk_tok = torch.from_numpy(
+            np.random.default_rng(6).integers(0, c.vocab, size=(1, CHUNK))).to(dev)
+        ctable = (16 + torch.arange(MAX_LEN, device=dev))[None]
+        chunk_in = (chunk_tok.cpu(), ctable.cpu(), ctable[:, CHUNK:2 * CHUNK].cpu(),
+                    torch.tensor([CHUNK]), torch.tensor([CHUNK - 1]))
+        chunk_dev = tuple(t.to(dev) for t in chunk_in)
+        chunk = CapturedStep(
+            lambda *xs: lm.prefill_chunk_paged(p, c, xs[0], pk, pv, *xs[1:])[0],
+            device=dev, mempool=torch.cuda.graph_pool_handle())
+        chunk(*chunk_in)
+        walk(f"prefill chunk, {CHUNK} tokens at {CHUNK}",
+             lambda: lm.prefill_chunk_paged(p, c, chunk_dev[0], pk, pv, *chunk_dev[1:]),
+             lambda: chunk(*chunk_in), ShapeConfig("prefill_chunk", CHUNK, 1, "prefill"), c,
+             "captured replay")
+        del chunk, pk, pv
+        dense = dataclasses.replace(c, w_bits=0)
+        tparams = lm.init_params(dense, 0, device=dev, trainable=True)
+        opt = AdamW()
+        state = [opt.init(tparams)]
+        step_fn = make_train_step(dense, opt, remat="none")
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in TokenPipeline(
+            vocab=dense.vocab, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=0).batch_at(0).items()}
+
+        def train_step():
+            _, state[0], _ = step_fn(tparams, state[0], batch)
+
+        train_step()
+        walk(f"train step, {TRAIN_BATCH} x {TRAIN_SEQ}, --remat none", train_step, train_step,
+             ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"), dense, "eager step")
+        del tparams, state, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) the sharding policy at full size over production mesh views
+        for mesh in (MeshView(("data", "model"), (16, 16)),
+                     MeshView(("pod", "data", "model"), (2, 16, 16))):
+            fractions = {}
+            for arch in ARCH_IDS:
+                acfg = get_config(arch)
+                abstract = dict(shd.leaves_with_paths(lm.abstract_params(acfg).tree()))
+                specs = list(shd.leaves_with_paths(shd.param_specs(acfg, mesh)))
+                for path, spec in specs:
+                    validate_spec(tuple(abstract[path].shape), spec, mesh)
+                if len(specs) != len(abstract):
+                    fail(f"sharding policy: {arch} has {len(specs)} specs for "
+                         f"{len(abstract)} leaves")
+                fractions[arch] = shd.sharded_byte_fraction(acfg, mesh)
+            phase("sharding_policy", mesh=dict(zip(mesh.axis_names, mesh.sizes)),
+                  validated=True, sharded_byte_fraction=fractions)
+        phase("analysis_phase", seconds=time.monotonic() - t_phase)
+
     if opts.only == "fleet":
         cq = dataclasses.replace(get_config("smollm_360m"), w_bits=2)
         pq = lm.init_params(cq, 0, device=dev)
@@ -4043,6 +4229,13 @@ def main(argv: list[str] | None = None) -> int:
         phase_seconds("5 (d) fleet")
         print("[chip_smoke] --only fleet: stopped after the follow-up turn and the fleet",
               file=sys.stderr)
+        return 0
+
+    if opts.only == "analysis":
+        cq = dataclasses.replace(get_config("smollm_360m"), w_bits=2)
+        analysis_phase(cq, lm.init_params(cq, 0, device=dev), {})
+        phase_seconds("analysis")
+        print("[chip_smoke] --only analysis: stopped after the analysis phase", file=sys.stderr)
         return 0
 
     if opts.only == "train_families":
@@ -4767,6 +4960,178 @@ def main(argv: list[str] | None = None) -> int:
     if opts.only == "kernels":
         print("[chip_smoke] --only kernels: stopped after phase 3", file=sys.stderr)
         return 0
+
+    # ---------------- 6. CNV at full width, card vs CPU ----------------
+    # run right after phase 3: the module docstring says why
+    def cnn_setup(w_bits):
+        """CNV with random weights from a seed, randomised BN statistics
+        (a quarter of the gammas negative) and 256 random images."""
+        specs = cnn.cnv_topology(w_bits=w_bits, a_bits=2)
+        g = torch.Generator().manual_seed(w_bits)
+        params = cnn.init_cnn_params(specs, g)
+        for sp in specs:
+            p = params[sp.name]
+            p["bn_mu"] = torch.randn(sp.c_out, generator=g) * 0.2
+            p["bn_var"] = torch.rand(sp.c_out, generator=g) * 2.0 + 0.1
+            sign = torch.where(torch.rand(sp.c_out, generator=g) < 0.25, -1.0, 1.0)
+            p["bn_gamma"] = sign * (0.5 + torch.rand(sp.c_out, generator=g))
+            p["bn_beta"] = torch.randn(sp.c_out, generator=g) * 0.1
+        return specs, params, torch.randn((CNN_BATCH, 32, 32, 3), generator=g)
+
+    def cnn_layer_check(specs, sp_cpu, sp_card, trace) -> list[dict]:
+        """Each layer on the card, fed the CPU plain path's input: its levels
+        must equal the CPU's but where the CPU's sign*acc is a tie."""
+        rows = []
+        for sp, (name, x_in, y_cpu) in zip(specs, trace):
+            y_card = cnn.streamlined_layer(sp_card[name], sp, x_in.to(dev)).cpu()
+            if sp.a_bits == 0:  # the logits: a plain f32 convolution
+                err = (y_card - y_cpu).abs().max().item()
+                if not err <= CNN_LOGIT_TOL * (1.0 + y_cpu.abs().max().item()):
+                    fail(f"cnn {name}: card vs CPU logits differ by {err}")
+                rows.append(dict(layer=name, max_abs_err=err))
+                continue
+            spec = sp_cpu[name]["thresholds"]
+            scale = spec.scale.item()
+            diff = (torch.round(y_card / scale) != torch.round(y_cpu / scale)).reshape(-1, sp.c_out)
+            n_diff = int(diff.sum())
+            if n_diff:
+                cols, _ = cnn.im2col(x_in, sp.k, sp.stride, sp.pad)
+                wm = sp_cpu[name]["w"].reshape(-1, sp.c_out)
+                if sp.w_bits in (1, 2):
+                    carrier, thr = cnn.mvau_weights(wm, spec, sp.w_bits)
+                    acc = cols @ ref.decode_weights(carrier, sp.w_bits, wm.shape[0])
+                else:
+                    thr, acc = spec.thresholds, cols @ wm
+                n_bad = int((diff & ~near_threshold(acc * spec.signs, thr)).sum())
+                if n_bad:
+                    fail(f"cnn {name}: {n_bad} levels differ from the CPU's away from "
+                         f"a threshold ({n_diff} in all)")
+            rows.append(dict(layer=name, outputs=diff.numel(), tie_flips=n_diff))
+        return rows
+
+    def cnn_profile(fwd, xb, specs) -> dict:
+        """The card's time per forward by layer (torch.profiler over
+        CNN_PROFILED forwards), split into ``mvau``, ``im2col`` and the
+        rest. The ``cnn.<layer>`` and ``im2col`` ranges carry the device
+        time of the PyTorch kernels launched inside them; the profiler
+        leaves ctypes launches out of the ranges, so each ``mvau`` kernel
+        is given to its layer by launch order (one per quantized layer, in
+        layer order)."""
+        labels = {f"cnn.{sp.name}": sp.name for sp in specs}
+        q_layers = [sp.name for sp in specs if sp.w_bits in (1, 2) and sp.a_bits > 0]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(CNN_PROFILED):
+                fwd(xb)
+            torch.cuda.synchronize()
+        per_layer = {sp.name: dict(total=0.0, mvau=0.0, im2col=0.0) for sp in specs}
+        kernels_ms: dict[str, float] = {}
+        mvau_events = []
+        n_kernels = 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                if e.name in labels or e.name == "im2col":  # annotations, not kernels
+                    continue
+                n_kernels += 1
+                key = e.name[:60]
+                kernels_ms[key] = kernels_ms.get(key, 0.0) + e.time_range.elapsed_us() / CNN_PROFILED / 1e3
+                if "mvau_kernel" in e.name:
+                    mvau_events.append(e)
+            elif e.name in labels:
+                per_layer[labels[e.name]]["total"] += e.device_time_total / CNN_PROFILED / 1e3
+            elif e.name == "im2col":
+                up = e.cpu_parent
+                while up is not None and up.name not in labels:
+                    up = up.cpu_parent
+                if up is not None:
+                    per_layer[labels[up.name]]["im2col"] += e.device_time_total / CNN_PROFILED / 1e3
+        mvau_events.sort(key=lambda e: e.time_range.start)
+        if len(mvau_events) != len(q_layers) * CNN_PROFILED:
+            us = [round(e.time_range.elapsed_us(), 1) for e in mvau_events]
+            fail(f"cnn profile: {len(mvau_events)} mvau kernels for {CNN_PROFILED} forwards "
+                 f"(their us in launch order: {us}; {n_kernels} kernel records in all)")
+        for i, e in enumerate(mvau_events):
+            ms = e.time_range.elapsed_us() / CNN_PROFILED / 1e3
+            row = per_layer[q_layers[i % len(q_layers)]]
+            row["mvau"] += ms
+            row["total"] += ms
+        for row in per_layer.values():
+            row["rest"] = row["total"] - row["mvau"] - row["im2col"]
+        return dict(
+            per_layer_ms=per_layer,
+            device_ms=sum(kernels_ms.values()),
+            kernels_per_forward=n_kernels / CNN_PROFILED,
+            mvau_ms=sum(r["mvau"] for r in per_layer.values()),
+            mvau_share=sum(r["mvau"] for r in per_layer.values()) / sum(kernels_ms.values()),
+            im2col_ms=sum(r["im2col"] for r in per_layer.values()),
+            top_kernels_ms=dict(sorted(kernels_ms.items(), key=lambda kv: -kv[1])[:8]),
+        )
+
+    cnn_runs = []
+    cnn_mvau_launches = cnn_forwards = 0
+    for w_bits in (1, 2):
+        specs, params, images = cnn_setup(w_bits)
+        sp_cpu = cnn.streamline_params(params, specs)
+        trace = []
+        t0 = time.monotonic()
+        logits_cpu = cnn.cnn_forward_streamlined(sp_cpu, specs, images, trace=trace)
+        cpu_s = time.monotonic() - t0
+        sp_card = cnn.streamline_params(
+            {name: {k: v.to(dev) for k, v in p.items()} for name, p in params.items()}, specs)
+        x_card = images.to(dev)
+        layers = cnn_layer_check(specs, sp_cpu, sp_card, trace)
+        del trace
+
+        def fwd(xb):
+            return cnn.cnn_forward_streamlined(sp_card, specs, xb)
+
+        def counted(run, n_forwards):
+            """``run`` with the launch counters reset just before and read
+            just after: only mvau, exactly CNN_MVAU_PER_FORWARD a forward."""
+            nonlocal cnn_mvau_launches, cnn_forwards
+            ops.reset_launch_counts()
+            out = run()
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            want = dict.fromkeys(counts, 0) | {"mvau": CNN_MVAU_PER_FORWARD * n_forwards}
+            if counts != want:
+                fail(f"cnn w{w_bits}a2: launches {counts}, not {want}")
+            cnn_mvau_launches += counts["mvau"]
+            cnn_forwards += n_forwards
+            return out
+
+        logits = counted(lambda: fwd(x_card), 1).cpu()
+        agree = (logits.argmax(dim=1) == logits_cpu.argmax(dim=1)).float().mean().item()
+        if not (tuple(logits.shape) == (CNN_BATCH, 10) and bool(torch.isfinite(logits).all())
+                and agree >= CNN_MIN_ARGMAX):
+            fail(f"cnn w{w_bits}a2 card vs CPU: shape {tuple(logits.shape)}, argmax agreement {agree}")
+        speed = {}
+        for batch in (CNN_BATCH, 1):
+            xb = x_card[:batch].contiguous()
+            for _ in range(3):
+                fwd(xb)
+            torch.cuda.synchronize()
+
+            def timed_runs():
+                times = []
+                for _ in range(CNN_RUNS):
+                    t0 = time.perf_counter()
+                    fwd(xb)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                return statistics.median(times)
+
+            med = counted(timed_runs, CNN_RUNS)
+            speed[f"batch{batch}"] = dict(forward_ms=med * 1e3, images_per_s=batch / med)
+        prof_row = counted(lambda: cnn_profile(fwd, x_card, specs), CNN_PROFILED)
+        prof_row["device_busy_share"] = prof_row["device_ms"] / speed[f"batch{CNN_BATCH}"]["forward_ms"]
+        run = dict(w_bits=w_bits, a_bits=2, batch=CNN_BATCH, argmax_agreement=agree,
+                   max_abs_logit_diff=(logits - logits_cpu).abs().max().item(),
+                   cpu_forward_s=cpu_s, layers=layers, speed=speed, profile=prof_row)
+        cnn_runs.append(run)
+        phase("cnn", **run)
+        del sp_card, x_card, params, sp_cpu
+
+    phase_seconds("6 cnn")
 
     # ---------------- 4. full-width prefill, card vs CPU ----------------
     # the dense archs' weights start drawing on the host threads now, behind
@@ -5689,7 +6054,6 @@ def main(argv: list[str] | None = None) -> int:
     with heap_frozen():
         fleet_phase(cfg_q2, params_q2)
     phase_seconds("5 (d) fleet, smollm-360m")
-    del params_q2
 
     # ------- 4-5 for the other dense archs, at full width (and depth) -------
     def window_vs_cpu(c, params) -> None:
@@ -5860,175 +6224,6 @@ def main(argv: list[str] | None = None) -> int:
         del params, by_mode
         torch.cuda.empty_cache()
 
-    # ---------------- 6. CNV at full width, card vs CPU ----------------
-    def cnn_setup(w_bits):
-        """CNV with random weights from a seed, randomised BN statistics
-        (a quarter of the gammas negative) and 256 random images."""
-        specs = cnn.cnv_topology(w_bits=w_bits, a_bits=2)
-        g = torch.Generator().manual_seed(w_bits)
-        params = cnn.init_cnn_params(specs, g)
-        for sp in specs:
-            p = params[sp.name]
-            p["bn_mu"] = torch.randn(sp.c_out, generator=g) * 0.2
-            p["bn_var"] = torch.rand(sp.c_out, generator=g) * 2.0 + 0.1
-            sign = torch.where(torch.rand(sp.c_out, generator=g) < 0.25, -1.0, 1.0)
-            p["bn_gamma"] = sign * (0.5 + torch.rand(sp.c_out, generator=g))
-            p["bn_beta"] = torch.randn(sp.c_out, generator=g) * 0.1
-        return specs, params, torch.randn((CNN_BATCH, 32, 32, 3), generator=g)
-
-    def cnn_layer_check(specs, sp_cpu, sp_card, trace) -> list[dict]:
-        """Each layer on the card, fed the CPU plain path's input: its levels
-        must equal the CPU's but where the CPU's sign*acc is a tie."""
-        rows = []
-        for sp, (name, x_in, y_cpu) in zip(specs, trace):
-            y_card = cnn.streamlined_layer(sp_card[name], sp, x_in.to(dev)).cpu()
-            if sp.a_bits == 0:  # the logits: a plain f32 convolution
-                err = (y_card - y_cpu).abs().max().item()
-                if not err <= CNN_LOGIT_TOL * (1.0 + y_cpu.abs().max().item()):
-                    fail(f"cnn {name}: card vs CPU logits differ by {err}")
-                rows.append(dict(layer=name, max_abs_err=err))
-                continue
-            spec = sp_cpu[name]["thresholds"]
-            scale = spec.scale.item()
-            diff = (torch.round(y_card / scale) != torch.round(y_cpu / scale)).reshape(-1, sp.c_out)
-            n_diff = int(diff.sum())
-            if n_diff:
-                cols, _ = cnn.im2col(x_in, sp.k, sp.stride, sp.pad)
-                wm = sp_cpu[name]["w"].reshape(-1, sp.c_out)
-                if sp.w_bits in (1, 2):
-                    carrier, thr = cnn.mvau_weights(wm, spec, sp.w_bits)
-                    acc = cols @ ref.decode_weights(carrier, sp.w_bits, wm.shape[0])
-                else:
-                    thr, acc = spec.thresholds, cols @ wm
-                n_bad = int((diff & ~near_threshold(acc * spec.signs, thr)).sum())
-                if n_bad:
-                    fail(f"cnn {name}: {n_bad} levels differ from the CPU's away from "
-                         f"a threshold ({n_diff} in all)")
-            rows.append(dict(layer=name, outputs=diff.numel(), tie_flips=n_diff))
-        return rows
-
-    def cnn_profile(fwd, xb, specs) -> dict:
-        """The card's time per forward by layer (torch.profiler over
-        CNN_PROFILED forwards), split into ``mvau``, ``im2col`` and the
-        rest. The ``cnn.<layer>`` and ``im2col`` ranges carry the device
-        time of the PyTorch kernels launched inside them; the profiler
-        leaves ctypes launches out of the ranges, so each ``mvau`` kernel
-        is given to its layer by launch order (one per quantized layer, in
-        layer order)."""
-        labels = {f"cnn.{sp.name}": sp.name for sp in specs}
-        q_layers = [sp.name for sp in specs if sp.w_bits in (1, 2) and sp.a_bits > 0]
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(CNN_PROFILED):
-                fwd(xb)
-            torch.cuda.synchronize()
-        per_layer = {sp.name: dict(total=0.0, mvau=0.0, im2col=0.0) for sp in specs}
-        kernels_ms: dict[str, float] = {}
-        mvau_events = []
-        n_kernels = 0
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                if e.name in labels or e.name == "im2col":  # annotations, not kernels
-                    continue
-                n_kernels += 1
-                key = e.name[:60]
-                kernels_ms[key] = kernels_ms.get(key, 0.0) + e.time_range.elapsed_us() / CNN_PROFILED / 1e3
-                if "mvau_kernel" in e.name:
-                    mvau_events.append(e)
-            elif e.name in labels:
-                per_layer[labels[e.name]]["total"] += e.device_time_total / CNN_PROFILED / 1e3
-            elif e.name == "im2col":
-                up = e.cpu_parent
-                while up is not None and up.name not in labels:
-                    up = up.cpu_parent
-                if up is not None:
-                    per_layer[labels[up.name]]["im2col"] += e.device_time_total / CNN_PROFILED / 1e3
-        if len(mvau_events) != len(q_layers) * CNN_PROFILED:
-            fail(f"cnn profile: {len(mvau_events)} mvau kernels for {CNN_PROFILED} forwards")
-        mvau_events.sort(key=lambda e: e.time_range.start)
-        for i, e in enumerate(mvau_events):
-            ms = e.time_range.elapsed_us() / CNN_PROFILED / 1e3
-            row = per_layer[q_layers[i % len(q_layers)]]
-            row["mvau"] += ms
-            row["total"] += ms
-        for row in per_layer.values():
-            row["rest"] = row["total"] - row["mvau"] - row["im2col"]
-        return dict(
-            per_layer_ms=per_layer,
-            device_ms=sum(kernels_ms.values()),
-            kernels_per_forward=n_kernels / CNN_PROFILED,
-            mvau_ms=sum(r["mvau"] for r in per_layer.values()),
-            mvau_share=sum(r["mvau"] for r in per_layer.values()) / sum(kernels_ms.values()),
-            im2col_ms=sum(r["im2col"] for r in per_layer.values()),
-            top_kernels_ms=dict(sorted(kernels_ms.items(), key=lambda kv: -kv[1])[:8]),
-        )
-
-    cnn_runs = []
-    cnn_mvau_launches = cnn_forwards = 0
-    for w_bits in (1, 2):
-        specs, params, images = cnn_setup(w_bits)
-        sp_cpu = cnn.streamline_params(params, specs)
-        trace = []
-        t0 = time.monotonic()
-        logits_cpu = cnn.cnn_forward_streamlined(sp_cpu, specs, images, trace=trace)
-        cpu_s = time.monotonic() - t0
-        sp_card = cnn.streamline_params(
-            {name: {k: v.to(dev) for k, v in p.items()} for name, p in params.items()}, specs)
-        x_card = images.to(dev)
-        layers = cnn_layer_check(specs, sp_cpu, sp_card, trace)
-        del trace
-
-        def fwd(xb):
-            return cnn.cnn_forward_streamlined(sp_card, specs, xb)
-
-        def counted(run, n_forwards):
-            """``run`` with the launch counters reset just before and read
-            just after: only mvau, exactly CNN_MVAU_PER_FORWARD a forward."""
-            nonlocal cnn_mvau_launches, cnn_forwards
-            ops.reset_launch_counts()
-            out = run()
-            torch.cuda.synchronize()
-            counts = ops.launch_counts()
-            want = dict.fromkeys(counts, 0) | {"mvau": CNN_MVAU_PER_FORWARD * n_forwards}
-            if counts != want:
-                fail(f"cnn w{w_bits}a2: launches {counts}, not {want}")
-            cnn_mvau_launches += counts["mvau"]
-            cnn_forwards += n_forwards
-            return out
-
-        logits = counted(lambda: fwd(x_card), 1).cpu()
-        agree = (logits.argmax(dim=1) == logits_cpu.argmax(dim=1)).float().mean().item()
-        if not (tuple(logits.shape) == (CNN_BATCH, 10) and bool(torch.isfinite(logits).all())
-                and agree >= CNN_MIN_ARGMAX):
-            fail(f"cnn w{w_bits}a2 card vs CPU: shape {tuple(logits.shape)}, argmax agreement {agree}")
-        speed = {}
-        for batch in (CNN_BATCH, 1):
-            xb = x_card[:batch].contiguous()
-            for _ in range(3):
-                fwd(xb)
-            torch.cuda.synchronize()
-
-            def timed_runs():
-                times = []
-                for _ in range(CNN_RUNS):
-                    t0 = time.perf_counter()
-                    fwd(xb)
-                    torch.cuda.synchronize()
-                    times.append(time.perf_counter() - t0)
-                return statistics.median(times)
-
-            med = counted(timed_runs, CNN_RUNS)
-            speed[f"batch{batch}"] = dict(forward_ms=med * 1e3, images_per_s=batch / med)
-        prof_row = counted(lambda: cnn_profile(fwd, x_card, specs), CNN_PROFILED)
-        prof_row["device_busy_share"] = prof_row["device_ms"] / speed[f"batch{CNN_BATCH}"]["forward_ms"]
-        run = dict(w_bits=w_bits, a_bits=2, batch=CNN_BATCH, argmax_agreement=agree,
-                   max_abs_logit_diff=(logits - logits_cpu).abs().max().item(),
-                   cpu_forward_s=cpu_s, layers=layers, speed=speed, profile=prof_row)
-        cnn_runs.append(run)
-        phase("cnn", **run)
-        del sp_card, x_card, params, sp_cpu
-
-    phase_seconds("6 cnn")
-
     # ---------------- 7. training at full width and depth ----------------
     # smollm-360m at depth 4, then h2o-danube-1.8b (head dim 80) at depth 2
     gcfg = dataclasses.replace(cfg, n_layers=GRAD_DEPTH)
@@ -6165,6 +6360,12 @@ def main(argv: list[str] | None = None) -> int:
     del params, state, fresh, fresh_state, want_tree, got_tree, got_leaves
 
     phase_seconds("7 train")
+
+    # ---------------- the analysis phase, on phase 5's weights ----------------
+    analysis_phase(cfg_q2, params_q2,
+                   {quant: runs[quant, False]["tokens_per_s"] for quant in (2, 0)})
+    del params_q2
+    phase_seconds("analysis")
 
     # ---------------- 4-5 for the other dense archs (last) ----------------
     for arch in NEW_ARCHS:

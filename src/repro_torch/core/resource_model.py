@@ -5,7 +5,9 @@ the FPGA device records (``DEVICES``, Xilinx data-sheet resource counts)
 and the LUT-overhead model of the GALS memory subsystem. It replaces the
 reference's TPU records with one for the card the port runs on,
 ``H100_SXM``, whose figures are NVIDIA's data-sheet values for the H100
-SXM part; none is a TPU figure.
+SXM part, and its TPU porting ladder (``TPU_TIERS``) with a ladder of
+NVIDIA parts, ``GPU_TIERS``, each from its data sheet. No figure here is
+measured, and none is a TPU's.
 """
 
 from __future__ import annotations
@@ -111,6 +113,12 @@ class GpuChip:
     32 shared-memory banks x 4 B, so a carrier column block of 128 B is
     the unit both the L2 and a shared-memory ring move without waste. With
     this granule the plan has the same bins as the reference's plan.
+
+    ``onchip_bytes`` is the planner's on-chip budget, the role a TPU's
+    VMEM plays in the reference: the L2. It is the only on-chip store that
+    outlives a kernel launch (shared memory and registers are a launch's
+    own), so it is the only place a weight could stay resident across
+    decode steps.
     """
 
     name: str
@@ -127,6 +135,10 @@ class GpuChip:
     def tile_bytes(self) -> int:
         return self.tile_rows * self.tile_row_bytes
 
+    @property
+    def onchip_bytes(self) -> int:
+        return self.l2_bytes
+
     def tile_blocks_for(self, rows: int, cols: int) -> int:
         return math.ceil(rows / self.tile_rows) * math.ceil(cols / self.tile_row_bytes)
 
@@ -141,6 +153,68 @@ H100_SXM = GpuChip(
     hbm_bw=3.35e12,
     peak_bf16_flops=989e12,
 )
+
+# The porting ladder (the paper's §V question, one level up the
+# hierarchy, as the reference's ``TPU_TIERS``): can a model and its
+# traffic move from a bigger card to a smaller or cheaper one, and at what
+# loss in throughput? The rungs differ in memory bandwidth, peak and
+# memory size; a port that streams more weight bytes a decode step loses
+# most where bandwidth is scarce. Every figure is from the part's NVIDIA
+# data sheet (dense bf16 tensor-core FLOP/s, without sparsity) and its
+# architecture white paper (SMs, shared memory per SM, L2); none is
+# measured.
+# NVIDIA L4 Tensor Core GPU data sheet; Ada Lovelace architecture white paper.
+L4 = GpuChip(
+    name="l4",
+    sms=58,
+    smem_per_sm_bytes=100 * 1024,
+    l2_bytes=48 * 1024**2,
+    hbm_bytes=24 * 1024**3,  # GDDR6
+    hbm_bw=300e9,
+    peak_bf16_flops=121e12,
+)
+# NVIDIA L40S data sheet; Ada Lovelace architecture white paper.
+L40S = GpuChip(
+    name="l40s",
+    sms=142,
+    smem_per_sm_bytes=100 * 1024,
+    l2_bytes=96 * 1024**2,
+    hbm_bytes=48 * 1024**3,  # GDDR6
+    hbm_bw=864e9,
+    peak_bf16_flops=362e12,
+)
+# NVIDIA A100 Tensor Core GPU data sheet (80GB PCIe); Ampere architecture
+# white paper. The PCIe part, not the SXM one (2,039 GB/s), keeps the
+# ladder ordered by bandwidth below the H100 PCIe.
+A100_PCIE = GpuChip(
+    name="a100_pcie",
+    sms=108,
+    smem_per_sm_bytes=164 * 1024,
+    l2_bytes=40 * 1024**2,
+    hbm_bytes=80 * 1024**3,
+    hbm_bw=1.935e12,
+    peak_bf16_flops=312e12,
+)
+# NVIDIA H100 Tensor Core GPU data sheet (PCIe); Hopper architecture white paper.
+H100_PCIE = GpuChip(
+    name="h100_pcie",
+    sms=114,
+    smem_per_sm_bytes=228 * 1024,
+    l2_bytes=50 * 1024**2,
+    hbm_bytes=80 * 1024**3,
+    hbm_bw=2.0e12,
+    peak_bf16_flops=756e12,
+)
+# Ordered small -> large by (hbm_bw, peak_bf16_flops): the porting sweep
+# walks this ladder as the paper walks U250 -> U280 and 7020 -> 7012S.
+# Only the last rung is the card the port runs and measures on.
+GPU_TIERS: dict[str, GpuChip] = {
+    "l4": L4,
+    "l40s": L40S,
+    "a100_pcie": A100_PCIE,
+    "h100_pcie": H100_PCIE,
+    "h100_sxm": H100_SXM,
+}
 
 
 # --------------------------------------------------------------------------

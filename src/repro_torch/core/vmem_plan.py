@@ -10,6 +10,10 @@ the BRAM aspect-ratio waste of the paper one level down. ``pack_blocks``
 runs the paper's bin-packing solvers over those tiles so oddly shaped
 blocks share tiles; the residency plan then decides, bin by bin, which
 layers run the resident kernel path and which stream their weights.
+``plan_vmem_residency`` is the reference's per-block greedy plan
+(``ResidencyPlan``), and ``blocks_from_buffers`` turns the FPGA side's
+weight buffers into blocks; the runtime plans with
+``runtime.residency.plan`` instead, as the reference's runtime does.
 """
 
 from __future__ import annotations
@@ -44,6 +48,62 @@ class WeightBlock:
 
     def packing_efficiency(self, chip: GpuChip = H100_SXM) -> float:
         return self.logical_bytes / max(1, self.padded_bytes(chip))
+
+
+@dataclasses.dataclass(frozen=True)
+class ResidencyPlan:
+    blocks: tuple[WeightBlock, ...]
+    resident: tuple[bool, ...]  # True = held on chip for the whole step
+    vmem_budget_bytes: int
+
+    @property
+    def resident_bytes(self) -> int:
+        return sum(b.padded_bytes() for b, r in zip(self.blocks, self.resident) if r)
+
+    @property
+    def streamed_bytes(self) -> int:
+        """Bytes re-read per step for the blocks not resident."""
+        return sum(b.padded_bytes() for b, r in zip(self.blocks, self.resident) if not r)
+
+    @property
+    def hbm_traffic_reduction(self) -> float:
+        total = sum(b.padded_bytes() for b in self.blocks)
+        return 1.0 - self.streamed_bytes / max(1, total)
+
+
+def plan_vmem_residency(
+    blocks: Sequence[WeightBlock],
+    vmem_budget_bytes: int,
+    reserve_frac: float = 0.5,
+) -> ResidencyPlan:
+    """Greedy knapsack by reuse value: every resident byte saves one byte
+    of streaming, so blocks with the worst tile-padding efficiency go
+    first (they pay their padding once on chip instead of on every
+    stream), then the smallest, until ``(1 - reserve_frac)`` of the budget
+    is spent."""
+    budget = int(vmem_budget_bytes * (1.0 - reserve_frac))
+    order = sorted(
+        range(len(blocks)),
+        key=lambda i: (blocks[i].packing_efficiency(), blocks[i].padded_bytes()),
+    )
+    resident = [False] * len(blocks)
+    used = 0
+    for i in order:
+        b = blocks[i].padded_bytes()
+        if used + b <= budget:
+            resident[i] = True
+            used += b
+    return ResidencyPlan(tuple(blocks), tuple(resident), vmem_budget_bytes)
+
+
+def blocks_from_buffers(
+    buffers: Sequence[WeightBuffer], rows_of: dict[str, tuple[int, int]]
+) -> list[WeightBlock]:
+    """One block per buffer, its (rows, cols) from ``rows_of`` by name."""
+    return [
+        WeightBlock(b.name, *rows_of[b.name], bits_per_weight=b.w_bits)
+        for b in buffers
+    ]
 
 
 def vmem_tile_ram(chip: GpuChip = H100_SXM) -> RamPrimitive:

@@ -24,6 +24,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from torch.utils._python_dispatch import _get_current_dispatch_mode, _pop_mode_temporarily
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = [
@@ -88,6 +90,35 @@ def recording_launches():
         yield rec
     finally:
         _recording = None
+
+
+def reports_work(name: str, dot_flops):
+    """Decorate a kernel wrapper so that it reports its work to an op walk
+    (``perf.op_analysis.analyze``), which never sees a ``ctypes`` launch.
+
+    The walk is a dispatch mode, so it lives on the dispatch mode stack of
+    the thread that runs it, and of the autograd threads that run its
+    backward; a wrapper called where the innermost mode is a walk (it has
+    ``report_kernel``) runs with that mode popped, so its plain version's
+    ops stay out of the walk on the CPU, then reports one launch of
+    ``name`` with ``dot_flops(*args, **kwargs)`` (its plain version's dot
+    flops) and its arguments and result. Anywhere else it is the wrapper
+    itself."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            walk = _get_current_dispatch_mode()
+            if not hasattr(walk, "report_kernel"):
+                return fn(*args, **kwargs)
+            with _pop_mode_temporarily():
+                out = fn(*args, **kwargs)
+            walk.report_kernel(name, dot_flops(*args, **kwargs), args, kwargs, out)
+            return out
+
+        return run
+
+    return wrap
 
 
 def _nvcc() -> str:

@@ -112,6 +112,15 @@ def _launch_ready(name: str, q, *tensors) -> bool:
     return True
 
 
+def _attn_dots(n: int):
+    """Dot flops of a flash pass whose plain version runs ``n`` (BH, Sq,
+    Sk, D) products: 2 (QK^T, PV) forward, 3 (QK^T, dO V^T, dS K) for
+    dq, 4 (QK^T, dO V^T, dS^T Q, P^T dO) for dk/dv."""
+    return lambda q, k, *args, **kwargs: (
+        2.0 * n * q.shape[0] * q.shape[1] * k.shape[1] * q.shape[2])
+
+
+@_build.reports_work("flash_fwd", _attn_dots(2))
 def flash_fwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -168,6 +177,7 @@ def _check_bwd(q, rows: dict, stats: dict) -> None:
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+@_build.reports_work("flash_bwd_dq", _attn_dots(3))
 def flash_bwd_dq(q, k, v, out, lse, do, *, causal=True, window=0, q_offset=0):
     """The dq pass of ``flash_bwd``. Returns (dq (BH, Sq, D) in q's dtype,
     delta = rowsum(do * out) (BH, Sq) f32 for the dk/dv pass)."""
@@ -196,6 +206,7 @@ def flash_bwd_dq(q, k, v, out, lse, do, *, causal=True, window=0, q_offset=0):
     return dq, delta
 
 
+@_build.reports_work("flash_bwd_dkv", _attn_dots(4))
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal=True, window=0, q_offset=0):
     """The dk/dv pass of ``flash_bwd``, reading the dq pass's delta.
     Returns (dk, dv) (BKV, Sk, D) in k's dtype, each summed over its GQA

@@ -75,6 +75,8 @@ def _check(x, carrier, thresholds, signs, bits: int, k: int) -> None:
         raise ValueError("x, carrier, thresholds and signs must be on one device")
 
 
+@_build.reports_work("mvau", lambda x, carrier, thresholds, signs, bits, k, offset=0:
+                     2.0 * x.shape[0] * k * carrier.shape[1])
 def mvau(
     x: torch.Tensor,
     carrier: torch.Tensor,

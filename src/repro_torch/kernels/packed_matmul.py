@@ -114,6 +114,8 @@ def _check(x, carrier, scale, bits: int, k: int) -> None:
         raise ValueError("x, carrier and scale must be on one device")
 
 
+@_build.reports_work("packed_matmul",
+                     lambda x, carrier, scale, bits, k: 2.0 * x.shape[0] * k * carrier.shape[1])
 def packed_matmul(
     x: torch.Tensor, carrier: torch.Tensor, scale: torch.Tensor, bits: int, k: int
 ) -> torch.Tensor:

@@ -107,6 +107,9 @@ def _check(x, w, scale, bits: int, k: int, depth: int) -> None:
         raise ValueError("x, w and scale must be on one device")
 
 
+@_build.reports_work("stream_matmul",
+                     lambda x, w, scale, bits, k, stream_depth=2:
+                     2.0 * x.shape[0] * k * w.shape[1])
 def stream_matmul(
     x: torch.Tensor,
     w: torch.Tensor,

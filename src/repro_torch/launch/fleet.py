@@ -21,9 +21,10 @@ TTFT / TPOT / goodput it prints are modelled, not measured, and
 deterministic. Exit codes: 2 for an unknown arch, a family with no paged
 serving path or a bad split, 1 for a run that left a request incomplete.
 
-The reference also prints each engine's placement on a 16x16 TPU mesh
-(``dist.placement``); those lines are left out until ``dist/*`` is
-ported.
+Before the run it prints each engine's production placement over a 16x16
+(data x model) mesh view (``dist.placement``, plan arithmetic: no device
+or process group is touched), as the reference does; an engine count that
+divides no data-parallel axis prints the planner's reason instead.
 
 Usage::
 
@@ -40,6 +41,8 @@ import sys
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.dist.mesh_axes import MeshView
+from repro_torch.dist.placement import plan_engine_placement
 from repro_torch.models import lm
 from repro_torch.models.config import PAGED_FAMILIES, PREFIX_CACHE_FAMILIES
 from repro_torch.runtime.cluster import (
@@ -210,6 +213,13 @@ def main(argv=None) -> int:
             f"-> split {cluster.split[0]} prefill : {cluster.split[1]} decode"
             + (" (forced)" if args.split else " (Eq. 2 provisioned)")
         )
+    # production placement of the engines over the single-pod mesh view
+    view = MeshView(("data", "model"), (16, 16))
+    try:
+        for pl in plan_engine_placement(view, n):
+            print(f"[fleet] {pl.describe()}")
+    except ValueError as e:
+        print(f"[fleet] placement: {e}")
 
     result = cluster.run(trace)
     if cluster.tracker is not None:

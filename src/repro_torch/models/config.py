@@ -1,9 +1,10 @@
 """Model configuration: the port's own copy of ``repro.models.config``.
 
-``ModelConfig``, ``reduced``, ``pad_to``, ``modality_batch_leaves`` and
-the family tuples, copied so that the port never imports the reference
-package. ``dtype`` stays a string ("bfloat16" / "float32");
-``torch_dtype`` maps it to torch.
+``ModelConfig``, ``reduced``, ``pad_to``, ``modality_batch_leaves``,
+the assigned input shapes (``ShapeConfig``, ``SHAPES``,
+``shape_applicable``) and the family tuples, copied so that the port
+never imports the reference package. ``dtype`` stays a string
+("bfloat16" / "float32"); ``torch_dtype`` maps it to torch.
 """
 
 from __future__ import annotations
@@ -103,6 +104,11 @@ class ModelConfig:
         return self.d_inner // self.ssm_head_dim
 
     @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic decode: SSM, hybrid, or sliding-window attention."""
+        return self.family in ("ssm", "hybrid") or self.sliding_window > 0
+
+    @property
     def n_kv_cache_layers(self) -> int:
         """Layers that hold a growing KV cache."""
         if self.family == "hybrid":
@@ -152,6 +158,39 @@ class ModelConfig:
             * 3 * self.d_model * self.d_ff
         )
         return self.n_params() - inactive
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned (input-shape) cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether an (arch, shape) cell runs, and the reason when it does
+    not: a 500k-token decode needs sub-quadratic attention (an enc-dec
+    never runs it)."""
+    if shape.name == "long_500k" and (
+        not cfg.supports_long_context or cfg.family == "encdec"
+    ):
+        return False, "SKIP(full-attention: 500k dense KV is sub-quadratic-only)"
+    return True, ""
 
 
 def modality_batch_leaves(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:

@@ -343,29 +343,65 @@ def init_params(
     _require_ported(cfg, "init_params")
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
-    dt = torch_dtype(cfg)
-    d, ff, l, pv = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.padded_vocab
-    hd, hq, hkv = cfg.hd, cfg.n_heads, cfg.n_kv
 
     def draw(shape, std, dtype) -> torch.Tensor:
         host = torch.randn(shape, generator=gen, dtype=torch.float32).mul_(std)
         return host.to(device=device, dtype=dtype)
 
-    def normal(shape, std, step=1, dtype=dt) -> torch.Tensor:
+    def normal(shape, std, step, dtype) -> torch.Tensor:
         out = torch.empty(shape, dtype=dtype, device=device)
         for i in range(0, shape[0], step):
             out[i:i + step] = draw((min(step, shape[0] - i),) + shape[1:], std, dtype)
         return out
 
+    def const(shape, value) -> torch.Tensor:
+        return torch.full(shape, value, dtype=torch.float32, device=device)
+
+    return LMParams(_param_tree(cfg, normal, const, pack_ffn), trainable)
+
+
+def abstract_params(cfg: ModelConfig) -> LMParams:
+    """The parameter tree of ``init_params(cfg)`` on the ``meta`` device:
+    every leaf's shape and dtype (the reference's ``abstract_params``,
+    lm.py:278, under ``jax.eval_shape``), with no storage and no draw. It
+    lays the tree out with ``init_params``'s own code; the packed FFN
+    leaves (``w_bits`` 1/2) get the carrier pair ``pack_ffn`` makes, a
+    uint8 (..., K * bits / 8, N) and an f32 scale (..., N), built from the
+    shapes, since the packer itself needs values."""
+    _require_ported(cfg, "abstract_params")
+
+    def empty(shape, std=0.0, step=1, dtype=torch.float32) -> torch.Tensor:
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    def pack(w, bits) -> dict[str, torch.Tensor]:
+        *lead, k, n = w.shape
+        return {"packed": empty((*lead, k * bits // 8, n), dtype=torch.uint8),
+                "scale": empty((*lead, n))}
+
+    return LMParams(_param_tree(cfg, empty, lambda shape, value: empty(shape), pack))
+
+
+def _param_tree(cfg: ModelConfig, normal, const, pack) -> dict[str, Any]:
+    """The layout of ``init_params``'s tree, for every family, over three
+    leaf constructors: ``normal(shape, std, step, dtype)`` a drawn leaf
+    (called in draw order), ``const(shape, value)`` an f32 constant, and
+    ``pack(w, bits)`` a stacked FFN leaf (L, K, N) as its carrier pair."""
+    dt = torch_dtype(cfg)
+    d, ff, l, pv = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.padded_vocab
+    hd, hq, hkv = cfg.hd, cfg.n_heads, cfg.n_kv
+
+    def leaf(shape, std, step=1, dtype=dt) -> torch.Tensor:
+        return normal(shape, std, step, dtype)
+
     moe = cfg.family == "moe"
     lead = (cfg.n_experts,) if moe else ()
 
     def ffn(k, n, std, count=l):
-        w = normal((count,) + lead + (k, n), std)
-        return pack_ffn(w, cfg.w_bits) if cfg.w_bits in (1, 2) and not moe else w
+        w = leaf((count,) + lead + (k, n), std)
+        return pack(w, cfg.w_bits) if cfg.w_bits in (1, 2) and not moe else w
 
     def ones(*shape):
-        return torch.ones(shape, dtype=torch.float32, device=device)
+        return const(shape, 1.0)
 
     s = d ** -0.5
 
@@ -375,83 +411,79 @@ def init_params(
         out = {}
         for pre in prefixes:
             out.update({
-                f"{pre}wq": normal((count, d, hq * hd), s),
-                f"{pre}wk": normal((count, d, hkv * hd), s),
-                f"{pre}wv": normal((count, d, hkv * hd), s),
-                f"{pre}wo": normal((count, hq * hd, d), s),
+                f"{pre}wq": leaf((count, d, hq * hd), s),
+                f"{pre}wk": leaf((count, d, hkv * hd), s),
+                f"{pre}wv": leaf((count, d, hkv * hd), s),
+                f"{pre}wo": leaf((count, hq * hd, d), s),
             })
         return {**out, "w1": ffn(d, ff, s, count), "w3": ffn(d, ff, s, count),
                 "w2": ffn(ff, d, s * 0.5, count)}
 
     tree: dict[str, Any] = {
-        "embed": normal((pv, d), 0.02, EMBED_ROWS),
-        "final_norm": torch.ones((d,), dtype=torch.float32, device=device),
+        "embed": leaf((pv, d), 0.02, EMBED_ROWS),
+        "final_norm": ones(d),
     }
     if not cfg.tie_embeddings:
-        tree["unembed"] = normal((pv, d), 0.02, EMBED_ROWS)
+        tree["unembed"] = leaf((pv, d), 0.02, EMBED_ROWS)
     if cfg.family in ("ssm", "hybrid"):
         if cfg.family == "hybrid" and l % cfg.hybrid_attn_every:
             raise ValueError(f"{cfg.name}: {l} layers are no whole number of "
                              f"super-blocks of {cfg.hybrid_attn_every}")
         di, st, nh, k = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.conv_kernel
-
-        def const(shape, value):
-            return torch.full(shape, value, dtype=torch.float32, device=device)
-
         tree["layers"] = {
             "ln1": const((l, d), 1.0),
-            "in_z": normal((l, d, di), s),
-            "in_x": normal((l, d, di), s),
-            "in_b": normal((l, d, st), s),
-            "in_c": normal((l, d, st), s),
-            "in_dt": normal((l, d, nh), s),
+            "in_z": leaf((l, d, di), s),
+            "in_x": leaf((l, d, di), s),
+            "in_b": leaf((l, d, st), s),
+            "in_c": leaf((l, d, st), s),
+            "in_dt": leaf((l, d, nh), s),
             "dt_bias": const((l, nh), 0.0),
-            "conv_x": normal((l, k, di), 0.3),
-            "conv_b": normal((l, k, st), 0.3),
-            "conv_c": normal((l, k, st), 0.3),
+            "conv_x": leaf((l, k, di), 0.3),
+            "conv_b": leaf((l, k, st), 0.3),
+            "conv_c": leaf((l, k, st), 0.3),
             "a_log": const((l, nh), 0.0),  # A = -1
             "d_skip": const((l, nh), 1.0),
             "gate_norm": const((l, di), 1.0),
-            "out": normal((l, di, d), di ** -0.5),
+            "out": leaf((l, di, d), di ** -0.5),
         }
         if cfg.family == "ssm":
-            return LMParams(tree, trainable)
-        w1, w3, w2 = (normal((1, a, b), std) for a, b, std in (
+            return tree
+        w1, w3, w2 = (leaf((1, a, b), std) for a, b, std in (
             (d, ff, s), (d, ff, s), (ff, d, s * 0.5)))
         if cfg.w_bits in (1, 2):
-            w1, w3, w2 = (pack_ffn(w, cfg.w_bits) for w in (w1, w3, w2))
+            w1, w3, w2 = (pack(w, cfg.w_bits) for w in (w1, w3, w2))
         tree["shared"] = {
             "ln1": const((d,), 1.0),
             "ln2": const((d,), 1.0),
-            "wq": normal((1, d, hq * hd), s)[0],
-            "wk": normal((1, d, hkv * hd), s)[0],
-            "wv": normal((1, d, hkv * hd), s)[0],
-            "wo": normal((1, hq * hd, d), s)[0],
+            "wq": leaf((1, d, hq * hd), s)[0],
+            "wk": leaf((1, d, hkv * hd), s)[0],
+            "wv": leaf((1, d, hkv * hd), s)[0],
+            "wo": leaf((1, hq * hd, d), s)[0],
             **{name: ({key: v[0] for key, v in w.items()} if isinstance(w, dict) else w[0])
                for name, w in (("w1", w1), ("w3", w3), ("w2", w2))},
         }
-        return LMParams(tree, trainable)
+        return tree
     if cfg.family == "encdec":
         le = cfg.n_enc_layers
         tree["layers"] = {"ln1": ones(l, d), "ln_x": ones(l, d), "ln2": ones(l, d),
                           **attn_ffn(l, ("", "x_"))}
         tree["enc_layers"] = {"ln1": ones(le, d), "ln2": ones(le, d), **attn_ffn(le)}
         tree["enc_final_norm"] = ones(d)
-        return LMParams(tree, trainable)
+        return tree
     tree["layers"] = {
-        "ln1": torch.ones((l, d), dtype=torch.float32, device=device),
-        "ln2": torch.ones((l, d), dtype=torch.float32, device=device),
-        "wq": normal((l, d, hq * hd), s),
-        "wk": normal((l, d, hkv * hd), s),
-        "wv": normal((l, d, hkv * hd), s),
-        "wo": normal((l, hq * hd, d), s),
-        **({"router": normal((l, d, cfg.n_experts), 0.02, dtype=torch.float32)}
+        "ln1": ones(l, d),
+        "ln2": ones(l, d),
+        "wq": leaf((l, d, hq * hd), s),
+        "wk": leaf((l, d, hkv * hd), s),
+        "wv": leaf((l, d, hkv * hd), s),
+        "wo": leaf((l, hq * hd, d), s),
+        **({"router": leaf((l, d, cfg.n_experts), 0.02, dtype=torch.float32)}
            if moe else {}),
         "w1": ffn(d, ff, s),
         "w3": ffn(d, ff, s),
         "w2": ffn(ff, d, s * 0.5),
     }
-    return LMParams(tree, trainable)
+    return tree
 
 
 # --------------------------------------------------------------------------

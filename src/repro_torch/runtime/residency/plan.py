@@ -1,7 +1,8 @@
 """Compile a weight-residency plan: which FFN layers run resident, which stream.
 
-Port of ``repro.runtime.residency.plan`` over the H100 record
-(``core.resource_model.H100_SXM``):
+Port of ``repro.runtime.residency.plan`` over a ``GpuChip``, the H100
+record (``core.resource_model.H100_SXM``) unless the caller passes
+another (``launch.port`` walks ``GPU_TIERS``):
 
   * the *streamable set* is the FFN weight blocks, the weight memories
     FCMP packs on the FPGA (for MoE, each expert's three mats);
@@ -288,22 +289,26 @@ class RuntimeResidencyPlan:
 
 
 def compile_residency_plan(
-    cfg: ModelConfig, *, vmem_budget_bytes: int
+    cfg: ModelConfig,
+    *,
+    vmem_budget_bytes: int,
+    chip: GpuChip = CHIP,
 ) -> RuntimeResidencyPlan:
-    """Pack carriers into tile bins (FFD, bins of ``MAX_HEIGHT``, on
-    ``CHIP``), then knapsack *regions* into the budget, ranked by traffic
-    value density: expected weight bytes avoided per step (a block's bytes
-    times its ``read_weight``) per budget byte. The reference also takes a
-    traffic profile, which the plan does not depend on, and a solver, bin
-    height and chip, which the port fixes to the reference's defaults on
-    the H100."""
+    """Pack carriers into tile bins of ``chip`` (FFD, bins of
+    ``MAX_HEIGHT``), then knapsack *regions* into the budget, ranked by
+    traffic value density: expected weight bytes avoided per step (a
+    block's bytes times its ``read_weight``) per budget byte. ``chip`` is
+    the H100 on the serve path; ``launch.port`` walks ``GPU_TIERS``. The
+    reference also takes a traffic profile, which the plan does not depend
+    on, and a solver and bin height, which the port fixes to the
+    reference's defaults: no caller of the port sets them."""
     blocks = weight_blocks(cfg)
     weights = tuple(read_weight(b.name, cfg) for b in blocks)
     regions = tuple(_region_of(b.name) for b in blocks)
     packing: Packing = pack_blocks(
-        blocks, chip=CHIP, max_height=MAX_HEIGHT, regions=regions
+        blocks, chip=chip, max_height=MAX_HEIGHT, regions=regions
     )
-    ram = vmem_tile_ram(CHIP)
+    ram = vmem_tile_ram(chip)
     bins = tuple(tuple(b) for b in packing.bins)
     bin_tiles = tuple(bin_cost([packing.items[i] for i in b], ram)[0] for b in bins)
     groups: dict[str, list[int]] = {}
@@ -311,10 +316,10 @@ def compile_residency_plan(
         groups.setdefault(regions[b[0]], []).append(j)
 
     def group_cost(js: list[int]) -> int:
-        return sum(bin_tiles[j] for j in js) * CHIP.tile_bytes
+        return sum(bin_tiles[j] for j in js) * chip.tile_bytes
 
     def density(js: list[int]) -> float:
-        avoided = sum(weights[i] * blocks[i].padded_bytes(CHIP) for j in js for i in bins[j])
+        avoided = sum(weights[i] * blocks[i].padded_bytes(chip) for j in js for i in bins[j])
         return avoided / max(1, group_cost(js))
 
     order = sorted(groups.values(), key=density, reverse=True)
@@ -328,7 +333,7 @@ def compile_residency_plan(
             used += cost
     return RuntimeResidencyPlan(
         model=cfg.name,
-        chip=CHIP,
+        chip=chip,
         blocks=blocks,
         bins=bins,
         bin_tiles=bin_tiles,

@@ -71,3 +71,29 @@ def test_boundary_covers_the_fleet_modules():
         assert f"src/repro_torch/runtime/cluster/{name}.py" in files, name
     for name in ("src/repro_torch/launch/fleet.py", "src/repro_torch/perf/roofline.py"):
         assert name in files, name
+
+
+def test_boundary_covers_the_analysis_modules():
+    """The walk takes the port planner, the sharding policy and the op
+    walk: the modules that plan where a model fits and what bounds it."""
+    files = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for name in ("mesh_axes", "legalize", "rules", "sharding", "placement", "__init__"):
+        assert f"src/repro_torch/dist/{name}.py" in files, name
+    for name in ("launch/port.py", "perf/op_analysis.py", "perf/roofline.py"):
+        assert f"src/repro_torch/{name}" in files, name
+
+
+@pytest.mark.parametrize(
+    "path", sorted((ROOT / "src" / "repro_torch" / "kernels").glob("*.py")),
+    ids=lambda p: p.name,
+)
+def test_kernels_import_nothing_of_the_layers_above(path):
+    """The kernels layer is the bottom of the port: the op walk reads the
+    wrappers' reports through ``kernels._build``, and no kernel module
+    imports ``perf`` (or anything else above it)."""
+    above = ("repro_torch.perf", "repro_torch.runtime", "repro_torch.models",
+             "repro_torch.launch", "repro_torch.dist")
+    bad = [f"{path.name}:{line} imports {name}"
+           for line, name in _imported_roots(ast.parse(path.read_text()))
+           if name.startswith(above)]
+    assert not bad, bad
