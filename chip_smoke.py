@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py [--only kernels|prefill|moe|hybrid|ssm|vlm|encdec|fleet|
-                                  train_families|analysis]
+                                  train_families|analysis|dryrun]
                           [--src DIR] [--log FILE]
 
 Phases, one JSON line each; any failure exits nonzero with no result:
@@ -273,6 +273,30 @@ analysis   -- (after phase 7, on phase 5's weights; ``--only analysis`` runs it 
               ``dist.sharding``: every full-size arch's ``param_specs`` on
               16x16 and 2x16x16 mesh views validated leaf by leaf, and
               ``sharded_byte_fraction`` printed.
+dryrun     -- (right after the analysis phase, on phase 5's weights and the
+              analysis phase's dense ones; its child processes start
+              before the build, at nice 19, and run on the host beside the
+              build and phase 3;
+              ``--only dryrun`` runs it alone after the build) the
+              production dry run (``launch.dryrun``: ``meta`` DTensors over
+              a fake process group, in child processes, so no process group
+              outlives them; its terms are modelled from the data sheet): (a)
+              smollm-360m at full width, a train step (2 x 256, dense,
+              --remat none), a prefill step (2 x 512, 2-bit) and a decode
+              step (8 lanes over 1024, 2-bit) walked on a 1 x 1 mesh,
+              against the op walk of the same eager step on the card: dot
+              flops and bytes equal (gated), and the walk's temporary
+              bytes (peak live bytes less the arguments') against what the
+              card allocated over the eager step
+              (``torch.cuda.max_memory_allocated()`` less what was
+              allocated before it; gated within DRYRUN_TEMP_RATIO,
+              0.9-1.05 x); (b) production cells through the
+              CLI, one child each, run together: smollm-360m's train_4k,
+              prefill_32k and decode_32k and olmoe-1b-7b's train_4k on
+              16x16, smollm-360m's decode_32k on 2x16x16; each record's
+              terms, bottleneck, memory and walk seconds; gated: status
+              OK, every term finite and > 0, and the hooks that fired are
+              those the reference's conditions name.
 4-5 (the other dense archs: llama3.2-1b, h2o-danube-1.8b, phi3-medium-14b;
               run last, after phase 7), each in turn, with
               2-bit FFN carriers unless named: the
@@ -544,6 +568,7 @@ The last lines are nvidia-smi's, then ``{"kernels": [...]}``, then
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -558,6 +583,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -631,6 +657,55 @@ CNN_MVAU_PER_FORWARD = 7  # conv1-5, fc0, fc1: every 1/2-bit layer of CNV
 FLASH_BWD_TOL = 5e-3
 FLASH_BWD_TOL_F32 = 1e-5
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, REMAT_STEPS = 8, 512, 20, 5
+# the dry-run phase: (a) kind -> (batch, sequence, FFN bits) of smollm-360m's
+# steps walked on a 1 x 1 fake mesh and on the card; (b) the production
+# cells (arch, shape, 2x16x16, the hooks the reference's conditions name)
+DRYRUN_VS_CARD = {"train": (2, 256, 0), "prefill": (2, 512, 2), "decode": (8, 1024, 2)}
+DRYRUN_CELLS = (
+    ("smollm_360m", "train_4k", False, ["attn_batch_sharding"]),
+    ("smollm_360m", "prefill_32k", False, ["attn_seq_sharding"]),
+    ("smollm_360m", "decode_32k", False, ["decode_split_d"]),
+    ("olmoe_1b_7b", "train_4k", False, ["moe_ep_axis"]),
+    ("smollm_360m", "decode_32k", True, ["decode_split_d"]),
+)
+# (a)'s gate on the temporary bytes (peak live bytes less the arguments'):
+# the walk's over the card's (``max_memory_allocated`` less what was
+# allocated before the step, each step called once before). Above 1.05
+# the walk finds bytes the card never held; below 0.9 it misses some. The
+# two run the same ops and free at the same points; the card counts more
+# where its allocator rounds a block up to 512 bytes, and by what is
+# allocated where the walk does not look: on the H100, alone, all three
+# steps read 0.99993-0.999998; inside a full run the prefill 0.9555 and the
+# decode 0.9856 (1.25 MiB and 320 KiB more, in two runs, with or without
+# the cache emptied before the step)
+DRYRUN_TEMP_RATIO = (0.9, 1.05)
+# every dry-run child runs at the lowest CPU priority, so the phases it runs
+# beside (the build and phase 3 in a full run) keep the host's cores first
+DRYRUN_NICE = "import os\nos.nice(19)\n"
+# a production cell's child: the dry-run CLI, its flags after -c
+DRYRUN_CLI_CHILD = DRYRUN_NICE + ("import runpy\n"
+                                  "runpy.run_module('repro_torch.launch.dryrun', run_name='__main__')\n")
+# the child that walks (a)'s steps on a 1 x 1 fake mesh: prints one JSON
+# line of each walk's counts
+DRYRUN_VS_CARD_CHILD = DRYRUN_NICE + """
+import dataclasses, json, sys
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.config import SHAPES, ShapeConfig
+mesh = make_mesh((1, 1), ("data", "model"))
+out = {}
+for kind, (batch, seq, bits) in json.loads(sys.argv[1]).items():
+    cfg = dataclasses.replace(get_config("smollm_360m"), w_bits=bits)
+    SHAPES["card_" + kind] = ShapeConfig("card_" + kind, seq, batch, kind)
+    lowered, _ = dryrun.lower_cell(cfg, "card_" + kind, mesh, remat="none", ce_chunk=0)
+    cost = lowered.walk()
+    dryrun.reset_hooks()
+    out[kind] = dict(dot_flops=cost.dot_flops, traffic_bytes=cost.traffic_bytes,
+                     argument_bytes=cost.argument_bytes, peak_live_bytes=cost.peak_live_bytes,
+                     kernel_launches=cost.kernel_launches)
+print(json.dumps(out))
+"""
 GRAD_DEPTH, GRAD_BATCH, GRAD_SEQ = 4, 2, 256
 GRAD_LOSS_RTOL = 2e-2  # bf16 weights and activations on the card vs float32 on the CPU
 GRAD_MIN_COS = 0.99  # the same, per gradient leaf
@@ -785,13 +860,59 @@ MODALITY_STD = {"prefix_embeds": 0.02, "frames": 1.0}
 
 
 HOST_POOLS: list = []  # the host-draw threads' executors, cancelled on a failure
+CHILDREN: list = []  # the dry-run phase's child processes, killed on a failure
+
+
+def kill_children() -> None:
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+
+
+atexit.register(kill_children)  # an uncaught exception leaves no child running
 
 
 def fail(msg: str) -> None:
     print(f"[chip_smoke] FAILED: {msg}", file=sys.stderr)
     for pool in HOST_POOLS:
         pool.shutdown(wait=False, cancel_futures=True)
+    kill_children()
     sys.exit(1)
+
+
+def start_dryrun(src: Path):
+    """Start the dry-run phase's child processes (its fake-group work, on
+    the host's CPU only, at nice 19): (out_dir, the cells' processes, the
+    1 x 1 walks' process, the start time). A full run starts them before
+    the build, so they run beside the build and phase 3."""
+    env = {**os.environ, "PYTHONPATH": str(src.resolve())}
+    out_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+
+    def child(name, code, *args):
+        """A child process running ``code``, its output to a file in ``out_dir``."""
+        with open(out_dir / f"{name}.log", "w") as log:
+            CHILDREN.append(subprocess.Popen([sys.executable, "-c", code, *args], env=env,
+                                             stdout=log, stderr=subprocess.STDOUT))
+        return CHILDREN[-1]
+
+    procs = {}
+    for i, (arch, shape, multi_pod, hooks) in enumerate(DRYRUN_CELLS):
+        cell = f"{arch}/{shape}/{'2x16x16' if multi_pod else '16x16'}"
+        procs[cell] = (child(str(i), DRYRUN_CLI_CHILD, "--arch", arch, "--shape", shape,
+                             *(["--multi-pod"] if multi_pod else []),
+                             "--json", str(out_dir / f"{i}.jsonl")),
+                       out_dir / f"{i}.jsonl", hooks)
+    walks = child("walks", DRYRUN_VS_CARD_CHILD, json.dumps(DRYRUN_VS_CARD))
+    return out_dir, procs, walks, time.monotonic()
+
+
+def wait_child(proc, what: str, timeout: float = 600) -> None:
+    """Wait for a dry-run child; past ``timeout`` the run fails (and every
+    child is killed)."""
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        fail(f"dryrun: {what} still running after {timeout} s")
 
 
 PHASE_LOG: list[Path] = []  # --log: a file that also gets every phase line and the kernels line
@@ -863,7 +984,8 @@ def main(argv: list[str] | None = None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     ap.add_argument("--only", choices=("kernels", "prefill", "moe", "hybrid", "ssm", "vlm",
-                                       "encdec", "fleet", "train_families", "analysis"),
+                                       "encdec", "fleet", "train_families", "analysis",
+                                       "dryrun"),
                     help="kernels: stop after phase 3 (build, and hold each kernel against "
                          "its plain version); prefill: build, then only phase 4's prefill "
                          "check and profile; moe: build, then only the MoE phase; hybrid: "
@@ -872,7 +994,8 @@ def main(argv: list[str] | None = None) -> int:
                          "build, then only phase 5 (b)'s follow-up turn and phase 5 (d); "
                          "train_families: build, then only that phase, on weights it draws; "
                          "analysis: build, then only the analysis phase (no measured serve "
-                         "cell beside the model). Each prints no result")
+                         "cell beside the model); dryrun: build, then only the dry-run "
+                         "phase. Each prints no result")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the source tree whose repro_torch to run (default: src beside this "
                          "script); another commit's, to compare the two in one call")
@@ -892,6 +1015,9 @@ def main(argv: list[str] | None = None) -> int:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
+    # the dry-run phase's children walk on the host's CPU from the start, at
+    # nice 19, beside the build and phase 3
+    dryrun_started = start_dryrun(opts.src) if opts.only in (None, "dryrun") else None
     # the process's own f32 matmul settings, before this script sets them
     # for its calls: the MoE phase serves under these
     tf32_default = (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision())
@@ -4067,11 +4193,12 @@ def main(argv: list[str] | None = None) -> int:
         phase("fleet_phase", seconds=time.monotonic() - t_phase, graphs_captured=len(captures),
               capture_s=sum(captures))
 
-    def analysis_phase(c, p, measured_tokens_per_s) -> None:
+    def analysis_phase(c, p, measured_tokens_per_s):
         """The analysis phase (the module docstring says what it holds):
         ``c`` is smollm-360m's full config at 2 bits, ``p`` phase 5's
         weights, ``measured_tokens_per_s`` phase 5's compiled serve cell's
-        tokens/s by --quant (empty under ``--only analysis``)."""
+        tokens/s by --quant (empty under ``--only analysis``). Returns the
+        dense trainable weights its train step ran on."""
         from repro_torch.configs import ARCH_IDS
         from repro_torch.data.pipeline import TokenPipeline
         from repro_torch.dist import sharding as shd
@@ -4197,7 +4324,7 @@ def main(argv: list[str] | None = None) -> int:
         train_step()
         walk(f"train step, {TRAIN_BATCH} x {TRAIN_SEQ}, --remat none", train_step, train_step,
              ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"), dense, "eager step")
-        del tparams, state, step_fn
+        del state, step_fn
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -4218,6 +4345,116 @@ def main(argv: list[str] | None = None) -> int:
             phase("sharding_policy", mesh=dict(zip(mesh.axis_names, mesh.sizes)),
                   validated=True, sharded_byte_fraction=fractions)
         phase("analysis_phase", seconds=time.monotonic() - t_phase)
+        return tparams
+
+    def dryrun_phase(c, p, started, tparams=None) -> None:
+        """The dry-run phase (the module docstring says what it holds): ``c``
+        is smollm-360m's full config at 2 bits, ``p`` its weights on the
+        card, ``started`` what ``start_dryrun`` returned, ``tparams`` dense
+        trainable weights of ``c`` on the card (drawn here if None). The
+        card side of (a) runs here while the children finish."""
+        from repro_torch.data.pipeline import TokenPipeline
+        from repro_torch.optim.adamw import AdamW
+        from repro_torch.perf import op_analysis
+        from repro_torch.runtime.steps import make_prefill_step, make_serve_step, make_train_step
+
+        t_phase = time.monotonic()
+        out_dir, procs, walks, t_started = started
+
+        # (a) the card side: the op walk of each eager step, and the card's
+        # peak allocation over the step run without the walk
+        dense = dataclasses.replace(c, w_bits=0)
+        on_card = {}
+        for kind, (batch_n, seq, bits) in DRYRUN_VS_CARD.items():
+            mc = c if bits else dense
+            toks = {k: torch.from_numpy(v).to(dev) for k, v in TokenPipeline(
+                vocab=mc.vocab, batch=batch_n, seq_len=seq, seed=7).batch_at(0).items()}
+            if kind == "train":
+                params = tparams if tparams is not None else lm.init_params(
+                    mc, 0, device=dev, trainable=True)
+                opt = AdamW()
+                args = (params, opt.init(params), toks)
+                step = make_train_step(mc, opt, remat="none")
+            elif kind == "prefill":
+                args, step = (p, toks), make_prefill_step(mc)
+            else:
+                cache = lm.init_cache(mc, batch_n, seq, device=dev)
+                args, step = (p, toks["tokens"][:, :1].clone(), cache), make_serve_step(mc)
+            step(*args)  # both counts read a step as a loop runs it, not its first
+            cost = op_analysis.analyze(step, *args)
+            gc.collect()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            step(*args)
+            torch.cuda.synchronize()
+            on_card[kind] = (cost, torch.cuda.max_memory_allocated() - before)
+            del args, step
+            gc.collect()
+            torch.cuda.empty_cache()
+        wait_child(walks, "the 1 x 1 walks")
+        walks_log = (out_dir / "walks.log").read_text()
+        if walks.returncode != 0:
+            fail(f"dryrun: the 1 x 1 walks exited {walks.returncode}:\n{walks_log[-3000:]}")
+        meta_side = json.loads(walks_log.strip().splitlines()[-1])
+        for kind, (cost, measured) in on_card.items():
+            m = meta_side[kind]
+            temp = m["peak_live_bytes"] - m["argument_bytes"]
+            phase("dryrun_vs_card", card=smi, step=kind, shape=DRYRUN_VS_CARD[kind],
+                  dryrun_dot_flops=m["dot_flops"], card_dot_flops=cost.dot_flops,
+                  dryrun_traffic_bytes=m["traffic_bytes"], card_traffic_bytes=cost.traffic_bytes,
+                  dryrun_argument_bytes=m["argument_bytes"],
+                  card_walk_argument_bytes=cost.argument_bytes,
+                  dryrun_peak_live_bytes=m["peak_live_bytes"],
+                  card_walk_peak_live_bytes=cost.peak_live_bytes,
+                  dryrun_temp_bytes=temp, card_temp_bytes=measured,
+                  temp_over_measured=temp / measured,
+                  dryrun_kernel_launches=m["kernel_launches"],
+                  card_kernel_launches=cost.kernel_launches)
+            if (m["dot_flops"], m["traffic_bytes"]) != (cost.dot_flops, cost.traffic_bytes):
+                fail(f"dryrun_vs_card {kind}: the dry run reads {m['dot_flops']} dot flops, "
+                     f"{m['traffic_bytes']} bytes, the card's walk {cost.dot_flops}, "
+                     f"{cost.traffic_bytes}")
+            lo, hi = DRYRUN_TEMP_RATIO
+            if not lo * measured <= temp <= hi * measured:
+                fail(f"dryrun_vs_card {kind}: the walk's temporary bytes {temp} (peak less "
+                     f"arguments) are outside [{lo}, {hi}] x the {measured} the card "
+                     f"allocated over the step")
+
+        # (b) the production cells: every failing cell is reported, then the run fails
+        failed = []
+        for i, (cell, (proc, path, hooks)) in enumerate(procs.items()):
+            wait_child(proc, cell)
+            if proc.returncode != 0:
+                failed.append(f"{cell} exited {proc.returncode}:\n"
+                              f"{(out_dir / f'{i}.log').read_text()[-2000:]}")
+                continue
+            rec = json.loads(path.read_text().splitlines()[-1])
+            terms = {k: rec.get(k) for k in ("t_compute_ms", "t_memory_ms", "t_collective_ms")}
+            phase("dryrun_cell", card=smi, modelled=True, cell=cell, status=rec["status"],
+                  **terms, bottleneck=rec.get("bottleneck"), memory=rec.get("memory"),
+                  flops_per_dev=rec.get("flops_per_dev"),
+                  hbm_bytes_per_dev=rec.get("hbm_bytes_per_dev"),
+                  coll_breakdown=rec.get("coll_breakdown"), hooks=rec.get("hooks"),
+                  t_walk_s=rec.get("t_walk_s"),
+                  replicated_ops=len(rec.get("replicated_ops") or {}))
+            bad = {k: v for k, v in terms.items() if not (math.isfinite(v) and v > 0)}
+            if rec["status"] != "OK" or bad or rec["hooks"] != hooks:
+                failed.append(f"{cell}: status {rec['status']}, terms not finite and > 0 "
+                              f"{bad}, hooks {rec['hooks']} where the reference's conditions "
+                              f"name {hooks}")
+        if failed:
+            fail("dryrun: " + "\n".join(failed))
+        shutil.rmtree(out_dir, ignore_errors=True)
+        phase("dryrun_phase", card=smi, seconds=time.monotonic() - t_phase,
+              children_wall_s=time.monotonic() - t_started)
+
+    if opts.only == "dryrun":
+        cq = dataclasses.replace(get_config("smollm_360m"), w_bits=2)
+        dryrun_phase(cq, lm.init_params(cq, 0, device=dev), dryrun_started)
+        phase_seconds("dryrun")
+        print("[chip_smoke] --only dryrun: stopped after the dry-run phase", file=sys.stderr)
+        return 0
 
     if opts.only == "fleet":
         cq = dataclasses.replace(get_config("smollm_360m"), w_bits=2)
@@ -6248,7 +6485,6 @@ def main(argv: list[str] | None = None) -> int:
     dn2 = dataclasses.replace(get_config("h2o_danube_1p8b"), n_layers=2)
     grads_vs_cpu(dn2, arch="h2o_danube_1p8b",
                  depth_cut="2 of 24 layers: the CPU's float32 side stays in seconds")
-
     # (b) the train CLI: 20 steps, then 5 under --remat full
     n_layers = cfg.n_layers
     train_runs = []
@@ -6362,10 +6598,12 @@ def main(argv: list[str] | None = None) -> int:
     phase_seconds("7 train")
 
     # ---------------- the analysis phase, on phase 5's weights ----------------
-    analysis_phase(cfg_q2, params_q2,
-                   {quant: runs[quant, False]["tokens_per_s"] for quant in (2, 0)})
-    del params_q2
+    tparams = analysis_phase(cfg_q2, params_q2,
+                             {quant: runs[quant, False]["tokens_per_s"] for quant in (2, 0)})
     phase_seconds("analysis")
+    dryrun_phase(cfg_q2, params_q2, dryrun_started, tparams)
+    del params_q2, tparams
+    phase_seconds("dryrun")
 
     # ---------------- 4-5 for the other dense archs (last) ----------------
     for arch in NEW_ARCHS:

@@ -23,7 +23,7 @@ import math
 from typing import Sequence
 
 from repro_torch.core.buffers import WeightBuffer
-from repro_torch.core.packing import SOLVERS, PackItem, Packing
+from repro_torch.core.packing import SOLVERS, GaParams, PackItem, Packing, pack_genetic
 from repro_torch.core.resource_model import H100_SXM, GpuChip, RamPrimitive
 
 
@@ -148,9 +148,13 @@ def pack_blocks(
 ) -> Packing:
     """Bin-pack weight-block carriers into shared tile groups.
     ``Packing.total_blocks`` is the tile count of the packed layout and
-    ``Packing.efficiency`` paper Eq. 1 over tiles."""
+    ``Packing.efficiency`` paper Eq. 1 over tiles. ``solver`` is a key of
+    ``core.packing.SOLVERS`` or ``"ga"``, the paper's genetic packer
+    (``pack_genetic``, Table III's defaults at ``max_height``)."""
     items = [
         block_item(b, chip, region=(regions[i] if regions else ""))
         for i, b in enumerate(blocks)
     ]
+    if solver == "ga":
+        return pack_genetic(items, GaParams(max_height=max_height), vmem_tile_ram(chip))
     return SOLVERS[solver](items, max_height, vmem_tile_ram(chip))

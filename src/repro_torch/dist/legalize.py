@@ -129,3 +129,30 @@ def validate_spec(shape: tuple[int, ...], spec: PartitionSpec, mesh: MeshView) -
                 f"dim {dim} ({shape[dim]}) of shape {shape} does not divide "
                 f"axes {axes} (= {mesh.product(axes)})"
             )
+
+
+def placements_of(spec, mesh) -> list:
+    """The ``DTensor`` placements of ``spec`` on ``mesh`` (a
+    ``DeviceMesh``): one per mesh dim, ``Shard(d)`` where array dim ``d``
+    names that axis, ``Replicate()`` elsewhere.
+
+    A dim entry naming several axes shards the dim over all of them;
+    ``DTensor`` splits such a dim in mesh-dim order (the first mesh dim
+    outermost), which is JAX's major-to-minor order only when the entry
+    lists its axes in the mesh's axis order, so any other order raises. An
+    axis of size 1 holds the whole dim: it replicates."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mv = MeshView.of(mesh)
+    out = [Replicate()] * len(mv.axis_names)
+    for dim, entry in enumerate(spec):
+        axes = _as_axes(entry)
+        idx = [mv.axis_names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(
+                f"dim {dim} of spec {spec} lists axes {axes} out of the mesh's order "
+                f"{mv.axis_names}")
+        for i in idx:
+            if mv.sizes[i] > 1:
+                out[i] = Shard(dim)
+    return out

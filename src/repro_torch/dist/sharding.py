@@ -26,8 +26,6 @@ from __future__ import annotations
 import math
 from typing import Any
 
-import torch
-
 from repro_torch.dist import rules
 from repro_torch.dist.legalize import (
     PartitionSpec,
@@ -179,12 +177,10 @@ def cache_specs(
     ba = _batch_placement(mv, global_batch)
     if cache is None:
         cache = lm.init_cache(cfg, global_batch, seq_len, device="meta")
-    cache = dict(cache)
     if cfg.family == "encdec":
-        kv = torch.empty((cfg.n_layers, global_batch, cfg.frontend_len, cfg.n_kv, cfg.hd),
-                         device="meta")
-        cache.setdefault("cross_k", kv)
-        cache.setdefault("cross_v", kv)
+        from repro_torch.models.encdec import with_cross_caches
+
+        cache = with_cross_caches(cache, cfg, global_batch)
 
     out: dict[str, PartitionSpec] = {}
     for name, leaf in cache.items():

@@ -30,7 +30,10 @@ reference rounds them; in f32 they run on the CUDA cores. Each pass has
 its own launch counter, by route as ``flash_fwd``'s.
 
 On a CPU tensor a wrapper runs the plain version (``ref.flash_fwd_ref``,
-``ref.flash_bwd_ref``); on a CUDA tensor it launches the kernel or raises.
+``ref.flash_bwd_ref``); on a CUDA tensor it launches the kernel or raises;
+on a ``meta`` tensor (the dry run's stand-ins) it returns empty ``meta``
+results of the kernel's shapes and dtypes, and an op walk counts the same
+work.
 """
 
 from __future__ import annotations
@@ -90,6 +93,11 @@ def _check(q, k, v, window: int, q_offset) -> None:
         raise ValueError(f"window and q_offset must be >= 0, got {window}, {q_offset}")
 
 
+def _stats(q: torch.Tensor) -> torch.Tensor:
+    """An empty f32 (BH, Sq) row statistic (lse, delta) on q's device."""
+    return torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+
+
 def _launch_ready(name: str, q, *tensors) -> bool:
     """True to launch the CUDA kernel, False to run the plain version (CPU
     tensors); raises for anything the kernel does not take (the bf16
@@ -138,6 +146,8 @@ def flash_fwd(
     Returns (out (BH, Sq, D) in q's dtype, lse (BH, Sq) f32).
     """
     _check(q, k, v, window, q_offset)
+    if q.device.type == "meta":
+        return torch.empty_like(q), _stats(q)
     if not _launch_ready("flash_fwd", q, k, v):
         return flash_fwd_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
     bh, sq, d = q.shape
@@ -184,6 +194,8 @@ def flash_bwd_dq(q, k, v, out, lse, do, *, causal=True, window=0, q_offset=0):
     _check(q, k, v, window, q_offset)
     _check_bwd(q, {"out": out, "do": do}, {"lse": lse})
     kw = dict(causal=causal, window=window, q_offset=q_offset)
+    if q.device.type == "meta":
+        return torch.empty_like(q), _stats(q)
     if not _launch_ready("flash_bwd_dq", q, k, v, out, lse, do):
         return flash_bwd_dq_ref(q, k, v, out, lse, do, **kw)
     bh, sq, d = q.shape
@@ -214,6 +226,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal=True, window=0, q_offset=0)
     _check(q, k, v, window, q_offset)
     _check_bwd(q, {"do": do}, {"lse": lse, "delta": delta})
     kw = dict(causal=causal, window=window, q_offset=q_offset)
+    if q.device.type == "meta":
+        return torch.empty_like(k), torch.empty_like(v)
     if not _launch_ready("flash_bwd_dkv", q, k, v, do, lse, delta):
         return flash_bwd_dkv_ref(q, k, v, do, lse, delta, **kw)
     bh, sq, d = q.shape

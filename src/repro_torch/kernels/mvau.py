@@ -93,6 +93,8 @@ def mvau(
     f32 ascending, 1 <= L <= 15; signs: (N,) f32 in {-1, +1}.
     """
     _check(x, carrier, thresholds, signs, bits, k)
+    if x.device.type == "meta":
+        return torch.empty((x.shape[0], carrier.shape[1]), dtype=torch.int32, device="meta")
     if x.device.type == "cpu":
         return mvau_ref(x, carrier, thresholds, signs, offset, bits, k)
     if x.device.type != "cuda":

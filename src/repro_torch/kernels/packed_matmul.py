@@ -30,7 +30,9 @@ itself. Three paths, by M and x's dtype:
   would round x, and the +-1/0 sums are exact only in f32).
 
 On a CPU tensor the wrapper runs the plain version (``ref.packed_matmul_ref``);
-on a CUDA tensor it launches the kernel or raises.
+on a CUDA tensor it launches the kernel or raises; on a ``meta`` tensor (the
+dry run's stand-ins) it returns an empty ``meta`` result of the kernel's
+shape and dtype, and an op walk counts the same work.
 """
 
 from __future__ import annotations
@@ -124,6 +126,8 @@ def packed_matmul(
     x: (M, K) f32/bf16; carrier: (K*bits/8, N) uint8; scale: (N,) f32.
     """
     _check(x, carrier, scale, bits, k)
+    if x.device.type == "meta":
+        return torch.empty((x.shape[0], carrier.shape[1]), dtype=torch.float32, device="meta")
     if x.device.type == "cpu":
         return packed_matmul_ref(x, carrier, scale, bits, k)
     if x.device.type != "cuda":

@@ -125,6 +125,8 @@ def stream_matmul(
     ``stream_depth`` in [2, 8] is the ring's slot count.
     """
     _check(x, w, scale, bits, k, stream_depth)
+    if x.device.type == "meta":
+        return torch.empty((x.shape[0], w.shape[1]), dtype=torch.float32, device="meta")
     if x.device.type == "cpu":
         return stream_matmul_ref(x, w, scale, bits, k)
     if x.device.type != "cuda":

@@ -28,10 +28,10 @@ The paper's §V question, answered for both sides of the repo:
 Nothing here runs on a device: every rate is a data-sheet model, not a
 measurement (the H100 rung's modelled tokens/s sits beside the measured
 ones in ``chip_smoke.py``'s analysis phase). The residency plan covers
-the served families of the pool (dense, vlm, MoE, hybrid); for the SSM and
-enc-dec archs the LM sweep exits 2 with the planner's reason, as it does
-for ``--solver ga`` (the residency plan packs with FFD; the reference's
-raises a ``KeyError`` there).
+every family (an SSM arch has no FFN block to plan; an enc-dec arch plans
+its decoder's FFN). ``--solver ga`` packs the LM sweep's plans with the
+paper's GA too (``core.packing.pack_genetic``); the reference's LM sweep
+passes the solver to a registry without the GA and raises a ``KeyError``.
 
 Usage::
 
@@ -164,12 +164,13 @@ def lm_port_rows(
     gen_len: int = 128,
     reserve_frac: float = 0.5,
     tiers: dict[str, GpuChip] = GPU_TIERS,
+    solver: str = "ffd",
 ) -> list[dict]:
     """One row per (rung of ``tiers``, variant): the packed model at
     ``quant`` bits (the families whose FFN packs) and the dense one. The
     columns are the reference's; ``vmem_budget_mib`` is the rung's
-    on-chip budget (its L2 share). The residency plan packs with FFD, the
-    reference's default solver."""
+    on-chip budget (its L2 share). The residency plan packs with
+    ``solver``: FFD, the reference's default, or the GA."""
     cfg = get_config(name)
     traffic = TrafficProfile(lanes=lanes, prompt_len=prompt_len, gen_len=gen_len)
     variants = {"dense": cfg}
@@ -180,7 +181,8 @@ def lm_port_rows(
     for tier, chip in tiers.items():
         budget = int(chip.onchip_bytes * (1.0 - reserve_frac))
         for variant, vcfg in variants.items():
-            plan = compile_residency_plan(vcfg, vmem_budget_bytes=budget, chip=chip)
+            plan = compile_residency_plan(vcfg, vmem_budget_bytes=budget, chip=chip,
+                                          solver=solver)
             perf = _lm_step_model(vcfg, chip, plan, traffic)
             param_bytes = sum(b.padded_bytes(chip) for b in plan.blocks)
             rows.append({
@@ -214,8 +216,6 @@ def port_report(arch: str, **kw) -> list[dict]:
     cand = canonical(arch)
     if cand in ACCEL_IDS:
         return accel_port_rows(cand, solver=kw.get("solver", "ffd"))
-    if kw.get("solver", "ffd") != "ffd":
-        raise ValueError(f"the LM sweep's residency plan packs with ffd, not {kw['solver']!r}")
     return lm_port_rows(
         cand,
         quant=kw.get("quant", 1),
@@ -223,6 +223,7 @@ def port_report(arch: str, **kw) -> list[dict]:
         prompt_len=kw.get("prompt_len", 512),
         gen_len=kw.get("gen_len", 128),
         reserve_frac=kw.get("reserve_frac", 0.5),
+        solver=kw.get("solver", "ffd"),
     )
 
 
@@ -251,8 +252,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--reserve-frac", type=float, default=0.5,
                     help="on-chip (L2) fraction reserved for activations")
     ap.add_argument("--solver", choices=["ffd", "ga"], default="ffd",
-                    help="packing solver for the accelerator sweep (the LM sweep's residency "
-                         "plan packs with ffd; ga exits 2 there)")
+                    help="packing solver of the accelerator sweep and of the LM sweep's "
+                         "residency plans")
     ap.add_argument("--out", default="", help="write the report rows as JSON")
     return ap
 

@@ -14,10 +14,22 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops
+from repro_torch.models.layers import shard_whole
 
 NEG_INF = -1e30
+# The mesh axes of the two variants the dry run's hooks switch on (the
+# reference's defaults, which its dry run keeps): heads or the head dim
+# split over MODEL_AXIS, the batch over those of BATCH_AXES the mesh has.
+MODEL_AXIS = "model"
+BATCH_AXES = ("pod", "data")
+
+
+def _batch_axes(mesh) -> tuple[str, ...] | None:
+    """The axes of BATCH_AXES that ``mesh`` has, or None."""
+    return tuple(a for a in BATCH_AXES if a in mesh.mesh_dim_names) or None
 
 
 def flash_attention(
@@ -49,11 +61,21 @@ def decode_attention(
 
     q: (B, 1, Hq, D); caches: (B, S, Hkv, D); cache_len: broadcastable to
     (B, 1), the current length (the new token sits at cache_len - 1).
+    Over a ``DTensor`` cache whose heads are split it runs on the local
+    shards as the flash kernel does (``kernels.ops.sharded_heads``): its
+    grouped products would otherwise flatten a split heads dim. Where the
+    cache's heads are whole, q's heads are gathered until each shard
+    holds whole KV groups (``shard_whole``), and the cache stays put.
     """
+    if isinstance(k_cache, DTensor) and any(p.is_shard(2) for p in k_cache.placements):
+        cl = cache_len.to_local() if isinstance(cache_len, DTensor) else cache_len
+        return ops.sharded_heads(
+            lambda ql, kl, vl: decode_attention(ql, kl, vl, cl, window=window),
+            q, k_cache, v_cache)
     b, _, hq, d = q.shape
     _, s, hkv, _ = k_cache.shape
     g = hq // hkv
-    qg = q.reshape(b, hkv, g, d).to(torch.float32)
+    qg = shard_whole(q, 2, hkv).reshape(b, hkv, g, d).to(torch.float32)
     scores = torch.einsum(
         "bhgd,bshd->bhgs", qg, k_cache.to(torch.float32)
     ) * (1.0 / math.sqrt(d))
@@ -88,7 +110,7 @@ def chunk_attention(
     b, c, hq, d = q.shape
     _, s, hkv, _ = k_rows.shape
     g = hq // hkv
-    qg = q.reshape(b, c, hkv, g, d).to(torch.float32)
+    qg = shard_whole(q, 2, hkv).reshape(b, c, hkv, g, d).to(torch.float32)
     scores = torch.einsum(
         "bqhgd,bshd->bhgqs", qg, k_rows.to(torch.float32)
     ) * (1.0 / math.sqrt(d))
@@ -105,13 +127,124 @@ def chunk_attention(
     return out.reshape(b, c, hq, d).to(q.dtype)
 
 
+def flash_attention_seq_sharded(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    mesh,
+) -> torch.Tensor:
+    """Sequence-sharded prefill attention over ``DTensor``s (the
+    reference's ``flash_attention_seq_sharded``): where the heads do not
+    divide the MODEL_AXIS shards and the batch does not divide the mesh,
+    each MODEL_AXIS shard runs its slice of the query sequence against the
+    whole K/V, so attention's compute and bytes drop by the axis size
+    instead of running replicated. The batch shards over BATCH_AXES. Each
+    shard calls ``flash_fwd`` (through ``flash_attention``) with
+    ``q_offset`` its coordinate on MODEL_AXIS times the local length: the
+    kernel takes the offset, so the reference's scan is not needed.
+    Forward only (prefill).
+    """
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.dist.legalize import PartitionSpec, placements_of
+
+    ba = _batch_axes(mesh)
+    q_pl = placements_of(PartitionSpec(ba, MODEL_AXIS), mesh)
+    kv_pl = placements_of(PartitionSpec(ba), mesh)
+    local_s = q.shape[1] // mesh.shape[mesh.mesh_dim_names.index(MODEL_AXIS)]
+    offset = mesh.get_local_rank(MODEL_AXIS) * local_s
+    fn = local_map(
+        lambda ql, kl, vl: flash_attention(ql, kl, vl, causal=causal, window=window,
+                                           q_offset=offset),
+        out_placements=q_pl, in_placements=(q_pl, kv_pl, kv_pl), device_mesh=mesh)
+    return fn(q.redistribute(mesh, q_pl), k.redistribute(mesh, kv_pl),
+              v.redistribute(mesh, kv_pl))
+
+
+def split_d_scores(q: torch.Tensor, k_cache: torch.Tensor) -> torch.Tensor:
+    """A head-dim shard's partial decode scores (B, Hkv, G, S), f32 and
+    unscaled: q (B, 1, Hq, Dl) against k (B, S, Hkv, Dl) over the local
+    slice of D. Their sum over the shards is the whole product."""
+    b, _, hq, dl = q.shape
+    hkv = k_cache.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, dl).to(torch.float32)
+    return torch.einsum("bhgd,bshd->bhgs", qg, k_cache.to(torch.float32))
+
+
+def split_d_finish(
+    scores: torch.Tensor, v_cache: torch.Tensor, cache_len, head_dim: int, *,
+    window: int = 0, dtype=None,
+) -> torch.Tensor:
+    """The rest of split-d decode attention on one shard, from the summed
+    ``scores`` (``split_d_scores`` over every shard): scale by the whole
+    head dim, mask, softmax (the same on every shard), then P V over the
+    local slice of v (B, S, Hkv, Dl) -> (B, 1, Hq, Dl) in ``dtype``."""
+    b, hkv, g, s = scores.shape
+    scores = scores * (1.0 / math.sqrt(head_dim))
+    pos = torch.arange(s, device=scores.device)
+    valid = pos[None] < cache_len
+    if window > 0:
+        valid &= pos[None] > cache_len - 1 - window
+    scores = scores.masked_fill(~valid[:, None, None], NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype).to(torch.float32),
+                       v_cache.to(torch.float32))
+    return out.reshape(b, 1, hkv * g, v_cache.shape[-1]).to(dtype or v_cache.dtype)
+
+
+def decode_attention_split_d(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    cache_len,
+    *,
+    window: int = 0,
+    mesh,
+) -> torch.Tensor:
+    """Decode attention with the cache head-dim-sharded over MODEL_AXIS
+    (the reference's ``decode_attention_split_d``), over ``DTensor``s:
+    where the KV heads do not divide MODEL_AXIS, the cache stays in its
+    head-dim-sharded layout instead of being gathered every step. Each
+    shard computes partial scores over its slice of D
+    (``split_d_scores``), one all-reduce (a functional collective over
+    MODEL_AXIS) sums them, the softmax runs on every shard, and P V returns
+    head-dim-sharded (``split_d_finish``). The batch shards over
+    BATCH_AXES; ``cache_len`` is replicated."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.dist.legalize import PartitionSpec, placements_of
+
+    pl = placements_of(PartitionSpec(_batch_axes(mesh), None, None, MODEL_AXIS), mesh)
+    d = q.shape[-1]
+    sub = mesh[MODEL_AXIS]
+
+    def local(ql, kl, vl):
+        scores = funcol.all_reduce(split_d_scores(ql, kl), "sum", sub)
+        return split_d_finish(scores, vl, cl, d, window=window, dtype=ql.dtype)
+
+    cl = cache_len.to_local() if isinstance(cache_len, DTensor) else cache_len
+    fn = local_map(local, out_placements=pl, in_placements=(pl, pl, pl), device_mesh=mesh)
+    return fn(*(t.redistribute(mesh, pl) for t in (q, k_cache, v_cache)))
+
+
 def cache_insert(cache: torch.Tensor, new: torch.Tensor, pos: int | torch.Tensor) -> torch.Tensor:
     """Write ``new`` (B, 1, Hkv, D) into ``cache`` (B, W, Hkv, D) at ring
     position ``pos`` along dim 1, in place, and return ``cache`` (the
     reference's ``cache_insert`` rebuilds the array). ``pos`` is an int or
     a one-element integer tensor on the cache's device, clamped into the
     cache as ``dynamic_update_slice`` clamps it; a device tensor keeps a
-    captured step's position out of its graph."""
+    captured step's position out of its graph. A ``DTensor`` cache (the
+    dry run's) takes the row in its own placements (dim 1 is never
+    sharded), written into its local shard."""
+    if isinstance(cache, DTensor):
+        new = new.redistribute(cache.device_mesh, cache.placements)
+        pos = pos.to_local() if isinstance(pos, DTensor) else pos
+        cache_insert(cache.to_local(), new.to_local(), pos)
+        return cache
     idx = torch.as_tensor(pos, device=cache.device).reshape(1).long()
     idx = torch.clamp(idx, 0, cache.shape[1] - new.shape[1])
     return cache.index_copy_(1, idx, new.to(cache.dtype))

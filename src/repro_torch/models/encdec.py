@@ -29,7 +29,9 @@ from repro_torch.models.layers import (
     dense,
     embed,
     logits as unembed_logits,
+    merge_heads,
     rms_norm,
+    split_heads,
 )
 
 
@@ -43,16 +45,16 @@ def _cross_attn_block(lp, cfg: ModelConfig, x, enc_k, enc_v):
     K/V precomputed from the encoder's output."""
     b, s, _ = x.shape
     h = rms_norm(x, lp["ln_x"], cfg.norm_eps)
-    q = dense(h, lp["x_wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
+    q = split_heads(dense(h, lp["x_wq"]), cfg.n_heads, cfg.hd)
     o = attn.flash_attention(q, enc_k, enc_v, causal=False)
-    return x + dense(o.reshape(b, s, -1), lp["x_wo"])
+    return x + dense(merge_heads(o), lp["x_wo"])
 
 
 def _cross_kv(lp, cfg: ModelConfig, enc_out):
     """One decoder layer's cross K/V (B, F, Hkv, D) from the encoder states."""
     b, se, _ = enc_out.shape
-    k = dense(enc_out, lp["x_wk"]).reshape(b, se, cfg.n_kv, cfg.hd)
-    v = dense(enc_out, lp["x_wv"]).reshape(b, se, cfg.n_kv, cfg.hd)
+    k = split_heads(dense(enc_out, lp["x_wk"]), cfg.n_kv, cfg.hd)
+    v = split_heads(dense(enc_out, lp["x_wv"]), cfg.n_kv, cfg.hd)
     return k, v
 
 
@@ -112,6 +114,24 @@ def loss_fn(
     return cross_entropy(lg, labels, cfg.vocab) + aux_weight * aux, (aux,)
 
 
+def cross_cache_struct(cfg: ModelConfig, batch: int) -> torch.Tensor:
+    """A ``meta`` stand-in for one cross-attention cache leaf, (L, B, F,
+    Hkv, D) in the model dtype: the one source of its shape for
+    ``launch.specs`` (input stand-ins) and ``dist.sharding`` (cache specs)."""
+    shape = (cfg.n_layers, batch, cfg.frontend_len, cfg.n_kv, cfg.hd)
+    return torch.empty(shape, dtype=torch_dtype(cfg), device="meta")
+
+
+def with_cross_caches(cache: dict, cfg: ModelConfig, batch: int) -> dict:
+    """A copy of ``cache`` with ``meta`` cross-attention leaves
+    ``cross_k`` / ``cross_v`` added where missing: the one place the
+    decode-state tree gains its enc-dec extras."""
+    out = dict(cache)
+    out.setdefault("cross_k", cross_cache_struct(cfg, batch))
+    out.setdefault("cross_v", cross_cache_struct(cfg, batch))
+    return out
+
+
 @torch.no_grad()
 def init_decode_state(
     params: lm.LMParams,
@@ -160,9 +180,9 @@ def decode_step(
         lp = params.layer(i)
         x = lm._decode_attn_block(lp, cfg, x, cache["k"][i], cache["v"][i], pos)
         h = rms_norm(x, lp["ln_x"], cfg.norm_eps)
-        q = dense(h, lp["x_wq"]).reshape(b, 1, cfg.n_heads, cfg.hd)
+        q = split_heads(dense(h, lp["x_wq"]), cfg.n_heads, cfg.hd)
         o = attn.decode_attention(q, cache["cross_k"][i], cache["cross_v"][i], frames)
-        x = x + dense(o.reshape(b, 1, -1), lp["x_wo"])
+        x = x + dense(merge_heads(o), lp["x_wo"])
         x, _ = lm._ffn_block(lp, cfg, x)
     cache["len"].add_(1)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -54,6 +54,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -81,7 +82,9 @@ from repro_torch.models.layers import (
     dense,
     embed,
     logits as unembed_logits,
+    merge_heads,
     rms_norm,
+    split_heads,
     swiglu,
 )
 from repro_torch.quant.quantizers import pack_bits
@@ -491,14 +494,57 @@ def _param_tree(cfg: ModelConfig, normal, const, pack) -> dict[str, Any]:
 # --------------------------------------------------------------------------
 
 
+# The reference's mesh hooks (its lm.py:295-325 and 630-638), module state
+# that the dry run (``launch.dryrun.lower_cell``) sets and resets per cell;
+# each acts on ``DTensor``s only, so a run on plain tensors never sees it.
+# Batch resharding of the attention region: where the heads do not divide
+# the model axis, attention would run replicated over it; a spec like
+# PartitionSpec(("data", "model")) reshards q/k/v batch-wise instead.
+_ATTN_BATCH_SHARD = {"spec": None}
+# Sequence-sharded prefill attention, where the batch reshard does not
+# apply (prefill batch 32 on 256 devices).
+# The two variants split over ``attention.MODEL_AXIS`` and put the batch
+# over ``attention.BATCH_AXES``.
+_ATTN_SEQ_SHARD = {"mesh": None}
+# Split-d decode attention: where the KV heads do not divide the model
+# axis, the cache stays head-dim-sharded (``attention.decode_attention_split_d``).
+_DECODE_SPLIT_D = {"mesh": None}
+
+
+def set_attn_batch_sharding(spec) -> None:
+    """``PartitionSpec`` of the attention region's batch dim, or None."""
+    _ATTN_BATCH_SHARD["spec"] = spec
+
+
+def set_attn_seq_sharding(mesh) -> None:
+    """Enable (``mesh`` not None) or disable sequence-sharded prefill attention."""
+    _ATTN_SEQ_SHARD["mesh"] = mesh
+
+
+def set_decode_split_d(mesh) -> None:
+    """Enable (``mesh`` not None) or disable split-d decode attention."""
+    _DECODE_SPLIT_D["mesh"] = mesh
+
+
+def _attn_shard(t):
+    """``t`` redistributed batch-wise over ``_ATTN_BATCH_SHARD``'s spec (the
+    reference's ``with_sharding_constraint``), other dims replicated."""
+    spec = _ATTN_BATCH_SHARD["spec"]
+    if spec is None or not isinstance(t, DTensor):
+        return t
+    from repro_torch.dist.legalize import placements_of
+
+    return t.redistribute(t.device_mesh, placements_of(spec, t.device_mesh))
+
+
 def _qkv(lp, cfg: ModelConfig, x, positions):
     """Pre-norm q/k/v projection + RoPE shared by every attention path;
     x: (B, S, d), positions: (B|1, S)."""
     b, s, _ = x.shape
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    q = dense(h, lp["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
-    k = dense(h, lp["wk"]).reshape(b, s, cfg.n_kv, cfg.hd)
-    v = dense(h, lp["wv"]).reshape(b, s, cfg.n_kv, cfg.hd)
+    q = split_heads(dense(h, lp["wq"]), cfg.n_heads, cfg.hd)
+    k = split_heads(dense(h, lp["wk"]), cfg.n_kv, cfg.hd)
+    v = split_heads(dense(h, lp["wv"]), cfg.n_kv, cfg.hd)
     return (
         apply_rope(q, positions, cfg.rope_theta),
         apply_rope(k, positions, cfg.rope_theta),
@@ -506,12 +552,28 @@ def _qkv(lp, cfg: ModelConfig, x, positions):
     )
 
 
+def _residual(x, y):
+    """x + y, a ``DTensor`` y first laid out as the residual stream x is:
+    a hook's reshard or ``DTensor``'s own choice of an op's output layout
+    must not move the stream (the reference's stream keeps its sharding)."""
+    if isinstance(y, DTensor) and y.placements != x.placements:
+        y = y.redistribute(x.device_mesh, x.placements)
+    return x + y
+
+
 def _attn_block(lp, cfg: ModelConfig, x, positions, *, causal=True, window=0):
     """Full-sequence attention sub-block (pre-norm residual)."""
-    b, s, _ = x.shape
+    s = x.shape[1]
     q, k, v = _qkv(lp, cfg, x, positions)
-    o = attn.flash_attention(q, k, v, causal=causal, window=window)
-    return x + dense(o.reshape(b, s, -1), lp["wo"]), (k, v)
+    seq_mesh = _ATTN_SEQ_SHARD["mesh"]
+    if (seq_mesh is not None and isinstance(q, DTensor)
+            and s % seq_mesh.shape[seq_mesh.mesh_dim_names.index(attn.MODEL_AXIS)] == 0):
+        o = attn.flash_attention_seq_sharded(q, k, v, causal=causal, window=window,
+                                             mesh=seq_mesh)
+    else:
+        q, k, v = _attn_shard(q), _attn_shard(k), _attn_shard(v)
+        o = attn.flash_attention(q, k, v, causal=causal, window=window)
+    return _residual(x, dense(merge_heads(o), lp["wo"])), (k, v)
 
 
 def _ffn_block(lp, cfg: ModelConfig, x, ln_name="ln2"):
@@ -522,12 +584,12 @@ def _ffn_block(lp, cfg: ModelConfig, x, ln_name="ln2"):
     h = rms_norm(x, lp[ln_name], cfg.norm_eps)
     if cfg.family == "moe":
         y, aux = moe_lib.moe_ffn(h, lp["router"], lp["w1"], lp["w3"], lp["w2"], cfg)
-        return x + y, aux
+        return _residual(x, y), aux
     if cfg.w_bits in (1, 2):
         y = packed_swiglu(h, lp["w1"], lp["w3"], lp["w2"], cfg.w_bits)
     else:
         y = swiglu(h, lp["w1"], lp["w3"], lp["w2"])
-    return x + y, 0.0
+    return _residual(x, y), 0.0
 
 
 def _ffn_block_streamed(lp, cfg: ModelConfig, x, depth: int):
@@ -615,7 +677,7 @@ def _ssm_block(lp, cfg: ModelConfig, x, state=None, conv_bufs=None):
         bi = ssm_lib.causal_conv(bi, lp["conv_b"], state=cb)
         ci = ssm_lib.causal_conv(ci, lp["conv_c"], state=cc)
         s = x.shape[1]
-        xh = xi.reshape(b, s, cfg.ssm_heads, cfg.ssm_head_dim)
+        xh = split_heads(xi, cfg.ssm_heads, cfg.ssm_head_dim)
         y, new_state = ssm_lib.ssd_chunked(
             xh, dt, lp["a_log"], bi, ci, lp["d_skip"], cfg.ssm_chunk, h0=state
         )
@@ -1253,8 +1315,14 @@ def _decode_attn_block(lp, cfg: ModelConfig, x, k_cache, v_cache, pos, *, window
     slot = pos % w if window else torch.clamp(pos, max=w - 1)
     attn.cache_insert(k_cache, k, slot)
     attn.cache_insert(v_cache, v, slot)
-    o = attn.decode_attention(q, k_cache, v_cache, torch.clamp(pos + 1, max=w), window=window)
-    return x + dense(o.reshape(b, 1, -1), lp["wo"])
+    if _DECODE_SPLIT_D["mesh"] is not None and isinstance(q, DTensor):
+        o = attn.decode_attention_split_d(
+            q, k_cache, v_cache, torch.clamp(pos + 1, max=w), window=window,
+            mesh=_DECODE_SPLIT_D["mesh"])
+    else:
+        o = attn.decode_attention(q, k_cache, v_cache, torch.clamp(pos + 1, max=w),
+                                  window=window)
+    return x + dense(merge_heads(o), lp["wo"])
 
 
 @torch.no_grad()

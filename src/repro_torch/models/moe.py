@@ -3,8 +3,8 @@ fixed-batch engine's decode step) runs, and the dropless per-token
 dispatch that the pool engine serves with.
 
 Port of ``repro.models.moe`` (``moe_capacity``, ``_token_gates``,
-``moe_ffn``, ``moe_ffn_dropless``); the reference's expert-parallel
-sharding hooks are mesh code and are not ported.
+``moe_ffn``, ``moe_ffn_dropless``, and the expert-parallel hook
+``set_moe_ep_axis``, which the dry run sets).
 
 ``moe_ffn`` is GShard's grouped dispatch, one group per batch row: each
 expert takes the ``moe_capacity`` tokens of its row with the largest gate
@@ -52,11 +52,34 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import dense, shard_whole, spread
 
 EXPERT_ROWS = 256  # rows of every f32 product call of a prefill
+
+# The expert-parallel hook (the reference's moe.py:35-55): pin the (B, E,
+# ...) dispatch tensors of ``moe_ffn`` to ("data", axis), so the expert
+# einsums run on the expert shards rather than replicated. Module state
+# that the dry run sets and resets per cell; it acts on ``DTensor``s only.
+_EP = {"axis": None}
+
+
+def set_moe_ep_axis(axis) -> None:
+    _EP["axis"] = axis
+
+
+def _ep_shard_bec(t):
+    """A (B, E, ...) dispatch tensor redistributed to B on 'data', E on the
+    EP axis (the reference's ``with_sharding_constraint``)."""
+    if _EP["axis"] is None or not isinstance(t, DTensor):
+        return t
+    from repro_torch.dist.legalize import PartitionSpec, placements_of
+
+    return t.redistribute(t.device_mesh, placements_of(
+        PartitionSpec("data", _EP["axis"]), t.device_mesh))
 
 
 def _fixed_rows(fn, x: torch.Tensor, fixed: bool) -> torch.Tensor:
@@ -93,14 +116,31 @@ def _token_gates(
     einsum becomes a scatter, which places the same values. ``fixed_rows``
     runs the logits' product in ``EXPERT_ROWS``-row calls."""
     k = cfg.experts_per_token
-    x2 = x.to(torch.float32).reshape(-1, x.shape[-1])
-    router = router.to(torch.float32)
-    logits = _fixed_rows(lambda t: t @ router, x2, fixed_rows).reshape(x.shape[:-1] + (-1,))
+    if isinstance(router, DTensor):
+        # the product on the local shards (layers.dense); the routing over
+        # all E experts on every shard, as small as (B, S, E)
+        logits = shard_whole(dense(x.to(torch.float32), router), -1, 1)
+    else:
+        x2 = x.to(torch.float32).reshape(-1, x.shape[-1])
+        router = router.to(torch.float32)
+        logits = _fixed_rows(lambda t: t @ router, x2, fixed_rows).reshape(
+            x.shape[:-1] + (-1,))
     probs = torch.softmax(logits, dim=-1)
     top_g, top_i = torch.topk(probs, k, dim=-1)
     top_g = top_g / torch.clamp(top_g.sum(dim=-1, keepdim=True), min=1e-9)
-    gate = torch.zeros_like(probs).scatter_(-1, top_i, top_g)
-    return gate, probs, top_i
+    return _scatter_last(probs, top_i, top_g), probs, top_i
+
+
+def _scatter_last(like: torch.Tensor, idx: torch.Tensor, src) -> torch.Tensor:
+    """Zeros like ``like`` with ``src`` at ``idx`` along the last dim (the
+    k picks of ``idx`` are distinct): a scatter, or over a ``DTensor``
+    spread over ranks the reference's one-hot sum (``DTensor`` runs no
+    in-place scatter whose placements it must change)."""
+    if spread(like):
+        hot = F.one_hot(idx, like.shape[-1]).to(like.dtype)
+        src = src[..., None] if isinstance(src, torch.Tensor) else src
+        return (hot * src).sum(dim=-2)
+    return torch.zeros_like(like).scatter_(-1, idx, src)
 
 
 def expert_counts(top_i: torch.Tensor, n_experts: int) -> torch.Tensor:
@@ -189,20 +229,20 @@ def moe_ffn(
     e = cfg.n_experts
     gate, probs, top_i = _token_gates(x, router, cfg)
     # the reference's one-hot (B, S, k, E) summed over k: top-k picks distinct experts
-    picked = torch.zeros_like(probs).scatter_(-1, top_i, 1.0)
+    picked = _scatter_last(probs, top_i, 1.0)
     aux = e * torch.sum(picked.mean(dim=(0, 1)) * probs.mean(dim=(0, 1)))
     cap = moe_capacity(cfg, s)
     # each expert's C largest gates of its row, ties to the lower position
     # (lax.top_k's order; torch.topk leaves ties unordered)
     sel_g, sel_i = torch.sort(gate.transpose(1, 2), dim=-1, descending=True, stable=True)
-    sel_g, sel_i = sel_g[..., :cap], sel_i[..., :cap]  # (B, E, C)
+    sel_g, sel_i = sel_g[..., :cap], _ep_shard_bec(sel_i[..., :cap])  # (B, E, C)
     rows = torch.arange(b, device=x.device)[:, None].expand(b, e * cap)
     idx = sel_i.reshape(b, e * cap)
-    xe = x[rows, idx].reshape(b, e, cap, d)  # row-local gather, in x's dtype
+    xe = _ep_shard_bec(x[rows, idx].reshape(b, e, cap, d))  # row-local gather, in x's dtype
     h = F.silu(torch.einsum("becd,edf->becf", xe, w1.to(xe.dtype))) * torch.einsum(
         "becd,edf->becf", xe, w3.to(xe.dtype))
     ye = torch.einsum("becf,efd->becd", h, w2.to(h.dtype))
     gate_scale = ((sel_g > 0.0) * sel_g).to(ye.dtype)
-    ye = (ye * gate_scale[..., None]).reshape(b, e * cap, d)
+    ye = _ep_shard_bec(ye * gate_scale[..., None]).reshape(b, e * cap, d)
     y = torch.zeros_like(x).index_put((rows, idx), ye, accumulate=True)
     return y, aux.to(torch.float32)

@@ -17,6 +17,59 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+
+def _roles(x: DTensor, dim: int) -> list[str | None]:
+    """Per mesh dim of a ``DTensor`` x (B, ..., H, ...): "batch" where x's
+    dim 0 is sharded, "heads" where its dim ``dim`` (heads, or a
+    depthwise conv's channels) is and the product of those mesh dims
+    divides it, else None."""
+    roles, n = [], 1
+    for p, size in zip(x.placements, x.device_mesh.shape):
+        if p.is_shard(0):
+            roles.append("batch")
+        elif p.is_shard(dim) and x.shape[dim] % (n * size) == 0:
+            n *= size
+            roles.append("heads")
+        else:
+            roles.append(None)
+    return roles
+
+
+def _placed(roles, batch: int | None, heads: int | None, grad: bool = False) -> list:
+    """Placements of a tensor whose batch dim is ``batch`` and heads dim
+    ``heads`` (None: it has none) on a mesh of these roles; with ``grad``
+    its gradient's: a ``Partial`` sum over the shards of a role's mesh dim
+    that the tensor has no dim for."""
+    out = []
+    for r in roles:
+        if r == "batch" and batch is not None:
+            out.append(Shard(batch))
+        elif r == "heads" and heads is not None:
+            out.append(Shard(heads))
+        else:
+            out.append(Partial() if grad and r is not None else Replicate())
+    return out
+
+
+def _on_shards(fn, x: DTensor, head_dim: int, args, outs):
+    """``fn`` of plain tensors run on the local shards of DTensors
+    (``local_map``), batch and heads split as x's are, so no op inside
+    meets a sharded dim it would have to gather or flatten. ``args``:
+    (tensor, its batch dim, its heads dim) each, a plain tensor taken as
+    replicated; ``outs``: (batch dim, heads dim) of each output."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, roles = x.device_mesh, _roles(x, head_dim)
+    ts = [t if isinstance(t, DTensor) else
+          DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+          for t, _, _ in args]
+    in_pl = tuple(_placed(roles, b, h) for _, b, h in args)
+    grad_pl = tuple(_placed(roles, b, h, grad=True) for _, b, h in args)
+    on_shards = local_map(fn, out_placements=tuple(_placed(roles, b, h) for b, h in outs),
+                          in_placements=in_pl, in_grad_placements=grad_pl, device_mesh=mesh)
+    return on_shards(*(t.redistribute(mesh, pl) for t, pl in zip(ts, in_pl)))
 
 
 def segsum(log_decay: torch.Tensor) -> torch.Tensor:
@@ -54,7 +107,14 @@ def ssd_chunked(
     (H,) with A = -exp(a_log) < 0; b, c: (Bt, S, N) shared across heads;
     d_skip: (H,) skip gain; h0: (Bt, H, P, N) f32 carried state or None
     (zeros). Returns y (Bt, S, H, P) in x's dtype and the final f32 state
-    (Bt, H, P, N)."""
+    (Bt, H, P, N). Over ``DTensor``s it runs on each shard's batch rows
+    and heads (``_on_shards``; b and c whole on the heads' shards)."""
+    if isinstance(x, DTensor):
+        args = [(x, 0, 2), (dt, 0, 2), (a_log, None, 0), (b, 0, None), (c, 0, None),
+                (d_skip, None, 0)] + ([(h0, 0, 1)] if h0 is not None else [])
+        return _on_shards(lambda *ts: ssd_chunked(*ts[:6], chunk, h0=ts[6] if h0 is not None
+                                                  else None),
+                          x, 2, args, [(0, 2), (0, 1)])
     bt, s, h, p = x.shape
     n = b.shape[-1]
     chunk = chunk_len(s, chunk)
@@ -116,7 +176,12 @@ def ssd_decode_step(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One-token recurrence. h: (Bt, H, P, N) f32; x: (Bt, H, P); dt:
     (Bt, H); b, c: (Bt, N). Returns (y (Bt, H, P) in x's dtype, the new
-    f32 state)."""
+    f32 state). Over ``DTensor``s it runs on each shard's batch rows and
+    heads (``_on_shards``)."""
+    if isinstance(x, DTensor):
+        return _on_shards(ssd_decode_step, x, 1,
+                          [(h, 0, 1), (x, 0, 1), (dt, 0, 1), (a_log, None, 0), (b, 0, None),
+                           (c, 0, None), (d_skip, None, 0)], [(0, 1), (0, 1)])
     f32 = torch.float32
     dt = dt.to(f32)
     a = -torch.exp(a_log.to(f32))
@@ -138,7 +203,12 @@ def causal_conv(
     already-consumed prefix (the decode path's conv buffer): when given,
     the left context comes from it instead of zero padding, which is what
     lets a suffix prefill resume mid-sequence with the cold start's
-    windows."""
+    windows. Over ``DTensor``s it runs on each shard's batch rows and
+    channels (``_on_shards``: the conv is depthwise)."""
+    if isinstance(x, DTensor):
+        args = [(x, 0, 2), (w, None, 1)] + ([(state, 0, 2)] if state is not None else [])
+        return _on_shards(lambda xl, wl, *sl: causal_conv(xl, wl, sl[0] if sl else None),
+                          x, 2, args, [(0, 2)])
     k = w.shape[0]
     if state is None:
         xp = F.pad(x, (0, 0, k - 1, 0))

@@ -30,6 +30,7 @@ import dataclasses
 from typing import Any, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 UPDATE_ELEMS = 1 << 28  # elements a block of a leaf's update touches, at most (1 GiB in f32)
 
@@ -61,8 +62,10 @@ def leaves(tree) -> list:
 
 def _blocks(t: torch.Tensor) -> list[slice]:
     """Slices of ``t``'s leading axis of at most ``UPDATE_ELEMS`` elements
-    each (one row at least); one slice of all of it when it is no larger."""
-    if t.dim() == 0 or t.numel() <= UPDATE_ELEMS:
+    each (one row at least); one slice of all of it when it is no larger,
+    or when it is a ``DTensor`` (a slice of a sharded axis would gather
+    it; each device updates its shard)."""
+    if t.dim() == 0 or t.numel() <= UPDATE_ELEMS or isinstance(t, DTensor):
         return [slice(None)]
     rows = max(1, UPDATE_ELEMS // max(1, t[0].numel()))
     return [slice(i, i + rows) for i in range(0, t.shape[0], rows)]

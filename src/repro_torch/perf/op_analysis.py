@@ -39,16 +39,46 @@ wrapper runs that plain version, the plain version's own ops run outside
 the walk, so a step reads the same work whichever implementation ran.
 Each report is also counted as one launch of that kernel
 (``OpCost.kernel_launches``).
+
+Over ``DTensor``s (the dry run's stand-ins on a fake process group) the
+walk counts one device, rank 0, as the reference's per-device SPMD module
+does: an op whose arguments include a ``DTensor`` is handed back to
+``DTensor`` (the walk returns ``NotImplemented``, as
+``torch.distributed.tensor.debug.CommDebugMode`` does), which breaks it
+into the local op on the shards and the collectives of any redistribute,
+and the walk counts those. The ops ``DTensor``'s sharding propagation
+runs on ``FakeTensor``s of the global shape are not counted. A
+collective that ``DTensor`` issues on its own, to bring an op's
+arguments into a placement its strategy can run, is also kept by the op
+and the port's line that called it (``OpCost.implicit``): where it is an
+all-gather, that op runs on gathered, replicated inputs, the dry run's
+record of what ``DTensor`` had to replicate. On a CPU device mesh
+``DTensor`` runs a shard-to-shard all-to-all as an all-gather and a chunk
+(Gloo has no all-to-all); the walk counts it as the all-to-all.
+
+Memory, the counterpart of XLA's ``memory_analysis()``, in bytes of the
+local shards: ``argument_bytes`` (what the inputs hold),
+``output_bytes`` (what the outputs hold) and ``peak_live_bytes`` (the
+most bytes alive at once, the inputs included). Live memory is kept per
+storage, keyed by identity (a view adds nothing) and released by a weakref
+when the storage dies; a ``meta`` storage has its ``nbytes``, so a walk
+of stand-ins reads what the real tensors would hold.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import os
+import sys
+import weakref
 from collections import defaultdict
 from typing import Callable
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
@@ -123,6 +153,12 @@ class OpCost:
     collective_bytes: dict[str, float] = dataclasses.field(default_factory=dict)
     transcendentals: float = 0.0
     kernel_launches: dict[str, int] = dataclasses.field(default_factory=dict)
+    argument_bytes: int = 0
+    output_bytes: int = 0
+    peak_live_bytes: int = 0
+    # "kind: aten op at file:function" -> operand bytes of the collectives
+    # DTensor issued on its own to run that op
+    implicit: dict[str, float] = dataclasses.field(default_factory=dict)
     # (op, shapes) -> [calls, dot_flops, traffic_bytes, collective_bytes]
     rows: dict[tuple[str, str], list[float]] = dataclasses.field(
         default_factory=lambda: defaultdict(lambda: [0, 0.0, 0.0, 0.0]))
@@ -140,8 +176,9 @@ class OpCost:
         row[2] += traffic
         row[3] += coll
 
-    def count_op(self, func, args, kwargs, out) -> None:
-        """Count one ATen op as it ran."""
+    def count_op(self, func, args, kwargs, out, dtensor_op: str = "") -> None:
+        """Count one ATen op as it ran (``dtensor_op``: the last op that
+        ``DTensor`` took, to which a collective it issues belongs)."""
         name = func._schema.name.split("::")[-1]
         if func.namespace in COLLECTIVE_NAMESPACES:
             kind = next((k for key, k in COLLECTIVE_KINDS if key in name), None)
@@ -150,8 +187,13 @@ class OpCost:
             first = func._schema.arguments[0].name if func._schema.arguments else ""
             operand = args[1] if first.startswith("output") else args[0]
             b = sum(tensor_bytes(t) for t in _tensors(operand))
+            alltoall, implicit, site = _collective_origin()
+            kind = "all-to-all" if alltoall else kind
             self.collective_bytes[kind] = self.collective_bytes.get(kind, 0.0) + b
             self._add(f"{func.namespace}.{name}", _shapes(operand), coll=b)
+            if implicit:
+                key = f"{kind}: {dtensor_op} at {site}"
+                self.implicit[key] = self.implicit.get(key, 0.0) + b
             return
         returns = func._schema.returns
         outs = _tensors(out)
@@ -189,30 +231,107 @@ class OpCost:
         self._add(f"kernel:{name}", _shapes(args), flops, traffic)
 
 
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_OWN = (os.path.abspath(__file__), os.path.join(_PKG, "kernels", "_build.py"))
+
+
+def _collective_origin() -> tuple[bool, bool, str]:
+    """(a CPU mesh's all-to-all run as an all-gather, issued by
+    ``DTensor``'s own dispatch, the port's innermost calling line as
+    "file:function") of the collective being counted, from the stack."""
+    alltoall = implicit = False
+    site = ""
+    frame = sys._getframe(2)
+    while frame is not None:
+        code = frame.f_code
+        if code.co_name == "shard_dim_alltoall":
+            alltoall = True
+        elif code.co_filename.endswith(os.path.join("distributed", "tensor", "_dispatch.py")):
+            implicit = True
+        elif not site and code.co_filename.startswith(_PKG) and code.co_filename not in _OWN:
+            site = f"{os.path.relpath(code.co_filename, _PKG)}:{code.co_name}"
+        frame = frame.f_back
+    return alltoall, implicit, site
+
+
+def _storages(x) -> dict[int, torch.UntypedStorage]:
+    """The distinct storages of the tensors in ``x`` (a ``DTensor``'s
+    local shard's; a module's parameters and buffers), keyed by identity."""
+    out = {}
+    mods = [m for m in tree_leaves(x) if isinstance(m, torch.nn.Module)]
+    for t in _tensors(x) + _tensors([dict(m.state_dict(keep_vars=True)) for m in mods]):
+        st = t.untyped_storage()
+        out.setdefault(st._cdata, st)
+    return out
+
+
+def storage_bytes(x) -> int:
+    """Bytes of the distinct storages of the tensors in ``x``."""
+    return sum(st.nbytes() for st in _storages(x).values())
+
+
+class _LiveBytes:
+    """Bytes of the storages alive since the walk saw them, and their
+    peak: a storage is added once (a view of it adds nothing) and taken
+    off by a weakref when it dies."""
+
+    def __init__(self) -> None:
+        self.now = self.peak = 0
+        self._refs: dict[int, weakref.ref] = {}
+
+    def add(self, x) -> None:
+        for key, st in _storages(x).items():
+            if key in self._refs:
+                continue
+            n = st.nbytes()
+            self._refs[key] = weakref.ref(st, functools.partial(self._free, key, n))
+            self.now += n
+        self.peak = max(self.peak, self.now)
+
+    def _free(self, key: int, n: int, _ref) -> None:
+        if self._refs.pop(key, None) is not None:
+            self.now -= n
+
+
 class _Walk(TorchDispatchMode):
     def __init__(self, cost: OpCost):
         super().__init__()
         self.cost = cost
+        self.live = _LiveBytes()
+        self.dtensor_op = ""
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            self.dtensor_op = str(func.overloadpacket)
+            return NotImplemented  # DTensor runs it as local ops and collectives
         out = func(*args, **kwargs)
-        self.cost.count_op(func, args, kwargs, out)
+        if not any(issubclass(t, FakeTensor) for t in types) and not any(
+                isinstance(t, FakeTensor) for t in tree_leaves(out)):
+            self.cost.count_op(func, args, kwargs, out, self.dtensor_op)
+            self.live.add(out)
         return out
 
     def report_kernel(self, name: str, flops: float, args, kwargs, out) -> None:
         """A kernel wrapper's report (``kernels._build.reports_work``)."""
         self.cost.count_kernel(name, flops, args, kwargs, out)
+        self.live.add(out)
 
 
 def analyze(fn: Callable, *args, **kwargs) -> OpCost:
     """Run ``fn(*args, **kwargs)`` once and return what it cost. The walk
     is a dispatch mode: it sees the ops and the kernel reports of the
     calling thread and of the autograd threads that run its backward, and
-    nothing of another thread."""
+    nothing of another thread. The inputs' bytes are those of ``args``
+    and ``kwargs``, the outputs' those of what ``fn`` returns."""
     cost = OpCost()
-    with _Walk(cost):
-        fn(*args, **kwargs)
+    walk = _Walk(cost)
+    cost.argument_bytes = storage_bytes((args, kwargs))
+    walk.live.add((args, kwargs))
+    with walk:
+        out = fn(*args, **kwargs)
+    cost.output_bytes = storage_bytes(out)
+    cost.peak_live_bytes = walk.live.peak
     return cost
 
 

@@ -41,7 +41,7 @@ from repro_torch.core.gals import N_PORTS
 from repro_torch.core.packing import Packing, bin_cost
 from repro_torch.core.resource_model import H100_SXM, GpuChip
 from repro_torch.core.vmem_plan import WeightBlock, pack_blocks, vmem_tile_ram
-from repro_torch.models.config import POOL_FAMILIES, ModelConfig, torch_dtype
+from repro_torch.models.config import ModelConfig, torch_dtype
 
 MAX_STREAM_DEPTH = 8
 CHIP = H100_SXM
@@ -78,14 +78,12 @@ def weight_blocks(cfg: ModelConfig) -> tuple[WeightBlock, ...]:
     the packed precision or the dense dtype width; for MoE one block per
     expert mat, ``L{l}.e{e}.{mat}``, always at the dense dtype's width
     (experts are never packed); for hybrid the shared block's three,
-    ``shared.{mat}``. Budgeted decode does not run hybrid (its SSM state is
-    out of the executor's scope, as in the reference), but its plan lists
-    and prices the shared blocks."""
-    if cfg.family not in POOL_FAMILIES:
-        raise ValueError(
-            f"the residency plan covers the ported families "
-            f"{', '.join(POOL_FAMILIES)}; got {cfg.family!r}"
-        )
+    ``shared.{mat}``; for enc-dec the decoder's FFN blocks; for SSM none
+    (no FFN to pack or stream). Budgeted decode runs none of hybrid, SSM
+    and enc-dec (``executor.supports_budgeted_decode``, as in the
+    reference), but their plans list and price the blocks."""
+    if cfg.family == "ssm":
+        return ()
     d, ff = cfg.d_model, cfg.d_ff
     mats = {"w1": (d, ff), "w3": (d, ff), "w2": (ff, d)}
     if cfg.family == "hybrid":
@@ -293,20 +291,22 @@ def compile_residency_plan(
     *,
     vmem_budget_bytes: int,
     chip: GpuChip = CHIP,
+    solver: str = "ffd",
 ) -> RuntimeResidencyPlan:
-    """Pack carriers into tile bins of ``chip`` (FFD, bins of
-    ``MAX_HEIGHT``), then knapsack *regions* into the budget, ranked by
-    traffic value density: expected weight bytes avoided per step (a
-    block's bytes times its ``read_weight``) per budget byte. ``chip`` is
-    the H100 on the serve path; ``launch.port`` walks ``GPU_TIERS``. The
-    reference also takes a traffic profile, which the plan does not depend
-    on, and a solver and bin height, which the port fixes to the
-    reference's defaults: no caller of the port sets them."""
+    """Pack carriers into tile bins of ``chip`` (``solver``: FFD, or the
+    GA ``launch.port --solver ga`` asks for; bins of ``MAX_HEIGHT``), then
+    knapsack *regions* into the budget, ranked by traffic value density:
+    expected weight bytes avoided per step (a block's bytes times its
+    ``read_weight``) per budget byte. ``chip`` is the H100 on the serve
+    path; ``launch.port`` walks ``GPU_TIERS``. The reference also takes a
+    traffic profile, which the plan does not depend on, and a bin height,
+    which the port fixes to the reference's default: no caller of the port
+    sets them."""
     blocks = weight_blocks(cfg)
     weights = tuple(read_weight(b.name, cfg) for b in blocks)
     regions = tuple(_region_of(b.name) for b in blocks)
     packing: Packing = pack_blocks(
-        blocks, chip=chip, max_height=MAX_HEIGHT, regions=regions
+        blocks, chip=chip, max_height=MAX_HEIGHT, solver=solver, regions=regions
     )
     ram = vmem_tile_ram(chip)
     bins = tuple(tuple(b) for b in packing.bins)

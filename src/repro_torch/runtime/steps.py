@@ -30,6 +30,7 @@ import time
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import _build
 from repro_torch.models import encdec as encdec_lib
@@ -81,29 +82,37 @@ def make_loss_fn(cfg: ModelConfig, *, remat: str = "full", ce_chunk: int = 0) ->
     return loss
 
 
+def _trainable(node, path=()):
+    """(path, leaf) of every leaf of nested dicts that requires a
+    gradient, keys in sorted order."""
+    for k in sorted(node):
+        if isinstance(node[k], dict):
+            yield from _trainable(node[k], path + (k,))
+        elif node[k].requires_grad:
+            yield path + (k,), node[k]
+
+
+def _tree_like(node, by_path, path=()):
+    """Nested dicts like ``node`` with ``by_path``'s value at each leaf
+    (None where it has none)."""
+    return {k: _tree_like(v, by_path, path + (k,)) if isinstance(v, dict)
+            else by_path.get(path + (k,)) for k, v in node.items()}
+
+
 def _grads(loss: torch.Tensor, tree):
     """d loss / d every leaf that requires a gradient, as a tree like the
-    parameters' with None elsewhere (the reference's float0 tangents)."""
-    flat: list[tuple[tuple[str, ...], torch.Tensor]] = []
-
-    def walk(node, path):
-        for k in sorted(node):
-            if isinstance(node[k], dict):
-                walk(node[k], path + (k,))
-            elif node[k].requires_grad:
-                flat.append((path + (k,), node[k]))
-
-    walk(tree, ())
+    parameters' with None elsewhere (the reference's float0 tangents). A
+    ``DTensor`` leaf's gradient takes the leaf's placements (one reduction
+    of a ``Partial`` sum, where the reference's sharded step places it);
+    ``DTensor`` would otherwise reduce it again at each use. Module-level
+    helpers, not recursive closures: a closure that calls itself is a
+    reference cycle, which would hold the gradients past the step until
+    the garbage collector runs."""
+    flat = list(_trainable(tree))
     got = torch.autograd.grad(loss, [t for _, t in flat])
-    by_path = {path: g for (path, _), g in zip(flat, got)}
-
-    def build(node, path):
-        return {
-            k: build(v, path + (k,)) if isinstance(v, dict) else by_path.get(path + (k,))
-            for k, v in node.items()
-        }
-
-    return build(tree, ())
+    got = [g.redistribute(t.device_mesh, t.placements) if isinstance(g, DTensor) else g
+           for (_, t), g in zip(flat, got)]
+    return _tree_like(tree, {path: g for (path, _), g in zip(flat, got)})
 
 
 def make_train_step(

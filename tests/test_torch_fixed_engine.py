@@ -432,8 +432,10 @@ def test_serve_cli_refuses_moe_on_the_fixed_engine(capsys):
 
 
 def test_pool_side_refuses_ssm():
-    """The pool, the scheduler and the residency plan take paged families
-    only: the pool with the reference's message."""
+    """The pool and the scheduler take paged families only: the pool with
+    the reference's message. The residency plan has no block for the SSM
+    family, as the reference's ``weight_blocks`` returns none, and budgeted
+    decode refuses it."""
     jc, tc = jconf.get_smoke_config(ARCH), tconf.get_smoke_config(ARCH)
     with pytest.raises(ValueError) as want:
         JPool(jc, n_blocks=4, block_tokens=4)
@@ -443,8 +445,9 @@ def test_pool_side_refuses_ssm():
     pool = TPool(tconf.get_smoke_config("smollm_360m"), n_blocks=4, block_tokens=4, device="cpu")
     with pytest.raises(ValueError, match="family 'ssm' is not ported to the pool engine"):
         Scheduler(tc, None, pool, slots=1, max_len=8)
-    with pytest.raises(ValueError, match="ssm"):
-        compile_residency_plan(tc, vmem_budget_bytes=0)
+    from repro.runtime.residency.plan import weight_blocks
+
+    assert compile_residency_plan(tc, vmem_budget_bytes=0).blocks == () == weight_blocks(jc)
     assert not supports_budgeted_decode(tc)
 
 

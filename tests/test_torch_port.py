@@ -155,12 +155,37 @@ def test_port_cli_lm_sweep_and_refusals(capsys):
     assert len(lines) == 1 + 2 * len(GPU_TIERS)
     assert tport.main(["--arch", "no_such_arch"]) == 2
     assert "unknown arch" in capsys.readouterr().out
-    # the residency plan covers the pool's families: SSM has no FFN to plan
-    assert tport.main(["--arch", "mamba2_1p3b"]) == 2
-    assert "residency plan covers" in capsys.readouterr().out
-    assert tport.main(["--arch", "smollm_360m", "--solver", "ga"]) == 2
-    assert "packs with ffd, not 'ga'" in capsys.readouterr().out
+    # the SSM and enc-dec archs print rows as the reference's sweep does
+    # (no FFN block to plan; the decoder's FFN blocks), and --solver ga
+    # packs the LM sweep's plans with the GA
+    for argv, arch in ((["--arch", "mamba2_1p3b"], "mamba2_1p3b"),
+                       (["--arch", "whisper_tiny", "--quant", "2"], "whisper_tiny"),
+                       (["--arch", "whisper_tiny", "--solver", "ga"], "whisper_tiny")):
+        assert tport.main(argv) == 0
+        lines = capsys.readouterr().out.splitlines()
+        assert lines[0].split(",")[:5] == ["bench", "arch", "device", "variant", "fits_hbm"]
+        assert {line.split(",")[1] for line in lines[1:]} == {arch}
+    for arch, quant in (("mamba2_1p3b", 1), ("whisper_tiny", 2)):
+        assert tport.lm_port_rows(arch, quant=quant, tiers=TPU_LADDER) == jport.lm_port_rows(
+            arch, quant=quant)
     assert "data-sheet model, not a measurement" in tport.build_parser().format_help()
+
+
+@pytest.mark.parametrize("arch", ["whisper_tiny"])
+def test_lm_port_rows_at_the_ga_match_reference(arch, monkeypatch):
+    """``--solver ga``: the LM sweep's plans packed by the GA. The
+    reference passes the solver to a registry without the GA (a
+    ``KeyError``), so its sweep runs here with the GA registered under
+    that name, at Table III's defaults and the plan's bin height, as the
+    port packs: the rows are equal, and each packing is valid."""
+    from repro.core import packing as jpacking
+
+    monkeypatch.setitem(jpacking.SOLVERS, "ga", lambda items, h, ram: jpacking.pack_genetic(
+        items, jpacking.GaParams(max_height=h), ram))
+    got = tport.lm_port_rows(arch, quant=2, tiers=TPU_LADDER, solver="ga")
+    assert got == jport.lm_port_rows(arch, quant=2, solver="ga")
+    blocks = tplan.weight_blocks(dataclasses.replace(t_full(arch), w_bits=2))
+    tvp.pack_blocks(blocks, solver="ga").validate(tplan.MAX_HEIGHT)
 
 
 # ---------------- the planner's keywords ----------------

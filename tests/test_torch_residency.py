@@ -351,9 +351,10 @@ def test_budgeted_serving_is_token_identical(w_bits, sampling):
 
 @pytest.mark.parametrize("family", ["ssm", "hybrid"])
 def test_residency_plan_covers_the_ported_family_only(family):
-    """Neither family runs budgeted decode (as in the reference). SSM is
-    not ported and has no FFN: planning for it raises instead of planning
-    the dense layer blocks. Hybrid's plan lists its shared block's three
+    """Neither family runs budgeted decode (as in the reference). SSM has
+    no FFN: its plan has no block, as the reference's ``weight_blocks``
+    returns none, instead of planning the dense layer blocks. Hybrid's plan
+    lists its shared block's three
     mats, each read once a shared-block application, as the reference's
     does (its blocks and the weights: tests/test_torch_hybrid.py; MoE's
     expert blocks: tests/test_torch_moe.py)."""
@@ -362,8 +363,10 @@ def test_residency_plan_covers_the_ported_family_only(family):
     other = dataclasses.replace(tc, family=family, hybrid_attn_every=1)
     assert not texec.supports_budgeted_decode(other)
     if family == "ssm":
-        with pytest.raises(ValueError, match=family):
-            tplan.compile_residency_plan(other, vmem_budget_bytes=0)
+        plan = tplan.compile_residency_plan(other, vmem_budget_bytes=0)
+        assert plan.blocks == () == jplan.weight_blocks(dataclasses.replace(
+            _cfgs("smoke", 2)[0], family=family))
+        assert plan.streamed_bytes_per_step == 0
         return
     plan = tplan.compile_residency_plan(other, vmem_budget_bytes=0)
     assert [b.name for b in plan.blocks] == ["shared.w1", "shared.w3", "shared.w2"]
