@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py [--only kernels|prefill|moe|hybrid|ssm|vlm|encdec|fleet|
-                                  train_families|analysis|dryrun]
+                                  train_families|analysis|dryrun|mesh]
                           [--src DIR] [--log FILE]
 
 Phases, one JSON line each; any failure exits nonzero with no result:
@@ -297,6 +297,31 @@ dryrun     -- (right after the analysis phase, on phase 5's weights and the
               terms, bottleneck, memory and walk seconds; gated: status
               OK, every term finite and > 0, and the hooks that fired are
               those the reference's conditions name.
+mesh       -- (right after the dry-run phase, in the main process, so it
+              perturbs no timed phase; ``--only mesh`` runs it alone after
+              the build) what only a mesh runs, on smollm-360m at full size:
+              (a) ``launch/train.main`` at phase 7's flags for MESH_STEPS
+              steps (the plain run: phase 7's first steps; ``--only mesh``
+              runs its own) under a torchrun-style environment
+              (RANK 0, WORLD_SIZE 1, a free MASTER_PORT on localhost), where
+              it makes a 1-rank NCCL group, trains on fit_mesh's (1, 1)
+              DeviceMesh of DTensors (the flash kernels on local shards),
+              writes a checkpoint and destroys the group: the losses
+              bitwise the plain run's, launches by route equal, its step ms
+              beside the plain run's and phase 7's; (b) ``restore_resharded``
+              of that checkpoint onto the (1, 1) mesh and onto plain card
+              tensors over a new 1-rank NCCL group: every leaf of the one
+              bitwise the other's; (c) ``int8_allreduce`` of 2^24 f32 values over the
+              group and over a mesh axis: bitwise the plain
+              quantize-dequantize at world size 1, card ms beside it; (d) a
+              SCAN_PROMPT-token prefill on (b)'s weights with
+              ``set_attn_impl("scan")`` against the flash kernel's: logits
+              within SCAN_LOGIT_REL and SCAN_MIN_COS, the argmax agreement
+              and both card ms (the profiler's kernel time) reported, no
+              flash_fwd launch under scan. Then the group is destroyed.
+              ``pipeline_forward`` with one stage sends nothing, so it is
+              held only on the CPU, over 4 gloo ranks. Nothing falls back:
+              a failed group, collective or kernel fails the run.
 4-5 (the other dense archs: llama3.2-1b, h2o-danube-1.8b, phi3-medium-14b;
               run last, after phase 7), each in turn, with
               2-bit FFN carriers unless named: the
@@ -307,7 +332,7 @@ dryrun     -- (right after the analysis phase, on phase 5's weights and the
               256-token chunks, then 16 greedy decode steps), every chunk's
               and step's logits against the CPU's, and the CPU without the
               window beside it; ``init_params`` at full width and depth
-              (phi3: 16 of its 40 layers, SERVED_LAYERS, to fit the run's
+              (phi3: 8 of its 40 layers, SERVED_LAYERS, to fit the run's
               time limit) (seconds, host memory, device MiB); its decode step and
               prefill chunk captured, each replay bitwise its eager step;
               a compiled decode step and prefill chunk profiled (card ms);
@@ -318,9 +343,9 @@ dryrun     -- (right after the analysis phase, on phase 5's weights and the
               on the GEMV, never an f32 route or stream_matmul), and at
               --quant 0 compiled through ``serve.main`` (its own weights).
 moe        -- (after 4-5; ``--only moe`` runs it alone after the build)
-              olmoe-1b-7b at full width and 4 of its 16 layers (MOE_LAYERS;
+              olmoe-1b-7b at full width and 2 of its 16 layers (MOE_LAYERS;
               16 until the train_families phase needed the time, then 12,
-              8 until a slow host's run overran the limit; 64
+              8 and 4 until slow hosts' runs came near or over the limit; 64
               experts top-8, the dropless dispatch, every expert over every
               row in f32):
               (a) a 512-token prefill at 2 of its 16 layers, layer by
@@ -332,7 +357,7 @@ moe        -- (after 4-5; ``--only moe`` runs it alone after the build)
               tally within 2k per changed set; the card's FFN on the
               CPU's own f32 hidden state within MOE_FFN_F32_REL_TOL (TF32
               and bf16 expert products, printed beside, must read above
-              it); the end-to-end logits printed, not gated; (b) ``init_params`` at 4 layers
+              it); the end-to-end logits printed, not gated; (b) ``init_params`` at MOE_LAYERS
               (seconds, host memory, device MiB); (c) the decode step, a
               chunk (at starts 256 and 37), a 208-token bucket and a
               verify step of 4 on 8 lanes, each captured and its replay
@@ -547,7 +572,7 @@ train_families -- (last; ``--only train_families`` runs it alone after the
               each at lr 3e-4: whisper-tiny at full size (8 x 256; the not-causal
               backward on the main path, 8 of its 12 attention layers a
               step), mamba2-1.3b at full size (4 x 512, --remat full) and
-              olmoe-1b-7b at 4 of its 16 layers (4 x 512; its aux loss a
+              olmoe-1b-7b at 2 of its 16 layers (4 x 512; its aux loss a
               step): the loss finite and falling, launches exact by route.
 
 The MoE, hybrid, SSM, vlm and enc-dec phases hand their dense weights on to
@@ -712,14 +737,14 @@ GRAD_MIN_COS = 0.99  # the same, per gradient leaf
 REMAT_MIN_COS = 0.9999  # --remat full/dots vs none on the card: atomics order only
 # the other dense archs, each served at full width and depth (phases 4-5)
 NEW_ARCHS = ("llama3p2_1b", "h2o_danube_1p8b", "phi3_medium_14b")
-# ... but phi3, served at 16 of its 40 layers (32 from the hybrid phase on,
-# until a slow host's whole run overran its limit; with all 40 the run had
-# ended 63.3 s short of it on the H100: its draw and packing, ~210 s at 40
-# layers, are the run's longest host work);
+# ... but phi3, served at 8 of its 40 layers (32 from the hybrid phase on,
+# then 16, until a slow host's whole run overran or neared its limit;
+# with all 40 the run had ended 63.3 s short of it on the H100: its draw and
+# packing, ~210 s at 40 layers, are the run's longest host work);
 # and internvl2-76b (the vlm phase) at 4 of its 80 layers at full width: its
 # whole backbone is ~141 GB in bf16 and ~42 GB with 2-bit FFN carriers, which
 # one 80 GB card holds, but its draw alone would take ~500 s on the host
-SERVED_LAYERS = {"phi3_medium_14b": 16, "internvl2_76b": 4}
+SERVED_LAYERS = {"phi3_medium_14b": 8, "internvl2_76b": 4}
 WINDOW_STEPS = 16  # decode steps of h2o-danube's run past its window
 # layers of that run, 1 (2 before the train_families phase came): its
 # float32 CPU side over the 4352-token prompt, windowed and not, took 52.3
@@ -728,15 +753,16 @@ WINDOW_STEPS = 16  # decode steps of h2o-danube's run past its window
 # the CPU's logits 1.03) had a 20x margin
 WINDOW_LAYERS = 1
 # the MoE phase: olmoe at full width and MOE_LAYERS of its 16 layers (all
-# 16 until the train_families phase came, then 12, then 8: the run's time
-# limit, which slow hosts' runs at 12 and at 8 overran), moonshot
+# 16 until the train_families phase came, then 12, 8 and 4: the run's time
+# limit, which slow hosts' runs at 12 and at 8 overran, and at 4 came within
+# 1 s of once the mesh phase came), moonshot
 # cut to MOON_LAYERS of its 48
 # layers (its full draw would take ~200 s on the host; 8 until the hybrid
 # phase came, 4 until the train_families phase: each cut makes room within
 # the run's time limit); each prefill check at MOE_CHECK_LAYERS layers, so
 # the CPU's float32 experts stay in seconds
 MOE_ARCH, MOE_LAYERS, MOON_ARCH, MOON_LAYERS, MOE_CHECK_LAYERS = (
-    "olmoe_1b_7b", 4, "moonshot_v1_16b_a3b", 2, 2)
+    "olmoe_1b_7b", 2, "moonshot_v1_16b_a3b", 2, 2)
 MOE_SPEC_REQUESTS, MOE_SPEC_GEN = 8, 32  # (g): one wave of the cell's prompts
 # (i): the fixed-engine wave's prompt and generated tokens (its eager run at
 # the fixed cell's 128 + 64 took 11.3 s on the H100's host)
@@ -850,13 +876,37 @@ ENC_TOKENS, ENC_GEN = 32, 64
 # (8.98, 12.25, 8.25) and fell at 3e-4 (10.886, 10.890, 10.729, 10.628);
 # olmoe's swung at 3e-2 (12.7, 15.8, 23.0, 10.0))
 TF_GRAD_LAYERS = {"olmoe_1b_7b": 2, "mamba2_1p3b": 2, "internvl2_76b": 1}
-TF_MOE_LAYERS = 4  # the MoE phase's weights, MOE_LAYERS deep
+TF_MOE_LAYERS = 2  # the MoE phase's weights, MOE_LAYERS deep
 TF_HYB_BATCH, TF_HYB_SEQ = 8, 512
 TF_SHORT = {"whisper_tiny": (8, 256, "none"), "mamba2_1p3b": (4, 512, "full"),
             "olmoe_1b_7b": (4, 512, "none")}
 TF_STEPS, TF_LR = 4, 3e-4
 # the seeded scale of a modality batch leaf, as the vlm and enc-dec phases draw them
 MODALITY_STD = {"prefix_embeds": 0.02, "frames": 1.0}
+
+
+# the mesh phase (after the dry run): (a) MESH_STEPS steps of phase 7's train
+# CLI flags, plain and on a (1, 1) mesh of one NCCL rank; (c) an
+# int8_allreduce of MESH_ALLREDUCE_ELEMS f32 values; (d) a SCAN_PROMPT-token
+# prefill with set_attn_impl("scan") against the flash kernel's. (d)'s
+# tolerance: the two differ only in attention's f32 sums (one 512 x 512
+# block against 64-key tiles with online rescaling; both round P to bf16
+# before PV and the output to bf16), carried through 32 bf16 layers
+MESH_STEPS = 3
+MESH_ALLREDUCE_ELEMS = 1 << 24
+SCAN_PROMPT = 512
+SCAN_LOGIT_REL = 0.05  # of the flash path's largest |logit|
+SCAN_MIN_COS = 0.999
+MESH_TIMED_CALLS = 3
+
+
+def free_port() -> int:
+    """A free TCP port on the loopback interface (a process group's store)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
 
 
 HOST_POOLS: list = []  # the host-draw threads' executors, cancelled on a failure
@@ -985,7 +1035,7 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     ap.add_argument("--only", choices=("kernels", "prefill", "moe", "hybrid", "ssm", "vlm",
                                        "encdec", "fleet", "train_families", "analysis",
-                                       "dryrun"),
+                                       "dryrun", "mesh"),
                     help="kernels: stop after phase 3 (build, and hold each kernel against "
                          "its plain version); prefill: build, then only phase 4's prefill "
                          "check and profile; moe: build, then only the MoE phase; hybrid: "
@@ -995,7 +1045,7 @@ def main(argv: list[str] | None = None) -> int:
                          "train_families: build, then only that phase, on weights it draws; "
                          "analysis: build, then only the analysis phase (no measured serve "
                          "cell beside the model); dryrun: build, then only the dry-run "
-                         "phase. Each prints no result")
+                         "phase; mesh: build, then only the mesh phase. Each prints no result")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the source tree whose repro_torch to run (default: src beside this "
                          "script); another commit's, to compare the two in one call")
@@ -3186,7 +3236,8 @@ def main(argv: list[str] | None = None) -> int:
             fail(f"{label}: launches {counts}, by route {by_route}")
 
     # ---------------- the vlm family (--only vlm: alone) ----------------
-    family_launches = {"vlm": {}, "encdec": {}}  # the two phases' share of ``launches``
+    # the vlm, enc-dec and mesh phases' share of ``launches``
+    family_launches = {"vlm": {}, "encdec": {}, "mesh": {}}
     noncausal_launches = {}  # flash_fwd's launches with causal=False on the main path
 
     def add_family(family, by_route) -> None:
@@ -3854,6 +3905,226 @@ def main(argv: list[str] | None = None) -> int:
                     else node.detach().clone())
         return c, lm.LMParams(copy(p.tree()))
 
+    # ---------------- the mesh phase (after the dry run; --only mesh: alone) ----------------
+    def run_train_cli(argv, env, params) -> tuple[dict, dict, dict]:
+        """``launch/train.main(argv, params)`` with ``env`` set in the
+        process's environment for the call (put back after): its metrics
+        line, its launches and its launches by route."""
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        buf = io.StringIO()
+        ops.reset_launch_counts()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = train_cli.main(argv, params=params)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        counts, by_route = ops.launch_counts(), ops.launch_routes()
+        text = buf.getvalue()
+        sys.stderr.write(text)
+        if rc != 0:
+            fail(f"train {' '.join(argv)} exited {rc}")
+        metrics = json.loads(
+            next(l for l in text.splitlines() if l.startswith("[train/metrics] ")).split(" ", 1)[1])
+        return metrics, counts, by_route
+
+    def card_ms_of(fn, n=MESH_TIMED_CALLS) -> dict:
+        """``fn``'s card ms (its kernels' device time in a call, summed from
+        torch.profiler: an eager prefill's enqueue takes the host longer
+        than the card takes to run it, so events around the call would time
+        the host) and its wall ms a call (host clock, synchronised, over
+        ``n`` calls). The profiler has lost every kernel record of a short
+        window late in a full run (PERF.md §7): then it profiles ``n`` calls,
+        and if those lose theirs too, card ms is None (not measured)."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        out = dict(wall_ms=(time.monotonic() - t0) * 1e3 / n, card_ms=None, kernels=None)
+        for calls in (1, n):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            if kern:
+                return dict(out, card_ms=sum(e.time_range.elapsed_us() for e in kern) / 1e3 / calls,
+                            kernels=len(kern) / calls, profiled_calls=calls)
+        return dict(out, card_ms_note="not measured: the profiler recorded no kernel")
+
+    def mesh_phase(phase7: dict | None) -> None:
+        """The mesh phase: (a) the train CLI on a (1, 1) DeviceMesh over a
+        1-rank NCCL group it makes from the environment, against the plain
+        run; (b) restore_resharded of its checkpoint onto the mesh and onto
+        plain card tensors; (c) int8_allreduce over the group; (d) the scan
+        prefill against the flash kernel's. ``pipeline_forward`` with one
+        stage sends nothing, so it is held only on the CPU (several gloo
+        ranks). ``phase7``: phase 7's metrics (a full run), or None."""
+        import torch.distributed as dist
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.ckpt import restore_resharded
+        from repro_torch.ckpt.manager import _flatten
+        from repro_torch.launch import specs
+        from repro_torch.launch.mesh import make_real_mesh
+        from repro_torch.models import attention as attn
+        from repro_torch.optim.compression import int8_allreduce, int8_dequantize, int8_quantize
+
+        t_phase = time.monotonic()
+        c = get_config("smollm_360m")
+        argv = ["--arch", "smollm_360m", "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                "--steps", str(MESH_STEPS), "--remat", "none"]
+        # (a) the plain run (phase 7's first MESH_STEPS steps in a full run,
+        # whose CLI runs the same flags: its losses and its launches a step),
+        # then the same flags on the (1, 1) mesh
+        host = lm.init_params(c, 0, device="cpu")
+
+        def on_card():
+            return lm.LMParams(tree_map(lambda t: t.to(dev), host.tree()))
+
+        if phase7 is None:
+            plain, plain_counts, plain_routes = run_train_cli(argv, {}, on_card())
+        else:
+            def first(counts):
+                return {k: v * MESH_STEPS // phase7["steps"] for k, v in counts.items()}
+
+            plain = dict(phase7, losses=phase7["losses"][:MESH_STEPS])
+            plain_counts = first(phase7["launches_counted"])
+            plain_routes = {k: first(v) for k, v in phase7["launches_by_route"].items()}
+        ck_dir = ROOT / "build" / "chip_smoke_mesh_ckpt"
+        shutil.rmtree(ck_dir, ignore_errors=True)
+        env = {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1", "MASTER_ADDR": "localhost",
+               "MASTER_PORT": str(free_port())}
+        on_mesh, counts, by_route = run_train_cli(argv + ["--ckpt", str(ck_dir)], env, on_card())
+        del host
+        if dist.is_initialized():
+            fail("the train CLI left its process group behind")
+        diffs = [abs(a - b) for a, b in zip(on_mesh["losses"], plain["losses"])]
+        for name, n in counts.items():
+            launches[name] += n
+        add_routes(by_route)
+        add_family("mesh", by_route)
+        if phase7 is None:
+            add_family("mesh", plain_routes)  # the plain run's, on the main path too
+            for name, n in plain_counts.items():
+                launches[name] += n
+            add_routes(plain_routes)
+        phase("mesh_train", card=smi, seconds=time.monotonic() - t_phase,
+              mesh=on_mesh["mesh"], world_size=on_mesh["world_size"],
+              backend="nccl", losses=on_mesh["losses"], plain_losses=plain["losses"],
+              bitwise=on_mesh["losses"] == plain["losses"], largest_loss_diff=max(diffs),
+              step_ms_median=on_mesh["step_ms_median"], first_step_ms=on_mesh["first_step_ms"],
+              plain_step_ms_median=plain["step_ms_median"],
+              plain_first_step_ms=plain["first_step_ms"],
+              plain_run="phase 7's first steps" if phase7 else "its own",
+              tokens_per_s=on_mesh["tokens_per_s"], plain_tokens_per_s=plain["tokens_per_s"],
+              peak_device_mem_gib=on_mesh["peak_device_mem_gib"],
+              plain_peak_device_mem_gib=plain["peak_device_mem_gib"],
+              launches=counts, launches_by_route=by_route, plain_launches=plain_counts)
+        if on_mesh["mesh"] != {"shape": [1, 1], "axes": ["data", "model"]} or \
+                on_mesh["world_size"] != 1:
+            fail(f"mesh: the CLI trained on {on_mesh['mesh']}, world {on_mesh['world_size']}")
+        if on_mesh["losses"] != plain["losses"]:
+            fail(f"mesh: the (1, 1) mesh's losses {on_mesh['losses']} are not the plain run's "
+                 f"{plain['losses']} (largest difference {max(diffs)})")
+        if counts != plain_counts or by_route != plain_routes or not counts["flash_fwd"]:
+            fail(f"mesh: launches {counts} / {by_route}, the plain run's {plain_counts} / "
+                 f"{plain_routes}")
+
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                                world_size=1)
+        try:
+            mesh = make_real_mesh((1, 1), ("data", "model"))
+            # (b) the checkpoint restored onto the mesh and onto plain tensors
+            mgr = CheckpointManager(str(ck_dir))
+            opt = AdamW()
+            empty = lm.LMParams(tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device=dev),
+                                         lm.abstract_params(c).tree()))
+            template = (empty, opt.init(empty))
+            shardings = (specs.mesh_shardings(mesh, specs.param_shardings(c, mesh)),
+                         specs.mesh_shardings(mesh, specs.opt_shardings(c, mesh, opt)))
+            restored = {}
+            for label, sh in (("mesh", shardings), ("plain", None)):
+                t0 = time.monotonic()
+                tree, ex = restore_resharded(mgr, template, sh)
+                torch.cuda.synchronize()
+                restored[label] = (_flatten(tree), ex, time.monotonic() - t0)
+                if label == "plain":
+                    weights = tree[0]  # (d)'s weights: the trained ones
+            # the plain path is the file's value moved to the card; the mesh
+            # path cuts each rank's slice and wraps it (the CPU tests hold
+            # the slices of real splits against distribute_tensor's)
+            on_mesh_leaves, plain_leaves = restored["mesh"][0], restored["plain"][0]
+            differ = [k for k, v in plain_leaves.items()
+                      if not same_bits(v, on_mesh_leaves[k].full_tensor())]
+            extra = restored["plain"][1]
+            kinds = {label: sorted({("DTensor" if isinstance(v, DTensor) else "plain") + " on "
+                                    + str(v.device) for v in leaf.values()})
+                     for label, (leaf, _, _) in restored.items()}
+            ck_bytes = sum(f.stat().st_size for f in ck_dir.rglob("*.npy"))
+            phase("mesh_restore", card=smi, leaves=len(plain_leaves), bytes=ck_bytes, extra=extra,
+                  kinds=kinds, seconds={label: r[2] for label, r in restored.items()},
+                  leaves_differing=differ[:5])
+            if differ or restored["mesh"][1] != extra or extra != {"data_step": MESH_STEPS} or \
+                    len(plain_leaves) != len(on_mesh_leaves) or kinds != {
+                    "mesh": [f"DTensor on {dev}:0"], "plain": [f"plain on {dev}:0"]}:
+                fail(f"mesh: restore_resharded: leaves differing {differ}, extra {extra}, "
+                     f"leaf types {kinds}")
+            del restored, on_mesh_leaves, plain_leaves, template, empty, tree
+            shutil.rmtree(ck_dir, ignore_errors=True)
+            # (c) int8_allreduce over the group against the plain quantize-dequantize
+            g = torch.randn(MESH_ALLREDUCE_ELEMS, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(0)) * 3
+            want = int8_dequantize(*int8_quantize(g))
+            allreduce = {}
+            for label, group in (("world group", dist.group.WORLD), ("mesh axis data",
+                                                                      (mesh, "data"))):
+                got = int8_allreduce(g, group)
+                allreduce[label] = dict(bitwise=same_bits(got, want),
+                                        card_ms=median_ms(lambda: int8_allreduce(g, group)))
+            phase("mesh_int8_allreduce", card=smi, elems=g.numel(), world_size=1,
+                  plain_card_ms=median_ms(lambda: int8_dequantize(*int8_quantize(g))),
+                  timing="CUDA events, median of REPS, L2 flushed", **allreduce)
+            if not all(r["bitwise"] for r in allreduce.values()):
+                fail(f"mesh: int8_allreduce is not the plain quantize-dequantize: {allreduce}")
+            # (d) the scan prefill against the flash kernel's, same weights
+            tokens = torch.from_numpy(TokenPipeline(vocab=c.vocab, batch=1, seq_len=SCAN_PROMPT,
+                                                    seed=0).batch_at(0)["tokens"]).to(dev)
+            lg, scan_launches, timed = {}, {}, {}
+            for impl in ("fa2", "scan"):
+                attn.set_attn_impl(impl)
+                try:
+                    ops.reset_launch_counts()
+                    lg[impl] = lm.prefill(weights, c, tokens)[0, :, : c.vocab].float()
+                    torch.cuda.synchronize()
+                    scan_launches[impl] = ops.launch_counts()["flash_fwd"]
+                    timed[impl] = card_ms_of(lambda: lm.prefill(weights, c, tokens))
+                finally:
+                    attn.set_attn_impl("fa2")
+            a, b = lg["scan"], lg["fa2"]
+            rel = ((a - b).abs().max() / b.abs().max()).item()
+            cos = F.cosine_similarity(a.flatten(), b.flatten(), dim=0).item()
+            argmax = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+            phase("mesh_scan_prefill", card=smi, tokens=SCAN_PROMPT, rel_err=rel, cosine=cos,
+                  argmax_agreement=argmax, scan=timed["scan"], flash=timed["fa2"],
+                  flash_fwd_launches=scan_launches,
+                  tolerance=f"rel {SCAN_LOGIT_REL} of max|flash logit|, cosine >= {SCAN_MIN_COS}")
+            if rel > SCAN_LOGIT_REL or cos < SCAN_MIN_COS or scan_launches != {
+                    "fa2": c.n_layers, "scan": 0}:
+                fail(f"mesh: the scan prefill against flash_fwd's: rel {rel}, cosine {cos}, "
+                     f"flash_fwd launches {scan_launches}")
+            del weights, lg, a, b
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+        phase("mesh_phase", card=smi, seconds=time.monotonic() - t_phase)
+
     # ---------------- phase 5 (b)'s follow-up turn (with --only fleet too) ----------------
     def followup_turn(c, p) -> None:
         """(b) K/V rows that decode made, adopted by a follow-up turn: the
@@ -4454,6 +4725,12 @@ def main(argv: list[str] | None = None) -> int:
         dryrun_phase(cq, lm.init_params(cq, 0, device=dev), dryrun_started)
         phase_seconds("dryrun")
         print("[chip_smoke] --only dryrun: stopped after the dry-run phase", file=sys.stderr)
+        return 0
+
+    if opts.only == "mesh":
+        mesh_phase(None)
+        phase_seconds("mesh")
+        print("[chip_smoke] --only mesh: stopped after the mesh phase", file=sys.stderr)
         return 0
 
     if opts.only == "fleet":
@@ -6604,6 +6881,8 @@ def main(argv: list[str] | None = None) -> int:
     dryrun_phase(cfg_q2, params_q2, dryrun_started, tparams)
     del params_q2, tparams
     phase_seconds("dryrun")
+    mesh_phase(train_runs[0])
+    phase_seconds("mesh")
 
     # ---------------- 4-5 for the other dense archs (last) ----------------
     for arch in NEW_ARCHS:
@@ -6684,6 +6963,7 @@ def main(argv: list[str] | None = None) -> int:
              launches_vlm_phase=family_launches["vlm"].get("flash_fwd", {}),
              launches_encdec_phase=family_launches["encdec"].get("flash_fwd", {}),
              launches_fleet_phase=family_launches["fleet"].get("flash_fwd", {}),
+             launches_mesh_phase=family_launches["mesh"].get("flash_fwd", {}),
              launches_noncausal=noncausal_launches,
              shape=f"causal Sq=Sk={PROMPT} Hq={hq} Hkv={hkv} D={hd} bf16",
              tolerance=f"out abs {FLASH_OUT_TOL}, lse abs {FLASH_LSE_TOL}",
@@ -6721,6 +7001,7 @@ def main(argv: list[str] | None = None) -> int:
              replaces="src/repro/kernels/flash_attention.py:282",
              launches=launches["flash_bwd_dq"],
              launches_by_route=routes["flash_bwd_dq"],
+             launches_mesh_phase=family_launches["mesh"].get("flash_bwd_dq", {}),
              shape=f"causal B={TRAIN_BATCH} S={TRAIN_SEQ} Hq={hq} Hkv={hkv} D={hd} bf16",
              tolerance=f"rel {FLASH_BWD_TOL} of max|want| per output (bf16), "
                        f"{FLASH_BWD_TOL_F32} (f32), against the plain version in f32",
@@ -6734,6 +7015,7 @@ def main(argv: list[str] | None = None) -> int:
              replaces="src/repro/kernels/flash_attention.py:306",
              launches=launches["flash_bwd_dkv"],
              launches_by_route=routes["flash_bwd_dkv"],
+             launches_mesh_phase=family_launches["mesh"].get("flash_bwd_dkv", {}),
              shape=f"causal B={TRAIN_BATCH} S={TRAIN_SEQ} Hq={hq} Hkv={hkv} D={hd} bf16",
              tolerance=f"rel {FLASH_BWD_TOL} of max|want| per output (bf16), "
                        f"{FLASH_BWD_TOL_F32} (f32), against the plain version in f32",

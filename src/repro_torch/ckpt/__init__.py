@@ -1,1 +1,1 @@
-from repro_torch.ckpt.manager import CheckpointManager  # noqa: F401
+from repro_torch.ckpt.manager import CheckpointManager, restore_resharded  # noqa: F401

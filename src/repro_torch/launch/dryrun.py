@@ -22,6 +22,12 @@ Differences from the reference's record: one ``t_walk_s`` stands for
 ``hooks`` names the mesh hooks the cell set and ``replicated_ops`` the ops
 ``DTensor`` ran on gathered inputs (bytes entering each all-gather).
 
+``--attn-impl scan`` walks the cells with ``attention.set_attn_impl("scan")``
+(the reference's scan-of-scans online softmax in plain torch, every block
+pair computed) where the reference's dry run switches its attention, and
+puts the switch back after; the sequence-sharded prefill and the paged
+chunk paths keep the kernel, as the reference's keep their own paths.
+
 ``DTensor``'s sharding strategies and a few private names the walk reads
 (``op_analysis._collective_origin``, ``_clear_sharding_caches``) change
 between torch releases, and so may a record. The whole sweep was run on
@@ -53,6 +59,7 @@ from repro_torch.dist.legalize import PartitionSpec
 from repro_torch.dist.mesh_axes import MeshView
 from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import attention as attn
 from repro_torch.models import lm
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import SHAPES, ModelConfig, shape_applicable
@@ -336,7 +343,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ce-chunk", type=int, default=512)
     ap.add_argument("--quant", type=int, default=0, choices=[0, 1, 2])
     ap.add_argument("--attn-impl", default="fa2", choices=["fa2", "scan"],
-                    help="fa2: the port's flash kernel; scan is not ported yet (exits 2)")
+                    help="fa2: the port's flash kernels; scan: the reference's scan-of-scans "
+                    "online softmax in plain torch (attention.flash_attention_scan), the "
+                    "baseline the kernels are measured against")
     ap.add_argument("--no-constraints", action="store_true",
                     help="disable the mesh hooks (the paper-faithful baseline)")
     ap.add_argument("--vmem-budget", type=float, default=0.0,
@@ -354,10 +363,6 @@ def main(argv=None) -> int:
               f"run on ({', '.join('%d.%d' % v for v in TESTED_TORCH)}): its DTensor shards "
               "some of the cells' ops otherwise or not at all")
         return 2
-    if args.attn_impl != "fa2":
-        print(f"[dryrun] --attn-impl {args.attn_impl} is not ported yet: the port's "
-              "attention is its flash kernel (fa2)")
-        return 2
     if args.arch != "all":
         try:
             canonical_arch(args.arch)
@@ -368,6 +373,24 @@ def main(argv=None) -> int:
     shapes = list(SHAPES) if args.shape == "all" else [args.shape]
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
 
+    prev_impl = attn._ATTN_IMPL["name"]
+    attn.set_attn_impl(args.attn_impl)  # process-wide; put back after the cells
+    try:
+        records, failures = _run_cells(args, archs, shapes, meshes)
+    finally:
+        attn.set_attn_impl(prev_impl)
+    if args.json:
+        with open(args.json, "a") as fh:
+            for r in records:
+                fh.write(json.dumps(r) + "\n")
+    n_ok = sum(1 for r in records if r["status"] == "OK")
+    n_skip = sum(1 for r in records if r["status"].startswith("SKIP"))
+    print(f"[dryrun] {n_ok} OK, {n_skip} skipped, {len(failures)} failed")
+    return 1 if failures else 0
+
+
+def _run_cells(args, archs, shapes, meshes) -> tuple[list[dict], list[dict]]:
+    """Every (arch, shape, mesh) cell's record, and the failed ones."""
     records, failures = [], []
     for arch in archs:
         for shape in shapes:
@@ -384,15 +407,7 @@ def main(argv=None) -> int:
                     failures.append(rec)
                     print(f"[dryrun] {arch} {shape} FAILED: {e}", flush=True)
                 records.append(rec)
-
-    if args.json:
-        with open(args.json, "a") as fh:
-            for r in records:
-                fh.write(json.dumps(r) + "\n")
-    n_ok = sum(1 for r in records if r["status"] == "OK")
-    n_skip = sum(1 for r in records if r["status"].startswith("SKIP"))
-    print(f"[dryrun] {n_ok} OK, {n_skip} skipped, {len(failures)} failed")
-    return 1 if failures else 0
+    return records, failures
 
 
 if __name__ == "__main__":

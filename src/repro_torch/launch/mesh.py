@@ -1,11 +1,16 @@
-"""Production mesh construction over a fake process group.
+"""Production mesh construction over a fake process group, and meshes
+over a real one.
 
 The port's counterpart of ``repro.launch.mesh``. The reference forces 512
 placeholder host devices; here a ``DeviceMesh`` spans the ranks of a fake
 process group (``torch.testing._internal.distributed.fake_pg``, backend
 ``"fake"``, rank 0): no device, no network, no data moves, so every
-collective is a stand-in the op walk counts. These are FUNCTIONS, not
-module constants: importing this module touches no process group.
+collective is a stand-in the op walk counts (``make_mesh``,
+``make_production_mesh``: the dry run's). ``make_real_mesh`` lays a mesh
+over the real group a launcher made (``gloo`` or ``nccl``; the train CLI's
+``fit_mesh`` and ``--production-mesh``), and never makes or replaces a
+group. These are FUNCTIONS, not module constants: importing this module
+touches no process group.
 """
 
 from __future__ import annotations
@@ -48,3 +53,17 @@ def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
     if multi_pod:
         return make_mesh((2, 16, 16), ("pod", "data", "model"))
     return make_mesh((16, 16), ("data", "model"))
+
+
+def make_real_mesh(shape: tuple[int, ...], axes: tuple[str, ...]) -> DeviceMesh:
+    """A mesh over the real process group that exists, of exactly
+    ``prod(shape)`` ranks: on CUDA over ``nccl``, on the CPU otherwise.
+    Never makes or replaces a group (raises where there is no real group
+    or its size differs)."""
+    if not dist.is_initialized() or dist.get_backend() == "fake":
+        raise RuntimeError("no real process group: launch the ranks under torchrun")
+    if dist.get_world_size() != math.prod(shape):
+        raise ValueError(f"a {tuple(shape)} mesh needs {math.prod(shape)} ranks; the group "
+                         f"has {dist.get_world_size()}")
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, tuple(shape), mesh_dim_names=tuple(axes))

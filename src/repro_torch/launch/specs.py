@@ -96,6 +96,17 @@ def opt_shardings(cfg: ModelConfig, mesh, opt: AdamW | None = None):
     return _placed(mesh, OptState(step=PartitionSpec(), mu=pspec, nu=pspec))
 
 
+def mesh_shardings(mesh, placements):
+    """``ckpt.restore_resharded``'s shardings from a ``*_shardings`` tree
+    (nested dicts or an ``OptState`` of placements): each placements leaf
+    as a ``(mesh, placements)`` pair."""
+    if isinstance(placements, OptState):
+        return OptState(*(mesh_shardings(mesh, p) for p in placements))
+    if isinstance(placements, dict):
+        return {k: mesh_shardings(mesh, p) for k, p in placements.items()}
+    return mesh, placements
+
+
 def cache_shardings(cfg: ModelConfig, shape: ShapeConfig, mesh):
     cache = abstract_cache(cfg, shape)
     specs = shd.cache_specs(cfg, mesh, shape.global_batch, shape.seq_len, cache=cache)

@@ -3,10 +3,18 @@ and per-slot caches.
 
 Port of ``repro.models.attention``. ``flash_attention`` goes to
 ``kernels.ops.flash_attention`` (the CUDA kernel on the card, its plain
-version on the CPU). ``decode_attention`` and ``chunk_attention`` attend
-over rows gathered from the KV pool with a dense masked softmax in f32;
-the reference has no Pallas kernel for them either. ``cache_insert``
-writes a decode step's K/V row into a per-slot ring cache in place.
+version on the CPU), or, after ``set_attn_impl("scan")``, to
+``flash_attention_scan``, the reference's scan-of-scans online softmax in
+plain torch (the §Perf baseline the flash kernel is measured against; the
+reference has no Pallas kernel behind it either). The switch is read only
+where the reference reads it: whole-sequence attention
+(``lm._attn_block``) and the enc-dec's cross-attention. The paged chunk
+paths and the sequence-sharded prefill call the kernel directly, since
+the reference's counterparts of those never take the switch.
+``decode_attention`` and ``chunk_attention`` attend over rows gathered
+from the KV pool with a dense masked softmax in f32; the reference has no
+Pallas kernel for them either. ``cache_insert`` writes a decode step's
+K/V row into a per-slot ring cache in place.
 """
 
 from __future__ import annotations
@@ -43,10 +51,101 @@ def flash_attention(
 ) -> torch.Tensor:
     """q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D); Hq % Hkv == 0; q_offset
     an int or a one-element int32 tensor on q's device. Returns (B, Sq,
-    Hq, D)."""
+    Hq, D). The implementation is ``set_attn_impl``'s: 'fa2' (the default)
+    the flash kernels, 'scan' ``flash_attention_scan``."""
+    if _ATTN_IMPL["name"] == "scan":
+        return flash_attention_scan(q, k, v, causal=causal, window=window, q_offset=q_offset)
     return ops.flash_attention(
         q, k, v, causal=causal, window=window, q_offset=q_offset
     )
+
+
+_ATTN_IMPL = {"name": "fa2"}
+
+
+def set_attn_impl(name: str) -> None:
+    """'fa2' | 'scan': switch ``flash_attention``'s path (the dry run's
+    A/B). Process-wide, as the reference's."""
+    if name not in ("fa2", "scan"):
+        raise ValueError(f"attention implementation {name!r}: 'fa2' or 'scan'")
+    _ATTN_IMPL["name"] = name
+
+
+def _pick_block(s: int, target: int) -> int:
+    """Largest divisor of ``s`` that is <= target (the reference's: a
+    whisper 1500-frame or vlm 32768 + 256 sequence takes a ragged one)."""
+    for d in range(min(target, s), 0, -1):
+        if s % d == 0:
+            return d
+    return 1
+
+
+def flash_attention_scan(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    q_block: int = 512,
+    kv_block: int = 1024,
+    q_offset: int | torch.Tensor = 0,
+) -> torch.Tensor:
+    """The reference's naive scan-of-scans online softmax, in plain torch:
+    query blocks (outer) over KV blocks (inner), every (q block, kv block)
+    pair computed and masked, none skipped. Blocks are the largest
+    divisors of Sq / Sk at most ``q_block`` / ``kv_block``. Scores, the
+    running max and sum and the accumulator are f32 (bf16 inputs widen
+    before each product, which is exact, as ``preferred_element_type``
+    accumulates); P rounds to v's dtype before PV; a fully masked block's
+    P is zeroed explicitly (exp(NEG_INF - NEG_INF) would be 1) and the
+    final sum guarded by 1e-30. Shapes as ``flash_attention``; q_offset
+    an int or a one-element tensor on q's device. Differentiable by
+    autograd. Over ``DTensor``s it runs on the local shards as the flash
+    kernel does (``ops.sharded_heads``)."""
+    if isinstance(q, DTensor):
+        return ops.sharded_heads(
+            lambda ql, kl, vl: flash_attention_scan(
+                ql, kl, vl, causal=causal, window=window, q_block=q_block,
+                kv_block=kv_block, q_offset=q_offset), q, k, v)
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    qb, kb = _pick_block(sq, q_block), _pick_block(sk, kv_block)
+    nq, nk = sq // qb, sk // kb
+    qg = q.reshape(b, nq, qb, hkv, g, d).to(torch.float32)
+    kg = k.reshape(b, nk, kb, hkv, d).to(torch.float32)
+    vg = v.reshape(b, nk, kb, hkv, d)
+    if isinstance(q_offset, torch.Tensor):
+        q_offset = q_offset.reshape(()).long()
+    rows, cols = torch.arange(qb, device=q.device), torch.arange(kb, device=q.device)
+    blocks = []
+    for qi in range(nq):
+        q_pos = q_offset + qi * qb + rows
+        m_run = torch.full((b, hkv, g, qb), NEG_INF, dtype=torch.float32, device=q.device)
+        l_run = torch.zeros((b, hkv, g, qb), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, hkv, g, qb, d), dtype=torch.float32, device=q.device)
+        for kj in range(nk):
+            k_pos = kj * kb + cols
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qg[:, qi], kg[:, kj]) * scale
+            valid = torch.ones((qb, kb), dtype=torch.bool, device=q.device)
+            if causal:
+                valid = valid & (q_pos[:, None] >= k_pos[None, :])
+            if window > 0:
+                valid = valid & (q_pos[:, None] - k_pos[None, :] < window)
+            s = torch.where(valid, s, NEG_INF)
+            m_new = torch.maximum(m_run, s.amax(dim=-1))
+            p = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0)
+            corr = torch.exp(m_run - m_new)
+            l_run = l_run * corr + p.sum(dim=-1)
+            pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).to(torch.float32),
+                              vg[:, kj].to(torch.float32))
+            acc = acc * corr[..., None] + pv
+            m_run = m_new
+        out = acc / torch.clamp(l_run, min=1e-30)[..., None]
+        blocks.append(out.permute(0, 3, 1, 2, 4))  # (B, qb, Hkv, G, D)
+    return torch.stack(blocks, dim=1).reshape(b, sq, hq, d).to(q.dtype)
 
 
 def decode_attention(
@@ -142,10 +241,10 @@ def flash_attention_seq_sharded(
     each MODEL_AXIS shard runs its slice of the query sequence against the
     whole K/V, so attention's compute and bytes drop by the axis size
     instead of running replicated. The batch shards over BATCH_AXES. Each
-    shard calls ``flash_fwd`` (through ``flash_attention``) with
-    ``q_offset`` its coordinate on MODEL_AXIS times the local length: the
-    kernel takes the offset, so the reference's scan is not needed.
-    Forward only (prefill).
+    shard calls ``flash_fwd`` (``ops.flash_attention``) with ``q_offset``
+    its coordinate on MODEL_AXIS times the local length, whatever
+    ``set_attn_impl`` says: the kernel takes the offset, so the reference's
+    scan is not needed here. Forward only (prefill).
     """
     from torch.distributed.tensor.experimental import local_map
 
@@ -157,8 +256,8 @@ def flash_attention_seq_sharded(
     local_s = q.shape[1] // mesh.shape[mesh.mesh_dim_names.index(MODEL_AXIS)]
     offset = mesh.get_local_rank(MODEL_AXIS) * local_s
     fn = local_map(
-        lambda ql, kl, vl: flash_attention(ql, kl, vl, causal=causal, window=window,
-                                           q_offset=offset),
+        lambda ql, kl, vl: ops.flash_attention(ql, kl, vl, causal=causal, window=window,
+                                               q_offset=offset),
         out_placements=q_pl, in_placements=(q_pl, kv_pl, kv_pl), device_mesh=mesh)
     return fn(q.redistribute(mesh, q_pl), k.redistribute(mesh, kv_pl),
               v.redistribute(mesh, kv_pl))

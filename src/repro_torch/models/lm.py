@@ -999,7 +999,9 @@ def prefill_chunk_paged(
         q, k, v = _qkv(lp, cfg, x, positions)
         pk[write_rows] = k.to(pk.dtype)
         pv[write_rows] = v.to(pv.dtype)
-        o = attn.flash_attention(
+        # the kernel whatever set_attn_impl says: the reference's chunk
+        # path attends with its own dense chunk_attention, not the switch
+        o = ops.flash_attention(
             q, pk[row_table], pv[row_table], causal=True,
             window=cfg.sliding_window, q_offset=q_offset,
         )
@@ -1248,7 +1250,7 @@ def prefill_suffix_paged_hybrid(
         q, k, v = _qkv(shared, cfg, x, positions)
         pk[write_rows] = k.to(pk.dtype)
         pv[write_rows] = v.to(pv.dtype)
-        o = attn.flash_attention(
+        o = ops.flash_attention(  # the kernel, as the dense chunk path's
             q, pk[row_table], pv[row_table], causal=True, q_offset=q_offset
         )
         x = x + dense(o.reshape(b, c, -1), shared["wo"])

@@ -8,7 +8,10 @@ step counter), all captured in the checkpoint, so a restart after
 preemption replays the same batches (and, on the CPU, the same bits).
 Batches go to the parameters' device; a step is timed after its metrics
 are read back to the host, which waits for the device (the reference's
-``block_until_ready``).
+``block_until_ready``). In a process group (the train CLI on a mesh) every
+rank runs the loop: the ranks agree on the step to resume from (rank 0's
+newest), every rank takes part in each checkpoint's gather, and rank 0
+writes it (``ckpt.manager``).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import time
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.ckpt import CheckpointManager
 from repro_torch.optim.adamw import leaves, param_tree
@@ -50,8 +54,13 @@ class TrainLoop:
     def restore_or_init(self, params, opt_state):
         """Resume from the latest checkpoint if one exists (in place)."""
         start = 0
-        if self.ckpt is not None and self.ckpt.latest_step() is not None:
-            (params, opt_state), extra = self.ckpt.restore((params, opt_state))
+        latest = self.ckpt.latest_step() if self.ckpt is not None else None
+        if self.ckpt is not None and dist.is_initialized():
+            agreed = [latest]  # rank 0's newest step, on every rank
+            dist.broadcast_object_list(agreed, src=0)
+            latest = agreed[0]
+        if latest is not None:
+            (params, opt_state), extra = self.ckpt.restore((params, opt_state), latest)
             start = int(extra["data_step"])
             self.pipeline.state.step = start
         return params, opt_state, start

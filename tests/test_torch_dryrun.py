@@ -586,11 +586,15 @@ def test_cli_refuses_a_torch_older_than_it_was_run_on(capsys, monkeypatch):
     assert "older than the releases the dry run was run on (2.11, 2.13)" in capsys.readouterr().out
 
 
-def test_cli_refusals_and_skips(capsys):
+def test_cli_refusals_and_skips(capsys, monkeypatch, fake_group):
     assert tdry.main(["--arch", "no_such_arch"]) == 2
     assert "unknown arch" in capsys.readouterr().out
-    assert tdry.main(["--arch", "smollm_360m", "--attn-impl", "scan"]) == 2
-    assert "not ported yet" in capsys.readouterr().out
+    # --attn-impl scan walks its cells (attention.flash_attention_scan) and
+    # puts the switch back as it found it
+    monkeypatch.setitem(SHAPES, "toy_scan", ShapeConfig("toy_scan", 128, 32, "prefill"))
+    assert tdry.main(["--arch", "smollm_360m", "--shape", "toy_scan", "--attn-impl", "scan"]) == 0
+    assert capsys.readouterr().out.splitlines()[-1] == "[dryrun] 1 OK, 0 skipped, 0 failed"
+    assert tattn._ATTN_IMPL["name"] == "fa2"
     assert tdry.main(["--arch", "smollm_360m", "--shape", "long_500k"]) == 0
     assert capsys.readouterr().out.splitlines()[-1] == "[dryrun] 0 OK, 1 skipped, 0 failed"
     rec = tdry.run_cell("smollm_360m", "long_500k")
