@@ -1,0 +1,9 @@
+"""``tokens_per_s``, read in the MoE cell (``metrics/tokens_per_s.py``): its seeds
+spread its work far more than the dense cell's, so its rate has a wider
+bound of its own, and what moves that rate reports under this name."""
+
+from harness.cli import reader
+
+
+def read(run):
+    return reader("tokens_per_s")(run)
